@@ -1,0 +1,22 @@
+"""repro_torch — the PyTorch and CUDA port of the DP-FedEXP framework ``repro``.
+
+Paper: "Accelerating Differentially Private Federated Learning via Adaptive
+Extrapolation" (Takakura, Liew, Hasegawa, 2025).  The JAX package ``repro``
+is the reference; this package imports nothing of it, and tests hold each
+ported module against its counterpart there.  Entry points run on the CUDA
+card unless the caller asks for the CPU.
+
+Layers
+------
+- ``repro_torch.core``     — the paper's contribution: DP mechanisms, adaptive
+  global step-size rules (LDP/CDP-FedEXP), clipping, privacy accounting.
+- ``repro_torch.fedsim``   — the M-client federated simulation (the eager
+  round loop of ``FederatedSession``).
+- ``repro_torch.kernels``  — hand-written CUDA kernels for Hopper
+  (dp_aggregate) with plain PyTorch versions beside them.
+- ``repro_torch.data``     — the paper's synthetic linear regression.
+- ``models``, ``launch`` and ``configs`` (the model zoo and its launch path)
+  are still to port (ROADMAP.md).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,117 @@
+"""Server-algorithm contract and the round's randomness (counterpart of
+repro/core/algorithm.py).
+
+A round's randomness comes from one CPU ``torch.Generator`` seeded from the
+run's seed and the round index (``round_generator``).  Before the round
+runs, the algorithm draws from it everything its release consumes into a
+``RoundNoise``: host scalars (the kernel's 32-bit noise seed, the CDP
+numerator noise) come straight from it, device tensors from a device
+generator seeded by it.  Tests pass a ``RoundNoise`` of their own to replay
+the JAX package's noise exactly.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.aggregation import RoundMoments
+
+__all__ = [
+    "RoundAux",
+    "RoundNoise",
+    "ServerAlgorithm",
+    "round_generator",
+    "device_normal",
+    "draw_seed32",
+    "set_moment_count",
+]
+
+
+def round_generator(seed: int, t: int) -> torch.Generator:
+    """The CPU generator of round ``t`` of the run seeded ``seed`` (both >= 0)."""
+    state = np.random.SeedSequence([int(seed), int(t)]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device="cpu").manual_seed(int(state))
+
+
+def draw_seed32(gen: torch.Generator) -> int:
+    """One uniform 32-bit seed from ``gen`` (a host integer: no device sync)."""
+    return int(torch.randint(0, 2**32, (), generator=gen, dtype=torch.int64))
+
+
+def device_normal(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """float32 N(0, 1) of ``shape`` on ``device``, drawn there from a
+    generator seeded by ``gen`` (the CPU draws directly from ``gen``)."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return torch.randn(shape, generator=gen)
+    dev_gen = torch.Generator(device=device)
+    dev_gen.manual_seed(int(torch.randint(0, 2**63 - 1, (), generator=gen)))
+    return torch.randn(shape, generator=dev_gen, device=device)
+
+
+@dataclasses.dataclass
+class RoundNoise:
+    """Everything random that one round's release consumes."""
+
+    seed: int | None = None                 # 32-bit seed of the per-client LDP noise
+    ldp: torch.Tensor | None = None         # (M, d) materialized per-client noise
+    central: torch.Tensor | None = None     # (d,) N(0, 1) of the CDP mean
+    xi: torch.Tensor | None = None          # N(0, 1) of the CDP FedEXP numerator
+
+
+def set_moment_count(moments, m_total: int):
+    """Swap the count of every RoundMoments in ``moments`` (a RoundMoments or a
+    tuple holding some) for the statically known client count."""
+    def fix(x):
+        return dataclasses.replace(x, count=float(m_total)) if isinstance(x, RoundMoments) else x
+
+    return tuple(fix(x) for x in moments) if isinstance(moments, tuple) else fix(moments)
+
+
+@dataclasses.dataclass
+class RoundAux:
+    """Diagnostics for one round; diagnostics not produced are NaN, not None."""
+
+    eta_g: torch.Tensor
+    eta_naive: torch.Tensor | None = None   # Eq. (3), for the Fig. 2 ablation
+    eta_target: torch.Tensor | None = None  # Eq. (5), oracle diagnostic
+    update_norm: torch.Tensor | None = None
+
+    def __post_init__(self):
+        self.eta_g = torch.as_tensor(self.eta_g, dtype=torch.float32)
+        for f in ("eta_naive", "eta_target", "update_norm"):
+            if getattr(self, f) is None:
+                setattr(self, f, torch.full((), float("nan"), device=self.eta_g.device))
+
+
+class ServerAlgorithm:
+    """Base class; subclasses set ``name`` and implement ``apply_round_stateful``.
+
+    A dense round is ``apply_round_stateful(gen, w, raw_deltas, state, noise)``:
+    ``gen`` is the round's generator, ``raw_deltas`` the (M, d) unclipped
+    local updates, ``state`` the server carry (``init_state``), and ``noise``
+    an optional ``RoundNoise`` that replaces the draws from ``gen``.
+    """
+
+    name: str = "base"
+    is_private: bool = True
+
+    def init_state(self, w: torch.Tensor):
+        """Initial server carry for a run starting from ``w``."""
+        return ()
+
+    def draw_noise(self, gen: torch.Generator, m: int, d: int, device) -> RoundNoise:
+        """All randomness of one round, drawn from ``gen`` in a fixed order."""
+        return RoundNoise()
+
+    def apply_round_stateful(self, gen, w, raw_deltas, state, noise: RoundNoise | None = None):
+        """One dense round: ``-> (w_next, RoundAux, state)``."""
+        raise NotImplementedError
+
+    def apply_round(self, gen, w, raw_deltas, noise: RoundNoise | None = None):
+        """One stateless dense round: ``-> (w_next, RoundAux)``."""
+        w_next, aux, _ = self.apply_round_stateful(gen, w, raw_deltas, self.init_state(w),
+                                                   noise)
+        return w_next, aux

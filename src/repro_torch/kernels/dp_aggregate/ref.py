@@ -1,0 +1,76 @@
+"""Plain PyTorch version of the dp_aggregate kernels.
+
+The CPU path runs these, the tests hold them against the JAX package, and
+``chip_smoke.py`` holds the CUDA kernels against them on the card.  The noise
+generator is the kernel's own, written out with int64 tensors masked to 32
+bits: Threefry-2x32-20 keyed by (seed, 0x9E3779B9) over the counter
+(global row, column), then Box-Muller.  It gives the kernel's noise up to the
+rounding of log, cos and sqrt.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["threefry2x32", "ldp_noise_ref", "dp_aggregate_ref", "clip_scale"]
+
+_EPS = 1e-12
+_MASK = 0xFFFFFFFF
+_THREEFRY_C = 0x1BD11BDA
+_GOLDEN = 0x9E3779B9
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_TWO_PI = float(np.float32(2.0 * np.pi))
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def threefry2x32(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor):
+    """20-round Threefry-2x32 on int64 tensors holding uint32 values."""
+    ks = (k0 & _MASK, k1 & _MASK, (k0 ^ k1 ^ _THREEFRY_C) & _MASK)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for j in range(1, 6):
+        for r in _ROT[(j - 1) % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[j % 3]) & _MASK
+        x1 = (x1 + ks[(j + 1) % 3] + j) & _MASK
+    return x0, x1
+
+
+def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 -> float32 uniform in the open interval (0, 1) (top 24 bits)."""
+    return ((bits >> 8).to(torch.float32) + 0.5) * (2.0 ** -24)
+
+
+def ldp_noise_ref(m: int, d: int, seed: int, sigma: float, *, row_start: int = 0,
+                  device="cpu") -> torch.Tensor:
+    """(m, d) float32 noise: sigma * N(0, 1) keyed by (seed, row_start + i, j)."""
+    rows = torch.arange(row_start, row_start + m, dtype=torch.int64, device=device)
+    cols = torch.arange(d, dtype=torch.int64, device=device)
+    x0 = rows[:, None].expand(m, d)
+    x1 = cols[None, :].expand(m, d)
+    b0, b1 = threefry2x32(int(seed), _GOLDEN, x0, x1)
+    r = torch.sqrt(-2.0 * torch.log(_bits_to_unit(b0)))
+    z = r * torch.cos(_TWO_PI * _bits_to_unit(b1))
+    return float(sigma) * z
+
+
+def clip_scale(sq_norms: torch.Tensor, clip_norm) -> torch.Tensor:
+    """Per-row scale min(1, C / sqrt(max(||u||^2, eps))), as the kernel computes it."""
+    return torch.clamp(clip_norm / torch.sqrt(torch.clamp(sq_norms, min=_EPS)), max=1.0)
+
+
+def dp_aggregate_ref(updates: torch.Tensor, noise: torch.Tensor | None, clip_norm):
+    """(sum_released (d,), sum_sq_released (), sum_sq_clipped ()) in float32."""
+    u = updates.to(torch.float32)
+    sq_norms = torch.sum(u * u, dim=-1)
+    scale = clip_scale(sq_norms, clip_norm)
+    clipped = u * scale[:, None]
+    sq_clipped = torch.sum(sq_norms * (scale * scale))
+    if noise is None:
+        return clipped.sum(dim=0), sq_clipped, sq_clipped
+    released = clipped + noise.to(torch.float32)
+    return released.sum(dim=0), torch.sum(released * released), sq_clipped

@@ -1,0 +1,29 @@
+"""Parameter trees: nested dicts, lists and tuples of tensors (or arrays).
+
+Leaves are visited in the JAX package's order — dict keys sorted, sequences
+in order — so a tree flattens the way ``jax.flatten_util.ravel_pytree``
+flattens the same tree on the JAX side.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+__all__ = ["tree_leaves", "tree_map"]
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for x in tree for leaf in tree_leaves(x)]
+    return [tree]
+
+
+def tree_map(fn: Callable[[Any], Any], tree):
+    """``tree`` with every leaf replaced by ``fn(leaf)``; containers keep their type."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, x) for x in tree)
+    return fn(tree)

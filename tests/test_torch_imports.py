@@ -1,0 +1,46 @@
+"""The port stands alone: no file of src/repro_torch/ and neither
+chip_smoke.py imports jax or the JAX package ``repro``, and importing every
+module of the port works with both blocked and without nvcc or a card."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+BANNED = {"jax", "jaxlib", "repro"}
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                yield "."   # relative imports could reach outside the package
+            elif node.module:
+                yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    bad = sorted(set(_imported_roots(path)) & (BANNED | {"."}))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_module_imports_with_jax_and_repro_blocked():
+    mods = sorted(".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+                  .removesuffix(".__init__") for p in PORT_FILES if p.name != "chip_smoke.py")
+    code = ("import sys, importlib\n"
+            "for m in ('jax', 'jaxlib', 'repro'): sys.modules[m] = None\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "import chip_smoke\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": f"{ROOT / 'src'}:{ROOT}"},
+                          cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
