@@ -4,10 +4,14 @@
     python3 chip_smoke.py
 
 Phases, each of which exits non-zero on failure:
-  1. build     nvcc builds the dp_aggregate kernels from csrc/ (ctypes).
+  1. build     nvcc builds the dp_aggregate and flash_attention kernels from
+               csrc/ (ctypes), both at once.
   2. kernels   every kernel against its plain PyTorch version on the card, at
-               the main path's shapes and a ragged one; fused-mode noise
+               the main paths' shapes and ragged ones; fused-mode noise
                against the noise-only kernel; bitwise determinism; times.
+               flash_attention in float32 and bfloat16 at the serve shape
+               (one head group, then all heads), MQA at head_dim 256, a
+               ragged kv_len and non-causal attention; SDPA as a yardstick.
   3. paper     the paper's synthetic linear regression (M=1000, tau=20,
                50 rounds; d=500 CDP/noiseless, d=100 LDP) for the six
                ported names, plus the two LDP names on the materialized-
@@ -16,24 +20,35 @@ Phases, each of which exits non-zero on failure:
                M=1000, d=131072 for 5 rounds: ms per round and its split.
   5. reference the port on the card against the port on the CPU (plain
                versions, same seeds, same noise) on a small problem.
-Phases 3 and 4 are the main path: every launch counter is set to 0 before
-them and read after.  The line before the last is {"kernels": [...]}, the
-last {"ok": true, "device": {...}}.  It imports nothing of JAX or of the
-JAX package ``repro``.
+  6. serve     h2o-danube-3-4b at full width and depth, seeded bf16 weights
+               and a bf16 KV cache: ServeEngine.generate of 16 greedy tokens
+               after an 8192-token prompt (batch 2, twice the window); 24
+               flash launches per prefill; prefill and decode times; the
+               prefill logits against the plain attention path, and a
+               planted fault (the window dropped) that must fail; then two
+               layers at full width on the card against the CPU (f32,
+               window 128, prompt 300): the greedy tokens must be equal.
+Phases 3 and 4 are the round loop's main path, phase 6's generate the serve
+path's: every launch counter is set to 0 before a path and read after.  The
+line before the last is {"kernels": [...]}, the last {"ok": true, "device":
+{...}}.  It imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 # operations per element of the (M, d) matrix.  none: norm fma (2), scale mul,
 # column add; operand/fused add the noise add and the square fma (3 more).
 # The counter generator adds ~131 ops (Threefry-2x32-20: 117 integer ops;
@@ -68,9 +83,9 @@ def close(got, want, what: str, rtol: float = RTOL):
     return err.max().item()
 
 
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
+def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     """Least time (ms) for the work, and what sets it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -100,15 +115,21 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def phase_build():
-    """Phase 1: build the kernels with nvcc and print the time and ptxas report."""
-    from repro_torch.kernels.dp_aggregate import build
+    """Phase 1: build the kernels with nvcc, one process per source, all at
+    once; print the times and the ptxas report."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dp_aggregate import ops as dp_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     t0 = time.perf_counter()
-    build.load_library()
-    print(f"[1 build] dp_aggregate kernels built in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {build.build_log['seconds']:.2f} s)")
-    for line in build.build_log["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("    ptxas:", line.strip())
+    with ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(dp_ops.load_library), pool.submit(flash_ops.load_library)]:
+            fut.result()
+    print(f"[1 build] kernels built in {time.perf_counter() - t0:.2f} s")
+    for name, log in _build.build_log.items():
+        print(f"    {name}: nvcc {log['seconds']:.2f} s")
+        for line in log["ptxas"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print("    ptxas:", line.strip())
 
 
 def phase_kernels(dev):
@@ -290,6 +311,267 @@ def phase_reference(dev):
         print(f"[5 reference] {name}: card vs CPU max abs err of final w {err:.3e}")
 
 
+# flash attention: float32 sums in other orders; bf16 outputs one ulp apart
+# (both sides compute in float32 and round once), atol for outputs near 0
+FLASH_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2**-7, 1e-4)}
+H2O = "h2o-danube-3-4b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 2, 8192, 16
+# kernel vs plain prefill logits at full width in bf16.  The two differ only in
+# the order of float32 sums inside attention (1e-6 relative), but each one-ulp
+# flip of a bf16 activation spreads through 24 layers: on the CPU at reduced
+# width and full depth, two float32 attention orders give logits 1.9% of
+# max|logit| apart at most and 1.3% of their spread on average
+# (tests/test_torch_models.py::test_bf16_drift_...), while a wrong mask there
+# (window dropped or one too wide, causal off) moves them 18% to 143%
+# (test_a_planted_mask_fault_...).  Phase 6 plants the dropped window at full
+# width too and fails if the bounds do not see it.  Bounds:
+SERVE_MAX_ERR = 0.05    # max |d logit| / max |logit|
+SERVE_MEAN_ERR = 0.03   # mean |d logit| / std(logit)
+
+
+def flash_close(got, want, what: str) -> float:
+    """Max abs error of the kernel's output against the plain version's."""
+    import torch
+    rtol, atol = FLASH_TOL[str(want.dtype).removeprefix("torch.")]
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    if not torch.isfinite(got).all() or bool((err > atol + rtol * want.abs()).any()):
+        fail(f"{what}: max abs err {err.max().item():.3e} beyond rtol {rtol} atol {atol}")
+    return err.max().item()
+
+
+def visible_pairs(sq: int, kv_len: int, causal: bool, window) -> int:
+    """Exact number of (query, key) pairs the masks leave visible."""
+    total = 0
+    for i in range(sq):
+        hi = min(kv_len, i + 1) if causal else kv_len
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def sdpa_backend(q, k, v, mask) -> str:
+    """Which backend scaled_dot_product_attention picks for these inputs."""
+    import torch
+    from torch.nn.attention import SDPBackend
+    choice = torch._fused_sdp_choice(q, k, v, mask, 0.0, False, scale=None, enable_gqa=True)
+    names = {b.value: name for name, b in SDPBackend.__members__.items()}
+    return names.get(int(choice), str(choice))
+
+
+def phase_flash(dev):
+    """Phase 2b: the flash kernel against its plain version on the card; the
+    serve shape's times, bound and SDPA yardstick.  Returns the kernel entry."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    def qkv(b, hq, hkv, sq, skv, dh, dtype, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for shape in ((b, hq, sq, dh), (b, hkv, skv, dh), (b, hkv, skv, dh)))
+
+    window = 4096
+    checks = [  # name, (b, hq, hkv, sq, skv, dh), causal, window, kv_len, dtype
+        ("serve group f32", (2, 4, 1, SERVE_PROMPT, SERVE_PROMPT, 120), True, window, None,
+         torch.float32),
+        ("serve group bf16", (2, 4, 1, SERVE_PROMPT, SERVE_PROMPT, 120), True, window, None,
+         torch.bfloat16),
+        ("mqa dh256 f32", (1, 8, 1, 1024, 1024, 256), True, None, None, torch.float32),
+        ("mqa dh256 bf16", (1, 8, 1, 2048, 2048, 256), True, None, None, torch.bfloat16),
+        ("ragged kv_len non-causal f32", (2, 8, 2, 1000, 1500, 120), False, None, 1237,
+         torch.float32),
+        ("ragged kv_len non-causal bf16", (2, 8, 2, 1000, 1500, 120), False, None, 1237,
+         torch.bfloat16),
+        ("non-causal window f32", (1, 4, 2, 777, 777, 64), False, 100, None, torch.float32),
+    ]
+    cases = []
+    for i, (name, shape, causal, win, kv_len, dtype) in enumerate(checks):
+        q, k, v = qkv(*shape, dtype, seed=100 + i)
+        got = ops.flash_attention(q, k, v, causal=causal, window=win, kv_len=kv_len)
+        want = ref.attention_ref(q, k, v, causal=causal, window=win, kv_len=kv_len)
+        err = flash_close(got, want, f"flash_attention {name} {shape}")
+        cases.append(dict(name=name, shape=list(shape), causal=causal, window=win,
+                          kv_len=kv_len, dtype=str(dtype), max_abs_err=err))
+        print(f"[2 kernels] flash_attention {name:30s} {shape}: max abs err {err:.3e}")
+        del q, k, v, got, want
+
+    # the serve shape: every head of one h2o-danube-3-4b layer's prefill, bf16
+    b, hq, hkv, s, dh = SERVE_BATCH, 32, 8, SERVE_PROMPT, 120
+    q, k, v = qkv(b, hq, hkv, s, s, dh, torch.bfloat16, seed=7)
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.attention_ref(q, k, v, causal=True, window=window)
+    err = flash_close(got, want, f"flash_attention serve shape {(b, hq, hkv, s, dh)}")
+    if not torch.equal(got, ops.flash_attention(q, k, v, causal=True, window=window)):
+        fail("flash_attention: two launches at the serve shape differ in bits")
+    pairs = visible_pairs(s, s, True, window)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    b_ms, b_by = bound(nbytes, 4 * dh * pairs * b * hq, BF16_OPS_PER_S)
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True, window=window), 10)
+    plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True, window=window), 2,
+                       warmup=1)
+    idx = torch.arange(s, device=dev)
+    band = (idx[None, :] <= idx[:, None]) & (idx[None, :] > idx[:, None] - window)
+    backend = sdpa_backend(q, k, v, band)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band, enable_gqa=True)  # noqa: E731
+    sdpa_err = (sdpa().float() - want.float()).abs().max().item()
+    library_ms = cuda_ms(sdpa, 3, warmup=1)
+    print(f"[2 kernels] flash_attention serve shape (B {b}, Hq {hq}, Hkv {hkv}, S {s}, Dh {dh}, "
+          f"window {window}, bf16): max abs err {err:.3e}  kernel {ms:.4f} ms  plain "
+          f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  SDPA [{backend}] {library_ms:.4f} "
+          f"ms (max abs diff to plain {sdpa_err:.3e}); two launches bit-identical")
+    del q, k, v, got, want, band
+    torch.cuda.empty_cache()
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:33", launches=0,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms, library=f"scaled_dot_product_attention [{backend}]",
+                headline=f"bf16 (B {b}, Hq {hq}, Hkv {hkv}, S {s}, Dh {dh}), causal, "
+                         f"window {window}",
+                cases=cases)
+
+
+def device_window(fn, label: str) -> None:
+    """Profile ``fn`` once: wall time, device busy time, idle share and the
+    kernels that took the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        fail(f"{label}: the profiler saw no device time")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    names = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                      for e in top)
+    print(f"[6 serve] {label} (profiled): wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+          f"idle share {max(0.0, 1 - busy / wall):.3f}, {sum(e.count for e in kernels)} "
+          f"device launches; top kernels: {names}")
+
+
+def phase_serve(dev, smi: str) -> int:
+    """Phase 6: h2o-danube-3-4b at full width and depth through ServeEngine;
+    returns the flash launches of the generate run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import ServeEngine
+    from repro_torch.models import DecoderLM
+
+    cfg = get_config(H2O)
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, dtype=torch.bfloat16, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    cache_len = SERVE_PROMPT + SERVE_NEW
+    engine = ServeEngine(model)
+    engine.generate(prompt[:, :256], 2, 272)          # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    print(f"[6 serve] {H2O}: {n_params / 1e9:.3f} B parameters in bf16, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompt, SERVE_NEW, cache_len)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = ops.flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != cfg.num_layers:
+        fail(f"serve: {launches} flash launches in one generate, want {cfg.num_layers} "
+             "(one per layer of the prefill)")
+    if tokens.shape != (SERVE_BATCH, SERVE_NEW):
+        fail(f"serve: generate gave tokens of shape {tuple(tokens.shape)}")
+
+    # the same request again through the engine's steps, timed, with its logits
+    with torch.inference_mode():
+        caches = model.init_cache(SERVE_BATCH, cache_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(prompt, caches)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decode = engine.make_decode_step()
+        tok, all_logits, out = logits.argmax(-1), [logits], [logits.argmax(-1)]
+        for pos in range(SERVE_PROMPT, SERVE_PROMPT + SERVE_NEW - 1):
+            tok, lg, caches = decode(tok, pos, caches)
+            out.append(tok)
+            all_logits.append(lg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if not all(bool(torch.isfinite(lg).all()) for lg in all_logits):
+            fail("serve: non-finite logits")
+        if not torch.equal(torch.stack(out, 1), tokens):
+            fail("serve: the timed steps gave other tokens than generate")
+        device_window(lambda: [decode(tok, SERVE_PROMPT + SERVE_NEW + i, caches)
+                               for i in range(4)], "4 decode steps")
+        del caches
+        device_window(lambda: model.prefill(prompt, model.init_cache(SERVE_BATCH, cache_len)),
+                      "one prefill")
+        model.attn_impl = "dense"                     # the plain path, same weights
+        plain, _ = model.prefill(prompt, model.init_cache(SERVE_BATCH, cache_len))
+        # a planted fault: the plain path with the window dropped, which the
+        # logit bounds must see at this width
+        model.cfg = dataclasses.replace(cfg, sliding_window=None)
+        faulty, _ = model.prefill(prompt, model.init_cache(SERVE_BATCH, cache_len))
+        model.cfg, model.attn_impl = cfg, "kernel"
+    prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (SERVE_NEW - 1)
+
+    def drift(x):
+        d = (x.float() - plain.float()).abs()
+        return d, d.max().item() / plain.float().abs().max().item(), \
+            d.mean().item() / plain.float().std().item()
+
+    d, max_rel, mean_rel = drift(logits)
+    _, fault_max, fault_mean = drift(faulty)
+    same = int((logits.argmax(-1) == plain.argmax(-1)).sum())
+    print(f"[6 serve] generate of {SERVE_NEW} tokens after a {SERVE_BATCH}x{SERVE_PROMPT} prompt: "
+          f"{gen_s:.3f} s; flash launches {launches}; peak memory {peak_gb:.3f} GB  [{smi}]")
+    print(f"[6 serve] prefill {prefill_ms:.3f} ms ({SERVE_BATCH * SERVE_PROMPT / (t1 - t0):.0f} "
+          f"prompt tokens/s); decode {decode_ms:.3f} ms/token step "
+          f"({SERVE_BATCH * 1e3 / decode_ms:.1f} tokens/s at batch {SERVE_BATCH})")
+    print(f"[6 serve] prefill logits, kernel vs plain attention: max abs diff {d.max().item():.4f}"
+          f" ({max_rel:.4f} of max|logit|), mean {d.mean().item():.4f} ({mean_rel:.4f} of the "
+          f"std); greedy first token equal in {same}/{SERVE_BATCH}")
+    print(f"[6 serve] planted fault, plain path with the window dropped: {fault_max:.4f} of "
+          f"max|logit|, {fault_mean:.4f} of the std (bounds {SERVE_MAX_ERR}, {SERVE_MEAN_ERR})")
+    if fault_max <= SERVE_MAX_ERR or fault_mean <= SERVE_MEAN_ERR:
+        fail("serve: a planted fault (the window dropped) stays within the logit bounds")
+    if max_rel > SERVE_MAX_ERR or mean_rel > SERVE_MEAN_ERR:
+        fail(f"serve: kernel and plain prefill logits differ beyond {SERVE_MAX_ERR} of "
+             f"max|logit| or {SERVE_MEAN_ERR} of their std")
+    del model, plain, faulty, logits, all_logits
+    torch.cuda.empty_cache()
+
+    # two layers at full width, float32, on the card (kernel) and the CPU (plain)
+    small = dataclasses.replace(cfg, num_layers=2, sliding_window=128)
+    card = DecoderLM(small, device=dev, generator=torch.Generator(device=dev).manual_seed(2))
+    cpu = DecoderLM(small, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    p = torch.randint(0, small.vocab_size, (2, 300), generator=torch.Generator().manual_seed(3))
+    before = ops.flash_attention.launches
+    got = ServeEngine(card).generate(p, 6, 306)
+    if ops.flash_attention.launches - before != small.num_layers:
+        fail("serve reference: the card run did not launch the flash kernel once per layer")
+    want = ServeEngine(cpu).generate(p, 6, 306)
+    if not torch.equal(got.cpu(), want):
+        fail(f"serve reference: greedy tokens on the card {got.tolist()} differ from the "
+             f"CPU's {want.tolist()}")
+    print(f"[6 serve] reference: 2 layers at full width (f32, window 128, prompt 2x300): "
+          f"the card's 6 greedy tokens equal the CPU's")
+    return launches
+
+
 def main() -> int:
     """Run every phase; 0 only when all of them passed on a CUDA card."""
     import torch
@@ -300,11 +582,14 @@ def main() -> int:
     from repro_torch.kernels.dp_aggregate import ops
 
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 products in float32 ...
+    torch.backends.cudnn.allow_tf32 = False         # ... everywhere
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     phase_build()
     cases, noise_cases = phase_kernels(dev)
+    flash = phase_flash(dev)
 
     ops.dp_aggregate_sums.launches = 0
     ops.generate_ldp_noise.launches = 0
@@ -317,6 +602,7 @@ def main() -> int:
             fail(f"kernel {k} was never launched on the main path")
 
     phase_reference(dev)
+    flash["launches"] = phase_serve(dev, smi)
 
     src = "src/repro_torch/kernels/dp_aggregate/csrc/dp_aggregate.cu"
     head = next(c for c in cases if c["shape"] == [1000, 131072] and c["mode"] == "fused")
@@ -335,6 +621,7 @@ def main() -> int:
              ms=nhead["ms"], plain_ms=nhead["plain_ms"], bound_ms=nhead["bound_ms"],
              bound_by=nhead["bound_by"], library_ms=None, headline="(1000, 131072)",
              cases=noise_cases),
+        flash,
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

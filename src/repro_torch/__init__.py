@@ -13,10 +13,14 @@ Layers
 - ``repro_torch.fedsim``   — the M-client federated simulation (the eager
   round loop of ``FederatedSession``).
 - ``repro_torch.kernels``  — hand-written CUDA kernels for Hopper
-  (dp_aggregate) with plain PyTorch versions beside them.
+  (dp_aggregate, flash_attention) with plain PyTorch versions beside them.
 - ``repro_torch.data``     — the paper's synthetic linear regression.
-- ``models``, ``launch`` and ``configs`` (the model zoo and its launch path)
-  are still to port (ROADMAP.md).
+- ``repro_torch.configs``  — the architecture registry (a copy of the JAX
+  package's dataclasses).
+- ``repro_torch.models``   — the model zoo's dense decoder LM (``DecoderLM``).
+- ``repro_torch.launch``   — serving (``ServeEngine``).
+MoE, SSM, hybrid and enc-dec models, training through the model zoo and
+sharding are still to port (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,6 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch version.
 
-Only ``dp_aggregate`` is ported so far; ``flash_attention`` and ``ssd_scan``
-(model zoo) are still to port (ROADMAP.md, queue 2).
+``dp_aggregate`` (the round loop) and ``flash_attention`` (the model zoo's
+prefill) are ported; ``ssd_scan`` (Mamba2) is still to port (ROADMAP.md,
+queue 2).  ``_build`` compiles each kernel's ``csrc/`` with nvcc at first use.
 """

@@ -13,20 +13,39 @@ a slice of the cohort the rows of the whole cohort's noise.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+from pathlib import Path
 
 import torch
 
 from repro_torch.core.aggregation import RoundMoments, RoundStats
+from repro_torch.kernels import _build
 from repro_torch.kernels.dp_aggregate import ref
-from repro_torch.kernels.dp_aggregate.build import load_library
 
-__all__ = ["dp_aggregate", "dp_aggregate_sums", "generate_ldp_noise"]
+__all__ = ["dp_aggregate", "dp_aggregate_sums", "generate_ldp_noise", "load_library"]
+
+_SOURCES = (Path(__file__).resolve().parent / "csrc" / "dp_aggregate.cu",)
 
 _THREADS = 256              # columns per block of the column kernel
 _TARGET_BLOCKS = 8 * 132    # ~8 resident 256-thread blocks on each of the 132 SMs
 _MAX_GRID_Y = 65535
 _MODES = {"none": 0, "operand": 1, "fused": 2}
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernels; declare the C signatures."""
+    lib = _build.load_library("dp_aggregate", _SOURCES)
+    p, i64, f32, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_uint32
+    lib.dp_aggregate_launch.argtypes = [
+        p, p, ctypes.c_int, i64, i64, f32, f32, u32, i64, i64, ctypes.c_int,
+        p, p, p, p, p, p, p, p]
+    lib.dp_aggregate_launch.restype = ctypes.c_int
+    lib.ldp_noise_launch.argtypes = [p, i64, i64, f32, u32, i64, p]
+    lib.ldp_noise_launch.restype = ctypes.c_int
+    return lib
 
 
 def _launch_plan(m: int, d: int) -> tuple[int, int]:

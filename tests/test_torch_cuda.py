@@ -7,7 +7,10 @@ Run where there is a CUDA card (an H100: the kernels build for sm_90a):
 Without a card every test here skips.  Only torch is imported, so the file
 also runs where JAX is not installed.  Tolerances: sums at rtol 1e-5 with an
 atol of 1e-5 times the largest entry (float32 sums in other orders); noise at
-1e-5 sigma per element (float32 log/cos/sqrt rounding).
+1e-5 sigma per element (float32 log/cos/sqrt rounding).  Flash attention in
+float32 at rtol 1e-5 and atol 1e-5 (float32 sums in other orders); in
+bfloat16 at rtol 2^-7, one bfloat16 ulp (both sides compute in float32 and
+round once), with atol 1e-4 for outputs near zero.
 """
 import pytest
 
@@ -15,6 +18,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.aggregation import fused_clip_aggregate  # noqa: E402
 from repro_torch.kernels.dp_aggregate import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -81,3 +86,62 @@ def test_cuda_tensors_never_reach_the_plain_version_silently(dev):
         ops.dp_aggregate_sums(torch.zeros(4, 8, device=dev), 1.0, torch.zeros(4, 9, device=dev))
     with pytest.raises(ValueError, match="device"):
         ops.dp_aggregate_sums(torch.zeros(4, 8, device=dev), 1.0, torch.zeros(4, 8))
+
+
+FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+             torch.bfloat16: dict(rtol=2**-7, atol=1e-4)}
+FLASH_CASES = {  # b, hq, hkv, sq, skv, dh, causal, window, kv_len
+    "gqa-dh120": (2, 8, 2, 200, 200, 120, True, None, None),
+    "window": (1, 4, 1, 300, 300, 120, True, 64, None),
+    "mqa-dh256": (1, 8, 1, 130, 130, 256, True, None, None),
+    "ragged-kv-len-noncausal": (2, 4, 2, 77, 150, 64, False, None, 101),
+    "dh200-window-noncausal": (1, 2, 2, 90, 90, 200, False, 40, None),
+    "dh32-one-row": (1, 2, 1, 1, 1, 32, True, None, None),
+}
+
+
+def _qkv(dev, dtype, b, hq, hkv, sq, skv, dh, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                 for shape in ((b, hq, sq, dh), (b, hkv, skv, dh), (b, hkv, skv, dh)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_kernel_matches_plain(dev, case, dtype):
+    b, hq, hkv, sq, skv, dh, causal, window, kv_len = FLASH_CASES[case]
+    q, k, v = _qkv(dev, dtype, b, hq, hkv, sq, skv, dh)
+    before = flash_ops.flash_attention.launches
+    got = flash_ops.flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    assert flash_ops.flash_attention.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+def test_flash_kernel_is_deterministic_and_takes_strided_views(dev):
+    b, s, hq, hkv, dh = 2, 257, 8, 2, 120
+    g = torch.Generator(device=dev).manual_seed(3)
+    # the model's layout: (B, S, H, Dh), handed over as (B, H, S, Dh) views
+    q = torch.randn(b, s, hq, dh, generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+    k = torch.randn(b, s, hkv, dh, generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+    v = torch.randn(b, s, hkv, dh, generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+    a = flash_ops.flash_attention(q, k, v, causal=True, window=100)
+    again = flash_ops.flash_attention(q, k, v, causal=True, window=100)
+    assert torch.equal(a, again)
+    dense = flash_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                      causal=True, window=100)
+    assert torch.equal(a, dense)
+    assert a.transpose(1, 2).is_contiguous()   # out in q's layout: no copy back
+
+
+def test_flash_kernel_refuses_what_it_cannot_run(dev):
+    q = torch.zeros(1, 2, 8, 16, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_ops.flash_attention(q, q, q)
+    big = torch.zeros(1, 1, 8, 264, device=dev)
+    with pytest.raises(ValueError, match="Dh <="):
+        flash_ops.flash_attention(big, big, big)
+    x = torch.zeros(1, 2, 8, 16, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        flash_ops.flash_attention(x, x, x)

@@ -1,0 +1,80 @@
+"""The port's ServeEngine against the JAX package's, and the converter of
+JAX parameters, on the CPU.
+
+Greedy generation must give the JAX package's tokens exactly, for
+``reduced(h2o-danube-3-4b)`` (window 64) and ``reduced(gemma-2b)``, with a
+prompt longer than the window, so that the prefill fills the ring past its
+end and the decode steps evict the oldest slots.  JAX runs its Pallas flash
+kernel in interpret mode; the port's kernel path runs its plain version.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import reduced as jax_reduced  # noqa: E402
+from repro.launch.serve import ServeEngine as JaxServeEngine  # noqa: E402
+from repro.models.transformer import DecoderLM as JaxDecoderLM  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.convert import decoder_from_jax, params_from_jax  # noqa: E402
+from repro_torch.launch import ServeEngine  # noqa: E402
+from repro_torch.models import DecoderLM  # noqa: E402
+
+PROMPT, NEW = 90, 8
+
+
+@pytest.mark.parametrize("name", ["h2o-danube-3-4b", "gemma-2b"])
+def test_greedy_tokens_equal_jax(name):
+    jcfg = jax_reduced(jax_get_config(name))
+    jm = JaxDecoderLM(jcfg, attn_impl="pallas")
+    params = jm.init(jax.random.PRNGKey(1))
+    prompt = np.random.default_rng(7).integers(0, jcfg.vocab_size, (2, PROMPT)).astype(np.int32)
+    want = JaxServeEngine(jm).generate(params, jnp.asarray(prompt), NEW, PROMPT + NEW,
+                                       dtype=jnp.float32)
+    model = decoder_from_jax(reduced(get_config(name)), jax.device_get(params), "cpu")
+    got = ServeEngine(model).generate(torch.tensor(prompt), NEW, PROMPT + NEW)
+    assert got.shape == (2, NEW)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_params_from_jax_takes_bf16_leaves():
+    rng = np.random.default_rng(0)
+    tree = jax.device_get({"w": jnp.asarray(rng.standard_normal((3, 5)), jnp.bfloat16),
+                           "b": jnp.asarray(rng.standard_normal(4), jnp.float32)})
+    assert tree["w"].dtype.name == "bfloat16"
+    out = params_from_jax(tree, "cpu")
+    assert out["w"].dtype == torch.bfloat16 and out["b"].dtype == torch.float32
+    # the same 16 bits, not a value rounded through another type
+    np.testing.assert_array_equal(out["w"].view(torch.int16).numpy(),
+                                  np.asarray(tree["w"]).view(np.int16))
+    np.testing.assert_array_equal(out["w"].float().numpy(), np.asarray(tree["w"], np.float32))
+
+
+def test_decoder_from_jax_unstacks_the_blocks():
+    jcfg = jax_reduced(jax_get_config("h2o-danube-3-4b"), layers=3)
+    params = jax.device_get(JaxDecoderLM(jcfg, dtype=jnp.bfloat16).init(jax.random.PRNGKey(2)))
+    model = decoder_from_jax(reduced(get_config("h2o-danube-3-4b"), layers=3), params, "cpu")
+    assert model.dtype == torch.bfloat16 and len(model.blocks) == 3
+    for name, stacked in params["blocks"].items():
+        for i, block in enumerate(model.blocks):
+            np.testing.assert_array_equal(block[name].float().numpy(),
+                                          np.asarray(stacked[i], np.float32), err_msg=name)
+    np.testing.assert_array_equal(model.head.float().numpy(), np.asarray(params["head"], np.float32))
+    with pytest.raises(ValueError, match="layers stacked"):
+        decoder_from_jax(reduced(get_config("h2o-danube-3-4b"), layers=2), params, "cpu")
+
+
+def test_unported_stacks_and_a_missing_card_raise():
+    for name in ("granite-moe-1b-a400m", "mamba2-2.7b", "zamba2-2.7b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            DecoderLM(reduced(get_config(name)), device="cpu")
+    cfg = reduced(get_config("h2o-danube-3-4b"))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        DecoderLM(cfg, device="cpu", attn_impl="xla_flash")
+    if torch.cuda.is_available():
+        pytest.skip("the missing-card error needs a machine without a CUDA card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DecoderLM(cfg)    # the default device is the card
