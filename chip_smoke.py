@@ -4,14 +4,19 @@
     python3 chip_smoke.py
 
 Phases, each of which exits non-zero on failure:
-  1. build     nvcc builds the dp_aggregate and flash_attention kernels from
-               csrc/ (ctypes), both at once.
+  1. build     nvcc builds the dp_aggregate, flash_attention and ssd_scan
+               kernels from csrc/ (ctypes), all at once.
   2. kernels   every kernel against its plain PyTorch version on the card, at
                the main paths' shapes and ragged ones; fused-mode noise
                against the noise-only kernel; bitwise determinism; times.
                flash_attention in float32 and bfloat16 at the serve shape
                (one head group, then all heads), MQA at head_dim 256, a
                ragged kv_len and non-causal attention; SDPA as a yardstick.
+               ssd_scan against the recurrence and the chunked SSD at small,
+               ragged (S 300, 1237) and strong-decay shapes, and at the
+               Mamba2 serve shape (2, 16384, 80, 64) with N 128 and inputs
+               drawn as Mamba2 initialises A and dt; the final state against
+               the chunked path's; bitwise determinism; times and bound.
   3. paper     the paper's synthetic linear regression (M=1000, tau=20,
                50 rounds; d=500 CDP/noiseless, d=100 LDP) for the six
                ported names, plus the two LDP names on the materialized-
@@ -28,8 +33,19 @@ Phases, each of which exits non-zero on failure:
                planted fault (the window dropped) that must fail; then two
                layers at full width on the card against the CPU (f32,
                window 128, prompt 300): the greedy tokens must be equal.
-Phases 3 and 4 are the round loop's main path, phase 6's generate the serve
-path's: every launch counter is set to 0 before a path and read after.  The
+  7. serve-ssm mamba2-2.7b at full width and depth, seeded bf16 weights with
+               A and dt in Mamba2's initial ranges, float32 caches:
+               ServeEngine.generate of 16 greedy tokens after a 16384-token
+               prompt (batch 2); 64 ssd_scan launches per prefill; prefill
+               and decode times, peak memory, a profiled prefill and decode;
+               the prefill logits and the hidden states at every position
+               against the plain chunked-SSD path, and a planted fault (the
+               state carry reset at every chunk) that must fail; then two
+               layers at full width on the card against the CPU (f32, prompt
+               300): the greedy tokens must be equal.
+Phases 3 and 4 are the round loop's main path, phase 6's generate the dense
+serve path's, phase 7's generate the Mamba2 serve path's: every launch
+counter is set to 0 before a path and read after.  The
 line before the last is {"kernels": [...]}, the last {"ok": true, "device":
 {...}}.  It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -120,9 +136,11 @@ def phase_build():
     from repro_torch.kernels import _build
     from repro_torch.kernels.dp_aggregate import ops as dp_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(dp_ops.load_library), pool.submit(flash_ops.load_library)]:
+    loaders = (dp_ops.load_library, flash_ops.load_library, ssd_ops.load_library)
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        for fut in [pool.submit(load) for load in loaders]:
             fut.result()
     print(f"[1 build] kernels built in {time.perf_counter() - t0:.2f} s")
     for name, log in _build.build_log.items():
@@ -432,7 +450,111 @@ def phase_flash(dev):
                 cases=cases)
 
 
-def device_window(fn, label: str) -> None:
+# ssd_scan: the chunked dual form against the recurrence and the chunked SSD
+# at 128-step chunks, all float32: |k - p| <= SSD_RTOL * (|p| + max|p|).  On
+# the CPU at (2, 4096, 4, 64, 128) with Mamba2's ranges the three orders sit
+# within 6.2e-7 of each other on that scale.
+SSD_RTOL = 1e-5
+SSD_SERVE = (2, 16384, 80, 64, 128)   # mamba2-2.7b's prefill of 2 x 16384: B, S, H, P, N
+SSD_CHUNK = 64                        # the CUDA kernel's chunk (csrc/ssd_scan.cu)
+
+
+def ssd_inputs(b, s, h, p, n, dev, seed, kind="mamba2"):
+    """x, dt, a, B, C on ``dev``: A = -U(1, 16) and dt log-uniform in
+    [1e-3, 1e-1] as Mamba2 initialises them (``mamba2``), the JAX package's
+    test draws (``test_kernels``), or its strong-decay case (``strong``)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = randn(b, s, h, p)
+    if kind == "strong":
+        return (x, torch.full((b, s, h), 1.5, device=dev), torch.tensor([-2.0] * h, device=dev),
+                torch.ones(b, s, n, device=dev) / n, torch.ones(b, s, n, device=dev))
+    if kind == "mamba2":
+        rate, dt = mamba2_a_dt(rand(h), rand(b, s, h))
+        return x, dt, -rate, randn(b, s, n), randn(b, s, n)
+    return (x, 0.1 + 0.5 * rand(b, s, h), -torch.exp(0.3 * randn(h)),
+            randn(b, s, n) / math.sqrt(n), randn(b, s, n) / math.sqrt(n))
+
+
+def ssd_ops(b, s, h, p, n) -> float:
+    """Operations of the kernel's chunked form on these shapes: per (batch,
+    head) and chunk of l steps, l(l+1)/2 * P multiply-adds inside the chunk
+    (the causal half), l*N*P for C h and l*N*P for the state update; per
+    (batch, chunk), l(l+1)/2 * N for C B^T, shared by the heads.  Two
+    operations each."""
+    fma = 0
+    for t0 in range(0, s, SSD_CHUNK):
+        tri = (l := min(SSD_CHUNK, s - t0)) * (l + 1) // 2
+        fma += h * (tri * p + 2 * l * n * p) + tri * n
+    return 2.0 * b * fma
+
+
+def phase_ssd(dev):
+    """Phase 2c: the SSD scan kernel against its plain versions on the card;
+    the serve shape's times and bound.  Returns the kernel entry."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops, ref
+    from repro_torch.models.ssm import _final_state, ssd_chunked
+
+    checks = [  # name, (b, s, h, p, n), inputs
+        ("chunks of the JAX tests", (2, 128, 4, 32, 16), "test_kernels"),
+        ("ragged S 300", (2, 300, 8, 64, 128), "mamba2"),
+        ("ragged S 1237", (1, 1237, 4, 64, 128), "mamba2"),
+        ("P 40 N 20: partial slices", (1, 200, 3, 40, 20), "test_kernels"),
+        ("strong decay", (1, 128, 1, 8, 4), "strong"),
+    ]
+    cases = []
+    for i, (name, shape, kind) in enumerate(checks):
+        args = ssd_inputs(*shape, dev, seed=200 + i, kind=kind)
+        y, state = ops.ssd_scan(*args, return_state=True)
+        want, want_state = ref.ssd_scan_ref(*args, return_state=True)
+        err = max(close(y, want, f"ssd_scan {name} {shape} vs the recurrence", SSD_RTOL),
+                  close(state, want_state, f"ssd_scan {name} {shape} state", SSD_RTOL))
+        close(y, ssd_chunked(*args), f"ssd_scan {name} {shape} vs ssd_chunked", SSD_RTOL)
+        close(state, _final_state(*args[:4]), f"ssd_scan {name} {shape} vs _final_state",
+              SSD_RTOL)
+        cases.append(dict(name=name, shape=list(shape), inputs=kind, max_abs_err=err))
+        print(f"[2 kernels] ssd_scan {name:28s} {shape}: max abs err {err:.3e} against the "
+              f"recurrence (y and final state); within rtol {SSD_RTOL} of ssd_chunked too")
+
+    shape = SSD_SERVE
+    args = ssd_inputs(*shape, dev, seed=7)
+    y, state = ops.ssd_scan(*args, return_state=True)
+    err = max(close(y, ssd_chunked(*args), f"ssd_scan serve shape {shape} vs ssd_chunked",
+                    SSD_RTOL),
+              close(state, _final_state(*args[:4]), f"ssd_scan serve shape {shape} state",
+                    SSD_RTOL))
+    again, again_state = ops.ssd_scan(*args, return_state=True)
+    if not (torch.equal(y, again) and torch.equal(state, again_state)):
+        fail("ssd_scan: two launches at the serve shape differ in bits")
+    b, s, h, p, n = shape
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n + b * h * n * p)
+    b_ms, b_by = bound(nbytes, ssd_ops(*shape))
+    ms = cuda_ms(lambda: ops.ssd_scan(*args, return_state=True), 10)
+    plain_ms = cuda_ms(lambda: (ssd_chunked(*args), _final_state(*args[:4])), 2, warmup=1)
+    print(f"[2 kernels] ssd_scan serve shape (B {b}, S {s}, H {h}, P {p}, N {n}, Mamba2 A and "
+          f"dt): max abs err {err:.3e} against ssd_chunked and _final_state  kernel {ms:.4f} ms  "
+          f"plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}, {ssd_ops(*shape):.4g} "
+          f"operations, {nbytes / 1e9:.3f} GB); two launches bit-identical")
+    del args, y, state, again, again_state
+    torch.cuda.empty_cache()
+    return dict(name="ssd_scan", route="cuda",
+                source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan/kernel.py:35", launches=0,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, headline=f"float32 (B {b}, S {s}, H {h}, P {p}, N {n}), "
+                                          "with the final state",
+                cases=cases)
+
+
+def device_window(fn, label: str, phase: str = "6 serve") -> None:
     """Profile ``fn`` once: wall time, device busy time, idle share and the
     kernels that took the most device time."""
     import torch
@@ -448,10 +570,10 @@ def device_window(fn, label: str) -> None:
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy <= 0:
         fail(f"{label}: the profiler saw no device time")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     names = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
                       for e in top)
-    print(f"[6 serve] {label} (profiled): wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+    print(f"[{phase}] {label} (profiled): wall {wall:.3f} ms, device busy {busy:.3f} ms, "
           f"idle share {max(0.0, 1 - busy / wall):.3f}, {sum(e.count for e in kernels)} "
           f"device launches; top kernels: {names}")
 
@@ -572,6 +694,199 @@ def phase_serve(dev, smi: str) -> int:
     return launches
 
 
+MAMBA2 = "mamba2-2.7b"
+SSM_BATCH, SSM_PROMPT, SSM_NEW = 2, 16384, 16
+# kernel vs plain (ssd_chunked) at full width in bf16: the two compute the SSD
+# in float32 from the same inputs and differ only in the order of sums, but
+# each one-ulp flip of a bf16 activation spreads through 64 layers.  On the CPU
+# at d_model 512 and full depth (tests/test_torch_ssm.py::test_bf16_drift_...)
+# two float32 SSD orders (ssd_chunked at 128- and 64-step chunks) move the
+# last position's logits by about 7% of max|logit| and 6% of their std, and
+# the hidden states at every position by about 5% of their std; a lost carry
+# between chunks or a dropped diagonal moves them by 64% to 101%
+# (test_a_planted_ssd_fault_...).  Phase 7 plants the
+# lost carry at full width too and fails if the bounds do not see it.  Bounds:
+SSM_MAX_ERR = 0.3     # max |d logit| / max |logit|, the last position
+SSM_MEAN_ERR = 0.25   # mean |d| / std, of those logits and of the hidden states
+
+
+def mamba2_a_dt(u_a, u_dt):
+    """The rate -A = U(1, 16) and dt log-uniform in [1e-3, 1e-1], as Mamba2
+    initialises them (arXiv:2405.21060, mamba_ssm's defaults), from uniform
+    draws in [0, 1): numpy arrays or torch tensors."""
+    return 1 + 15 * u_a, 1e-3 * 100.0 ** u_dt
+
+
+def mamba2_a_log_dt_bias(u):
+    """``ssm_a_log`` and ``ssm_dt_bias`` for Mamba2's ranges from the uniform
+    torch draws ``u`` (2, ...): log(-A), and dt_bias = softplus^-1(dt)."""
+    import torch
+    rate, dt = mamba2_a_dt(u[0], u[1])
+    return torch.log(rate), dt + torch.log(-torch.expm1(-dt))
+
+
+def mamba2_ranges_(model, generator) -> None:
+    """Overwrite every layer's ``ssm_a_log`` and ``ssm_dt_bias`` with Mamba2's
+    initial ranges (``mamba2_a_dt``).  The JAX package's init zeroes both (A
+    = -1, dt about 0.8): the state then forgets within a few tokens, and a
+    lost carry between chunks hides."""
+    import torch
+    with torch.no_grad():
+        for bp in model.blocks:
+            a_log, dt_bias = mamba2_a_log_dt_bias(torch.rand(
+                2, bp["ssm_a_log"].shape[0], generator=generator, device=generator.device))
+            bp["ssm_a_log"].copy_(a_log)
+            bp["ssm_dt_bias"].copy_(dt_bias)
+
+
+def ssm_drift(logits, plain_logits, hidden, plain_hidden) -> dict:
+    """The readings that SSM_MAX_ERR and SSM_MEAN_ERR bound."""
+    def ratios(x, ref):
+        d, ref = (x.float() - ref.float()).abs(), ref.float()
+        return d.max().item() / ref.abs().max().item(), d.mean().item() / ref.std().item()
+
+    (lmax, lmean), (_, hmean) = ratios(logits, plain_logits), ratios(hidden, plain_hidden)
+    return dict(logits_max=lmax, logits_mean=lmean, hidden_mean=hmean)
+
+
+def ssm_within_bounds(r: dict) -> bool:
+    return r["logits_max"] <= SSM_MAX_ERR and max(r["logits_mean"], r["hidden_mean"]) \
+        <= SSM_MEAN_ERR
+
+
+def carry_reset(ssd_chunked):
+    """A planted fault: ``ssd_chunked`` run on each 128-step chunk alone, so
+    the state carried between chunks is lost."""
+    import torch
+
+    def faulty(x, dt, a, bmat, cmat, chunk=128):
+        return torch.cat([ssd_chunked(x[:, t:t + chunk], dt[:, t:t + chunk], a,
+                                      bmat[:, t:t + chunk], cmat[:, t:t + chunk], chunk)
+                          for t in range(0, x.shape[1], chunk)], dim=1)
+    return faulty
+
+
+def phase_serve_ssm(dev, smi: str) -> int:
+    """Phase 7: mamba2-2.7b at full width and depth through ServeEngine;
+    returns the ssd_scan launches of the generate run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.launch import ServeEngine
+    from repro_torch.models import DecoderLM
+    from repro_torch.models import ssm as ssm_mod
+
+    cfg = get_config(MAMBA2)
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, dtype=torch.bfloat16, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    mamba2_ranges_(model, torch.Generator(device=dev).manual_seed(4))
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = torch.randint(0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    cache_len = SSM_PROMPT + SSM_NEW
+    engine = ServeEngine(model)
+    engine.generate(prompt[:, :256], 2, 258)          # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    print(f"[7 serve-ssm] {MAMBA2}: {n_params / 1e9:.3f} B parameters in bf16, built in "
+          f"{time.perf_counter() - t0:.2f} s; ssm_a_log and ssm_dt_bias overwritten with "
+          "Mamba2's initial ranges (A = U(1, 16), dt log-uniform in [1e-3, 1e-1]; the JAX "
+          "package's init zeroes them)")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.ssd_scan.launches = 0
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompt, SSM_NEW, cache_len)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = ops.ssd_scan.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != cfg.num_layers:
+        fail(f"serve-ssm: {launches} ssd_scan launches in one generate, want {cfg.num_layers} "
+             "(one per layer of the prefill)")
+    if tokens.shape != (SSM_BATCH, SSM_NEW):
+        fail(f"serve-ssm: generate gave tokens of shape {tuple(tokens.shape)}")
+
+    with torch.inference_mode():
+        caches = model.init_cache(SSM_BATCH, cache_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(prompt, caches)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decode = engine.make_decode_step()
+        tok, all_logits, out = logits.argmax(-1), [logits], [logits.argmax(-1)]
+        for pos in range(SSM_PROMPT, SSM_PROMPT + SSM_NEW - 1):
+            tok, lg, caches = decode(tok, pos, caches)
+            out.append(tok)
+            all_logits.append(lg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if not all(bool(torch.isfinite(lg).all()) for lg in all_logits):
+            fail("serve-ssm: non-finite logits")
+        if not torch.equal(torch.stack(out, 1), tokens):
+            fail("serve-ssm: the timed steps gave other tokens than generate")
+        device_window(lambda: [decode(tok, SSM_PROMPT + SSM_NEW + i, caches) for i in range(4)],
+                      "4 decode steps", "7 serve-ssm")
+        del caches
+        device_window(lambda: model.prefill(prompt, model.init_cache(SSM_BATCH, cache_len)),
+                      "one prefill", "7 serve-ssm")
+        hidden = model(prompt)
+        model.attn_impl = "dense"                     # the plain path, same weights
+        plain, _ = model.prefill(prompt, model.init_cache(SSM_BATCH, cache_len))
+        plain_hidden = model(prompt)
+        plain_chunked = ssm_mod.ssd_chunked
+        ssm_mod.ssd_chunked = carry_reset(plain_chunked)   # a planted fault on the plain path
+        try:
+            faulty, _ = model.prefill(prompt, model.init_cache(SSM_BATCH, cache_len))
+            faulty_hidden = model(prompt)
+        finally:
+            ssm_mod.ssd_chunked, model.attn_impl = plain_chunked, "kernel"
+    prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (SSM_NEW - 1)
+    r = ssm_drift(logits, plain, hidden, plain_hidden)
+    rf = ssm_drift(faulty, plain, faulty_hidden, plain_hidden)
+    same = int((logits.argmax(-1) == plain.argmax(-1)).sum())
+    print(f"[7 serve-ssm] generate of {SSM_NEW} tokens after a {SSM_BATCH}x{SSM_PROMPT} prompt: "
+          f"{gen_s:.3f} s; ssd_scan launches {launches}; peak memory {peak_gb:.3f} GB  [{smi}]")
+    print(f"[7 serve-ssm] prefill {prefill_ms:.3f} ms ({SSM_BATCH * SSM_PROMPT / (t1 - t0):.0f} "
+          f"prompt tokens/s); decode {decode_ms:.3f} ms/token step "
+          f"({SSM_BATCH * 1e3 / decode_ms:.1f} tokens/s at batch {SSM_BATCH})")
+    print(f"[7 serve-ssm] kernel vs plain ssd_chunked: prefill logits max {r['logits_max']:.4f} "
+          f"of max|logit|, mean {r['logits_mean']:.4f} of the std; hidden states at every "
+          f"position mean {r['hidden_mean']:.4f} of the std; greedy first token equal in "
+          f"{same}/{SSM_BATCH}")
+    print(f"[7 serve-ssm] planted fault, plain path with the carry reset at every chunk: logits "
+          f"max {rf['logits_max']:.4f}, mean {rf['logits_mean']:.4f}; hidden mean "
+          f"{rf['hidden_mean']:.4f} (bounds {SSM_MAX_ERR}, {SSM_MEAN_ERR})")
+    if rf["logits_max"] <= SSM_MAX_ERR or rf["logits_mean"] <= SSM_MEAN_ERR \
+            or rf["hidden_mean"] <= SSM_MEAN_ERR:
+        fail("serve-ssm: a planted fault (the carry reset at every chunk) stays within a bound")
+    if not ssm_within_bounds(r):
+        fail(f"serve-ssm: kernel and plain outputs differ beyond {SSM_MAX_ERR} of max|logit| "
+             f"or {SSM_MEAN_ERR} of their std")
+    del model, plain, faulty, logits, all_logits, hidden, plain_hidden, faulty_hidden
+    torch.cuda.empty_cache()
+
+    # two layers at full width, float32, on the card (kernel) and the CPU (plain)
+    small = dataclasses.replace(cfg, num_layers=2)
+    card = DecoderLM(small, device=dev, generator=torch.Generator(device=dev).manual_seed(2))
+    mamba2_ranges_(card, torch.Generator(device=dev).manual_seed(5))
+    cpu = DecoderLM(small, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    p = torch.randint(0, small.vocab_size, (2, 300), generator=torch.Generator().manual_seed(3))
+    before = ops.ssd_scan.launches
+    got = ServeEngine(card).generate(p, 6, 306)
+    if ops.ssd_scan.launches - before != small.num_layers:
+        fail("serve-ssm reference: the card run did not launch ssd_scan once per layer")
+    want = ServeEngine(cpu).generate(p, 6, 306)
+    if not torch.equal(got.cpu(), want):
+        fail(f"serve-ssm reference: greedy tokens on the card {got.tolist()} differ from the "
+             f"CPU's {want.tolist()}")
+    print("[7 serve-ssm] reference: 2 layers at full width (f32, prompt 2x300): the card's 6 "
+          "greedy tokens equal the CPU's")
+    return launches
+
+
 def main() -> int:
     """Run every phase; 0 only when all of them passed on a CUDA card."""
     import torch
@@ -590,6 +905,7 @@ def main() -> int:
     phase_build()
     cases, noise_cases = phase_kernels(dev)
     flash = phase_flash(dev)
+    ssd = phase_ssd(dev)
 
     ops.dp_aggregate_sums.launches = 0
     ops.generate_ldp_noise.launches = 0
@@ -603,6 +919,7 @@ def main() -> int:
 
     phase_reference(dev)
     flash["launches"] = phase_serve(dev, smi)
+    ssd["launches"] = phase_serve_ssm(dev, smi)
 
     src = "src/repro_torch/kernels/dp_aggregate/csrc/dp_aggregate.cu"
     head = next(c for c in cases if c["shape"] == [1000, 131072] and c["mode"] == "fused")
@@ -622,6 +939,7 @@ def main() -> int:
              bound_by=nhead["bound_by"], library_ms=None, headline="(1000, 131072)",
              cases=noise_cases),
         flash,
+        ssd,
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -38,7 +38,8 @@ def decoder_from_jax(cfg, params, device="cuda"):
     parameters (``jax.device_get`` of them).
 
     The JAX blocks are stacked on a leading L axis (``params["blocks"][name]``
-    is (L, ...)); here they are unstacked into one block per layer.  The
+    is (L, ...)); here they are unstacked into one block per layer, by name,
+    for dense (``attn_*``, ``mlp_*``) and SSM (``ssm_*``) blocks alike.  The
     model's dtype is that of the embedding; it takes the kernel path, and a
     caller that wants the plain one sets ``model.attn_impl = "dense"``.
     """

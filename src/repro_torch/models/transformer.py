@@ -1,11 +1,11 @@
-"""Decoder-only LM of the model zoo, dense architectures (counterpart of
-repro/models/transformer.py).
+"""Decoder-only LM of the model zoo, dense and SSM (Mamba2) stacks
+(counterpart of repro/models/transformer.py).
 
 The JAX package stacks the blocks on a leading L axis and scans them; here
 each block is an ``nn.ParameterDict`` with the JAX package's parameter names,
-and the layers run in a plain Python loop.  MoE, SSM and hybrid stacks are
-still to port (ROADMAP queue 1, item 17), as is training through the model
-(the flash kernel has no backward yet).
+and the layers run in a plain Python loop.  MoE, hybrid, VLM and audio stacks
+are still to port (ROADMAP queue 1, item 17), as is training through the model
+(the flash and SSD kernels have no backward).
 """
 from __future__ import annotations
 
@@ -16,13 +16,18 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import Param, init_params, rms_norm, sinusoidal_positions
 
 __all__ = ["DecoderLM"]
 
+ARCHS = ("dense", "ssm")
+
 
 def _block_defs(cfg: ModelConfig) -> dict[str, Param]:
     """Parameter defs for ONE block."""
+    if cfg.arch_type == "ssm":
+        return {"ln1": Param((cfg.d_model,), (None,)), **ssm_mod.ssm_defs(cfg)}
     return {
         "ln1": Param((cfg.d_model,), (None,)),
         "ln2": Param((cfg.d_model,), (None,)),
@@ -32,15 +37,17 @@ def _block_defs(cfg: ModelConfig) -> dict[str, Param]:
 
 
 class DecoderLM(nn.Module):
-    """A dense decoder LM.
+    """A dense or SSM (Mamba2) decoder LM.
 
     ``generator`` (a ``torch.Generator`` on ``device``) draws the initial
     weights as the JAX package's ``DecoderLM.init`` does (the same
     distributions, not the same values); with ``generator=None`` they are left
     uninitialised, to be filled by ``repro_torch.convert.decoder_from_jax``.
-    ``attn_impl`` is ``"kernel"`` (the CUDA flash kernel on the card; the
-    JAX package's ``"pallas"``) or ``"dense"`` (the plain path).  The model
-    runs on the card unless ``device`` says otherwise.
+    ``attn_impl`` is ``"kernel"`` (the CUDA kernels on the card: flash
+    attention in a dense stack, the SSD scan in an SSM stack; the JAX
+    package's ``"pallas"``) or ``"dense"`` (the plain paths: dense attention,
+    and the chunked SSD ``ssd_chunked``).  The model runs on the card unless
+    ``device`` says otherwise.
     """
 
     max_positions = 32_768   # sinusoidal table rows (non-RoPE archs), as in the JAX package
@@ -48,10 +55,10 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, dtype=torch.float32, attn_impl: str = "kernel",
                  device="cuda", generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.arch_type != "dense":
+        if cfg.arch_type not in ARCHS:
             raise NotImplementedError(
-                f"{cfg.name}: the port's DecoderLM runs dense stacks only; {cfg.arch_type} "
-                "stacks are still to port (ROADMAP queue 1, item 17)")
+                f"{cfg.name}: the port's DecoderLM runs {' and '.join(ARCHS)} stacks; "
+                f"{cfg.arch_type} stacks are still to port (ROADMAP queue 1, item 17)")
         if attn_impl not in attn_mod.IMPLS:
             raise NotImplementedError(f"attention impl {attn_impl!r} is not ported; the port "
                                       f"has {attn_mod.IMPLS} (ROADMAP queue 1, item 17)")
@@ -90,6 +97,9 @@ class DecoderLM(nn.Module):
     def _apply_block(self, bp, x, *, positions, cache=None, decode_pos=None):
         cfg = self.cfg
         h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+        if cfg.arch_type == "ssm":
+            y, cache = ssm_mod.ssm_apply(bp, h, cfg, cache=cache, impl=self.attn_impl)
+            return x + y, cache
         a, cache = attn_mod.attention_apply(bp, h, cfg, positions=positions, cache=cache,
                                             decode_pos=decode_pos, impl=self.attn_impl)
         if cfg.parallel_block:
@@ -132,9 +142,15 @@ class DecoderLM(nn.Module):
     # ------------------------------------------------------------- serving
 
     def init_cache(self, batch: int, seq_len: int) -> dict:
-        """One KV cache per layer, in the model's dtype, on its device."""
-        return {"blocks": [attn_mod.init_kv_cache(self.cfg, batch, seq_len, self.dtype, self.device)
-                           for _ in range(self.cfg.num_layers)]}
+        """One cache per layer on the model's device: a KV cache in the model's
+        dtype, or for an SSM stack a conv window and a state in float32 whatever
+        the model's dtype (``seq_len`` unused), as the JAX package keeps them."""
+        cfg, layers = self.cfg, range(self.cfg.num_layers)
+        if cfg.arch_type == "ssm":
+            return {"blocks": [ssm_mod.init_ssm_cache(cfg, batch, device=self.device)
+                               for _ in layers]}
+        return {"blocks": [attn_mod.init_kv_cache(cfg, batch, seq_len, self.dtype, self.device)
+                           for _ in layers]}
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, caches: dict):

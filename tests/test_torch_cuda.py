@@ -10,8 +10,14 @@ atol of 1e-5 times the largest entry (float32 sums in other orders); noise at
 1e-5 sigma per element (float32 log/cos/sqrt rounding).  Flash attention in
 float32 at rtol 1e-5 and atol 1e-5 (float32 sums in other orders); in
 bfloat16 at rtol 2^-7, one bfloat16 ulp (both sides compute in float32 and
-round once), with atol 1e-4 for outputs near zero.
+round once), with atol 1e-4 for outputs near zero.  The SSD scan in float32
+against the recurrence and the chunked SSD at rtol 1e-5 with an atol of 1e-5
+times the largest entry (the chunked dual form against products of per-step
+decays: float32 sums in other orders).
 """
+import importlib.util
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -20,8 +26,15 @@ from repro_torch.core.aggregation import fused_clip_aggregate  # noqa: E402
 from repro_torch.kernels.dp_aggregate import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.models.ssm import _final_state, ssd_chunked  # noqa: E402
 
 pytestmark = pytest.mark.cuda
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture
@@ -145,3 +158,66 @@ def test_flash_kernel_refuses_what_it_cannot_run(dev):
     x = torch.zeros(1, 2, 8, 16, device=dev, requires_grad=True)
     with pytest.raises(NotImplementedError, match="backward"):
         flash_ops.flash_attention(x, x, x)
+
+
+SSD_CASES = {  # b, s, h, p, n: one chunk, ragged, partial P slices and odd N, serve-like
+    "s64": (1, 64, 2, 16, 8),
+    "ragged-s300": (2, 300, 3, 64, 128),
+    "ragged-s1237-p40-n20": (1, 1237, 2, 40, 20),
+    "serve-like-s2048": (2, 2048, 8, 64, 128),
+}
+
+
+def _ssd_inputs(dev, b, s, h, p, n, seed=0):
+    """Inputs drawn as Mamba2 initialises A and dt, so the state carries."""
+    return chip_smoke.ssd_inputs(b, s, h, p, n, dev, seed)
+
+
+def test_ssd_kernel_gives_a_zero_state_for_no_steps(dev):
+    x, dt, a, bm, cm = _ssd_inputs(dev, 2, 0, 3, 16, 8)
+    y, state = ssd_ops.ssd_scan(x, dt, a, bm, cm, return_state=True)
+    assert y.shape == (2, 0, 3, 16) and torch.equal(state, torch.zeros(2, 3, 8, 16, device=dev))
+
+
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_ssd_kernel_matches_both_plain_versions(dev, case):
+    args = _ssd_inputs(dev, *SSD_CASES[case])
+    before = ssd_ops.ssd_scan.launches
+    y, state = ssd_ops.ssd_scan(*args, return_state=True)
+    assert ssd_ops.ssd_scan.launches == before + 1
+    want, want_state = ssd_scan_ref(*args, return_state=True)
+    _close(y, want)
+    _close(state, want_state)
+    _close(y, ssd_chunked(*args))
+    _close(state, _final_state(*args[:4]))
+
+
+def test_ssd_kernel_is_deterministic_and_takes_strided_views(dev):
+    b, s, h, p, n = 2, 500, 4, 64, 32
+    x, dt, a, bm, cm = _ssd_inputs(dev, b, s, h, p, n, seed=1)
+    # the model's layout: x, B and C are column slices of one (B, S, H*P + 2N) tensor
+    packed = torch.cat([x.reshape(b, s, h * p), bm, cm], dim=-1)
+    xv, bv, cv = packed.split([h * p, n, n], dim=-1)
+    xv = xv.reshape(b, s, h, p)
+    assert not xv.is_contiguous() and not bv.is_contiguous()
+    y, state = ssd_ops.ssd_scan(xv, dt, a, bv, cv, return_state=True)
+    again, again_state = ssd_ops.ssd_scan(xv, dt, a, bv, cv, return_state=True)
+    assert torch.equal(y, again) and torch.equal(state, again_state)
+    dense, dense_state = ssd_ops.ssd_scan(x, dt, a, bm, cm, return_state=True)
+    assert torch.equal(y, dense) and torch.equal(state, dense_state)
+
+
+def test_ssd_kernel_refuses_what_it_cannot_run(dev):
+    x, dt, a, bm, cm = _ssd_inputs(dev, 1, 10, 2, 8, 4)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_ops.ssd_scan(x.bfloat16(), dt, a, bm, cm)
+    with pytest.raises(ValueError, match="want x"):
+        ssd_ops.ssd_scan(x[0], dt, a, bm, cm)
+    big = torch.zeros(1, 10, 129, device=dev)
+    with pytest.raises(ValueError, match="N <="):
+        ssd_ops.ssd_scan(x, dt, a, big, big)
+    with pytest.raises(ValueError, match="one device"):
+        ssd_ops.ssd_scan(x, dt, a.cpu(), bm, cm)
+    xg = x.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="backward"):
+        ssd_ops.ssd_scan(xg, dt, a, bm, cm)

@@ -4,8 +4,10 @@ JAX parameters, on the CPU.
 Greedy generation must give the JAX package's tokens exactly, for
 ``reduced(h2o-danube-3-4b)`` (window 64) and ``reduced(gemma-2b)``, with a
 prompt longer than the window, so that the prefill fills the ring past its
-end and the decode steps evict the oldest slots.  JAX runs its Pallas flash
-kernel in interpret mode; the port's kernel path runs its plain version.
+end and the decode steps evict the oldest slots, and for
+``reduced(mamba2-2.7b)`` (prefill into the conv window and SSM state, then
+the O(1) decode step).  JAX runs its Pallas flash kernel in interpret mode
+and its chunked SSD; the port's kernel path runs the kernels' plain versions.
 """
 import numpy as np
 import pytest
@@ -26,7 +28,7 @@ from repro_torch.models import DecoderLM  # noqa: E402
 PROMPT, NEW = 90, 8
 
 
-@pytest.mark.parametrize("name", ["h2o-danube-3-4b", "gemma-2b"])
+@pytest.mark.parametrize("name", ["h2o-danube-3-4b", "gemma-2b", "mamba2-2.7b"])
 def test_greedy_tokens_equal_jax(name):
     jcfg = jax_reduced(jax_get_config(name))
     jm = JaxDecoderLM(jcfg, attn_impl="pallas")
@@ -68,7 +70,7 @@ def test_decoder_from_jax_unstacks_the_blocks():
 
 
 def test_unported_stacks_and_a_missing_card_raise():
-    for name in ("granite-moe-1b-a400m", "mamba2-2.7b", "zamba2-2.7b"):
+    for name in ("granite-moe-1b-a400m", "zamba2-2.7b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DecoderLM(reduced(get_config(name)), device="cpu")
     cfg = reduced(get_config("h2o-danube-3-4b"))
