@@ -4,19 +4,28 @@
     python3 chip_smoke.py
 
 Phases, each of which exits non-zero on failure:
-  1. build     nvcc builds the dp_aggregate, flash_attention and ssd_scan
-               kernels from csrc/ (ctypes), all at once.
+  1. build     nvcc builds the dp_aggregate, flash_attention (SIMT and
+               tensor-core) and ssd_scan kernels from csrc/ (ctypes), one
+               process per source, all at once.
   2. kernels   every kernel against its plain PyTorch version on the card, at
                the main paths' shapes and ragged ones; fused-mode noise
                against the noise-only kernel; bitwise determinism; times.
-               flash_attention in float32 and bfloat16 at the serve shape
-               (one head group, then all heads), MQA at head_dim 256, a
-               ragged kv_len and non-causal attention; SDPA as a yardstick.
-               ssd_scan against the recurrence and the chunked SSD at small,
-               ragged (S 300, 1237) and strong-decay shapes, and at the
-               Mamba2 serve shape (2, 16384, 80, 64) with N 128 and inputs
-               drawn as Mamba2 initialises A and dt; the final state against
-               the chunked path's; bitwise determinism; times and bound.
+               flash_attention through its dispatch rule (bf16 with Dh <= 128
+               to the tensor-core kernel, float32 or Dh > 128 to the SIMT
+               kernel; the counters must say so): the serve shape's head group
+               and all heads, MQA at head_dim 256, head_dims 64, 80 and 128, a
+               window under one tile, a ragged kv_len and non-causal
+               attention.  The tensor-core kernel is held tight against its
+               rounding order (ref.attention_tc_ref) and within the derived
+               P-rounding bound of attention_ref; a planted fault (window one
+               too wide) must fail the tight check.  At the serve shape both
+               kernels are timed (tensor-core in bf16, SIMT in bf16 and f32)
+               beside SDPA.  ssd_scan against the recurrence and the
+               chunked SSD at small, ragged (S 300, 1237) and strong-decay
+               shapes, and at the Mamba2 serve shape (2, 16384, 80, 64) with
+               N 128 and inputs drawn as Mamba2 initialises A and dt; the
+               final state against the chunked path's; bitwise determinism;
+               times and bound.
   3. paper     the paper's synthetic linear regression (M=1000, tau=20,
                50 rounds; d=500 CDP/noiseless, d=100 LDP) for the six
                ported names, plus the two LDP names on the materialized-
@@ -33,6 +42,8 @@ Phases, each of which exits non-zero on failure:
                planted fault (the window dropped) that must fail; then two
                layers at full width on the card against the CPU (f32,
                window 128, prompt 300): the greedy tokens must be equal.
+               The prefill's 24 launches must all be tensor-core launches,
+               the f32 layers' SIMT launches.
   7. serve-ssm mamba2-2.7b at full width and depth, seeded bf16 weights with
                A and dt in Mamba2's initial ranges, float32 caches:
                ServeEngine.generate of 16 greedy tokens after a 16384-token
@@ -43,9 +54,10 @@ Phases, each of which exits non-zero on failure:
                state carry reset at every chunk) that must fail; then two
                layers at full width on the card against the CPU (f32, prompt
                300): the greedy tokens must be equal.
-Phases 3 and 4 are the round loop's main path, phase 6's generate the dense
-serve path's, phase 7's generate the Mamba2 serve path's: every launch
-counter is set to 0 before a path and read after.  The
+Phases 3 and 4 are the round loop's main path, phase 6's bf16 generate the
+dense serve path's (the tensor-core flash kernel), its f32 generate the float32
+serve path's (the SIMT flash kernel), phase 7's generate the Mamba2 serve
+path's: every launch counter is set to 0 before a path and read after.  The
 line before the last is {"kernels": [...]}, the last {"ok": true, "device":
 {...}}.  It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -138,7 +150,8 @@ def phase_build():
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     t0 = time.perf_counter()
-    loaders = (dp_ops.load_library, flash_ops.load_library, ssd_ops.load_library)
+    loaders = (dp_ops.load_library, flash_ops.load_library, flash_ops.load_library_tc,
+               ssd_ops.load_library)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(load) for load in loaders]:
             fut.result()
@@ -330,8 +343,26 @@ def phase_reference(dev):
 
 
 # flash attention: float32 sums in other orders; bf16 outputs one ulp apart
-# (both sides compute in float32 and round once), atol for outputs near 0
+# (both sides compute in float32 and round once), atol for outputs near 0.
 FLASH_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2**-7, 1e-4)}
+# The tensor-core kernel is held to that bf16 tolerance against
+# ref.attention_tc_ref, which rounds P to bf16 as the kernel does, plus one
+# bf16 ulp of the row's largest p: the two compute p's exponent in float32 in
+# other orders, so a p next to a rounding boundary may round the other way,
+# which moves o by up to 2^-8 p_j |v_j| / l <= 2^-8 max|v| / l (p <= 1 against
+# the row's max, l the row's denominator).  Phase 2b prints how many outputs
+# at the serve shape lie beyond the bf16 tolerance alone (PERF.md).
+P_FLIP = 2**-8
+# ... and against attention_ref, whose P stays float32, by a bound derived from
+# that rounding: a bf16 p is within 2^-9 p of the float32 p, so
+# sum_j dp_j v_j / l moves o by at most 2^-9 max|v|, and the two outputs'
+# roundings by at most 2^-8 |o|; the bound takes twice both.  On average the
+# roundings are unbiased and independent over the keys: for v independent of
+# the weights their sum has rms 2^-9/sqrt(3) of rms|o|, so mean |d o| <=
+# 2^-8 mean|o| leaves 3x room (a biased P, e.g. one truncated, or a scale
+# error would not).
+P_MAX = (2**-8, 2**-7)   # |d o| <= P_MAX[0] * max|v| + P_MAX[1] * |o|
+P_MEAN = 2**-8           # mean |d o| <= P_MEAN * mean |o|
 H2O = "h2o-danube-3-4b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 2, 8192, 16
 # kernel vs plain prefill logits at full width in bf16.  The two differ only in
@@ -347,15 +378,47 @@ SERVE_MAX_ERR = 0.05    # max |d logit| / max |logit|
 SERVE_MEAN_ERR = 0.03   # mean |d logit| / std(logit)
 
 
-def flash_close(got, want, what: str) -> float:
-    """Max abs error of the kernel's output against the plain version's."""
+def flash_excess(got, want, flip=0.0) -> tuple[float, float]:
+    """Max abs error of ``got`` against ``want``, and the largest ratio of an
+    error to its tolerance, FLASH_TOL plus ``flip`` (at most 1 within it)."""
     import torch
     rtol, atol = FLASH_TOL[str(want.dtype).removeprefix("torch.")]
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    if not torch.isfinite(got).all() or bool((err > atol + rtol * want.abs()).any()):
-        fail(f"{what}: max abs err {err.max().item():.3e} beyond rtol {rtol} atol {atol}")
-    return err.max().item()
+    if not torch.isfinite(got).all():
+        return math.inf, math.inf
+    return err.max().item(), (err / (atol + rtol * want.abs() + flip)).max().item()
+
+
+def flash_close(got, want, what: str, flip=0.0) -> float:
+    """Max abs error of the kernel's output against the plain version's."""
+    err, ratio = flash_excess(got, want, flip)
+    if ratio > 1:
+        fail(f"{what}: max abs err {err:.3e}, {ratio:.2f}x its tolerance")
+    return err
+
+
+def tc_reference(q, k, v, **kw):
+    """The tight check's reference for the tensor-core kernel: attention_tc_ref,
+    and the allowance for one flip of P's rounding, P_FLIP * max|v| / l per
+    row (l >= 1 where a row sees a key)."""
+    from repro_torch.kernels.flash_attention import ref
+    want, l = ref.attention_tc_ref(q, k, v, return_denominator=True, **kw)
+    return want, (P_FLIP * v.float().abs().max() / l.clamp_min(1.0))[..., None]
+
+
+def p_rounding(got, want, v, what: str) -> tuple[float, float]:
+    """The tensor-core kernel's output against attention_ref's: the largest
+    |d o| over its P_MAX bound and mean |d o| over its P_MEAN bound (each at
+    most 1 within the bound)."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    worst = (d / (P_MAX[0] * v.float().abs().max() + P_MAX[1] * want.abs())).max().item()
+    mean = (d.mean() / (P_MEAN * want.abs().mean())).item()
+    if not worst <= 1 or not mean <= 1:
+        fail(f"{what}: beyond the P-rounding bounds against attention_ref: max {worst:.3f}, "
+             f"mean {mean:.3f} of the bound")
+    return worst, mean
 
 
 def visible_pairs(sq: int, kv_len: int, causal: bool, window) -> int:
@@ -368,21 +431,25 @@ def visible_pairs(sq: int, kv_len: int, causal: bool, window) -> int:
     return total
 
 
-def sdpa_backend(q, k, v, mask) -> str:
+def sdpa_backend(q, k, v, mask, enable_gqa=True) -> str:
     """Which backend scaled_dot_product_attention picks for these inputs."""
     import torch
     from torch.nn.attention import SDPBackend
-    choice = torch._fused_sdp_choice(q, k, v, mask, 0.0, False, scale=None, enable_gqa=True)
+    choice = torch._fused_sdp_choice(q, k, v, mask, 0.0, False, scale=None,
+                                     enable_gqa=enable_gqa)
     names = {b.value: name for name, b in SDPBackend.__members__.items()}
     return names.get(int(choice), str(choice))
 
 
 def phase_flash(dev):
-    """Phase 2b: the flash kernel against its plain version on the card; the
-    serve shape's times, bound and SDPA yardstick.  Returns the kernel entry."""
+    """Phase 2b: both flash kernels against their plain versions on the card,
+    through the dispatch rule; at the serve shape the tensor-core kernel's
+    checks and a planted fault, and both kernels' times, bounds and the SDPA
+    yardstick.  Returns the two kernel entries (tensor-core, SIMT)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
+    fa = ops.flash_attention
 
     def qkv(b, hq, hkv, sq, skv, dh, dtype, seed):
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -402,52 +469,126 @@ def phase_flash(dev):
         ("ragged kv_len non-causal bf16", (2, 8, 2, 1000, 1500, 120), False, None, 1237,
          torch.bfloat16),
         ("non-causal window f32", (1, 4, 2, 777, 777, 64), False, 100, None, torch.float32),
+        ("gqa dh128 bf16", (2, 16, 2, 1500, 1500, 128), True, None, None, torch.bfloat16),
+        ("dh80 window 100 bf16", (1, 8, 2, 1000, 1000, 80), True, 100, None, torch.bfloat16),
+        ("mqa dh64 ragged non-causal bf16", (2, 8, 1, 77, 300, 64), False, None, 211,
+         torch.bfloat16),
     ]
     cases = []
     for i, (name, shape, causal, win, kv_len, dtype) in enumerate(checks):
         q, k, v = qkv(*shape, dtype, seed=100 + i)
-        got = ops.flash_attention(q, k, v, causal=causal, window=win, kv_len=kv_len)
-        want = ref.attention_ref(q, k, v, causal=causal, window=win, kv_len=kv_len)
-        err = flash_close(got, want, f"flash_attention {name} {shape}")
-        cases.append(dict(name=name, shape=list(shape), causal=causal, window=win,
-                          kv_len=kv_len, dtype=str(dtype), max_abs_err=err))
-        print(f"[2 kernels] flash_attention {name:30s} {shape}: max abs err {err:.3e}")
-        del q, k, v, got, want
+        kw = dict(causal=causal, window=win, kv_len=kv_len)
+        kernel = ops.kernel_for(q)
+        before = (fa.launches_tc, fa.launches_simt)
+        got = ops.flash_attention(q, k, v, **kw)
+        if (fa.launches_tc - before[0], fa.launches_simt - before[1]) \
+                != ((1, 0) if kernel == "tc" else (0, 1)):
+            fail(f"flash_attention {name}: the {kernel} kernel was not the one launched")
+        case = dict(name=name, shape=list(shape), causal=causal, window=win, kv_len=kv_len,
+                    dtype=str(dtype), kernel=kernel)
+        if kernel == "tc":
+            want, flip = tc_reference(q, k, v, **kw)
+            case["max_abs_err"] = flash_close(got, want, f"flash_attention {name} {shape} "
+                                              "(tensor cores)", flip)
+            case["p_rounding"] = p_rounding(got, ref.attention_ref(q, k, v, **kw), v,
+                                            f"flash_attention {name} {shape}")
+            note = (f"against attention_tc_ref; P-rounding bound used {case['p_rounding'][0]:.3f} "
+                    f"(max), {case['p_rounding'][1]:.3f} (mean)")
+        else:
+            case["max_abs_err"] = flash_close(got, ref.attention_ref(q, k, v, **kw),
+                                              f"flash_attention {name} {shape} (SIMT)")
+            note = "against attention_ref"
+        cases.append(case)
+        print(f"[2 kernels] flash_attention {name:32s} {shape} [{kernel}]: max abs err "
+              f"{case['max_abs_err']:.3e} {note}")
+        del q, k, v, got
 
     # the serve shape: every head of one h2o-danube-3-4b layer's prefill, bf16
     b, hq, hkv, s, dh = SERVE_BATCH, 32, 8, SERVE_PROMPT, 120
+    shape = (b, hq, hkv, s, dh)
+    kw = dict(causal=True, window=window)
     q, k, v = qkv(b, hq, hkv, s, s, dh, torch.bfloat16, seed=7)
-    got = ops.flash_attention(q, k, v, causal=True, window=window)
-    want = ref.attention_ref(q, k, v, causal=True, window=window)
-    err = flash_close(got, want, f"flash_attention serve shape {(b, hq, hkv, s, dh)}")
-    if not torch.equal(got, ops.flash_attention(q, k, v, causal=True, window=window)):
-        fail("flash_attention: two launches at the serve shape differ in bits")
+    if ops.kernel_for(q) != "tc":
+        fail("flash_attention: the bf16 serve shape is not routed to the tensor-core kernel")
+    got = ops.flash_attention(q, k, v, **kw)
+    want, flip = tc_reference(q, k, v, **kw)
+    tc_err = flash_close(got, want, f"flash_attention serve shape {shape} (tensor cores)", flip)
+    rtol, atol = FLASH_TOL["bfloat16"]
+    flips = int(((got.float() - want.float()).abs() > atol + rtol * want.float().abs()).sum())
+    want = ref.attention_ref(q, k, v, **kw)
+    p_max, p_mean = p_rounding(got, want, v, f"flash_attention serve shape {shape}")
+    if not torch.equal(got, ops.tc_kernel(q, k, v, **kw)):
+        fail("flash_attention: two tensor-core launches at the serve shape differ in bits")
+    _, fault = flash_excess(got, *tc_reference(q, k, v, causal=True, window=window + 1))
+    if fault <= 1:
+        fail("flash_attention: a planted fault (window one too wide) passes the tight check")
+    simt = ops.simt_kernel(q, k, v, **kw)
+    simt_err = flash_close(simt, want, f"flash_attention serve shape {shape} (SIMT, bf16)")
     pairs = visible_pairs(s, s, True, window)
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    b_ms, b_by = bound(nbytes, 4 * dh * pairs * b * hq, BF16_OPS_PER_S)
-    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True, window=window), 10)
-    plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True, window=window), 2,
-                       warmup=1)
+    nops = 4 * dh * pairs * b * hq
+    b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()), nops, BF16_OPS_PER_S)
+    tc_ms = cuda_ms(lambda: ops.tc_kernel(q, k, v, **kw), 20)
+    simt_ms = cuda_ms(lambda: ops.simt_kernel(q, k, v, **kw), 5)
+    plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, **kw), 2, warmup=1)
     idx = torch.arange(s, device=dev)
     band = (idx[None, :] <= idx[:, None]) & (idx[None, :] > idx[:, None] - window)
     backend = sdpa_backend(q, k, v, band)
     sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band, enable_gqa=True)  # noqa: E731
     sdpa_err = (sdpa().float() - want.float()).abs().max().item()
-    library_ms = cuda_ms(sdpa, 3, warmup=1)
+    library_ms = cuda_ms(sdpa, 5, warmup=1)
     print(f"[2 kernels] flash_attention serve shape (B {b}, Hq {hq}, Hkv {hkv}, S {s}, Dh {dh}, "
-          f"window {window}, bf16): max abs err {err:.3e}  kernel {ms:.4f} ms  plain "
-          f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  SDPA [{backend}] {library_ms:.4f} "
-          f"ms (max abs diff to plain {sdpa_err:.3e}); two launches bit-identical")
-    del q, k, v, got, want, band
+          f"window {window}, bf16): tensor-core kernel {tc_ms:.4f} ms (max abs err {tc_err:.3e} "
+          f"against attention_tc_ref, {flips} of {got.numel()} outputs beyond the bf16 tolerance "
+          f"alone, none beyond one flip of P more; P-rounding bound used {p_max:.3f} max, "
+          f"{p_mean:.3f} mean; "
+          f"two launches bit-identical; window one too wide fails the tight check at "
+          f"{fault:.1f}x its tolerance)  SIMT kernel {simt_ms:.4f} ms (max abs err "
+          f"{simt_err:.3e})  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  SDPA "
+          f"[{backend}] {library_ms:.4f} ms (max abs diff to plain {sdpa_err:.3e})")
+    del got, want, simt
+
+    # the SIMT kernel's own path: float32 at the serve shape
+    q, k, v = q.float(), k.float(), v.float()
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    f32_err = flash_close(got, want, f"flash_attention serve shape {shape} (SIMT, f32)")
+    f32_ms = cuda_ms(lambda: ops.simt_kernel(q, k, v, **kw), 5)
+    f32_plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, **kw), 2, warmup=1)
+    f32_b_ms, f32_b_by = bound(4 * (2 * q.numel() + k.numel() + v.numel()), nops)
+    # SDPA with the heads expanded: its memory-efficient backend takes float32
+    # and a mask, but not enable_gqa
+    kx, vx = (x.repeat_interleave(hq // hkv, 1) for x in (k, v))
+    f32_backend = sdpa_backend(q, kx, vx, band, enable_gqa=False)
+    f32_library_ms = None if f32_backend == "MATH" else cuda_ms(
+        lambda: F.scaled_dot_product_attention(q, kx, vx, attn_mask=band), 3, warmup=1)
+    print(f"[2 kernels] flash_attention serve shape, f32: SIMT kernel {f32_ms:.4f} ms (max abs "
+          f"err {f32_err:.3e})  plain {f32_plain_ms:.4f} ms  bound {f32_b_ms:.4f} ms "
+          f"({f32_b_by})  SDPA [{f32_backend}] "
+          + ("not timed (the math backend)" if f32_library_ms is None
+             else f"{f32_library_ms:.4f} ms"))
+    del q, k, v, kx, vx, got, want, band
     torch.cuda.empty_cache()
-    return dict(name="flash_attention", route="cuda",
+    headline = f"bf16 (B {b}, Hq {hq}, Hkv {hkv}, S {s}, Dh {dh}), causal, window {window}"
+    library = f"scaled_dot_product_attention [{backend}]"
+    tc = dict(name="flash_attention_tc", route="cuda",
+              source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_tc.cu",
+              replaces="src/repro/kernels/flash_attention/kernel.py:33", launches=0,
+              max_abs_err=tc_err, ms=tc_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+              library_ms=library_ms, library=library, headline=headline,
+              p_rounding=dict(max=p_max, mean=p_mean), beyond_bf16_tolerance_alone=flips,
+              fault_window_plus_one=fault,
+              cases=[c for c in cases if c["kernel"] == "tc"])
+    simt = dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:33", launches=0,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms, library=f"scaled_dot_product_attention [{backend}]",
-                headline=f"bf16 (B {b}, Hq {hq}, Hkv {hkv}, S {s}, Dh {dh}), causal, "
-                         f"window {window}",
-                cases=cases)
+                max_abs_err=simt_err, ms=simt_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms, library=library, headline=headline,
+                f32=dict(ms=f32_ms, plain_ms=f32_plain_ms, bound_ms=f32_b_ms, bound_by=f32_b_by,
+                         library_ms=f32_library_ms,
+                         library=f"scaled_dot_product_attention [{f32_backend}]",
+                         max_abs_err=f32_err),
+                cases=[c for c in cases if c["kernel"] == "simt"])
+    return tc, simt
 
 
 # ssd_scan: the chunked dual form against the recurrence and the chunked SSD
@@ -571,16 +712,17 @@ def device_window(fn, label: str, phase: str = "6 serve") -> None:
     if busy <= 0:
         fail(f"{label}: the profiler saw no device time")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    names = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
-                      for e in top)
+    names = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms "
+                      f"({e.self_device_time_total / 1e3 / busy:.1%}) x{e.count}" for e in top)
     print(f"[{phase}] {label} (profiled): wall {wall:.3f} ms, device busy {busy:.3f} ms, "
           f"idle share {max(0.0, 1 - busy / wall):.3f}, {sum(e.count for e in kernels)} "
           f"device launches; top kernels: {names}")
 
 
-def phase_serve(dev, smi: str) -> int:
+def phase_serve(dev, smi: str) -> tuple[int, int]:
     """Phase 6: h2o-danube-3-4b at full width and depth through ServeEngine;
-    returns the flash launches of the generate run."""
+    returns the tensor-core flash launches of the bf16 generate and the SIMT
+    launches of the f32 one."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops
@@ -601,17 +743,19 @@ def phase_serve(dev, smi: str) -> int:
     print(f"[6 serve] {H2O}: {n_params / 1e9:.3f} B parameters in bf16, built in "
           f"{time.perf_counter() - t0:.2f} s")
 
+    fa = ops.flash_attention
     torch.cuda.reset_peak_memory_stats()
-    ops.flash_attention.launches = 0
+    fa.launches = fa.launches_tc = fa.launches_simt = 0
     t0 = time.perf_counter()
     tokens = engine.generate(prompt, SERVE_NEW, cache_len)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    launches = ops.flash_attention.launches
+    launches = fa.launches_tc
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if launches != cfg.num_layers:
-        fail(f"serve: {launches} flash launches in one generate, want {cfg.num_layers} "
-             "(one per layer of the prefill)")
+    if (fa.launches, launches, fa.launches_simt) != (cfg.num_layers, cfg.num_layers, 0):
+        fail(f"serve: {fa.launches} flash launches in one generate ({launches} tensor-core, "
+             f"{fa.launches_simt} SIMT), want {cfg.num_layers} tensor-core launches (one per "
+             "layer of the prefill)")
     if tokens.shape != (SERVE_BATCH, SERVE_NEW):
         fail(f"serve: generate gave tokens of shape {tuple(tokens.shape)}")
 
@@ -658,7 +802,8 @@ def phase_serve(dev, smi: str) -> int:
     _, fault_max, fault_mean = drift(faulty)
     same = int((logits.argmax(-1) == plain.argmax(-1)).sum())
     print(f"[6 serve] generate of {SERVE_NEW} tokens after a {SERVE_BATCH}x{SERVE_PROMPT} prompt: "
-          f"{gen_s:.3f} s; flash launches {launches}; peak memory {peak_gb:.3f} GB  [{smi}]")
+          f"{gen_s:.3f} s; flash launches {launches}, all on the tensor cores; peak memory "
+          f"{peak_gb:.3f} GB  [{smi}]")
     print(f"[6 serve] prefill {prefill_ms:.3f} ms ({SERVE_BATCH * SERVE_PROMPT / (t1 - t0):.0f} "
           f"prompt tokens/s); decode {decode_ms:.3f} ms/token step "
           f"({SERVE_BATCH * 1e3 / decode_ms:.1f} tokens/s at batch {SERVE_BATCH})")
@@ -681,17 +826,19 @@ def phase_serve(dev, smi: str) -> int:
     cpu = DecoderLM(small, device="cpu")
     cpu.load_state_dict(card.state_dict())
     p = torch.randint(0, small.vocab_size, (2, 300), generator=torch.Generator().manual_seed(3))
-    before = ops.flash_attention.launches
+    fa.launches = fa.launches_tc = fa.launches_simt = 0
     got = ServeEngine(card).generate(p, 6, 306)
-    if ops.flash_attention.launches - before != small.num_layers:
-        fail("serve reference: the card run did not launch the flash kernel once per layer")
+    simt_launches = fa.launches_simt
+    if (fa.launches, simt_launches) != (small.num_layers, small.num_layers):
+        fail("serve reference: the f32 card run did not launch the SIMT flash kernel once per "
+             "layer")
     want = ServeEngine(cpu).generate(p, 6, 306)
     if not torch.equal(got.cpu(), want):
         fail(f"serve reference: greedy tokens on the card {got.tolist()} differ from the "
              f"CPU's {want.tolist()}")
     print(f"[6 serve] reference: 2 layers at full width (f32, window 128, prompt 2x300): "
-          f"the card's 6 greedy tokens equal the CPU's")
-    return launches
+          f"the card's 6 greedy tokens equal the CPU's ({simt_launches} SIMT flash launches)")
+    return launches, simt_launches
 
 
 MAMBA2 = "mamba2-2.7b"
@@ -904,7 +1051,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     phase_build()
     cases, noise_cases = phase_kernels(dev)
-    flash = phase_flash(dev)
+    flash_tc, flash_simt = phase_flash(dev)
     ssd = phase_ssd(dev)
 
     ops.dp_aggregate_sums.launches = 0
@@ -918,7 +1065,7 @@ def main() -> int:
             fail(f"kernel {k} was never launched on the main path")
 
     phase_reference(dev)
-    flash["launches"] = phase_serve(dev, smi)
+    flash_tc["launches"], flash_simt["launches"] = phase_serve(dev, smi)
     ssd["launches"] = phase_serve_ssm(dev, smi)
 
     src = "src/repro_torch/kernels/dp_aggregate/csrc/dp_aggregate.cu"
@@ -938,7 +1085,8 @@ def main() -> int:
              ms=nhead["ms"], plain_ms=nhead["plain_ms"], bound_ms=nhead["bound_ms"],
              bound_by=nhead["bound_by"], library_ms=None, headline="(1000, 131072)",
              cases=noise_cases),
-        flash,
+        flash_tc,
+        flash_simt,
         ssd,
     ]
     print(smi)

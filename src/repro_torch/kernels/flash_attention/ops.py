@@ -1,17 +1,29 @@
-"""Wrapper of the flash attention kernel (counterpart of repro/kernels/flash_attention/ops.py).
+"""Wrapper of the flash attention kernels (counterpart of repro/kernels/flash_attention/ops.py).
 
-The wrapper decides by the tensors' device alone: CPU tensors run the plain
-version in ``ref.py``; CUDA tensors launch the hand-written kernel
-(``csrc/flash_attention.cu``) or raise.  ``flash_attention.launches`` counts
-the kernel's launches; ``chip_smoke.py`` zeroes it before it drives the serve
-path and reads it after.
+The wrapper decides by the tensors' device first: CPU tensors run the plain
+version in ``ref.py``; CUDA tensors launch one of two hand-written kernels, or
+raise.  Which one is a rule of dtype and head dim alone (``kernel_for``), and
+nothing catches a failure of one kernel to try the other:
 
-Unlike the JAX wrapper, nothing is padded: the kernel masks ragged lengths
-itself, and takes the tensors' own (batch, head, row) strides, so the
+* bfloat16 with Dh <= 128: the tensor-core kernel (``csrc/flash_attention_tc.cu``,
+  ``tc_kernel``): TMA loads into a ring of shared-memory stages, ``wgmma`` for
+  both products, warp-specialised.  Its TMA maps take 16-byte-aligned base
+  pointers, (batch, head, row) strides that are multiples of 8 elements and
+  Dh a multiple of 8; a tensor that is not raises ``ValueError``.  It rounds
+  P to bf16 before P.V (``ref.attention_tc_ref`` has its rounding order).
+* float32, or Dh > 128: the SIMT kernel (``csrc/flash_attention.cu``,
+  ``simt_kernel``): float32 products on the CUDA cores, any Dh up to 256.
+
+``flash_attention.launches`` counts every launch, ``launches_tc`` and
+``launches_simt`` each kernel's; ``chip_smoke.py`` zeroes them before it
+drives the serve path and reads them after.
+
+Unlike the JAX wrapper, nothing is padded: the kernels mask ragged lengths
+themselves, and take the tensors' own (batch, head, row) strides, so the
 model's (B, S, H, Dh) projections go in as transposed views without a copy.
-The kernel's tiles are 64 x 64, chosen for the H100's shared memory; the JAX
-wrapper's ``block_q``/``block_k`` are TPU tile sizes that no caller sets, and
-have no counterpart here.
+The kernels' tiles are chosen for the H100 (128 x 128 on the tensor cores,
+64 x 64 on the SIMT path); the JAX wrapper's ``block_q``/``block_k`` are TPU
+tile sizes that no caller sets, and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -25,23 +37,60 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
-__all__ = ["flash_attention", "load_library"]
+__all__ = ["flash_attention", "kernel_for", "simt_kernel", "tc_kernel", "tma_strides",
+           "load_library", "load_library_tc"]
 
-_SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 256
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the SIMT kernel's dtype codes
+_MAX_HEAD_DIM = 256          # the SIMT kernel
+_TC_MAX_HEAD_DIM = 128       # the tensor-core kernel: two 64-wide TMA boxes
+_TC_ALIGN = 16               # bytes: TMA's base and stride alignment
+_TC_ROWS = 128               # the tensor-core kernel's query tile
 _MAX_GRID_Y = 65535
+
+
+def _declare(fn, n_ints: int) -> None:
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn.argtypes = [p, p, p, p] + [i32] * n_ints + [ctypes.c_float, i32, i32] + [i64] * 12 + [p]
+    fn.restype = ctypes.c_int
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel; declare the C signature."""
-    lib = _build.load_library("flash_attention", _SOURCES)
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.flash_attention_launch.argtypes = (
-        [p, p, p, p] + [i32] * 8 + [ctypes.c_float, i32, i32] + [i64] * 12 + [p])
-    lib.flash_attention_launch.restype = ctypes.c_int
+    """Build (once per source hash) and load the SIMT kernel; declare its C signature."""
+    lib = _build.load_library("flash_attention", (_CSRC / "flash_attention.cu",))
+    _declare(lib.flash_attention_launch, 8)
     return lib
+
+
+@functools.cache
+def load_library_tc() -> ctypes.CDLL:
+    """Build (once per source hash) and load the tensor-core kernel; declare its C signature."""
+    lib = _build.load_library("flash_attention_tc", (_CSRC / "flash_attention_tc.cu",))
+    _declare(lib.flash_attention_tc_launch, 7)
+    return lib
+
+
+def kernel_for(q: torch.Tensor) -> str:
+    """The CUDA kernel that takes ``q``: ``"tc"`` for bfloat16 with Dh <= 128,
+    else ``"simt"``."""
+    return "tc" if q.dtype == torch.bfloat16 and q.shape[-1] <= _TC_MAX_HEAD_DIM else "simt"
+
+
+def tma_strides(x: torch.Tensor) -> tuple[int, int, int]:
+    """The (batch, head, row) strides of a bf16 (B, H, S, Dh) tensor for a TMA
+    map, or ``ValueError``: the base 16-byte aligned, each stride a multiple
+    of 8 elements.  A dimension of size 1 is never stepped, so its stride is
+    replaced by 8."""
+    if x.data_ptr() % _TC_ALIGN:
+        raise ValueError(f"the tensor-core flash kernel needs {_TC_ALIGN}-byte-aligned "
+                         f"tensors; this one starts at {x.data_ptr():#x}")
+    strides = tuple(s if n > 1 else 8 for n, s in zip(x.shape[:3], x.stride()[:3]))
+    if any(s % 8 for s in strides) or x.shape[-1] % 8:
+        raise ValueError(f"the tensor-core flash kernel needs (batch, head, row) strides and "
+                         f"Dh in multiples of 8 elements; got strides {x.stride()} and shape "
+                         f"{tuple(x.shape)}")
+    return strides
 
 
 def _check(q, k, v, window, kv_len) -> int:
@@ -64,32 +113,46 @@ def _check(q, k, v, window, kv_len) -> int:
     return kv_len
 
 
+def _cuda_inputs(q, k, v, window, kv_len):
+    """The checks both kernels share; q, k, v with a contiguous last axis, and kv_len."""
+    kv_len = _check(q, k, v, window, kv_len)
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"the flash kernels take q, k and v on one CUDA device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"the CUDA kernels take float32 or bfloat16, got {q.dtype}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise NotImplementedError("the flash attention kernels have no backward yet "
+                                  "(ROADMAP queue 1, item 18); run them under torch.no_grad()")
+    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    return q, k, v, kv_len
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     window: int | None = None, kv_len: int | None = None) -> torch.Tensor:
     """Blockwise attention; q (B, Hq, Sq, Dh), k/v (B, Hkv, Skv, Dh) -> (B, Hq, Sq, Dh).
 
-    Keys at or past ``kv_len`` (default Skv) are masked.  On CUDA: float32 or
-    bfloat16, Dh <= 256, and no autograd (the kernel has no backward).
+    Keys at or past ``kv_len`` (default Skv) are masked.  On CUDA: bfloat16
+    with Dh <= 128 goes to ``tc_kernel``, float32 or Dh > 128 to
+    ``simt_kernel`` (``kernel_for``); no autograd (the kernels have no backward).
     """
-    kv_len = _check(q, k, v, window, kv_len)
     if q.device.type == "cpu":
+        kv_len = _check(q, k, v, window, kv_len)
         return ref.attention_ref(q, k, v, causal=causal, window=window, kv_len=kv_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda tensors, got {q.device}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("q, k and v must lie on one device")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got {q.dtype}")
+    launch = tc_kernel if kernel_for(q) == "tc" else simt_kernel
+    return launch(q, k, v, causal=causal, window=window, kv_len=kv_len)
+
+
+def simt_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                window: int | None = None, kv_len: int | None = None) -> torch.Tensor:
+    """The SIMT kernel on CUDA tensors: float32 or bfloat16, Dh <= 256."""
+    q, k, v, kv_len = _cuda_inputs(q, k, v, window, kv_len)
     b, hq, sq, dh = q.shape
     if dh > _MAX_HEAD_DIM or b * hq > _MAX_GRID_Y:
-        raise ValueError(f"the CUDA kernel takes Dh <= {_MAX_HEAD_DIM} and B*Hq <= "
+        raise ValueError(f"the SIMT flash kernel takes Dh <= {_MAX_HEAD_DIM} and B*Hq <= "
                          f"{_MAX_GRID_Y}, got Dh {dh}, B*Hq {b * hq}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError("the flash attention kernel has no backward yet "
-                                  "(ROADMAP queue 1, item 18); run it under torch.no_grad()")
     if q.numel() == 0:
         return torch.empty_like(q)
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
     out = torch.empty_like(q)   # q's layout: a transposed view in, a transposed view out
     err = load_library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
@@ -98,9 +161,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention SIMT kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.launches_simt += 1
+    return out
+
+
+def tc_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+              window: int | None = None, kv_len: int | None = None) -> torch.Tensor:
+    """The tensor-core kernel on CUDA tensors: bfloat16, Dh a multiple of 8 up
+    to 128, TMA-aligned (``tma_strides``)."""
+    q, k, v, kv_len = _cuda_inputs(q, k, v, window, kv_len)
+    b, hq, sq, dh = q.shape
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core flash kernel takes bfloat16, got {q.dtype}")
+    if dh > _TC_MAX_HEAD_DIM or -(-sq // _TC_ROWS) > _MAX_GRID_Y:
+        raise ValueError(f"the tensor-core flash kernel takes Dh <= {_TC_MAX_HEAD_DIM} and "
+                         f"Sq <= {_TC_ROWS * _MAX_GRID_Y}, got Dh {dh}, Sq {sq}")
+    if q.numel() == 0 or kv_len == 0:   # nothing to load: every row sees no key
+        return torch.zeros_like(q)
+    out = torch.empty_like(q)   # q's layout: a transposed view in, a transposed view out
+    strides = [s for x in (q, k, v) for s in tma_strides(x)]
+    err = load_library_tc().flash_attention_tc_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, hq, k.shape[1], sq, k.shape[2], dh, kv_len, 1.0 / math.sqrt(dh), int(causal),
+        0 if window is None else int(window), *strides, *out.stride()[:3],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err < 0:
+        raise RuntimeError(f"flash_attention tensor-core kernel: cuTensorMapEncodeTiled "
+                           f"failed (CUresult {-err}; 500: the driver has no such entry point)")
+    if err != 0:
+        raise RuntimeError(f"flash_attention tensor-core kernel launch failed: CUDA error {err}")
+    flash_attention.launches += 1
+    flash_attention.launches_tc += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
+flash_attention.launches_simt = 0

@@ -7,10 +7,15 @@ Run where there is a CUDA card (an H100: the kernels build for sm_90a):
 Without a card every test here skips.  Only torch is imported, so the file
 also runs where JAX is not installed.  Tolerances: sums at rtol 1e-5 with an
 atol of 1e-5 times the largest entry (float32 sums in other orders); noise at
-1e-5 sigma per element (float32 log/cos/sqrt rounding).  Flash attention in
-float32 at rtol 1e-5 and atol 1e-5 (float32 sums in other orders); in
-bfloat16 at rtol 2^-7, one bfloat16 ulp (both sides compute in float32 and
-round once), with atol 1e-4 for outputs near zero.  The SSD scan in float32
+1e-5 sigma per element (float32 log/cos/sqrt rounding).  Flash attention on
+the SIMT kernel (float32, or Dh > 128) against attention_ref: float32 at rtol
+1e-5 and atol 1e-5 (float32 sums in other orders); bfloat16 at rtol 2^-7, one
+bfloat16 ulp (both sides compute in float32 and round once), with atol 1e-4
+for outputs near zero.  On the tensor-core kernel (bfloat16, Dh <= 128)
+against attention_tc_ref, its rounding order: the same bfloat16 tolerance
+plus one bf16 ulp of a row's largest p (chip_smoke.tc_reference: a p next to
+a rounding boundary may round the other way); against attention_ref within
+the P-rounding bounds chip_smoke.py derives (P_MAX, P_MEAN).  The SSD scan in float32
 against the recurrence and the chunked SSD at rtol 1e-5 with an atol of 1e-5
 times the largest entry (the chunked dual form against products of per-step
 decays: float32 sums in other orders).
@@ -110,7 +115,23 @@ FLASH_CASES = {  # b, hq, hkv, sq, skv, dh, causal, window, kv_len
     "ragged-kv-len-noncausal": (2, 4, 2, 77, 150, 64, False, None, 101),
     "dh200-window-noncausal": (1, 2, 2, 90, 90, 200, False, 40, None),
     "dh32-one-row": (1, 2, 1, 1, 1, 32, True, None, None),
+    "dh80-zamba2": (1, 8, 2, 333, 333, 80, True, None, None),
+    "dh128-granite": (2, 8, 2, 300, 300, 128, True, None, None),
+    "mqa-sq-under-one-tile": (2, 8, 1, 50, 200, 64, False, None, None),
+    "ragged-sq-skv-kv-len": (1, 4, 2, 130, 257, 120, False, None, 250),
+    "window-under-one-tile": (1, 4, 1, 400, 400, 120, True, 37, None),
+    "one-row-query-long-keys": (2, 4, 2, 1, 300, 120, False, None, 299),
+    "noncausal-window-dh64": (1, 4, 2, 300, 300, 64, False, 50, None),
 }
+
+
+def _tc_close(got, q, k, v, **kw):
+    """chip_smoke.py's checks of the tensor-core kernel: tight against its
+    rounding order, and within the P-rounding bounds of attention_ref."""
+    want, flip = chip_smoke.tc_reference(q, k, v, **kw)
+    chip_smoke.flash_close(got, want, "tensor-core kernel vs attention_tc_ref", flip)
+    chip_smoke.p_rounding(got, attention_ref(q, k, v, **kw), v,
+                          "tensor-core kernel vs attention_ref")
 
 
 def _qkv(dev, dtype, b, hq, hkv, sq, skv, dh, seed=0):
@@ -124,28 +145,78 @@ def _qkv(dev, dtype, b, hq, hkv, sq, skv, dh, seed=0):
 def test_flash_kernel_matches_plain(dev, case, dtype):
     b, hq, hkv, sq, skv, dh, causal, window, kv_len = FLASH_CASES[case]
     q, k, v = _qkv(dev, dtype, b, hq, hkv, sq, skv, dh)
-    before = flash_ops.flash_attention.launches
-    got = flash_ops.flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
-    assert flash_ops.flash_attention.launches == before + 1
-    want = attention_ref(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    fa = flash_ops.flash_attention
+    kernel = "tc" if dtype == torch.bfloat16 and dh <= 128 else "simt"
+    before = (fa.launches, fa.launches_tc, fa.launches_simt)
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    got = fa(q, k, v, **kw)
+    assert (fa.launches, fa.launches_tc, fa.launches_simt) == (
+        before[0] + 1, before[1] + (kernel == "tc"), before[2] + (kernel == "simt"))
     assert got.dtype == dtype and got.shape == q.shape
-    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    if kernel == "tc":
+        _tc_close(got, q, k, v, **kw)
+    else:
+        want = attention_ref(q, k, v, **kw)
+        torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
 
 
-def test_flash_kernel_is_deterministic_and_takes_strided_views(dev):
+def _deterministic_on_strided_views(dev, launch, dtype):
     b, s, hq, hkv, dh = 2, 257, 8, 2, 120
     g = torch.Generator(device=dev).manual_seed(3)
     # the model's layout: (B, S, H, Dh), handed over as (B, H, S, Dh) views
-    q = torch.randn(b, s, hq, dh, generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
-    k = torch.randn(b, s, hkv, dh, generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
-    v = torch.randn(b, s, hkv, dh, generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
-    a = flash_ops.flash_attention(q, k, v, causal=True, window=100)
-    again = flash_ops.flash_attention(q, k, v, causal=True, window=100)
+    q = torch.randn(b, s, hq, dh, generator=g, device=dev).to(dtype).transpose(1, 2)
+    k = torch.randn(b, s, hkv, dh, generator=g, device=dev).to(dtype).transpose(1, 2)
+    v = torch.randn(b, s, hkv, dh, generator=g, device=dev).to(dtype).transpose(1, 2)
+    a = launch(q, k, v, causal=True, window=100)
+    again = launch(q, k, v, causal=True, window=100)
     assert torch.equal(a, again)
-    dense = flash_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                      causal=True, window=100)
+    dense = launch(q.contiguous(), k.contiguous(), v.contiguous(), causal=True, window=100)
     assert torch.equal(a, dense)
     assert a.transpose(1, 2).is_contiguous()   # out in q's layout: no copy back
+
+
+def test_flash_kernel_is_deterministic_and_takes_strided_views(dev):
+    _deterministic_on_strided_views(dev, flash_ops.tc_kernel, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_simt_kernel_is_deterministic_and_takes_strided_views(dev, dtype):
+    _deterministic_on_strided_views(dev, flash_ops.simt_kernel, dtype)
+
+
+def test_flash_dispatch_follows_the_rule_and_refuses_misaligned_views(dev):
+    fa = flash_ops.flash_attention
+    for dtype, dh, kernel in ((torch.bfloat16, 120, "tc"), (torch.bfloat16, 256, "simt"),
+                              (torch.float32, 120, "simt")):
+        q, k, v = _qkv(dev, dtype, 1, 2, 1, 64, 64, dh)
+        before = (fa.launches_tc, fa.launches_simt)
+        fa(q, k, v)
+        assert (fa.launches_tc - before[0], fa.launches_simt - before[1]) == \
+            ((1, 0) if kernel == "tc" else (0, 1))
+    wide = torch.zeros(1, 2, 64, 128, device=dev, dtype=torch.bfloat16)
+    before = fa.launches
+    with pytest.raises(ValueError, match="aligned"):       # base 2 bytes off
+        fa(wide[..., 1:121], wide[..., 1:121], wide[..., 1:121])
+    padded = torch.zeros(1, 2, 64, 124, device=dev, dtype=torch.bfloat16)[..., :120]
+    with pytest.raises(ValueError, match="multiples of 8"):  # row stride 124
+        fa(padded, padded, padded)
+    assert fa.launches == before   # nothing else was tried
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_ops.tc_kernel(wide.float(), wide.float(), wide.float())
+    q, k, v = _qkv(dev, torch.bfloat16, 1, 2, 1, 5, 7, 64)
+    assert torch.equal(fa(q, k, v, causal=False, kv_len=0), torch.zeros_like(q))
+
+
+def test_tc_kernel_matches_its_rounding_order_at_the_serve_shape(dev):
+    """The h2o-danube-3-4b prefill's attention, every head, and a planted
+    fault (the window one too wide) that the tight check must see."""
+    q, k, v = _qkv(dev, torch.bfloat16, 2, 32, 8, 8192, 8192, 120, seed=7)
+    got = flash_ops.tc_kernel(q, k, v, causal=True, window=4096)
+    _tc_close(got, q, k, v, causal=True, window=4096)
+    assert torch.equal(got, flash_ops.tc_kernel(q, k, v, causal=True, window=4096))
+    _, fault = chip_smoke.flash_excess(got, *chip_smoke.tc_reference(q, k, v, causal=True,
+                                                                      window=4097))
+    assert fault > 1
 
 
 def test_flash_kernel_refuses_what_it_cannot_run(dev):

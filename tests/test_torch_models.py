@@ -32,6 +32,7 @@ from repro.models import mlp as jax_mlp  # noqa: E402
 from repro.models.transformer import DecoderLM as JaxDecoderLM  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.convert import decoder_from_jax, params_from_jax  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_tc_ref  # noqa: E402
 from repro_torch.models import DecoderLM, attention, common, mlp  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -254,23 +255,11 @@ class TestAttentionApply:
         _close(got, want)
 
 
-def _online_softmax_attention(q, k, v, *, causal=True, window=None, kv_len=None):
-    """The kernel's order of float32 sums on the CPU: 64-key tiles, online softmax."""
-    dh, group = q.shape[-1], q.shape[1] // k.shape[1]
-    qf = q.float() / np.sqrt(dh)
-    kf, vf = (t.float().repeat_interleave(group, 1) for t in (k, v))
-    m = torch.full(q.shape[:3] + (1,), -1e30)
-    l, acc = torch.zeros(q.shape[:3] + (1,)), torch.zeros(qf.shape)
-    qi = torch.arange(q.shape[2])[:, None]
-    for k0 in range(0, k.shape[2], 64):
-        kj = torch.arange(k0, min(k0 + 64, k.shape[2]))[None]
-        vis = ((kj <= qi) if causal else (kj >= 0)) & (kj > qi - window if window else True)
-        s = (qf @ kf[:, :, k0:k0 + 64].transpose(-1, -2)).masked_fill(~vis, -1e30)
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        p = torch.exp(s - m_new) * vis
-        alpha = torch.exp(m - m_new)
-        l, acc, m = alpha * l + p.sum(-1, keepdim=True), alpha * acc + p @ vf[:, :, k0:k0 + 64], m_new
-    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+def _simt_order(q, k, v, *, causal=True, window=None):
+    """The SIMT kernel's order of float32 sums on the CPU: 64-key tiles,
+    online softmax, p in float32."""
+    return attention_tc_ref(q.float(), k.float(), v.float(), causal=causal, window=window,
+                            block_k=64).to(q.dtype)
 
 
 @pytest.fixture(scope="module")
@@ -308,15 +297,18 @@ def _serve_drift(bf16_serve, monkeypatch, attend, capsys, label):
     return max_rel, mean_rel
 
 
+@pytest.mark.parametrize("order", ["simt", "tensor-core"])
 def test_bf16_drift_between_attention_orders_is_within_the_serve_bounds(bf16_serve, monkeypatch,
-                                                                        capsys):
+                                                                        capsys, order):
     """The bound of chip_smoke.py's full-width serve check, from the CPU: at
-    full depth in bf16, two float32 attention orders (dense, and the
-    kernel's tiles) move the prefill logits only by bf16 rounding carried
+    full depth in bf16, the dense path against each kernel's order (the SIMT
+    kernel's float32 tiles; the tensor-core kernel's 128-key tiles with p
+    rounded to bf16) moves the prefill logits only by bf16 rounding carried
     through 24 layers."""
     chip_smoke = bf16_serve[0]
-    max_rel, mean_rel = _serve_drift(bf16_serve, monkeypatch, _online_softmax_attention, capsys,
-                                     "bf16 drift")
+    attend = _simt_order if order == "simt" else attention_tc_ref
+    max_rel, mean_rel = _serve_drift(bf16_serve, monkeypatch, attend, capsys,
+                                     f"bf16 drift, {order} order")
     assert 0 < max_rel < chip_smoke.SERVE_MAX_ERR and mean_rel < chip_smoke.SERVE_MEAN_ERR
 
 
@@ -332,7 +324,7 @@ def test_a_planted_mask_fault_fails_the_serve_bounds(bf16_serve, monkeypatch, ca
             window += 1
         else:
             causal = False
-        return _online_softmax_attention(q, k, v, causal=causal, window=window)
+        return _simt_order(q, k, v, causal=causal, window=window)
 
     chip_smoke = bf16_serve[0]
     max_rel, mean_rel = _serve_drift(bf16_serve, monkeypatch, attend, capsys, fault)
