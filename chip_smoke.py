@@ -6,7 +6,9 @@
 Phases, each of which exits non-zero on failure:
   1. build     nvcc builds the dp_aggregate, flash_attention (SIMT and
                tensor-core) and ssd_scan kernels from csrc/ (ctypes), one
-               process per source, all at once.
+               process per source, all at once; ptxas's registers and
+               spills, and each kernel's tensor-core instructions (HMMA,
+               HGMMA) where the toolkit has cuobjdump.
   2. kernels   every kernel against its plain PyTorch version on the card, at
                the main paths' shapes and ragged ones; fused-mode noise
                against the noise-only kernel; bitwise determinism; times.
@@ -25,7 +27,8 @@ Phases, each of which exits non-zero on failure:
                shapes, and at the Mamba2 serve shape (2, 16384, 80, 64) with
                N 128 and inputs drawn as Mamba2 initialises A and dt; the
                final state against the chunked path's; bitwise determinism;
-               times and bound.
+               its time, the bound for 3xTF32 tensor-core products and for
+               float32 ones, and a profiled split over the four stages.
   3. paper     the paper's synthetic linear regression (M=1000, tau=20,
                50 rounds; d=500 CDP/noiseless, d=100 LDP) for the six
                ported names, plus the two LDP names on the materialized-
@@ -66,6 +69,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -77,6 +81,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+TF32X3_OPS_PER_S = 495e12 / 3   # float32-accurate products on the tensor cores: 3 TF32 each
 # operations per element of the (M, d) matrix.  none: norm fma (2), scale mul,
 # column add; operand/fused add the noise add and the square fma (3 more).
 # The counter generator adds ~131 ops (Threefry-2x32-20: 117 integer ops;
@@ -153,14 +158,34 @@ def phase_build():
     loaders = (dp_ops.load_library, flash_ops.load_library, flash_ops.load_library_tc,
                ssd_ops.load_library)
     with ThreadPoolExecutor(len(loaders)) as pool:
-        for fut in [pool.submit(load) for load in loaders]:
-            fut.result()
+        libs = [fut.result() for fut in [pool.submit(load) for load in loaders]]
     print(f"[1 build] kernels built in {time.perf_counter() - t0:.2f} s")
     for name, log in _build.build_log.items():
         print(f"    {name}: nvcc {log['seconds']:.2f} s")
         for line in log["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("    ptxas:", line.strip())
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(cuobjdump).exists():
+        print("    sass: no cuobjdump in this toolkit")
+        return
+    for lib in libs:
+        for fn, (hmma, hgmma) in sass_mma(cuobjdump, lib._name).items():
+            print(f"    sass: {Path(lib._name).name} {fn}: {hmma} HMMA, {hgmma} HGMMA")
+
+
+def sass_mma(cuobjdump: str, path: str) -> dict[str, tuple[int, int]]:
+    """Tensor-core instructions (HMMA, HGMMA) in each kernel's SASS."""
+    out = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][1] += "HGMMA" in line
+            counts[fn][0] += "HMMA" in line
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 def phase_kernels(dev):
@@ -594,10 +619,12 @@ def phase_flash(dev):
 # ssd_scan: the chunked dual form against the recurrence and the chunked SSD
 # at 128-step chunks, all float32: |k - p| <= SSD_RTOL * (|p| + max|p|).  On
 # the CPU at (2, 4096, 4, 64, 128) with Mamba2's ranges the three orders sit
-# within 6.2e-7 of each other on that scale.
+# within 6.2e-7 of each other on that scale.  The kernels' 3xTF32 products,
+# emulated on the CPU against a float64 recurrence, stay well within
+# SSD_RTOL, TF32 products alone far outside it
+# (tests/test_torch_ssd_scan.py::test_tensor_core_products_against_ssd_rtol).
 SSD_RTOL = 1e-5
 SSD_SERVE = (2, 16384, 80, 64, 128)   # mamba2-2.7b's prefill of 2 x 16384: B, S, H, P, N
-SSD_CHUNK = 64                        # the CUDA kernel's chunk (csrc/ssd_scan.cu)
 
 
 def ssd_inputs(b, s, h, p, n, dev, seed, kind="mamba2"):
@@ -625,21 +652,20 @@ def ssd_inputs(b, s, h, p, n, dev, seed, kind="mamba2"):
 
 
 def ssd_ops(b, s, h, p, n) -> float:
-    """Operations of the kernel's chunked form on these shapes: per (batch,
-    head) and chunk of l steps, l(l+1)/2 * P multiply-adds inside the chunk
-    (the causal half), l*N*P for C h and l*N*P for the state update; per
-    (batch, chunk), l(l+1)/2 * N for C B^T, shared by the heads.  Two
-    operations each."""
-    fma = 0
-    for t0 in range(0, s, SSD_CHUNK):
-        tri = (l := min(SSD_CHUNK, s - t0)) * (l + 1) // 2
-        fma += h * (tri * p + 2 * l * n * p) + tri * n
-    return 2.0 * b * fma
+    """Operations the SSD needs on these shapes, whatever the chunk.  The
+    chunked form does, per (batch, head) and chunk of l steps, l(l+1)/2 * P
+    multiply-adds inside the chunk (the causal half), l*N*P for C h and l*N*P
+    for the chunk state, and per (batch, chunk) l(l+1)/2 * N for C B^T,
+    shared by the heads.  That falls as l shrinks, to the recurrence's
+    2*N*P + P per (step, head) and N per step at l = 1, so no chunk does
+    less.  Two operations each."""
+    return 2.0 * b * s * (h * (2 * n * p + p) + n)
 
 
 def phase_ssd(dev):
-    """Phase 2c: the SSD scan kernel against its plain versions on the card;
-    the serve shape's times and bound.  Returns the kernel entry."""
+    """Phase 2c: the SSD scan kernels against their plain versions on the
+    card; at the serve shape their time, the bounds and the stage split of
+    one launch.  Returns the kernel entry."""
     import torch
     from repro_torch.kernels.ssd_scan import ops, ref
     from repro_torch.models.ssm import _final_state, ssd_chunked
@@ -654,50 +680,67 @@ def phase_ssd(dev):
     cases = []
     for i, (name, shape, kind) in enumerate(checks):
         args = ssd_inputs(*shape, dev, seed=200 + i, kind=kind)
-        y, state = ops.ssd_scan(*args, return_state=True)
         want, want_state = ref.ssd_scan_ref(*args, return_state=True)
-        err = max(close(y, want, f"ssd_scan {name} {shape} vs the recurrence", SSD_RTOL),
-                  close(state, want_state, f"ssd_scan {name} {shape} state", SSD_RTOL))
-        close(y, ssd_chunked(*args), f"ssd_scan {name} {shape} vs ssd_chunked", SSD_RTOL)
-        close(state, _final_state(*args[:4]), f"ssd_scan {name} {shape} vs _final_state",
-              SSD_RTOL)
+        y, state = ops.ssd_scan(*args, return_state=True)
+        what = f"ssd_scan {name} {shape}"
+        err = max(close(y, want, f"{what} vs the recurrence", SSD_RTOL),
+                  close(state, want_state, f"{what} state", SSD_RTOL))
+        close(y, ssd_chunked(*args), f"{what} vs ssd_chunked", SSD_RTOL)
+        close(state, _final_state(*args[:4]), f"{what} vs _final_state", SSD_RTOL)
         cases.append(dict(name=name, shape=list(shape), inputs=kind, max_abs_err=err))
         print(f"[2 kernels] ssd_scan {name:28s} {shape}: max abs err {err:.3e} against the "
-              f"recurrence (y and final state); within rtol {SSD_RTOL} of ssd_chunked too")
+              f"recurrence (y and final state); within rtol {SSD_RTOL} of ssd_chunked and "
+              "_final_state too")
 
     shape = SSD_SERVE
+    b, s, h, p, n = shape
     args = ssd_inputs(*shape, dev, seed=7)
+    want, want_state = ssd_chunked(*args), _final_state(*args[:4])
     y, state = ops.ssd_scan(*args, return_state=True)
-    err = max(close(y, ssd_chunked(*args), f"ssd_scan serve shape {shape} vs ssd_chunked",
-                    SSD_RTOL),
-              close(state, _final_state(*args[:4]), f"ssd_scan serve shape {shape} state",
-                    SSD_RTOL))
+    what = f"ssd_scan serve shape {shape}"
+    err = max(close(y, want, f"{what} vs ssd_chunked", SSD_RTOL),
+              close(state, want_state, f"{what} state vs _final_state", SSD_RTOL))
     again, again_state = ops.ssd_scan(*args, return_state=True)
     if not (torch.equal(y, again) and torch.equal(state, again_state)):
-        fail("ssd_scan: two launches at the serve shape differ in bits")
-    b, s, h, p, n = shape
-    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n + b * h * n * p)
-    b_ms, b_by = bound(nbytes, ssd_ops(*shape))
+        fail(f"{what}: two launches differ in bits")
+    del y, state, again, again_state
     ms = cuda_ms(lambda: ops.ssd_scan(*args, return_state=True), 10)
-    plain_ms = cuda_ms(lambda: (ssd_chunked(*args), _final_state(*args[:4])), 2, warmup=1)
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n + b * h * n * p)
+    nops = ssd_ops(*shape)
+    b_ms, b_by = bound(nbytes, nops, TF32X3_OPS_PER_S)
+    f32_ms, f32_by = bound(nbytes, nops)
+    scratch_gb = 4 * ops.load_library().ssd_scan_scratch_floats(b, s, h, p, n) / 1e9
     print(f"[2 kernels] ssd_scan serve shape (B {b}, S {s}, H {h}, P {p}, N {n}, Mamba2 A and "
-          f"dt): max abs err {err:.3e} against ssd_chunked and _final_state  kernel {ms:.4f} ms  "
-          f"plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}, {ssd_ops(*shape):.4g} "
-          f"operations, {nbytes / 1e9:.3f} GB); two launches bit-identical")
-    del args, y, state, again, again_state
+          f"dt), chunk {ops.CHUNK}: max abs err {err:.3e} against ssd_chunked and _final_state; "
+          f"two launches bit-identical; kernels {ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}; "
+          f"{nops:.4g} operations at {TF32X3_OPS_PER_S / 1e12:.0f} TFLOP/s, 3xTF32 on the tensor "
+          f"cores, against {nbytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); "
+          f"{f32_ms:.4f} ms ({f32_by}) at {F32_OPS_PER_S / 1e12:.0f} TFLOP/s float32; scratch "
+          f"{scratch_gb:.3f} GB")
+    plain_ms = cuda_ms(lambda: (ssd_chunked(*args), _final_state(*args[:4])), 2, warmup=1)
+    top = device_window(lambda: [ops.ssd_scan(*args, return_state=True) for _ in range(3)],
+                        "ssd_scan serve shape, 3 launches", "2 kernels")
+    stages = {name.split("::")[-1].split("(")[0]: ms / count for name, (ms, count) in top.items()}
+    print("[2 kernels] ssd_scan stages, ms per launch: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
+    print(f"[2 kernels] ssd_scan plain (ssd_chunked and _final_state) {plain_ms:.4f} ms")
+    del args, want, want_state
     torch.cuda.empty_cache()
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                 replaces="src/repro/kernels/ssd_scan/kernel.py:35", launches=0,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, headline=f"float32 (B {b}, S {s}, H {h}, P {p}, N {n}), "
-                                          "with the final state",
-                cases=cases)
+                max_abs_err=max([err] + [c["max_abs_err"] for c in cases]),
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                headline=f"float32 (B {b}, S {s}, H {h}, P {p}, N {n}), with the final state, "
+                         f"chunk {ops.CHUNK}; bound at {TF32X3_OPS_PER_S / 1e12:.0f} TFLOP/s "
+                         "(3xTF32)",
+                stages=stages, cases=cases)
 
 
-def device_window(fn, label: str, phase: str = "6 serve") -> None:
+def device_window(fn, label: str, phase: str = "6 serve") -> dict:
     """Profile ``fn`` once: wall time, device busy time, idle share and the
-    kernels that took the most device time."""
+    kernels that took the most device time, which it returns (name: (ms,
+    launches))."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -717,6 +760,7 @@ def device_window(fn, label: str, phase: str = "6 serve") -> None:
     print(f"[{phase}] {label} (profiled): wall {wall:.3f} ms, device busy {busy:.3f} ms, "
           f"idle share {max(0.0, 1 - busy / wall):.3f}, {sum(e.count for e in kernels)} "
           f"device launches; top kernels: {names}")
+    return {e.key[:60]: (e.self_device_time_total / 1e3, e.count) for e in top}
 
 
 def phase_serve(dev, smi: str) -> tuple[int, int]:
@@ -847,10 +891,11 @@ SSM_BATCH, SSM_PROMPT, SSM_NEW = 2, 16384, 16
 # in float32 from the same inputs and differ only in the order of sums, but
 # each one-ulp flip of a bf16 activation spreads through 64 layers.  On the CPU
 # at d_model 512 and full depth (tests/test_torch_ssm.py::test_bf16_drift_...)
-# two float32 SSD orders (ssd_chunked at 128- and 64-step chunks) move the
-# last position's logits by about 7% of max|logit| and 6% of their std, and
-# the hidden states at every position by about 5% of their std; a lost carry
-# between chunks or a dropped diagonal moves them by 64% to 101%
+# two float32 SSD orders (ssd_chunked, and the CUDA kernels' stage order at
+# their chunk) move the last position's logits by about 5% of max|logit| and
+# 4% of their std, and the hidden states at every position by about 4% of
+# their std; a lost carry between chunks or a dropped diagonal moves them by
+# 64% to 101%
 # (test_a_planted_ssd_fault_...).  Phase 7 plants the
 # lost carry at full width too and fails if the bounds do not see it.  Bounds:
 SSM_MAX_ERR = 0.3     # max |d logit| / max |logit|, the last position

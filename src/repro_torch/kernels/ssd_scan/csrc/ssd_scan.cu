@@ -10,68 +10,83 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan/kernel.py (`_kernel`,
 // launched by `ssd_scan_kernel_call`).  It computes what that kernel computes,
-// in the chunked dual form of Dao & Gu (arXiv:2405.21060), with s the
-// cumulative log decay inside a chunk and xbar = dt * x:
+// in the chunk-parallel SSD of Dao & Gu (arXiv:2405.21060, section 7), with L
+// the chunk, s the cumulative log decay inside a chunk and xbar = dt * x:
 //
-//     y_i  = sum_{j <= i} (C_i . B_j) exp(s_i - s_j) xbar_j  +  exp(s_i) C_i h
-//     h'   = exp(s_last) h + sum_j B_j (x) (xbar_j exp(s_last - s_j))
+//   1. cb_kernel, per (batch, chunk):      G   = C B^T                    (L x L, all heads)
+//   2. state_kernel, per (batch, chunk, head):
+//                                          S_c = sum_j B_j (x) (xbar_j exp(s_last - s_j))
+//   3. pass_kernel, per (batch, head, slice of N*P), over the chunks in order:
+//                                          h_in(c) = exp(s_last(c-1)) h_in(c-1) + S_{c-1}
+//      written in place over S_c; the state after the last chunk is the final state.
+//   4. out_kernel, per (batch, chunk, head):
+//                                          y = diag(exp(s)) (C h_in) + (G . D) xbar,
+//      D_ij = exp(s_i - s_j) for j <= i.
 //
-// What bounds it on the card.  Per (batch, head) and chunk of L steps the
-// work is the intra-chunk product over the causal half (L(L+1)/2 * P
-// multiply-adds), C h (L*N*P) and the state update (L*N*P), plus C B^T once per
-// (batch, chunk) for all heads (L(L+1)/2 * N).  At the serve shape (B 2, S
-// 16384, H 80, P 64, N 128) and L 64 that is 9.7e10 operations, 1.45 ms at 67
-// TFLOP/s float32, against 0.42 ms for the bytes (x, dt, B, C read once, y and
-// the state written once): bound by operations.  This first kernel runs on the
-// float32 pipes.
+// What bounds it on the card.  Per (batch, head) and chunk the products are
+// L(L+1)/2 * P multiply-adds inside the chunk, L*N*P for C h_in and L*N*P for
+// the chunk state, plus L(L+1)/2 * N for C B^T per (batch, chunk): at the
+// serve shape (B 2, S 16384, H 80, P 64, N 128) and L 128, 1.08e11 operations,
+// 0.65 ms on the tensor cores as 3xTF32 (below: three TF32 products each, 495
+// TFLOP/s).  The count falls with L, to the recurrence's 2NP + P multiply-adds
+// per (step, head) at L 1 (8.6e10, 0.52 ms): chip_smoke.py bounds the kernels
+// by that, whatever their chunk.  The bytes the function must move (x, dt, B,
+// C read once, y and the final state written once) take 0.42 ms; the stages
+// add the state scratch's round trips (about 2.7 GB at L 128, 0.8 ms).
 //
-// Design, and where it departs from the TPU kernel:
-// * The TPU grid (batch, head, chunk) carries the state across the chunk axis
-//   in VMEM scratch, in order.  CUDA blocks run in no order, so one block owns
-//   a (batch, head, 16-column slice of P) and loops over the chunks itself,
-//   with the state in registers and shared memory.  The columns of the state
-//   are independent, so slicing P gives B*H*P/16 blocks (640 at the serve
-//   shape) where (batch, head) alone gives 160, 1.2 waves on 132 SMs.
-// * C B^T is the same for every head: a first kernel computes it once per
-//   (batch, chunk) into a scratch tensor of (B, S/L, L, L) floats that the
-//   wrapper allocates.  The TPU kernel recomputes it for each head.
-// * The chunk is L = 64, not the TPU's 128: the float32 tiles of one chunk at
-//   N 128 then take 98 KB of shared memory, so two blocks fit on an SM.  The
-//   chunk length changes only the rounding.
-// * The decay is computed only where j <= i, and selected: exp(s_i - s_j) for
-//   j > i can overflow to inf, and inf times a zero mask would give NaN.  The
-//   TPU kernel computes it everywhere and drops j > i with `where`.
-// * A ragged last chunk is masked by bounds (the TPU wrapper pads with dt = 0
-//   steps); the carry uses the last real step's cumulative decay.
-// * Each chunk's tiles are loaded into registers first, all loads at once
-//   (unrolled, index math by shifts), then stored to shared memory: one round
-//   trip to memory per chunk.  Loading them element by element in loops, each
-//   iteration waiting on its load, left the kernel latency-bound (PERF.md).
-// * Each block writes only its own outputs: no atomics, and two launches give
-//   identical bits.
-// * Thread layout: 256 threads as 16 row groups (ty) x 16 column lanes (tx).
-//   For y, thread (ty, tx) owns rows 4ty..4ty+3 of column tx, reading the
-//   decay-weighted scores and C transposed in shared memory as float4.  For
-//   the state update it owns rows 8ty..8ty+7 of column tx, reading B as float4.
+// Design:
+// * Every product is mma.sync.m16n8k8 in TF32, three times: each float32
+//   operand a splits into hi = tf32(a) and lo = tf32(a - hi), rounded to
+//   nearest as cvt.rna rounds (in two integer instructions: sm_90 runs
+//   cvt.rna as four), the difference exact in float32; the accumulator
+//   (float32) takes lo*hi, hi*lo and hi*hi, and lo*lo is dropped.  That keeps
+//   the products near float32 accuracy (the tests emulate it on the CPU);
+//   TF32 alone would not.  The decay scaling is done in float32 before the
+//   split.  A warp issues the three terms in turn over all its tiles, so
+//   independent products lie between two that share an accumulator.
+// * Only the state passing is sequential, and it is elementwise: the three
+//   matrix stages run one block per (batch, chunk[, head, 64-column slice of
+//   P]), B*nc*H blocks (20480 at the serve shape and L 128).
+// * Operand tiles go into shared memory by cp.async (16 bytes where the
+//   views' base and strides allow it, else 4), zero-filled past a ragged S,
+//   past N (to a multiple of 8) and past P.  out_kernel loads C and h_in,
+//   runs C h_in, then loads G and x into the same buffers: 106 KB at L 128,
+//   two blocks an SM, one block's loads overlapping the other's products.
+//   Separate buffers for all four (210 KB, one block an SM) and a ring of
+//   32-step slabs (the decay applied as the fragments are read) both ran
+//   slower on the H100.
+// * Shared-memory row strides are chosen so that the fragment loads of a
+//   warp hit 32 banks: 4 mod 32 where a fragment walks a row, 8 mod 32 where
+//   it walks a column.
+// * C B^T is computed once per (batch, chunk) for the heads; the decay matrix
+//   G . D once per (batch, chunk, head), into shared memory, selected where
+//   j <= i and never multiplied by a mask (exp(s_i - s_j) above the diagonal
+//   may be inf).
+// * out_kernel's 16-row tiles of the causal product are dealt to the warps in
+//   pairs (i, 7 - i), so each warp does the same share of the triangle.
+// * A ragged last chunk is masked by bounds; its carry uses the last real
+//   step's s.  Each block writes only its own outputs: no atomics, and two
+//   launches give identical bits.
+// * L is 128: on the H100 it ran faster than 64 (PERF.md), with half the
+//   state scratch.
+// * Scratch (allocated by the wrapper): G (B, nc, L, L), the chunk states,
+//   overwritten by the states entering each chunk, (B, nc, H, N, P), and
+//   exp(s_last) per (B, H, nc).
 // * Build without --use_fast_math: expf rounds as the plain version's does.
 #include <cstdint>
+#include <initializer_list>
+
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kChunk = 64;        // L: steps per chunk
-constexpr int kBlockP = 16;       // columns of P per block
-constexpr int kThreads = 256;     // 16 row groups x 16 column lanes
-constexpr int kMaxN = 128;        // state rows: 8 per row group
-constexpr int kLdL = kChunk + 4;  // row stride of the transposed (., L) tiles: float4-aligned
-// elements a thread loads per chunk: of B and of C (rows of kMaxN columns), of
-// C B^T, and of x's 16-column slice
-constexpr int kLoadBC = kChunk * kMaxN / kThreads;
-constexpr int kLoadG = kChunk * kChunk / kThreads;
-constexpr int kLoadX = kChunk * kBlockP / kThreads;
-static_assert(kLoadBC * kThreads == kChunk * kMaxN && kThreads % kMaxN == 0, "B, C tiles");
-static_assert(kLoadG * kThreads == kChunk * kChunk && kLoadX * kThreads == kChunk * kBlockP,
-              "G, x tiles");
+constexpr int kThreads = 256;  // 8 warps: 4 along the rows x 2 along the columns
+constexpr int kL = 128;        // steps per chunk (ops.CHUNK)
+constexpr int kMaxN = 128;     // state rows
+constexpr int kTileP = 64;     // columns of P per block
+constexpr int kLdN = kMaxN + 4;   // (., N) tiles read along rows: 132 = 4 mod 32
+constexpr int kLdNt = kMaxN + 8;  // B in the chunk state, read along columns: 136 = 8 mod 32
+constexpr int kLdP = kTileP + 8;  // (., P) tiles, read along columns: 72 = 8 mod 32
 
 struct Strides3 {
   int64_t b, s, h;  // (batch, step, head)
@@ -80,251 +95,524 @@ struct Strides2 {
   int64_t b, s;  // (batch, step)
 };
 
-__host__ __device__ constexpr int ldb_of(int n) { return (n + 7) & ~7; }
+__host__ __device__ constexpr int round8(int v) { return (v + 7) & ~7; }
 
-__host__ __device__ constexpr int cb_smem_floats(int n) { return n * kLdL + kChunk * (n | 1); }
+// ---- cp.async -------------------------------------------------------------
 
-__host__ __device__ constexpr int scan_smem_floats(int n) {
-  return kChunk * kLdL + n * kLdL + kChunk * ldb_of(n) + kChunk * kBlockP + ldb_of(n) * kBlockP +
-         3 * kChunk;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// G[b, c, i, j] = C_{cL+i} . B_{cL+j} for one (chunk, batch) per block; rows
-// past S are zero.  Thread (ty, tx) computes rows 4ty..4ty+3 and columns
-// tx + 16k.  Bs has an odd row stride, so the 16 lanes reading one column hit
-// 16 banks.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows [0, ROWS) x columns [0, COLS) of a row-major global tile (row stride
+// gs elements) into shared memory (row stride ld); entries past rows_in or
+// cols_in are zero.  vec: 16-byte copies (base and strides 16-byte aligned,
+// cols_in a multiple of 4), else 4-byte ones.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void load_tile(float* sm, int ld, const float* gp, int64_t gs,
+                                          int rows_in, int cols_in, bool vec) {
+  if (vec) {
+    constexpr int c4 = COLS / 4;
+    for (int e = threadIdx.x; e < ROWS * c4; e += kThreads) {
+      const int r = e / c4, c = (e % c4) * 4;
+      const bool in = r < rows_in && c < cols_in;
+      cp_async16(sm + r * ld + c, in ? gp + r * gs + c : gp, in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * COLS; e += kThreads) {
+      const int r = e / COLS, c = e % COLS;
+      const bool in = r < rows_in && c < cols_in;
+      cp_async4(sm + r * ld + c, in ? gp + r * gs + c : gp, in);
+    }
+  }
+}
+
+// ---- 3xTF32 products on the tensor cores ---------------------------------
+
+// Round to TF32, to nearest with ties away from zero, as cvt.rna.tf32.f32
+// does for finite values: add half of the 13 dropped bits' unit, then drop
+// them.  sm_90 runs cvt.rna as four instructions (with a check for inf, which
+// no operand here is); this takes two.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));  // the difference is exact in float32
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[mt][nt] += A[rows m0[mt].., k] * B[k, columns n0 + 8 nt..] over k < kend[mt]
+// (multiples of 8; a tile with kend 0 is skipped), for one warp.  A is read
+// as A(m, k) = a[m * lda + k], or a[k * lda + m] when A_KM (stored k-major);
+// B as B(k, n) = b[k * ldb + n], or b[n * ldb + k] when B_NK.  Fragment
+// layouts of m16n8k8 (g = lane / 4, t = lane % 4): A (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4); B (t, g), (t + 4, g); the sum (g, 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+template <int MT, int NT, bool A_KM, bool B_NK>
+__device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4], const float* a, int lda,
+                                         const float* b, int ldb, const int (&m0)[MT],
+                                         const int (&kend)[MT], int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  int kmax = 0;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) kmax = max(kmax, kend[i]);
+  auto A = [&](int m, int k) { return A_KM ? a[k * lda + m] : a[m * lda + k]; };
+  auto B = [&](int k, int n) { return B_NK ? b[n * ldb + k] : b[k * ldb + n]; };
+  for (int k0 = 0; k0 < kmax; k0 += 8) {
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      split_tf32(B(k0 + t, n0 + 8 * j + g), bh[j][0], bl[j][0]);
+      split_tf32(B(k0 + t + 4, n0 + 8 * j + g), bh[j][1], bl[j][1]);
+    }
+    uint32_t ah[MT][4], al[MT][4];
+    bool on[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      on[i] = k0 < kend[i];  // uniform across the warp
+      if (!on[i]) continue;
+      split_tf32(A(m0[i] + g, k0 + t), ah[i][0], al[i][0]);
+      split_tf32(A(m0[i] + g + 8, k0 + t), ah[i][1], al[i][1]);
+      split_tf32(A(m0[i] + g, k0 + t + 4), ah[i][2], al[i][2]);
+      split_tf32(A(m0[i] + g + 8, k0 + t + 4), ah[i][3], al[i][3]);
+    }
+    // term by term over all the warp's tiles, small terms first: MT * NT
+    // independent products lie between two that share an accumulator
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (on[i]) mma_tf32(acc[i][j], al[i], bh[j]);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (on[i]) mma_tf32(acc[i][j], ah[i], bl[j]);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (on[i]) mma_tf32(acc[i][j], ah[i], bh[j]);
+  }
+}
+
+// A warp's sums to out[r * ld + col] for rows m0 + g (+ 8) below rows and
+// columns n0 + 8 nt + 2t (+ 1) below cols; in pairs (8-byte stores) where
+// ld, cols and out's offset are even (pairs).
+template <int MT, int NT>
+__device__ __forceinline__ void store_acc(const float (&acc)[MT][NT][4], float* out, int64_t ld,
+                                          const int (&m0)[MT], int n0, int rows, int cols,
+                                          bool pairs) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tc = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0[i] + g + 8 * h, col = n0 + 8 * j + tc;
+        if (r >= rows || col >= cols) continue;
+        float* o = out + r * ld + col;
+        if (pairs) {
+          *reinterpret_cast<float2*>(o) = make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        } else {
+          o[0] = acc[i][j][2 * h];
+          if (col + 1 < cols) o[1] = acc[i][j][2 * h + 1];
+        }
+      }
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+}
+
+// The two 16-row tiles of a warp in row group wm (0..3) of a 128-row output:
+// the pair (wm, 7 - wm).
+__device__ __forceinline__ void row_tiles(int wm, int (&m0)[2]) {
+  m0[0] = 16 * wm;
+  m0[1] = 16 * (7 - wm);
+}
+
+// ---- the log decay of a chunk ---------------------------------------------
+
+// Warp 0 writes dt (zero past len) and the inclusive scan s of a * dt over the
+// chunk's L steps to shared memory; lane k sums steps k L/32.. in order, then
+// the lanes' sums are scanned.  The same code in every stage: the same bits.
+__device__ __forceinline__ void chunk_decay(const float* __restrict__ dt, int64_t dss, float a_h,
+                                            int len, float* Dt, float* Sc) {
+  constexpr int per = kL / 32;
+  const int lane = threadIdx.x & 31;
+  float d[per], v[per], run = 0.f;
+#pragma unroll
+  for (int q = 0; q < per; ++q) {
+    const int j = lane * per + q;
+    d[q] = j < len ? dt[j * dss] : 0.f;
+  }
+#pragma unroll
+  for (int q = 0; q < per; ++q) {
+    run += a_h * d[q];
+    v[q] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += u;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);  // the lanes before this one
+  if (lane == 0) excl = 0.f;
+#pragma unroll
+  for (int q = 0; q < per; ++q) {
+    const int j = lane * per + q;
+    Dt[j] = d[q];
+    Sc[j] = excl + v[q];
+  }
+}
+
+// ---- 1. C B^T per (batch, chunk) -------------------------------------------
+
+__host__ __device__ constexpr int cb_smem_bytes() {
+  return 2 * kL * kLdN * 4;
+}
+
 __global__ void __launch_bounds__(kThreads)
 cb_kernel(const float* __restrict__ bm, const float* __restrict__ cm, float* __restrict__ g, int s,
-          int n, Strides2 bs, Strides2 cs) {
+          int n, Strides2 bs, Strides2 cs, bool bvec, bool cvec) {
+  constexpr int MT = 2, NT = kL / 16;
   extern __shared__ float4 smem4[];
-  const int ldo = n | 1;
-  float* Ct = reinterpret_cast<float*>(smem4);  // [n][kLdL]: C transposed
-  float* Bs = Ct + n * kLdL;                     // [L][ldo]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  float* Cs = reinterpret_cast<float*>(smem4);  // [L][kLdN]
+  float* Bs = Cs + kL * kLdN;                    // [L][kLdN]
   const int c = blockIdx.x, b = blockIdx.y;
-  const int t0 = c * kChunk, len = min(kChunk, s - t0);
-  const float* bb = bm + b * bs.b;
-  const float* cb = cm + b * cs.b;
-  const int kcol = tid % kMaxN;  // this thread's column of B and C
-  float rb[kLoadBC], rc[kLoadBC];
+  const int t0 = c * kL, len = min(kL, s - t0), np = round8(n);
+  load_tile<kL, kMaxN>(Cs, kLdN, cm + b * cs.b + t0 * cs.s, cs.s, len, n, cvec);
+  load_tile<kL, kMaxN>(Bs, kLdN, bm + b * bs.b + t0 * bs.s, bs.s, len, n, bvec);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
+  int m0[MT], kend[MT];
+  row_tiles(wm, m0);
 #pragma unroll
-  for (int r = 0; r < kLoadBC; ++r) {  // all loads first: in flight together
-    const int i = (tid + r * kThreads) / kMaxN;
-    const bool in = i < len && kcol < n;
-    rb[r] = in ? bb[(t0 + i) * bs.s + kcol] : 0.f;
-    rc[r] = in ? cb[(t0 + i) * cs.s + kcol] : 0.f;
+  for (int i = 0; i < MT; ++i) kend[i] = m0[i] < len ? np : 0;
+  float acc[MT][NT][4];
+  zero(acc);
+  const int n0 = wn * (kL / 2);
+  warp_mma<MT, NT, false, true>(acc, Cs, kLdN, Bs, kLdN, m0, kend, n0);  // C (i, k) B (j, k)
+
+  // every row, zero past len
+  store_acc(acc, g + (static_cast<int64_t>(b) * gridDim.x + c) * kL * kL, kL, m0, n0, kL, kL, true);
+}
+
+// ---- 2. chunk states per (batch, chunk, head, P slice) ------------------------
+
+__host__ __device__ constexpr int state_smem_bytes() {
+  return (kL * kLdNt + kL * kLdP + 2 * kL + kL) * 4;
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+state_kernel(const float* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
+             const float* __restrict__ bm, float* __restrict__ states, float* __restrict__ decay,
+             int s, int nh, int p, int n, Strides3 xs, Strides3 ds, Strides2 bs, bool xvec,
+             bool bvec) {
+  constexpr int NT = kTileP / 16;
+  extern __shared__ float4 smem4[];
+  float* Bs = reinterpret_cast<float*>(smem4);  // [L][kLdNt]: B (j, n)
+  float* Xs = Bs + kL * kLdNt;                   // [L][kLdP]: x, then x dt exp(s_last - s)
+  float* Dt = Xs + kL * kLdP;                    // [L]
+  float* Sc = Dt + kL;                           // [L]
+  float* Wl = Sc + kL;                           // [L]: dt_j exp(s_last - s_j)
+  const int hh = blockIdx.x % nh, ps = blockIdx.x / nh, c = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.y, p0 = ps * kTileP, pw = min(kTileP, p - p0);
+  const int t0 = c * kL, len = min(kL, s - t0), lenp = round8(len), np = round8(n);
+  load_tile<kL, kMaxN>(Bs, kLdNt, bm + b * bs.b + t0 * bs.s, bs.s, len, n, bvec);
+  load_tile<kL, kTileP>(Xs, kLdP, x + b * xs.b + t0 * xs.s + hh * xs.h + p0, xs.s, len, pw, xvec);
+  cp_async_commit();
+  if (threadIdx.x < 32) {
+    chunk_decay(dt + b * ds.b + t0 * ds.s + hh * ds.h, ds.s, a[hh], len, Dt, Sc);
+    __syncwarp();
+    const float s_last = Sc[len - 1];
+    for (int j = threadIdx.x; j < kL; j += 32) Wl[j] = j < len ? Dt[j] * expf(s_last - Sc[j]) : 0.f;
+    if (threadIdx.x == 0 && ps == 0)
+      decay[(static_cast<int64_t>(b) * nh + hh) * nc + c] = expf(s_last);
   }
-  if (kcol < n) {
-#pragma unroll
-    for (int r = 0; r < kLoadBC; ++r) {
-      const int i = (tid + r * kThreads) / kMaxN;
-      Ct[kcol * kLdL + i] = rc[r];
-      Bs[i * ldo + kcol] = rb[r];
-    }
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int e = threadIdx.x; e < kL * kTileP; e += kThreads) {
+    const int j = e / kTileP, q = e % kTileP;
+    Xs[j * kLdP + q] *= Wl[j];
   }
   __syncthreads();
 
-  float acc[4][4];
+  // S (n, q) = sum_j B (j, n) Xw (j, q): A is B read k-major
+  const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
+  int m0[2], kend[2];
+  row_tiles(wm, m0);
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
-  for (int k = 0; k < n; ++k) {
-    const float4 cv = *reinterpret_cast<const float4*>(&Ct[k * kLdL + 4 * ty]);
-    float bv[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) bv[q] = Bs[(tx + 16 * q) * ldo + k];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      acc[0][q] = fmaf(cv.x, bv[q], acc[0][q]);
-      acc[1][q] = fmaf(cv.y, bv[q], acc[1][q]);
-      acc[2][q] = fmaf(cv.z, bv[q], acc[2][q]);
-      acc[3][q] = fmaf(cv.w, bv[q], acc[3][q]);
-    }
-  }
-  float* gb = g + (static_cast<int64_t>(b) * gridDim.x + c) * kChunk * kChunk;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) gb[(4 * ty + r) * kChunk + tx + 16 * q] = acc[r][q];
+  for (int i = 0; i < 2; ++i) kend[i] = m0[i] < np ? lenp : 0;
+  float acc[2][NT][4];
+  zero(acc);
+  const int n0 = wn * (kTileP / 2);
+  warp_mma<2, NT, true, false>(acc, Bs, kLdNt, Xs, kLdP, m0, kend, n0);
+
+  store_acc(acc, states + ((static_cast<int64_t>(b) * nc + c) * nh + hh) * n * p + p0, p, m0, n0,
+            n, pw, p % 2 == 0);
 }
 
-// One block per (16-column slice of P, head, batch), looping over the chunks.
-// Two blocks fit on an SM by shared memory; the bound keeps the registers
-// (the staged loads take 84 a thread) within that.
-__global__ void __launch_bounds__(kThreads, 2)
-scan_kernel(const float* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
-            const float* __restrict__ bm, const float* __restrict__ cm,
-            const float* __restrict__ g, float* __restrict__ y, float* __restrict__ state_out,
-            int s, int nh, int p, int n, Strides3 xs, Strides3 ds, Strides2 bs, Strides2 cs) {
-  extern __shared__ float4 smem4[];
-  const int ldb = ldb_of(n);
-  float* Wt = reinterpret_cast<float*>(smem4);  // [L][kLdL]: W[i][j] at Wt[j][i]
-  float* Ct = Wt + kChunk * kLdL;                // [n][kLdL]: C transposed
-  float* Bs = Ct + n * kLdL;                     // [L][ldb]; columns past n are 0
-  float* Xb = Bs + kChunk * ldb;                 // [L][kBlockP]: xbar = dt * x
-  float* Hs = Xb + kChunk * kBlockP;             // [ldb][kBlockP]: the carried state
-  float* Sc = Hs + ldb * kBlockP;                // [L]: cumulative log decay s
-  float* Wl = Sc + kChunk;                       // [L]: exp(s_last - s_j)
-  float* Dt = Wl + kChunk;                       // [L]
+// ---- 3. state passing per (batch, head, slice of N*P) -------------------------
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, lane = tid & 31;
+// h_in(0) = 0; h_in(c) = decay(c - 1) h_in(c - 1) + S_{c-1}, in place over S.
+// Each thread owns V consecutive entries of the N*P state; it loads kAhead
+// chunks' states before it stores any, so the loads are in flight together.
+constexpr int kAhead = 8;
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+pass_kernel(float* __restrict__ states, const float* __restrict__ decay,
+            float* __restrict__ state_out, int nc, int nh, int64_t np_elems) {
   const int hh = blockIdx.y, b = blockIdx.z;
-  const int pc = blockIdx.x * kBlockP + tx;  // this thread's column of P
-  const bool col_in = pc < p;
-  const bool owns_state = 8 * ty < ldb;
-  const float a_h = a[hh];
-  const float* xb = x + b * xs.b + hh * xs.h;
-  const float* db = dt + b * ds.b + hh * ds.h;
-  const float* bb = bm + b * bs.b;
-  const float* cb = cm + b * cs.b;
-  const int nc = (s + kChunk - 1) / kChunk;
-
-  float hreg[8];  // h[8ty + k][tx]
+  const int64_t e = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * V;
+  if (e >= np_elems) return;
+  const int64_t cstride = static_cast<int64_t>(nh) * np_elems;  // one chunk
+  float* base = states + (static_cast<int64_t>(b) * nc * nh + hh) * np_elems + e;
+  const float* dec = decay + (static_cast<int64_t>(b) * nh + hh) * nc;
+  float h[V];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) hreg[k] = 0.f;
-  for (int e = tid; e < ldb * kBlockP; e += kThreads) Hs[e] = 0.f;
-
-  const int kcol = tid % kMaxN;  // this thread's column of B and C
-  for (int c = 0; c < nc; ++c) {
-    const int t0 = c * kChunk, len = min(kChunk, s - t0);
-    // Every global load of the chunk first, into registers.  The loads are
-    // independent and their index math is shifts, so they are in flight
-    // together, and they overlap the previous chunk's state update: one round
-    // trip to memory per chunk, not one per element.
-    float rb[kLoadBC], rc[kLoadBC], rg[kLoadG], rx[kLoadX], d0 = 0.f, d1 = 0.f;
+  for (int v = 0; v < V; ++v) h[v] = 0.f;
+  for (int c0 = 0; c0 < nc; c0 += kAhead) {
+    float in[kAhead][V];
 #pragma unroll
-    for (int r = 0; r < kLoadBC; ++r) {
-      const int j = (tid + r * kThreads) / kMaxN;
-      const bool in = j < len && kcol < n;
-      rb[r] = in ? bb[(t0 + j) * bs.s + kcol] : 0.f;
-      rc[r] = in ? cb[(t0 + j) * cs.s + kcol] : 0.f;
-    }
-    const float* gc = g + (static_cast<int64_t>(b) * nc + c) * kChunk * kChunk;
-#pragma unroll
-    for (int r = 0; r < kLoadG; ++r) rg[r] = gc[tid + r * kThreads];
-#pragma unroll
-    for (int r = 0; r < kLoadX; ++r) {
-      const int j = (tid + r * kThreads) / kBlockP;  // column tx
-      rx[r] = j < len && col_in ? xb[(t0 + j) * xs.s + pc] : 0.f;
-    }
-    if (tid < 32) {
-      if (lane < len) d0 = db[(t0 + lane) * ds.s];
-      if (lane + 32 < len) d1 = db[(t0 + lane + 32) * ds.s];
-    }
-    __syncthreads();  // the last chunk's tiles are read
-
-    if (tid < 32) {  // the inclusive scan of the log decay a * dt
-      Dt[lane] = d0;
-      Dt[lane + 32] = d1;
-      float v0 = a_h * d0, v1 = a_h * d1;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float u0 = __shfl_up_sync(0xffffffffu, v0, off);
-        const float u1 = __shfl_up_sync(0xffffffffu, v1, off);
-        if (lane >= off) {
-          v0 += u0;
-          v1 += u1;
+    for (int k = 0; k < kAhead; ++k) {
+      if (c0 + k < nc) {
+        if constexpr (V == 4) {
+          const float4 f = *reinterpret_cast<const float4*>(base + (c0 + k) * cstride);
+          in[k][0] = f.x, in[k][1] = f.y, in[k][2] = f.z, in[k][3] = f.w;
+        } else {
+          in[k][0] = base[(c0 + k) * cstride];
         }
       }
-      v1 += __shfl_sync(0xffffffffu, v0, 31);
-      Sc[lane] = v0;
-      Sc[lane + 32] = v1;
     }
 #pragma unroll
-    for (int r = 0; r < kLoadBC; ++r) {  // rows past len and columns past n are 0
-      const int j = (tid + r * kThreads) / kMaxN;
-      if (kcol < ldb) Bs[j * ldb + kcol] = rb[r];
-      if (kcol < n) Ct[kcol * kLdL + j] = rc[r];
-    }
-    __syncthreads();
-
-    const float s_last = Sc[len - 1];
+    for (int k = 0; k < kAhead; ++k) {
+      if (c0 + k < nc) {
+        const float d = dec[c0 + k];
+        if constexpr (V == 4) {
+          *reinterpret_cast<float4*>(base + (c0 + k) * cstride) =
+              make_float4(h[0], h[1], h[2], h[3]);
+        } else {
+          base[(c0 + k) * cstride] = h[0];
+        }
 #pragma unroll
-    for (int r = 0; r < kLoadX; ++r) {
-      const int j = (tid + r * kThreads) / kBlockP;
-      Xb[j * kBlockP + tx] = rx[r] * Dt[j];
-    }
-#pragma unroll
-    for (int r = 0; r < kLoadG; ++r) {
-      const int e = tid + r * kThreads, i = e / kChunk, j = e % kChunk;
-      // select, never multiply by a mask: exp(s_i - s_j) may be inf for j > i
-      Wt[j * kLdL + i] = j <= i && i < len ? rg[r] * expf(Sc[i] - Sc[j]) : 0.f;
-    }
-    if (tid < kChunk) Wl[tid] = expf(s_last - Sc[tid]);
-    __syncthreads();
-
-    // y for rows 4ty..4ty+3 of column tx: W xbar + exp(s_i) C h
-    float yi[4] = {0.f, 0.f, 0.f, 0.f}, yc[4] = {0.f, 0.f, 0.f, 0.f};
-    const int j_end = min(len, 4 * ty + 4);  // W[i][j] = 0 for j > i
-    for (int j = 0; j < j_end; ++j) {
-      const float4 w4 = *reinterpret_cast<const float4*>(&Wt[j * kLdL + 4 * ty]);
-      const float xv = Xb[j * kBlockP + tx];
-      yi[0] = fmaf(w4.x, xv, yi[0]);
-      yi[1] = fmaf(w4.y, xv, yi[1]);
-      yi[2] = fmaf(w4.z, xv, yi[2]);
-      yi[3] = fmaf(w4.w, xv, yi[3]);
-    }
-    for (int k = 0; k < n; ++k) {
-      const float4 c4 = *reinterpret_cast<const float4*>(&Ct[k * kLdL + 4 * ty]);
-      const float hv = Hs[k * kBlockP + tx];
-      yc[0] = fmaf(c4.x, hv, yc[0]);
-      yc[1] = fmaf(c4.y, hv, yc[1]);
-      yc[2] = fmaf(c4.z, hv, yc[2]);
-      yc[3] = fmaf(c4.w, hv, yc[3]);
-    }
-    if (col_in) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = 4 * ty + r;
-        if (i < len)
-          y[((static_cast<int64_t>(b) * s + t0 + i) * nh + hh) * p + pc] =
-              yi[r] + expf(Sc[i]) * yc[r];
-      }
-    }
-    __syncthreads();  // Hs read
-
-    // h = exp(s_last) h + sum_j B_j (x) (xbar_j exp(s_last - s_j)), rows 8ty..8ty+7
-    if (owns_state) {
-      float u[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) u[k] = 0.f;
-      for (int j = 0; j < len; ++j) {
-        const float xw = Xb[j * kBlockP + tx] * Wl[j];
-        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[j * ldb + 8 * ty]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&Bs[j * ldb + 8 * ty + 4]);
-        u[0] = fmaf(b0.x, xw, u[0]);
-        u[1] = fmaf(b0.y, xw, u[1]);
-        u[2] = fmaf(b0.z, xw, u[2]);
-        u[3] = fmaf(b0.w, xw, u[3]);
-        u[4] = fmaf(b1.x, xw, u[4]);
-        u[5] = fmaf(b1.y, xw, u[5]);
-        u[6] = fmaf(b1.z, xw, u[6]);
-        u[7] = fmaf(b1.w, xw, u[7]);
-      }
-      const float decay = expf(s_last);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        hreg[k] = decay * hreg[k] + u[k];
-        Hs[(8 * ty + k) * kBlockP + tx] = hreg[k];
+        for (int v = 0; v < V; ++v) h[v] = d * h[v] + in[k][v];
       }
     }
   }
-
-  if (state_out != nullptr && owns_state && col_in) {
+  if (state_out != nullptr) {
+    float* o = state_out + (static_cast<int64_t>(b) * nh + hh) * np_elems + e;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int row = 8 * ty + k;
-      if (row < n) state_out[((static_cast<int64_t>(b) * nh + hh) * n + row) * p + pc] = hreg[k];
+    for (int v = 0; v < V; ++v) o[v] = h[v];
+  }
+}
+
+// ---- 4. chunk outputs per (batch, chunk, head, P slice) -----------------------
+
+// C and h_in load first; once the C h_in product has read them, G and x load
+// into their buffers: 106 KB at L 128, so two blocks share an SM and one's
+// loads overlap the other's products.
+__host__ __device__ constexpr int out_smem_bytes() {
+  return (kL * kLdN + kMaxN * kLdP + 3 * kL) * 4;
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+out_kernel(const float* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
+           const float* __restrict__ cm, const float* __restrict__ g,
+           const float* __restrict__ states, float* __restrict__ y, int s, int nh, int p, int n,
+           Strides3 xs, Strides3 ds, Strides2 cs, bool xvec, bool cvec, bool svec) {
+  constexpr int MT = 2, NT = kTileP / 16, kLdL = kL + 4;  // kLdL = 4 mod 32
+  static_assert(kL * kLdL <= kL * kLdN && kL <= kMaxN, "G and x fit C's and h_in's buffers");
+  extern __shared__ float4 smem4[];
+  float* Cs = reinterpret_cast<float*>(smem4);          // [L][kLdN]: C (i, k)
+  float* Hs = Cs + kL * kLdN;                            // [kMaxN][kLdP]: h_in (k, q)
+  float* Ws = Cs;                                        // [L][kLdL]: G, then G . D
+  float* Xs = Hs;                                        // [L][kLdP]: x, then xbar
+  float* Dt = Hs + kMaxN * kLdP;                         // [L]
+  float* Sc = Dt + kL;                                   // [L]
+  float* Es = Sc + kL;                                   // [L]: exp(s_i)
+  const int hh = blockIdx.x % nh, ps = blockIdx.x / nh, c = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.y, p0 = ps * kTileP, pw = min(kTileP, p - p0);
+  const int t0 = c * kL, len = min(kL, s - t0), lenp = round8(len), np = round8(n);
+  auto load_g_x = [&] {  // into C's and h_in's buffers
+    load_tile<kL, kL>(Ws, kLdL, g + (static_cast<int64_t>(b) * nc + c) * kL * kL, kL, kL, kL, true);
+    load_tile<kL, kTileP>(Xs, kLdP, x + b * xs.b + t0 * xs.s + hh * xs.h + p0, xs.s, len, pw,
+                         xvec);
+    cp_async_commit();
+  };
+
+  // C and h_in first, then G and x
+  load_tile<kL, kMaxN>(Cs, kLdN, cm + b * cs.b + t0 * cs.s, cs.s, len, n, cvec);
+  load_tile<kMaxN, kTileP>(
+      Hs, kLdP, states + ((static_cast<int64_t>(b) * nc + c) * nh + hh) * n * p + p0, p, n, pw,
+      svec);
+  cp_async_commit();
+  if (threadIdx.x < 32) {
+    chunk_decay(dt + b * ds.b + t0 * ds.s + hh * ds.h, ds.s, a[hh], len, Dt, Sc);
+    __syncwarp();
+    for (int i = threadIdx.x; i < kL; i += 32) Es[i] = expf(Sc[i]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
+  const int gr = (threadIdx.x & 31) >> 2;
+  const int n0 = wn * (kTileP / 2);
+  int m0[MT], kend[MT];
+  row_tiles(wm, m0);
+  float acc[MT][NT][4];
+  zero(acc);
+  // C h_in, then each row times exp(s_i)
+#pragma unroll
+  for (int i = 0; i < MT; ++i) kend[i] = m0[i] < len ? np : 0;
+  warp_mma<MT, NT, false, false>(acc, Cs, kLdN, Hs, kLdP, m0, kend, n0);
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const float e0 = Es[m0[i] + gr], e1 = Es[m0[i] + gr + 8];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      acc[i][j][0] *= e0, acc[i][j][1] *= e0;
+      acc[i][j][2] *= e1, acc[i][j][3] *= e1;
     }
   }
+
+  __syncthreads();  // every warp has read C and h_in
+  load_g_x();
+  cp_async_wait<0>();
+  __syncthreads();
+  // the decay matrix once per (chunk, head), selected where j <= i < len
+  for (int e = threadIdx.x; e < kL * kL; e += kThreads) {
+    const int i = e / kL, j = e % kL;
+    float* w = &Ws[i * kLdL + j];
+    *w = j <= i && i < len ? *w * expf(Sc[i] - Sc[j]) : 0.f;
+  }
+  for (int e = threadIdx.x; e < kL * kTileP; e += kThreads) {
+    const int j = e / kTileP, q = e % kTileP;
+    Xs[j * kLdP + q] *= Dt[j];
+  }
+  __syncthreads();
+  // (G . D) xbar over the causal half: the tile of rows m0.. needs k < m0 + 16
+#pragma unroll
+  for (int i = 0; i < MT; ++i) kend[i] = m0[i] < len ? min(m0[i] + 16, lenp) : 0;
+  warp_mma<MT, NT, false, false>(acc, Ws, kLdL, Xs, kLdP, m0, kend, n0);
+
+  store_acc(acc, y + ((static_cast<int64_t>(b) * s + t0) * nh + hh) * p + p0,
+            static_cast<int64_t>(nh) * p, m0, n0, len, pw, p % 2 == 0);
+}
+
+bool aligned16(const void* ptr, std::initializer_list<int64_t> strides, int cols) {
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0 || cols % 4 != 0) return false;
+  for (int64_t st : strides)
+    if (st % 4 != 0) return false;
+  return true;
+}
+
+template <typename K>
+cudaError_t set_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+struct Scratch {
+  int64_t g, states, decay, total;  // offsets and size in floats
+};
+
+Scratch scratch_layout(int batch, int s, int nh, int p, int n) {
+  const int64_t nc = (s + kL - 1) / kL;
+  Scratch sc{};
+  sc.g = 0;
+  sc.states = batch * nc * kL * kL;
+  sc.decay = sc.states + ((batch * nc * nh * n * p + 3) & ~int64_t{3});
+  sc.total = sc.decay + batch * nh * nc;
+  return sc;
+}
+
+cudaError_t launch(const float* x, const float* dt, const float* a, const float* bm,
+                   const float* cm, float* scratch, float* y, float* state, int batch, int s,
+                   int nh, int p, int n, Strides3 xs, Strides3 ds, Strides2 bs, Strides2 cs,
+                   cudaStream_t st) {
+  const int nc = (s + kL - 1) / kL, nps = (p + kTileP - 1) / kTileP;
+  const Scratch sc = scratch_layout(batch, s, nh, p, n);
+  float* g = scratch + sc.g;
+  float* states = scratch + sc.states;
+  float* decay = scratch + sc.decay;
+  const bool xvec = aligned16(x, {xs.b, xs.s, xs.h}, p);
+  const bool bvec = aligned16(bm, {bs.b, bs.s}, n), cvec = aligned16(cm, {cs.b, cs.s}, n);
+  const bool svec = p % 4 == 0;  // the state scratch: contiguous (N, P) tiles, 16-byte based
+
+  cudaError_t err = set_smem(cb_kernel, cb_smem_bytes());
+  if (err != cudaSuccess) return err;
+  cb_kernel<<<dim3(nc, batch), kThreads, cb_smem_bytes(), st>>>(bm, cm, g, s, n, bs, cs, bvec,
+                                                                cvec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  if ((err = set_smem(state_kernel, state_smem_bytes())) != cudaSuccess) return err;
+  state_kernel<<<dim3(nh * nps, nc, batch), kThreads, state_smem_bytes(), st>>>(
+      x, dt, a, bm, states, decay, s, nh, p, n, xs, ds, bs, xvec, bvec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const int64_t np_elems = static_cast<int64_t>(n) * p;
+  if (np_elems % 4 == 0) {
+    const unsigned blocks = static_cast<unsigned>((np_elems / 4 + kThreads - 1) / kThreads);
+    pass_kernel<4><<<dim3(blocks, nh, batch), kThreads, 0, st>>>(states, decay, state, nc, nh,
+                                                                 np_elems);
+  } else {
+    const unsigned blocks = static_cast<unsigned>((np_elems + kThreads - 1) / kThreads);
+    pass_kernel<1><<<dim3(blocks, nh, batch), kThreads, 0, st>>>(states, decay, state, nc, nh,
+                                                                 np_elems);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  if ((err = set_smem(out_kernel, out_smem_bytes())) != cudaSuccess) return err;
+  out_kernel<<<dim3(nh * nps, nc, batch), kThreads, out_smem_bytes(), st>>>(
+      x, dt, a, cm, g, states, y, s, nh, p, n, xs, ds, cs, xvec, cvec, svec);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Floats of the C B^T scratch the wrapper allocates for a (batch, s) launch.
-extern "C" int64_t ssd_scan_scratch_floats(int batch, int s) {
-  return static_cast<int64_t>(batch) * ((s + kChunk - 1) / kChunk) * kChunk * kChunk;
+// Floats of the scratch the wrapper allocates for a launch: C B^T, the chunk
+// states and the chunks' decays.
+extern "C" int64_t ssd_scan_scratch_floats(int batch, int s, int nh, int p, int n) {
+  return scratch_layout(batch, s, nh, p, n).total;
 }
 
 // Strides in elements: x and dt (batch, step, head), B and C (batch, step).
@@ -335,25 +623,11 @@ extern "C" int ssd_scan_launch(const float* x, const float* dt, const float* a, 
                                int64_t dsb, int64_t dss, int64_t dsh, int64_t bsb, int64_t bss,
                                int64_t csb, int64_t css, void* stream) {
   if (batch < 1 || batch > 65535 || s < 1 || nh < 1 || nh > 65535 || p < 1 || n < 1 ||
-      n > kMaxN)
+      n > kMaxN || (s + kL - 1) / kL > 65535 ||
+      static_cast<int64_t>(nh) * ((p + kTileP - 1) / kTileP) > 2147483647)
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Strides3 xs{xsb, xss, xsh}, ds{dsb, dss, dsh};
   const Strides2 bs{bsb, bss}, cs{csb, css};
-  const int nc = (s + kChunk - 1) / kChunk;
-
-  const int cb_bytes = cb_smem_floats(n) * static_cast<int>(sizeof(float));
-  cudaError_t err =
-      cudaFuncSetAttribute(cb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cb_bytes);
-  if (err != cudaSuccess) return err;
-  cb_kernel<<<dim3(nc, batch), kThreads, cb_bytes, st>>>(bm, cm, scratch, s, n, bs, cs);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const int scan_bytes = scan_smem_floats(n) * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, scan_bytes);
-  if (err != cudaSuccess) return err;
-  scan_kernel<<<dim3((p + kBlockP - 1) / kBlockP, nh, batch), kThreads, scan_bytes, st>>>(
-      x, dt, a, bm, cm, scratch, y, state, s, nh, p, n, Strides3{xsb, xss, xsh},
-      Strides3{dsb, dss, dsh}, bs, cs);
-  return cudaGetLastError();
+  return launch(x, dt, a, bm, cm, scratch, y, state, batch, s, nh, p, n, xs, ds, bs, cs,
+                static_cast<cudaStream_t>(stream));
 }

@@ -1,17 +1,18 @@
-"""Wrapper of the SSD scan kernel (counterpart of repro/kernels/ssd_scan/ops.py).
+"""Wrapper of the SSD scan kernels (counterpart of repro/kernels/ssd_scan/ops.py).
 
 The wrapper decides by the tensors' device alone: CPU tensors run the plain
-recurrence in ``ref.py``; CUDA tensors launch the hand-written kernel
-(``csrc/ssd_scan.cu``) or raise.  ``ssd_scan.launches`` counts the kernel's
-launches; ``chip_smoke.py`` zeroes it before it drives the Mamba2 serve path
-and reads it after.
+recurrence in ``ref.py``; CUDA tensors launch the hand-written kernels
+(``csrc/ssd_scan.cu``: C B^T, chunk states, state passing, chunk outputs) or
+raise.  ``ssd_scan.launches`` counts the wrapper's launches of that pipeline;
+``chip_smoke.py`` zeroes it before it drives the Mamba2 serve path and reads
+it after.
 
-Unlike the JAX wrapper, nothing is padded: the kernel masks a ragged sequence
-itself, and takes x's and dt's (batch, step, head) strides and B's and C's
+Unlike the JAX wrapper, nothing is padded: the kernels mask a ragged sequence
+themselves, and take x's and dt's (batch, step, head) strides and B's and C's
 (batch, step) strides, so the model's projections go in as views.  The
-kernel's chunk is its own (64 steps, chosen for the H100's shared memory); the
-JAX wrapper's ``chunk`` and ``interpret`` are TPU parameters and have no
-counterpart here.  The kernel also returns the final state when asked, which
+kernels' chunk is ``CHUNK`` = 128 steps (128 ran faster than 64 on the H100:
+PERF.md).  The JAX wrapper's ``interpret`` is a TPU parameter and has no
+counterpart here.  The kernels also return the final state when asked, which
 the prefill hands to the decode cache.
 """
 from __future__ import annotations
@@ -25,11 +26,12 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan import ref
 
-__all__ = ["ssd_scan", "load_library"]
+__all__ = ["ssd_scan", "load_library", "CHUNK"]
 
 _SOURCES = (Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu",)
 _MAX_STATE = 128
 _MAX_GRID = 65535
+CHUNK = 128   # the kernels' chunk, in steps (kL in csrc/ssd_scan.cu)
 
 
 @functools.cache
@@ -37,7 +39,7 @@ def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel; declare the C signatures."""
     lib = _build.load_library("ssd_scan", _SOURCES)
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.ssd_scan_scratch_floats.argtypes = [i32, i32]
+    lib.ssd_scan_scratch_floats.argtypes = [i32] * 5
     lib.ssd_scan_scratch_floats.restype = i64
     lib.ssd_scan_launch.argtypes = [p] * 8 + [i32] * 5 + [i64] * 10 + [p]
     lib.ssd_scan_launch.restype = ctypes.c_int
@@ -65,7 +67,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Ten
     x: (B, S, H, P), dt: (B, S, H) positive steps, a: (H,) negative rates,
     bmat/cmat: (B, S, N).  With ``return_state`` it returns ``(y, state)``, the
     state after the last step as (B, H, N, P) float32.  On CUDA: float32 only,
-    N <= 128, and no autograd (the kernel has no backward; the TPU kernel has
+    N <= 128, and no autograd (the kernels have no backward; the TPU kernel has
     none either).
     """
     _check(x, dt, a, bmat, cmat)
@@ -80,9 +82,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Ten
                         f"{bmat.dtype}, {cmat.dtype}")
     b, s, h, p = x.shape
     n = bmat.shape[-1]
-    if n > _MAX_STATE or b > _MAX_GRID or h > _MAX_GRID:
-        raise ValueError(f"the CUDA kernel takes N <= {_MAX_STATE} and B, H <= {_MAX_GRID}, "
-                         f"got N {n}, B {b}, H {h}")
+    if n > _MAX_STATE or max(b, h, -(-s // CHUNK)) > _MAX_GRID:
+        raise ValueError(f"the CUDA kernel takes N <= {_MAX_STATE} and B, H, S / chunk <= "
+                         f"{_MAX_GRID}, got N {n}, B {b}, H {h}, S {s}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, bmat, cmat)):
         raise NotImplementedError("the SSD scan kernel has no backward (nor has the TPU "
                                   "kernel); run it under torch.no_grad()")
@@ -95,13 +97,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Ten
     x, bmat, cmat = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, bmat, cmat))
     a = a.contiguous()
     lib = load_library()
-    scratch = torch.empty(lib.ssd_scan_scratch_floats(b, s), dtype=torch.float32,
+    scratch = torch.empty(lib.ssd_scan_scratch_floats(b, s, h, p, n), dtype=torch.float32,
                           device=x.device)
     err = lib.ssd_scan_launch(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
         scratch.data_ptr(), y.data_ptr(), None if state is None else state.data_ptr(),
-        b, s, h, p, n, *x.stride()[:3], *dt.stride(), *bmat.stride()[:2], *cmat.stride()[:2],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        b, s, h, p, n, *x.stride()[:3], *dt.stride(), *bmat.stride()[:2],
+        *cmat.stride()[:2], torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     ssd_scan.launches += 1

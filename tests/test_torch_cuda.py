@@ -16,9 +16,10 @@ against attention_tc_ref, its rounding order: the same bfloat16 tolerance
 plus one bf16 ulp of a row's largest p (chip_smoke.tc_reference: a p next to
 a rounding boundary may round the other way); against attention_ref within
 the P-rounding bounds chip_smoke.py derives (P_MAX, P_MEAN).  The SSD scan in float32
-against the recurrence and the chunked SSD at rtol 1e-5 with an atol of 1e-5
-times the largest entry (the chunked dual form against products of per-step
-decays: float32 sums in other orders).
+against the recurrence, the chunked SSD and the plain function in the
+kernels' order at rtol 1e-5 with an atol of 1e-5 times the largest entry (the
+chunked dual form against products of per-step decays, its products as
+3xTF32 on the tensor cores: float32 sums in other orders).
 """
 import importlib.util
 from pathlib import Path
@@ -32,7 +33,7 @@ from repro_torch.kernels.dp_aggregate import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref, ssd_scan_stages_ref  # noqa: E402
 from repro_torch.models.ssm import _final_state, ssd_chunked  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -231,11 +232,20 @@ def test_flash_kernel_refuses_what_it_cannot_run(dev):
         flash_ops.flash_attention(x, x, x)
 
 
-SSD_CASES = {  # b, s, h, p, n: one chunk, ragged, partial P slices and odd N, serve-like
+SSD_CASES = {  # b, s, h, p, n: one chunk, ragged, partial P slices and odd N, serve-like,
+    # and a sequence one step short of the kernels' chunk, one chunk, one step over
+    # (N 64: zamba2's state)
     "s64": (1, 64, 2, 16, 8),
     "ragged-s300": (2, 300, 3, 64, 128),
     "ragged-s1237-p40-n20": (1, 1237, 2, 40, 20),
     "serve-like-s2048": (2, 2048, 8, 64, 128),
+    **{f"chunk-edge-s{s}-n64": (2, s, 3, 64, 64)
+       for s in (ssd_ops.CHUNK - 1, ssd_ops.CHUNK, ssd_ops.CHUNK + 1)},
+}
+SSD_EDGE_CASES = {  # b, s, h, p, n at the kernels' chunk edges: ragged P (P 72: a full
+    # and a partial 64-column slice, P 6: not a multiple of 4) and N
+    **{f"s{ssd_ops.CHUNK + e}-p72": (1, ssd_ops.CHUNK + e, 2, 72, 64) for e in (-1, 0, 1)},
+    "p6-n5": (2, 3 * ssd_ops.CHUNK + 5, 2, 6, 5),
 }
 
 
@@ -261,6 +271,20 @@ def test_ssd_kernel_matches_both_plain_versions(dev, case):
     _close(state, want_state)
     _close(y, ssd_chunked(*args))
     _close(state, _final_state(*args[:4]))
+
+
+@pytest.mark.parametrize("case", list(SSD_EDGE_CASES))
+def test_ssd_kernel_matches_at_the_chunk_edges(dev, case):
+    """The kernels at their chunk's edges against the recurrence and the
+    plain function in the kernels' order."""
+    args = _ssd_inputs(dev, *SSD_EDGE_CASES[case], seed=2)
+    y, state = ssd_ops.ssd_scan(*args, return_state=True)
+    want, want_state = ssd_scan_ref(*args, return_state=True)
+    _close(y, want)
+    _close(state, want_state)
+    staged, staged_state = ssd_scan_stages_ref(*args, chunk=ssd_ops.CHUNK, return_state=True)
+    _close(y, staged)
+    _close(state, staged_state)
 
 
 def test_ssd_kernel_is_deterministic_and_takes_strided_views(dev):

@@ -32,6 +32,7 @@ from repro.models.transformer import DecoderLM as JaxDecoderLM  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.convert import decoder_from_jax, params_from_jax  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_stages_ref  # noqa: E402
 from repro_torch.models import DecoderLM, ssm  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -229,10 +230,10 @@ def _ssm_drift(bf16_mamba2, monkeypatch, scan, capsys, label):
 def test_bf16_drift_between_ssd_orders_is_within_the_serve_bounds(bf16_mamba2, monkeypatch,
                                                                   capsys):
     """At full depth in bf16, two float32 SSD orders (ssd_chunked at 128-step
-    chunks, and at the kernel's 64) move the outputs only by bf16 rounding
-    carried through 64 layers."""
+    chunks, and the CUDA kernels' stage order at their chunk) move the outputs
+    only by bf16 rounding carried through 64 layers."""
     r = _ssm_drift(bf16_mamba2, monkeypatch,
-                   lambda *args: ssm.ssd_chunked(*args, chunk=chip_smoke.SSD_CHUNK), capsys,
+                   lambda *args: ssd_scan_stages_ref(*args, chunk=ops.CHUNK), capsys,
                    "bf16 drift")
     assert 0 < r["logits_max"] and chip_smoke.ssm_within_bounds(r)
 
