@@ -8,10 +8,18 @@ Phases, each of which exits non-zero on failure:
                tensor-core) and ssd_scan kernels from csrc/ (ctypes), one
                process per source, all at once; ptxas's registers and
                spills, and each kernel's tensor-core instructions (HMMA,
-               HGMMA) where the toolkit has cuobjdump.
+               HGMMA) where the toolkit has cuobjdump; dp_aggregate's launch
+               plan (cluster size, window, stages, the clusters the card
+               holds) with each kernel's registers, spills and shared memory.
   2. kernels   every kernel against its plain PyTorch version on the card, at
                the main paths' shapes and ragged ones; fused-mode noise
                against the noise-only kernel; bitwise determinism; times.
+               dp_aggregate in every mode at (1000, 500), (1000, 100),
+               (1000, 131072), (37, 129), (1, 1), (300, 4099) and (8, 300001)
+               (the L2 path), the noise-only kernel at the same shapes, both
+               with their float32-rate bound and the pair generator's integer
+               bound at the SM clock nvidia-smi reads under load;
+               torch.randn at the full shape as a yardstick.
                flash_attention through its dispatch rule (bf16 with Dh <= 128
                to the tensor-core kernel, float32 or Dh > 128 to the SIMT
                kernel; the counters must say so): the serve shape's head group
@@ -84,13 +92,20 @@ BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 TF32X3_OPS_PER_S = 495e12 / 3   # float32-accurate products on the tensor cores: 3 TF32 each
 # operations per element of the (M, d) matrix.  none: norm fma (2), scale mul,
 # column add; operand/fused add the noise add and the square fma (3 more).
-# The counter generator adds ~131 ops (Threefry-2x32-20: 117 integer ops;
-# two bits-to-float conversions: 8; Box-Muller: 6).  All are counted at the
+# The pair generator draws two normals a Threefry call, 133 operations a
+# column pair (Threefry-2x32-20: 117 integer ops with a rotate counted as
+# shift, shift, or; two bits-to-float conversions: 8; Box-Muller: 8 for log,
+# sqrt, sincos and four products), 66.5 an element.  All are counted at the
 # float32 rate, above the card's integer rate, so the bound stays a lower bound.
-GEN_OPS = 131
+GEN_OPS = 133 / 2
 OPS_PER_ELEM = {"none": 4, "operand": 7, "fused": 7 + GEN_OPS}
+# Its integer operations alone, with a rotate as one funnel shift: Threefry 72
+# (2 + 20 rounds x 3 + 5 key injections x 2), the two bit shifts 2: 74 a pair,
+# at 64 INT32 lanes per SM and clock on the H100's 132 SMs.
+GEN_INT_OPS = 74
+INT32_LANES = 64 * 132
 RTOL = 1e-5                 # sums: |k - p| <= RTOL * (|p| + max|p|)
-NOISE_ATOL = 1e-5           # per element, in units of sigma: f32 log/cos/sqrt rounding
+NOISE_ATOL = 1e-5           # per element, in units of sigma: f32 log/cos/sin/sqrt rounding
 
 HP = {  # (eta_l, C) of benchmarks/e1_synthetic.py; noiseless names at eta_l 0.1
     "fedavg": (0.1, None), "fedexp": (0.1, None),
@@ -165,6 +180,18 @@ def phase_build():
         for line in log["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("    ptxas:", line.strip())
+    for m, d in ((1000, 131072), (1000, 500), (8, 300001)):
+        for mode in ("none", "operand", "fused"):
+            plan = dp_ops.launch_plan(m, d, mode, "cuda")
+            attrs = dp_ops.kernel_attributes(mode, plan.pairs)
+            print(f"    dp_aggregate {mode} ({m},{d}): {plan}; the card holds "
+                  f"{dp_ops.max_active_clusters(m, d, mode, 'cuda')} such clusters at once; "
+                  f"{attrs['registers']} registers, "
+                  f"{attrs['local_bytes']} B local (stack or spills), "
+                  f"{attrs['static_smem']} B static + {plan.smem_bytes} B dynamic shared memory")
+    attrs = dp_ops.kernel_attributes(None)
+    print(f"    ldp_noise: {attrs['registers']} registers, {attrs['local_bytes']} B local "
+          "(stack or spills)")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(cuobjdump).exists():
         print("    sass: no cuobjdump in this toolkit")
@@ -188,6 +215,27 @@ def sass_mma(cuobjdump: str, path: str) -> dict[str, tuple[int, int]]:
     return {k: tuple(v) for k, v in counts.items()}
 
 
+def sm_clock_mhz(busy) -> float:
+    """The SM clock (MHz) that nvidia-smi reads while ``busy`` keeps the card at work."""
+    import torch
+    query = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        stdout=subprocess.PIPE, text=True)
+    while query.poll() is None:
+        busy()
+        torch.cuda.synchronize()
+    return float(query.communicate()[0].split()[0])
+
+
+def int_bound_ms(m: int, d: int, mhz: float) -> float:
+    """Least time (ms) of the pair generator's integer operations for (m, d)."""
+    return 1e3 * m * ((d + 1) // 2) * GEN_INT_OPS / (INT32_LANES * mhz * 1e6)
+
+
+DP_SHAPES = ((1000, 500), (1000, 100), (1000, 131072), (37, 129), (1, 1), (300, 4099),
+             (8, 300001))
+
+
 def phase_kernels(dev):
     """Kernel vs plain at every shape and mode; returns the timing cases."""
     import torch
@@ -196,7 +244,14 @@ def phase_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(1234)
     cases, noise_cases = [], []
     sigma, seed = 0.7, 0x5EED
-    for m, d in ((1000, 500), (1000, 100), (1000, 131072), (37, 129)):
+
+    def busy():
+        for _ in range(50):
+            ops.generate_ldp_noise(1000, 131072, seed, sigma, device=dev)
+
+    mhz = sm_clock_mhz(busy)
+    print(f"[2 kernels] SM clock under the noise kernel: {mhz:.0f} MHz (nvidia-smi clocks.sm)")
+    for m, d in DP_SHAPES:
         # row norms spread over [0, 2] so that about half the rows clip at C = 1
         u = torch.randn(m, d, generator=gen, device=dev)
         u *= 2 * torch.rand(m, 1, generator=gen, device=dev) / math.sqrt(d)
@@ -230,10 +285,10 @@ def phase_kernels(dev):
             want = ref.dp_aggregate_ref(u, dict(operand=opnoise, fused=pn).get(mode), clip)
             err = max(close(g, w, f"dp_aggregate {mode} ({m},{d}) output {i}")
                       for i, (g, w) in enumerate(zip(got, want)))
+            again = ops.dp_aggregate_sums(u, clip, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"dp_aggregate {mode} ({m},{d}): two launches differ in bits")
             if mode == "fused":
-                again = ops.dp_aggregate_sums(u, clip, **kw)
-                if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                    fail(f"dp_aggregate fused ({m},{d}): two launches differ in bits")
                 as_operand = ops.dp_aggregate_sums(u, clip, kn)
                 ferr = max(close(a, b, f"fused vs operand ({m},{d}) output {i}")
                            for i, (a, b) in enumerate(zip(got, as_operand)))
@@ -249,10 +304,17 @@ def phase_kernels(dev):
             c = cases[-1]
             print(f"[2 kernels] dp_aggregate {mode:7s} ({m},{d}): max abs err {err:.3e}  "
                   f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  "
-                  f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+                  f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})"
+                  + (f"  integer bound {int_bound_ms(m, d, mhz):.4f} ms" if mode == "fused"
+                     else ""))
         nc = noise_cases[-1]
         print(f"[2 kernels] ldp_noise ({m},{d}): max abs err {nerr:.3e}  kernel "
-              f"{nc['ms']:.4f} ms  plain {nc['plain_ms']:.4f} ms  bound {nc['bound_ms']:.4f} ms")
+              f"{nc['ms']:.4f} ms  plain {nc['plain_ms']:.4f} ms  bound {nc['bound_ms']:.4f} ms "
+              f"({nc['bound_by']})  integer bound {int_bound_ms(m, d, mhz):.4f} ms")
+        if (m, d) == (1000, 131072):
+            randn = cuda_ms(lambda: torch.randn(m, d, device=dev), 10)
+            print(f"[2 kernels] torch.randn({m}, {d}) {randn:.4f} ms: PyTorch's own Gaussian "
+                  "generator (Philox, other bits: not the same function), a yardstick only")
         del u, opnoise, kn, pn, plain
         torch.cuda.empty_cache()
     return cases, noise_cases

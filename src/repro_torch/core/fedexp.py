@@ -50,17 +50,18 @@ _FACTORIES: dict[str, Callable[..., ServerAlgorithm]] = {
 
 # the JAX package's other registry names, with the slice that ports each
 _LATER: dict[str, str] = {
-    "dp-fedavg-privunit": "the PrivUnit slice (queue 1, item 4)",
-    "ldp-fedexp-privunit": "the PrivUnit slice (queue 1, item 4)",
-    "privunit-fedexp-adaptive-clip": "the PrivUnit and adaptive-clip slices (queue 1, items 4 and 9)",
-    "cdp-fedexp-adaptive-clip": "the adaptive-clip slice (queue 1, item 9)",
-    "dp-fedadam-cdp": "the server-optimizer slice (queue 1, item 9)",
-    "ldp-gauss-fedadam": "the server-optimizer slice (queue 1, item 9)",
-    "cdp-fedmom": "the server-optimizer slice (queue 1, item 9)",
-    "ldp-fedexp-perclient": "the heterogeneous-privacy slice (queue 1, item 9)",
-    "ldp-fedexp-schedule": "the noise-schedule slice (queue 1, item 9)",
-    "cdp-fedexp-schedule": "the noise-schedule slice (queue 1, item 9)",
-    "dp-scaffold": "the variance-reduction slice (queue 1, item 9)",
+    "dp-fedavg-privunit": "the PrivUnit slice (queue 1, item 8)",
+    "ldp-fedexp-privunit": "the PrivUnit slice (queue 1, item 8)",
+    "privunit-fedexp-adaptive-clip":
+        "the PrivUnit and adaptive-clip slices (queue 1, items 8 and 11)",
+    "cdp-fedexp-adaptive-clip": "the adaptive-clip slice (queue 1, item 11)",
+    "dp-fedadam-cdp": "the server-optimizer slice (queue 1, item 11)",
+    "ldp-gauss-fedadam": "the server-optimizer slice (queue 1, item 11)",
+    "cdp-fedmom": "the server-optimizer slice (queue 1, item 11)",
+    "ldp-fedexp-perclient": "the heterogeneous-privacy slice (queue 1, item 11)",
+    "ldp-fedexp-schedule": "the noise-schedule slice (queue 1, item 11)",
+    "cdp-fedexp-schedule": "the noise-schedule slice (queue 1, item 11)",
+    "dp-scaffold": "the variance-reduction slice (queue 1, item 11)",
 }
 
 

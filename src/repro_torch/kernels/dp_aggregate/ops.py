@@ -8,12 +8,16 @@ launches in a plain integer attribute (``dp_aggregate_sums.launches``,
 drives the main path and reads after.
 
 Unlike the JAX wrapper, nothing is padded: the kernel masks ragged M and d
-itself.  Noise is keyed by (seed, global row, column), so ``row_start`` gives
-a slice of the cohort the rows of the whole cohort's noise.
+itself.  Noise is keyed by (seed, global row, column pair), so ``row_start``
+gives a slice of the cohort the rows of the whole cohort's noise.  The
+aggregation is one launch whose shape (cluster size, column window, threads,
+ring stages, clusters) ``_launch_plan`` computes here, where the CPU tests
+reach it.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from pathlib import Path
@@ -24,38 +28,158 @@ from repro_torch.core.aggregation import RoundMoments, RoundStats
 from repro_torch.kernels import _build
 from repro_torch.kernels.dp_aggregate import ref
 
-__all__ = ["dp_aggregate", "dp_aggregate_sums", "generate_ldp_noise", "load_library"]
+__all__ = ["LaunchPlan", "dp_aggregate", "dp_aggregate_sums", "generate_ldp_noise",
+           "kernel_attributes", "launch_plan", "load_library", "max_active_clusters"]
 
 _SOURCES = (Path(__file__).resolve().parent / "csrc" / "dp_aggregate.cu",)
 
-_THREADS = 256              # columns per block of the column kernel
-_TARGET_BLOCKS = 8 * 132    # ~8 resident 256-thread blocks on each of the 132 SMs
-_MAX_GRID_Y = 65535
 _MODES = {"none": 0, "operand": 1, "fused": 2}
+_THREADS = 512               # most threads of an aggregation block
+_PAIRS = (1, 2, 4, 8, 16)    # column pairs per thread the ring path is built for
+_MAX_WINDOW = 2 * _PAIRS[-1] * _THREADS   # 16384 columns: the ring path's widest window
+_MAX_CLUSTER = 8             # the portable cluster size
+_MAX_STAGES = 4
+_SMEM_BYTES = 232448 - 4096  # a block's shared memory, less the kernel's static 2304 B
+_L2_PATH_BYTES = 24 << 20    # the L2 path's rows and column sums in flight (of the 50 MB L2)
+_SMS = 132                   # H100 SXM
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """Shape of one aggregation launch.
+
+    ``clusters`` clusters of ``cluster`` blocks; cluster c takes rows
+    [c * rows_per_cluster, (c + 1) * rows_per_cluster), block b of it the
+    columns [b * window, (b + 1) * window).  ``pairs`` column pairs per
+    thread in registers (0: the L2 path, no ring); the ring holds ``stages``
+    row windows of ``slot_floats`` floats in ``smem_bytes`` of shared memory.
+    """
+    cluster: int
+    window: int
+    threads: int
+    pairs: int
+    stages: int
+    slot_floats: int
+    smem_bytes: int
+    clusters: int
+    rows_per_cluster: int
+
+
+def _round_up(x: int, k: int) -> int:
+    return -(-x // k) * k
+
+
+def _launch_plan(m: int, d: int, *, sms: int = _SMS, max_clusters: int | None = None
+                 ) -> LaunchPlan:
+    """The launch shape for an (m, d) matrix on a card of ``sms`` SMs.
+
+    The cluster is the fewest blocks (a power of two up to 8) whose column
+    windows fit the ring path; a window wider than 16384 columns (d > 131072)
+    takes the L2 path.  Clusters: at most one block per SM, at most
+    ``max_clusters`` (the card's occupancy for this shape), at most m, and on
+    the L2 path few enough that their rows and column sums stay in L2.
+    """
+    k = 1
+    while k < _MAX_CLUSTER and -(-d // k) > _MAX_WINDOW:
+        k *= 2
+    window = _round_up(-(-d // k), 4)
+    pairs_needed = window // 2
+    if window <= _MAX_WINDOW:
+        pairs = next(p for p in _PAIRS if p * _THREADS >= pairs_needed)
+        threads = _round_up(-(-pairs_needed // pairs), 32)
+        slot = _round_up(window + 8, 32)   # the window and its alignment offset, 128-byte slots
+        stages = min(_MAX_STAGES, _SMEM_BYTES // (4 * slot))
+        smem = 4 * slot * stages
+    else:
+        threads, pairs, slot, stages, smem = _THREADS, 0, 0, 0, 0
+    cap = sms // k if max_clusters is None else min(sms // k, max_clusters)
+    if pairs == 0:
+        cap = min(cap, _L2_PATH_BYTES // (8 * d))
+    cap = max(1, min(cap, m))
+    rows = -(-m // cap)
+    return LaunchPlan(cluster=k, window=window, threads=threads, pairs=pairs, stages=stages,
+                      slot_floats=slot, smem_bytes=smem, clusters=-(-m // rows),
+                      rows_per_cluster=rows)
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernels; declare the C signatures."""
     lib = _build.load_library("dp_aggregate", _SOURCES)
-    p, i64, f32, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_uint32
+    p, i64, f32, u32, i32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_uint32,
+                             ctypes.c_int)
     lib.dp_aggregate_launch.argtypes = [
-        p, p, ctypes.c_int, i64, i64, f32, f32, u32, i64, i64, ctypes.c_int,
-        p, p, p, p, p, p, p, p]
-    lib.dp_aggregate_launch.restype = ctypes.c_int
+        p, p, i32, i64, i64, f32, f32, u32, i64,
+        i32, i32, i32, i32, i32, i32, i32, i32, i64, p, p, p, p]
+    lib.dp_aggregate_launch.restype = i32
+    lib.dp_aggregate_max_clusters.argtypes = [i32, i32, i32, i32, i32, ctypes.POINTER(i32)]
+    lib.dp_aggregate_max_clusters.restype = i32
+    lib.dp_aggregate_attributes.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
+    lib.dp_aggregate_attributes.restype = i32
+    lib.dp_aggregate_error_name.argtypes = [i32]
+    lib.dp_aggregate_error_name.restype = ctypes.c_char_p
     lib.ldp_noise_launch.argtypes = [p, i64, i64, f32, u32, i64, p]
-    lib.ldp_noise_launch.restype = ctypes.c_int
+    lib.ldp_noise_launch.restype = i32
     return lib
 
 
-def _launch_plan(m: int, d: int) -> tuple[int, int]:
-    """(rows_per_split, splits) of the column kernel: enough row splits that
-    the (ceil(d/256), splits) grid fills the card, each split a contiguous
-    row range."""
-    col_blocks = -(-d // _THREADS)
-    splits = min(m, _MAX_GRID_Y, max(1, -(-_TARGET_BLOCKS // col_blocks)))
-    rows_per_split = -(-m // splits)
-    return rows_per_split, -(-m // rows_per_split)
+@functools.cache
+def _max_clusters(device_index: int, mode: int, pairs: int, cluster: int, threads: int,
+                  smem_bytes: int) -> int:
+    """cudaOccupancyMaxActiveClusters for one kernel and shape, on one card."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = load_library().dp_aggregate_max_clusters(mode, pairs, cluster, threads,
+                                                       smem_bytes, ctypes.byref(out))
+    if err != 0 or out.value < 1:
+        raise RuntimeError(f"dp_aggregate: no cluster of {cluster} x {threads} threads with "
+                           f"{smem_bytes} B of shared memory fits (CUDA error {err})")
+    return out.value
+
+
+def launch_plan(m: int, d: int, mode: str, device) -> LaunchPlan:
+    """The plan ``dp_aggregate_sums`` launches on a CUDA ``device`` for (m, d) in ``mode``."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _card_plan(m, d, mode, index)
+
+
+def max_active_clusters(m: int, d: int, mode: str, device) -> int:
+    """How many clusters of (m, d)'s launch shape the card holds at once
+    (cudaOccupancyMaxActiveClusters); the plan takes at most that many."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    shape = _launch_plan(m, d)
+    return _max_clusters(index, _MODES[mode], shape.pairs, shape.cluster, shape.threads,
+                         shape.smem_bytes)
+
+
+@functools.lru_cache(maxsize=256)
+def _card_plan(m: int, d: int, mode: str, index: int) -> LaunchPlan:
+    return _launch_plan(m, d, sms=torch.cuda.get_device_properties(index).multi_processor_count,
+                        max_clusters=max_active_clusters(m, d, mode, index))
+
+
+def kernel_attributes(mode: str | None, pairs: int = 0) -> dict[str, int]:
+    """Registers, spill (local) bytes and static shared memory of the
+    aggregation kernel for (mode, pairs), or of the noise-only kernel (mode None)."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = load_library().dp_aggregate_attributes(-1 if mode is None else _MODES[mode], pairs,
+                                                 *map(ctypes.byref, vals))
+    if err != 0:
+        raise RuntimeError(f"dp_aggregate attributes ({mode}, {pairs}): CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "static_smem"), (v.value for v in vals)))
+
+
+# per (device, stream): the kernel's 16 ticket counters, zero between launches
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _tickets_for(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    if key not in _tickets:
+        _tickets[key] = torch.zeros(16, dtype=torch.int32, device=device)
+    return _tickets[key]
 
 
 def _check(name: str, x: torch.Tensor, shape=None) -> torch.Tensor:
@@ -107,25 +231,22 @@ def dp_aggregate_sums(updates: torch.Tensor, clip_norm, noise: torch.Tensor | No
         raise ValueError("noise must lie on the updates' device")
     mode = "operand" if noise is not None else ("fused" if noise_seed is not None else "none")
     lib = load_library()
-    rows_per_split, splits = _launch_plan(m, d)
-    col_blocks = -(-d // _THREADS)
+    plan = launch_plan(m, d, mode, u.device)
+    stream = torch.cuda.current_stream(u.device).cuda_stream
     f32 = dict(dtype=torch.float32, device=u.device)
-    row_sq, scale = torch.empty(m, **f32), torch.empty(m, **f32)
-    col_partial = torch.empty(splits, d, **f32)
-    sq_partial = torch.empty(splits * col_blocks, **f32)
-    out_sum = torch.empty(d, **f32)
-    out_sq_rel, out_sq_clip = torch.empty((), **f32), torch.empty((), **f32)
+    scratch = torch.empty(plan.clusters * (d + plan.cluster + 1), **f32)
+    out = torch.empty(d + 2, **f32)
     err = lib.dp_aggregate_launch(
         u.data_ptr(), None if noise is None else noise.data_ptr(), _MODES[mode],
-        m, d, float(clip_norm), float(noise_sigma or 0.0),
-        _seed32(noise_seed or 0), int(row_start), rows_per_split, splits,
-        row_sq.data_ptr(), scale.data_ptr(), col_partial.data_ptr(),
-        sq_partial.data_ptr(), out_sum.data_ptr(), out_sq_rel.data_ptr(),
-        out_sq_clip.data_ptr(), torch.cuda.current_stream(u.device).cuda_stream)
+        m, d, float(clip_norm), float(noise_sigma or 0.0), _seed32(noise_seed or 0),
+        int(row_start), plan.cluster, plan.window, plan.threads, plan.pairs, plan.stages,
+        plan.slot_floats, plan.smem_bytes, plan.clusters, plan.rows_per_cluster,
+        scratch.data_ptr(), _tickets_for(u.device, stream).data_ptr(), out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"dp_aggregate kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"dp_aggregate kernel launch failed for {plan}: "
+                           f"{lib.dp_aggregate_error_name(err).decode()} ({err})")
     dp_aggregate_sums.launches += 1
-    return out_sum, out_sq_rel, out_sq_clip
+    return out[:d], out[d], out[d + 1]
 
 
 dp_aggregate_sums.launches = 0

@@ -2,10 +2,11 @@
 
 The CPU path runs these, the tests hold them against the JAX package, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.  The noise
-generator is the kernel's own, written out with int64 tensors masked to 32
+generator is the kernels' own, written out with int64 tensors masked to 32
 bits: Threefry-2x32-20 keyed by (seed, 0x9E3779B9) over the counter
-(global row, column), then Box-Muller.  It gives the kernel's noise up to the
-rounding of log, cos and sqrt.
+(global row, column pair), then Box-Muller, whose two outputs are columns
+2k and 2k+1.  It gives the kernels' noise up to the rounding of log, cos,
+sin and sqrt.
 """
 from __future__ import annotations
 
@@ -47,15 +48,24 @@ def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
 
 def ldp_noise_ref(m: int, d: int, seed: int, sigma: float, *, row_start: int = 0,
                   device="cpu") -> torch.Tensor:
-    """(m, d) float32 noise: sigma * N(0, 1) keyed by (seed, row_start + i, j)."""
+    """(m, d) float32 noise: sigma * N(0, 1), two normals per Threefry call.
+
+    Row ``r = row_start + i`` and column pair ``k`` take
+    ``(b0, b1) = threefry2x32((seed, 0x9E3779B9), (r, k))``; then
+    ``rho = sqrt(-2 log unit(b0))``, ``theta = 2 pi unit(b1)`` and
+    ``z[r, 2k] = rho cos theta``, ``z[r, 2k + 1] = rho sin theta``.  An odd d
+    drops the last pair's sine, so the first d' columns of any wider draw are
+    this draw.
+    """
+    pairs = (d + 1) // 2
     rows = torch.arange(row_start, row_start + m, dtype=torch.int64, device=device)
-    cols = torch.arange(d, dtype=torch.int64, device=device)
-    x0 = rows[:, None].expand(m, d)
-    x1 = cols[None, :].expand(m, d)
-    b0, b1 = threefry2x32(int(seed), _GOLDEN, x0, x1)
-    r = torch.sqrt(-2.0 * torch.log(_bits_to_unit(b0)))
-    z = r * torch.cos(_TWO_PI * _bits_to_unit(b1))
-    return float(sigma) * z
+    ks = torch.arange(pairs, dtype=torch.int64, device=device)
+    b0, b1 = threefry2x32(int(seed), _GOLDEN, rows[:, None].expand(m, pairs),
+                          ks[None, :].expand(m, pairs))
+    rho = torch.sqrt(-2.0 * torch.log(_bits_to_unit(b0)))
+    theta = _TWO_PI * _bits_to_unit(b1)
+    z = torch.stack((rho * torch.cos(theta), rho * torch.sin(theta)), dim=-1)
+    return float(sigma) * z.reshape(m, 2 * pairs)[:, :d]
 
 
 def clip_scale(sq_norms: torch.Tensor, clip_norm) -> torch.Tensor:

@@ -7,7 +7,7 @@ Run where there is a CUDA card (an H100: the kernels build for sm_90a):
 Without a card every test here skips.  Only torch is imported, so the file
 also runs where JAX is not installed.  Tolerances: sums at rtol 1e-5 with an
 atol of 1e-5 times the largest entry (float32 sums in other orders); noise at
-1e-5 sigma per element (float32 log/cos/sqrt rounding).  Flash attention on
+1e-5 sigma per element (float32 log/cos/sin/sqrt rounding).  Flash attention on
 the SIMT kernel (float32, or Dh > 128) against attention_ref: float32 at rtol
 1e-5 and atol 1e-5 (float32 sums in other orders); bfloat16 at rtol 2^-7, one
 bfloat16 ulp (both sides compute in float32 and round once), with atol 1e-4
@@ -55,12 +55,20 @@ def _close(got, want):
     assert torch.allclose(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("m,d", [(1, 1), (37, 129), (1000, 500), (300, 4099)])
-@pytest.mark.parametrize("mode", ["none", "operand", "fused"])
-def test_kernel_matches_plain(dev, m, d, mode):
+DP_SHAPES = [(1, 1), (37, 129), (1000, 500), (300, 4099), (1000, 131072), (8, 300001)]
+
+
+def _dp_inputs(m, d, dev):
     g = torch.Generator(device=dev).manual_seed(m + d)
     u = torch.randn(m, d, generator=g, device=dev) * torch.rand(m, 1, generator=g, device=dev)
-    noise = 0.3 * torch.randn(m, d, generator=g, device=dev)
+    return u * (2 / d**0.5), 0.3 * torch.randn(m, d, generator=g, device=dev)
+
+
+@pytest.mark.parametrize("m,d", DP_SHAPES)
+@pytest.mark.parametrize("mode", ["none", "operand", "fused"])
+def test_kernel_matches_plain(dev, m, d, mode):
+    """Every mode at every shape (the last takes the L2 path); one launch a call."""
+    u, noise = _dp_inputs(m, d, dev)
     kw = {"operand": dict(noise=noise), "fused": dict(noise_seed=42, noise_sigma=0.3)}.get(mode, {})
     plain_noise = {"operand": noise,
                    "fused": ref.ldp_noise_ref(m, d, 42, 0.3, device=dev)}.get(mode)
@@ -71,21 +79,63 @@ def test_kernel_matches_plain(dev, m, d, mode):
         _close(a, b)
 
 
-@pytest.mark.parametrize("row_start", [0, 999])
-def test_noise_kernel_matches_plain_generator(dev, row_start):
-    k = ops.generate_ldp_noise(64, 300, 7, 1.5, device=dev, row_start=row_start)
-    p = ref.ldp_noise_ref(64, 300, 7, 1.5, device=dev, row_start=row_start)
+@pytest.mark.parametrize("m,d", [(37, 129), (1000, 131072), (8, 300001)])
+@pytest.mark.parametrize("mode", ["none", "operand", "fused"])
+def test_two_launches_give_identical_bits(dev, m, d, mode):
+    u, noise = _dp_inputs(m, d, dev)
+    kw = {"operand": dict(noise=noise), "fused": dict(noise_seed=3, noise_sigma=0.7)}.get(mode, {})
+    a = ops.dp_aggregate_sums(u, 0.5, **kw)
+    b = ops.dp_aggregate_sums(u, 0.5, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("m,d", [(40, 129), (300, 4099), (20, 300001)])
+def test_fused_rows_keep_their_noise_under_row_start(dev, m, d):
+    """A slice of the cohort keyed by its global rows draws the whole cohort's
+    noise: it matches the plain version, and two halves sum to the whole."""
+    u, _ = _dp_inputs(m, d, dev)
+    kw = dict(noise_seed=9, noise_sigma=0.4)
+    h = m // 3
+    hi = ops.dp_aggregate_sums(u[h:], 1.0, row_start=h, **kw)
+    plain = ref.dp_aggregate_ref(u[h:], ref.ldp_noise_ref(m, d, 9, 0.4, device=dev)[h:], 1.0)
+    for a, b in zip(hi, plain):
+        _close(a, b)
+    whole, lo = ops.dp_aggregate_sums(u, 1.0, **kw), ops.dp_aggregate_sums(u[:h], 1.0, **kw)
+    for w, a, b in zip(whole, lo, hi):
+        _close(a + b, w)
+
+
+def test_a_smaller_shape_leaves_a_larger_ones_launch_intact(dev):
+    """Each shape's plan asks for its own shared memory; a smaller one planned
+    later must not lower the kernel's limit under a larger one."""
+    big, small = torch.randn(1000, 500, device=dev), torch.randn(1, 1, device=dev)
+    want = ops.dp_aggregate_sums(big, float("inf"))
+    ops.dp_aggregate_sums(small, 1.0)
+    ops.launch_plan(3, 7, "none", dev)
+    got = ops.dp_aggregate_sums(big, float("inf"))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("m,d,row_start", [(64, 300, 0), (64, 300, 999), (5, 4099, 7),
+                                           (3, 1, 0), (1000, 131072, 0), (2, 300001, 5)])
+def test_noise_kernel_matches_plain_generator(dev, m, d, row_start):
+    before = ops.generate_ldp_noise.launches
+    k = ops.generate_ldp_noise(m, d, 7, 1.5, device=dev, row_start=row_start)
+    assert ops.generate_ldp_noise.launches == before + 1
+    p = ref.ldp_noise_ref(m, d, 7, 1.5, device=dev, row_start=row_start)
     assert float((k - p).abs().max()) <= 1e-5 * 1.5
-    c = ref.ldp_noise_ref(64, 300, 7, 1.5, row_start=row_start)   # the CPU's plain version
-    assert float((k.cpu() - c).abs().max()) <= 1e-5 * 1.5
+    if m * d < 10**6:
+        c = ref.ldp_noise_ref(m, d, 7, 1.5, row_start=row_start)   # the CPU's plain version
+        assert float((k.cpu() - c).abs().max()) <= 1e-5 * 1.5
 
 
-def test_fused_is_deterministic_and_equals_operand_fed_the_noise_kernel(dev):
-    u = torch.randn(200, 1000, device=dev)
+@pytest.mark.parametrize("m,d", [(200, 1000), (33, 4099), (8, 300001)])
+def test_fused_is_deterministic_and_equals_operand_fed_the_noise_kernel(dev, m, d):
+    u = torch.randn(m, d, device=dev)
     a = ops.dp_aggregate_sums(u, 1.0, noise_seed=5, noise_sigma=0.8)
     b = ops.dp_aggregate_sums(u, 1.0, noise_seed=5, noise_sigma=0.8)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
-    c = ops.dp_aggregate_sums(u, 1.0, ops.generate_ldp_noise(200, 1000, 5, 0.8, device=dev))
+    c = ops.dp_aggregate_sums(u, 1.0, ops.generate_ldp_noise(m, d, 5, 0.8, device=dev))
     for x, y in zip(a, c):
         _close(x, y)
 
