@@ -20,23 +20,28 @@ Phases, each of which exits non-zero on failure:
                with their float32-rate bound and the pair generator's integer
                bound at the SM clock nvidia-smi reads under load;
                torch.randn at the full shape as a yardstick.
-               flash_attention through its dispatch rule (bf16 with Dh <= 128
-               to the tensor-core kernel, float32 or Dh > 128 to the SIMT
-               kernel; the counters must say so): the serve shape's head group
-               and all heads, MQA at head_dim 256, head_dims 64, 80 and 128, a
-               window under one tile, a ragged kv_len and non-causal
-               attention.  The tensor-core kernel is held tight against its
-               rounding order (ref.attention_tc_ref) and within the derived
+               flash_attention through its dispatch rule (bf16 with Dh <= 256
+               to the tensor-core kernel, 128-key tiles up to Dh 128 and 64
+               above; float32 to the SIMT kernel; the counters must say so):
+               the serve shape's head group and all heads, MQA at head_dim
+               256, head_dims 64, 80, 128, 136 and 192, a window under one
+               tile, a ragged kv_len and non-causal attention.  The
+               tensor-core kernel is held tight against its rounding order
+               (ref.attention_tc_ref at its key tile) and within the derived
                P-rounding bound of attention_ref; a planted fault (window one
-               too wide) must fail the tight check.  At the serve shape both
-               kernels are timed (tensor-core in bf16, SIMT in bf16 and f32)
-               beside SDPA.  ssd_scan against the recurrence and the
-               chunked SSD at small, ragged (S 300, 1237) and strong-decay
-               shapes, and at the Mamba2 serve shape (2, 16384, 80, 64) with
-               N 128 and inputs drawn as Mamba2 initialises A and dt; the
-               final state against the chunked path's; bitwise determinism;
-               its time, the bound for 3xTF32 tensor-core products and for
-               float32 ones, and a profiled split over the four stages.
+               too wide) must fail the tight check.  At the h2o serve shape
+               both kernels are timed (tensor-core in bf16, SIMT in bf16 and
+               f32) beside SDPA; at gemma-2b's (B 2, Hq 8, Hkv 1, S 8176, Dh
+               256, causal) the tensor-core kernel, checked the same way (the
+               fault: a window of 4096), beside the SIMT kernel in bf16 (the
+               route before), the plain version and SDPA with is_causal.
+               ssd_scan against the recurrence and the chunked SSD at
+               small, ragged (S 300, 1237) and strong-decay shapes, and at
+               the Mamba2 serve shape (2, 16384, 80, 64) with N 128 and
+               inputs drawn as Mamba2 initialises A and dt; the final state
+               against the chunked path's; bitwise determinism; its time,
+               the bound for 3xTF32 tensor-core products and for float32
+               ones, and a profiled split over the four stages.
   3. paper     the paper's synthetic linear regression (M=1000, tau=20,
                50 rounds; d=500 CDP/noiseless, d=100 LDP) for the six
                ported names, plus the two LDP names on the materialized-
@@ -65,10 +70,21 @@ Phases, each of which exits non-zero on failure:
                state carry reset at every chunk) that must fail; then two
                layers at full width on the card against the CPU (f32, prompt
                300): the greedy tokens must be equal.
+  8. serve-gemma gemma-2b at full width and depth as phase 6 (2.506 B seeded
+               bf16 parameters, MQA with one KV head of 256, GeGLU, tied
+               embeddings): 16 greedy tokens after an 8176-token prompt
+               (batch 2, a ragged last query tile, 8192 in all); 18
+               tensor-core flash launches per prefill, all at Dh 256 (the
+               64-key route), none SIMT; the planted fault a window of 4096
+               imposed on the plain path; one prefill timed with the SIMT
+               kernel in place of the dispatch (the route before); two f32
+               layers card-vs-CPU through the SIMT kernel at Dh 256.
 Phases 3 and 4 are the round loop's main path, phase 6's bf16 generate the
 dense serve path's (the tensor-core flash kernel), its f32 generate the float32
 serve path's (the SIMT flash kernel), phase 7's generate the Mamba2 serve
-path's: every launch counter is set to 0 before a path and read after.  The
+path's, phase 8's bf16 generate the Dh-256 serve path's (the tensor-core
+kernel's 64-key route): every launch counter is set to 0 before a path and
+read after.  The
 line before the last is {"kernels": [...]}, the last {"ok": true, "device":
 {...}}.  It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -83,6 +99,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 
@@ -463,6 +480,9 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 2, 8192, 16
 # width too and fails if the bounds do not see it.  Bounds:
 SERVE_MAX_ERR = 0.05    # max |d logit| / max |logit|
 SERVE_MEAN_ERR = 0.03   # mean |d logit| / std(logit)
+GEMMA = "gemma-2b"
+GEMMA_BATCH, GEMMA_PROMPT, GEMMA_NEW = 2, 8176, 16
+GEMMA_FAULT_WINDOW = 4096
 
 
 def flash_excess(got, want, flip=0.0) -> tuple[float, float]:
@@ -486,11 +506,13 @@ def flash_close(got, want, what: str, flip=0.0) -> float:
 
 
 def tc_reference(q, k, v, **kw):
-    """The tight check's reference for the tensor-core kernel: attention_tc_ref,
-    and the allowance for one flip of P's rounding, P_FLIP * max|v| / l per
-    row (l >= 1 where a row sees a key)."""
-    from repro_torch.kernels.flash_attention import ref
-    want, l = ref.attention_tc_ref(q, k, v, return_denominator=True, **kw)
+    """The tight check's reference for the tensor-core kernel: attention_tc_ref
+    at the kernel's key tile for this head dim, and the allowance for one flip
+    of P's rounding, P_FLIP * max|v| / l per row (l >= 1 where a row sees a
+    key)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    want, l = ref.attention_tc_ref(q, k, v, return_denominator=True,
+                                   block_k=ops.tc_block_k(q.shape[-1]), **kw)
     return want, (P_FLIP * v.float().abs().max() / l.clamp_min(1.0))[..., None]
 
 
@@ -518,11 +540,11 @@ def visible_pairs(sq: int, kv_len: int, causal: bool, window) -> int:
     return total
 
 
-def sdpa_backend(q, k, v, mask, enable_gqa=True) -> str:
+def sdpa_backend(q, k, v, mask, enable_gqa=True, causal=False) -> str:
     """Which backend scaled_dot_product_attention picks for these inputs."""
     import torch
     from torch.nn.attention import SDPBackend
-    choice = torch._fused_sdp_choice(q, k, v, mask, 0.0, False, scale=None,
+    choice = torch._fused_sdp_choice(q, k, v, mask, 0.0, causal, scale=None,
                                      enable_gqa=enable_gqa)
     names = {b.value: name for name, b in SDPBackend.__members__.items()}
     return names.get(int(choice), str(choice))
@@ -532,7 +554,10 @@ def phase_flash(dev):
     """Phase 2b: both flash kernels against their plain versions on the card,
     through the dispatch rule; at the serve shape the tensor-core kernel's
     checks and a planted fault, and both kernels' times, bounds and the SDPA
-    yardstick.  Returns the two kernel entries (tensor-core, SIMT)."""
+    yardstick; the same at gemma-2b's shape (Dh 256, the tensor-core kernel's
+    64-key route) with the SIMT kernel's bf16 time there as the "before".
+    Returns the three kernel entries (tensor-core, SIMT, tensor-core at Dh >
+    128)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
@@ -560,16 +585,23 @@ def phase_flash(dev):
         ("dh80 window 100 bf16", (1, 8, 2, 1000, 1000, 80), True, 100, None, torch.bfloat16),
         ("mqa dh64 ragged non-causal bf16", (2, 8, 1, 77, 300, 64), False, None, 211,
          torch.bfloat16),
+        ("gqa dh136 window 100 bf16", (2, 8, 2, 1000, 1000, 136), True, 100, None,
+         torch.bfloat16),
+        ("dh192 ragged kv_len non-causal bf16", (2, 8, 2, 1000, 1500, 192), False, None, 1237,
+         torch.bfloat16),
+        ("mqa dh256 ragged last tile bf16", (2, 8, 1, 1000, 1000, 256), True, None, None,
+         torch.bfloat16),
     ]
     cases = []
     for i, (name, shape, causal, win, kv_len, dtype) in enumerate(checks):
         q, k, v = qkv(*shape, dtype, seed=100 + i)
         kw = dict(causal=causal, window=win, kv_len=kv_len)
         kernel = ops.kernel_for(q)
-        before = (fa.launches_tc, fa.launches_simt)
+        wide = int(kernel == "tc" and shape[-1] > 128)
+        before = (fa.launches_tc, fa.launches_tc_wide, fa.launches_simt)
         got = ops.flash_attention(q, k, v, **kw)
-        if (fa.launches_tc - before[0], fa.launches_simt - before[1]) \
-                != ((1, 0) if kernel == "tc" else (0, 1)):
+        if (fa.launches_tc - before[0], fa.launches_tc_wide - before[1],
+                fa.launches_simt - before[2]) != ((1, wide, 0) if kernel == "tc" else (0, 0, 1)):
             fail(f"flash_attention {name}: the {kernel} kernel was not the one launched")
         case = dict(name=name, shape=list(shape), causal=causal, window=win, kv_len=kv_len,
                     dtype=str(dtype), kernel=kernel)
@@ -655,6 +687,7 @@ def phase_flash(dev):
              else f"{f32_library_ms:.4f} ms"))
     del q, k, v, kx, vx, got, want, band
     torch.cuda.empty_cache()
+    wide = phase_flash_gemma(dev, qkv)
     headline = f"bf16 (B {b}, Hq {hq}, Hkv {hkv}, S {s}, Dh {dh}), causal, window {window}"
     library = f"scaled_dot_product_attention [{backend}]"
     tc = dict(name="flash_attention_tc", route="cuda",
@@ -664,7 +697,8 @@ def phase_flash(dev):
               library_ms=library_ms, library=library, headline=headline,
               p_rounding=dict(max=p_max, mean=p_mean), beyond_bf16_tolerance_alone=flips,
               fault_window_plus_one=fault,
-              cases=[c for c in cases if c["kernel"] == "tc"])
+              cases=[c for c in cases if c["kernel"] == "tc" and c["shape"][-1] <= 128])
+    wide["cases"] = [c for c in cases if c["kernel"] == "tc" and c["shape"][-1] > 128]
     simt = dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:33", launches=0,
@@ -675,7 +709,75 @@ def phase_flash(dev):
                          library=f"scaled_dot_product_attention [{f32_backend}]",
                          max_abs_err=f32_err),
                 cases=[c for c in cases if c["kernel"] == "simt"])
-    return tc, simt
+    return tc, simt, wide
+
+
+def phase_flash_gemma(dev, qkv) -> dict:
+    """Phase 2b at gemma-2b's prefill (every head of one layer: B 2, Hq 8,
+    Hkv 1, S 8176, Dh 256, causal): the tensor-core kernel's 64-key route
+    through the dispatch rule, its tight check, a planted fault (the window of
+    phase 8's fault imposed), bitwise determinism; its time beside the SIMT
+    kernel's in bf16 (the earlier route of bf16 Dh 256), the plain version's,
+    SDPA's with is_causal and the bound.  Returns its kernel entry."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    fa = ops.flash_attention
+    b, hq, hkv, s, dh = GEMMA_BATCH, 8, 1, GEMMA_PROMPT, 256
+    shape = (b, hq, hkv, s, dh)
+    q, k, v = qkv(b, hq, hkv, s, s, dh, torch.bfloat16, seed=8)
+    before = (fa.launches_tc_wide, fa.launches_simt)
+    got = ops.flash_attention(q, k, v, causal=True)
+    if (fa.launches_tc_wide - before[0], fa.launches_simt - before[1]) != (1, 0):
+        fail("flash_attention: gemma-2b's shape did not go to the tensor-core kernel at Dh 256")
+    want, flip = tc_reference(q, k, v, causal=True)
+    err = flash_close(got, want, f"flash_attention gemma shape {shape} (tensor cores)", flip)
+    rtol, atol = FLASH_TOL["bfloat16"]
+    flips = int(((got.float() - want.float()).abs() > atol + rtol * want.float().abs()).sum())
+    plain = ref.attention_ref(q, k, v, causal=True)
+    p_max, p_mean = p_rounding(got, plain, v, f"flash_attention gemma shape {shape}")
+    if not torch.equal(got, ops.tc_kernel(q, k, v, causal=True)):
+        fail("flash_attention: two tensor-core launches at gemma's shape differ in bits")
+    _, fault = flash_excess(got, *tc_reference(q, k, v, causal=True, window=GEMMA_FAULT_WINDOW))
+    if fault <= 1:
+        fail(f"flash_attention: a planted fault (a window of {GEMMA_FAULT_WINDOW}) passes the "
+             "tight check at gemma's shape")
+    simt_err = flash_close(ops.simt_kernel(q, k, v, causal=True), plain,
+                           f"flash_attention gemma shape {shape} (SIMT, bf16)")
+    del got, want
+    nops = 4 * dh * visible_pairs(s, s, True, None) * b * hq
+    b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()), nops, BF16_OPS_PER_S)
+    ms = cuda_ms(lambda: ops.tc_kernel(q, k, v, causal=True), 20)
+    simt_ms = cuda_ms(lambda: ops.simt_kernel(q, k, v, causal=True), 3)
+    plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), 2, warmup=1)
+    backend = sdpa_backend(q, k, v, None, causal=True)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    sdpa_err = (sdpa().float() - plain.float()).abs().max().item()
+    library_ms = cuda_ms(sdpa, 5, warmup=1)
+    print(f"[2 kernels] flash_attention gemma shape (B {b}, Hq {hq}, Hkv {hkv}, S {s}, Dh {dh}, "
+          f"causal, bf16; key tile {ops.tc_block_k(dh)}): tensor-core kernel {ms:.4f} ms (max "
+          f"abs err {err:.3e} against attention_tc_ref, {flips} of {q.numel()} outputs beyond "
+          f"the bf16 tolerance alone, none beyond one flip of P more; P-rounding bound used "
+          f"{p_max:.3f} max, {p_mean:.3f} mean; two launches bit-identical; a window of "
+          f"{GEMMA_FAULT_WINDOW} fails the tight check at {fault:.1f}x its tolerance)  SIMT "
+          f"kernel {simt_ms:.4f} ms (max abs err {simt_err:.3e})  plain {plain_ms:.4f} ms  "
+          f"bound {b_ms:.4f} ms ({b_by}; {nops:.4g} operations)  SDPA is_causal [{backend}] "
+          f"{library_ms:.4f} ms (max abs diff to plain {sdpa_err:.3e})")
+    del q, k, v, plain
+    torch.cuda.empty_cache()
+    return dict(name="flash_attention_tc_wide", route="cuda",
+                source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_tc.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:33", launches=0,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms, library=f"scaled_dot_product_attention [{backend}]",
+                headline=f"bf16 (B {b}, Hq {hq}, Hkv {hkv}, S {s}, Dh {dh}), causal; the "
+                         f"tensor-core kernel at Dh > 128 (key tile {ops.tc_block_k(dh)})",
+                simt_ms=simt_ms, simt_max_abs_err=simt_err,
+                p_rounding=dict(max=p_max, mean=p_mean), beyond_bf16_tolerance_alone=flips,
+                fault_window=fault)
 
 
 # ssd_scan: the chunked dual form against the recurrence and the chunked SSD
@@ -825,49 +927,78 @@ def device_window(fn, label: str, phase: str = "6 serve") -> dict:
     return {e.key[:60]: (e.self_device_time_total / 1e3, e.count) for e in top}
 
 
-def phase_serve(dev, smi: str) -> tuple[int, int]:
-    """Phase 6: h2o-danube-3-4b at full width and depth through ServeEngine;
-    returns the tensor-core flash launches of the bf16 generate and the SIMT
-    launches of the f32 one."""
+class DenseServe(NamedTuple):
+    """A dense serve path of chip_smoke.py: a config at full width and depth,
+    its request, the planted fault of the plain path (config fields it
+    changes) and the config of the two-layer float32 check."""
+    name: str
+    phase: str
+    batch: int
+    prompt: int
+    new: int
+    fault: str
+    fault_cfg: dict
+    f32_cfg: dict
+
+
+SERVE_H2O = DenseServe(H2O, "6 serve", SERVE_BATCH, SERVE_PROMPT, SERVE_NEW,
+                       "the window dropped", dict(sliding_window=None),
+                       dict(sliding_window=128))
+SERVE_GEMMA = DenseServe(GEMMA, "8 serve-gemma", GEMMA_BATCH, GEMMA_PROMPT, GEMMA_NEW,
+                         f"a window of {GEMMA_FAULT_WINDOW} imposed",
+                         dict(sliding_window=GEMMA_FAULT_WINDOW), {})
+
+
+def phase_serve(dev, smi: str, spec: DenseServe) -> dict:
+    """Phases 6 and 8: a dense config at full width and depth through
+    ServeEngine; returns the flash launches of the bf16 generate (all on the
+    tensor cores; ``tc_wide`` of them at Dh > 128) and the SIMT launches of
+    the f32 one.  At Dh > 128 (the tensor-core kernel's 64-key route), also
+    one prefill with the SIMT kernel in place of the dispatch, timed: the
+    route bf16 took there before."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch import ServeEngine
     from repro_torch.models import DecoderLM
+    from repro_torch.models import attention as attn_mod
 
-    cfg = get_config(H2O)
+    cfg, tag = get_config(spec.name), spec.phase.split()[-1]
+    wide = cfg.resolved_head_dim > 128        # the tensor-core kernel's 64-key route
     t0 = time.perf_counter()
     model = DecoderLM(cfg, dtype=torch.bfloat16, device=dev,
                       generator=torch.Generator(device=dev).manual_seed(0))
     n_params = sum(p.numel() for p in model.parameters())
-    prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device=dev,
+    prompt = torch.randint(0, cfg.vocab_size, (spec.batch, spec.prompt), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(1))
-    cache_len = SERVE_PROMPT + SERVE_NEW
+    cache_len = spec.prompt + spec.new
     engine = ServeEngine(model)
     engine.generate(prompt[:, :256], 2, 272)          # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
-    print(f"[6 serve] {H2O}: {n_params / 1e9:.3f} B parameters in bf16, built in "
+    print(f"[{spec.phase}] {spec.name}: {n_params / 1e9:.3f} B parameters in bf16, built in "
           f"{time.perf_counter() - t0:.2f} s")
 
     fa = ops.flash_attention
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = fa.launches_tc = fa.launches_simt = 0
+    fa.launches = fa.launches_tc = fa.launches_tc_wide = fa.launches_simt = 0
     t0 = time.perf_counter()
-    tokens = engine.generate(prompt, SERVE_NEW, cache_len)
+    tokens = engine.generate(prompt, spec.new, cache_len)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    launches = fa.launches_tc
+    counts = dict(tc=fa.launches_tc, tc_wide=fa.launches_tc_wide)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if (fa.launches, launches, fa.launches_simt) != (cfg.num_layers, cfg.num_layers, 0):
-        fail(f"serve: {fa.launches} flash launches in one generate ({launches} tensor-core, "
-             f"{fa.launches_simt} SIMT), want {cfg.num_layers} tensor-core launches (one per "
-             "layer of the prefill)")
-    if tokens.shape != (SERVE_BATCH, SERVE_NEW):
-        fail(f"serve: generate gave tokens of shape {tuple(tokens.shape)}")
+    layers = cfg.num_layers
+    if (fa.launches, fa.launches_tc, fa.launches_tc_wide, fa.launches_simt) != \
+            (layers, layers, layers if wide else 0, 0):
+        fail(f"{tag}: {fa.launches} flash launches in one generate ({fa.launches_tc} "
+             f"tensor-core, {fa.launches_tc_wide} of them at Dh > 128, {fa.launches_simt} SIMT), "
+             f"want {layers} tensor-core launches (one per layer of the prefill)")
+    if tokens.shape != (spec.batch, spec.new):
+        fail(f"{tag}: generate gave tokens of shape {tuple(tokens.shape)}")
 
     # the same request again through the engine's steps, timed, with its logits
     with torch.inference_mode():
-        caches = model.init_cache(SERVE_BATCH, cache_len)
+        caches = model.init_cache(spec.batch, cache_len)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, caches = model.prefill(prompt, caches)
@@ -875,29 +1006,45 @@ def phase_serve(dev, smi: str) -> tuple[int, int]:
         t1 = time.perf_counter()
         decode = engine.make_decode_step()
         tok, all_logits, out = logits.argmax(-1), [logits], [logits.argmax(-1)]
-        for pos in range(SERVE_PROMPT, SERVE_PROMPT + SERVE_NEW - 1):
+        for pos in range(spec.prompt, spec.prompt + spec.new - 1):
             tok, lg, caches = decode(tok, pos, caches)
             out.append(tok)
             all_logits.append(lg)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         if not all(bool(torch.isfinite(lg).all()) for lg in all_logits):
-            fail("serve: non-finite logits")
+            fail(f"{tag}: non-finite logits")
         if not torch.equal(torch.stack(out, 1), tokens):
-            fail("serve: the timed steps gave other tokens than generate")
-        device_window(lambda: [decode(tok, SERVE_PROMPT + SERVE_NEW + i, caches)
-                               for i in range(4)], "4 decode steps")
+            fail(f"{tag}: the timed steps gave other tokens than generate")
+        device_window(lambda: [decode(tok, spec.prompt + spec.new + i, caches)
+                               for i in range(4)], "4 decode steps", spec.phase)
         del caches
-        device_window(lambda: model.prefill(prompt, model.init_cache(SERVE_BATCH, cache_len)),
-                      "one prefill")
+        device_window(lambda: model.prefill(prompt, model.init_cache(spec.batch, cache_len)),
+                      "one prefill", spec.phase)
+        if wide:
+            # the route bf16 Dh 256 took before: the SIMT kernel in place of the
+            # dispatch, for this one timed prefill
+            before = fa.launches_simt
+            attn_mod.flash_attention = ops.simt_kernel
+            try:
+                caches = model.init_cache(spec.batch, cache_len)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                simt_logits, _ = model.prefill(prompt, caches)
+                torch.cuda.synchronize()
+                simt_prefill_ms = 1e3 * (time.perf_counter() - t3)
+            finally:
+                attn_mod.flash_attention = ops.flash_attention
+            if fa.launches_simt - before != layers:
+                fail(f"{tag}: the SIMT prefill did not launch the SIMT kernel once per layer")
+            del caches
         model.attn_impl = "dense"                     # the plain path, same weights
-        plain, _ = model.prefill(prompt, model.init_cache(SERVE_BATCH, cache_len))
-        # a planted fault: the plain path with the window dropped, which the
-        # logit bounds must see at this width
-        model.cfg = dataclasses.replace(cfg, sliding_window=None)
-        faulty, _ = model.prefill(prompt, model.init_cache(SERVE_BATCH, cache_len))
+        plain, _ = model.prefill(prompt, model.init_cache(spec.batch, cache_len))
+        # a planted fault on the plain path, which the logit bounds must see
+        model.cfg = dataclasses.replace(cfg, **spec.fault_cfg)
+        faulty, _ = model.prefill(prompt, model.init_cache(spec.batch, cache_len))
         model.cfg, model.attn_impl = cfg, "kernel"
-    prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (SERVE_NEW - 1)
+    prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (spec.new - 1)
 
     def drift(x):
         d = (x.float() - plain.float()).abs()
@@ -907,44 +1054,58 @@ def phase_serve(dev, smi: str) -> tuple[int, int]:
     d, max_rel, mean_rel = drift(logits)
     _, fault_max, fault_mean = drift(faulty)
     same = int((logits.argmax(-1) == plain.argmax(-1)).sum())
-    print(f"[6 serve] generate of {SERVE_NEW} tokens after a {SERVE_BATCH}x{SERVE_PROMPT} prompt: "
-          f"{gen_s:.3f} s; flash launches {launches}, all on the tensor cores; peak memory "
-          f"{peak_gb:.3f} GB  [{smi}]")
-    print(f"[6 serve] prefill {prefill_ms:.3f} ms ({SERVE_BATCH * SERVE_PROMPT / (t1 - t0):.0f} "
-          f"prompt tokens/s); decode {decode_ms:.3f} ms/token step "
-          f"({SERVE_BATCH * 1e3 / decode_ms:.1f} tokens/s at batch {SERVE_BATCH})")
-    print(f"[6 serve] prefill logits, kernel vs plain attention: max abs diff {d.max().item():.4f}"
-          f" ({max_rel:.4f} of max|logit|), mean {d.mean().item():.4f} ({mean_rel:.4f} of the "
-          f"std); greedy first token equal in {same}/{SERVE_BATCH}")
-    print(f"[6 serve] planted fault, plain path with the window dropped: {fault_max:.4f} of "
+    route = " at Dh > 128 (key tile 64)" if wide else ""
+    print(f"[{spec.phase}] generate of {spec.new} tokens after a {spec.batch}x{spec.prompt} "
+          f"prompt: {gen_s:.3f} s; flash launches {counts['tc']}, all on the tensor cores"
+          f"{route}; peak memory {peak_gb:.3f} GB  [{smi}]")
+    print(f"[{spec.phase}] prefill {prefill_ms:.3f} ms "
+          f"({spec.batch * spec.prompt / (t1 - t0):.0f} prompt tokens/s); decode "
+          f"{decode_ms:.3f} ms/token step ({spec.batch * 1e3 / decode_ms:.1f} tokens/s at batch "
+          f"{spec.batch})")
+    if wide:
+        _, simt_max, simt_mean = drift(simt_logits)
+        print(f"[{spec.phase}] prefill with the SIMT kernel in place of the dispatch (the "
+              f"route before): {simt_prefill_ms:.3f} ms "
+              f"({spec.batch * spec.prompt * 1e3 / simt_prefill_ms:.0f} prompt tokens/s); its "
+              f"logits against plain {simt_max:.4f} of max|logit|, {simt_mean:.4f} of the std")
+        counts["simt_prefill_ms"] = simt_prefill_ms
+        del simt_logits
+    print(f"[{spec.phase}] prefill logits, kernel vs plain attention: max abs diff "
+          f"{d.max().item():.4f} ({max_rel:.4f} of max|logit|), mean {d.mean().item():.4f} "
+          f"({mean_rel:.4f} of the std); greedy first token equal in {same}/{spec.batch}")
+    print(f"[{spec.phase}] planted fault, plain path with {spec.fault}: {fault_max:.4f} of "
           f"max|logit|, {fault_mean:.4f} of the std (bounds {SERVE_MAX_ERR}, {SERVE_MEAN_ERR})")
     if fault_max <= SERVE_MAX_ERR or fault_mean <= SERVE_MEAN_ERR:
-        fail("serve: a planted fault (the window dropped) stays within the logit bounds")
+        fail(f"{tag}: a planted fault ({spec.fault}) stays within the logit bounds")
     if max_rel > SERVE_MAX_ERR or mean_rel > SERVE_MEAN_ERR:
-        fail(f"serve: kernel and plain prefill logits differ beyond {SERVE_MAX_ERR} of "
+        fail(f"{tag}: kernel and plain prefill logits differ beyond {SERVE_MAX_ERR} of "
              f"max|logit| or {SERVE_MEAN_ERR} of their std")
     del model, plain, faulty, logits, all_logits
     torch.cuda.empty_cache()
 
     # two layers at full width, float32, on the card (kernel) and the CPU (plain)
-    small = dataclasses.replace(cfg, num_layers=2, sliding_window=128)
+    small = dataclasses.replace(cfg, num_layers=2, **spec.f32_cfg)
     card = DecoderLM(small, device=dev, generator=torch.Generator(device=dev).manual_seed(2))
     cpu = DecoderLM(small, device="cpu")
     cpu.load_state_dict(card.state_dict())
     p = torch.randint(0, small.vocab_size, (2, 300), generator=torch.Generator().manual_seed(3))
-    fa.launches = fa.launches_tc = fa.launches_simt = 0
+    fa.launches = fa.launches_tc = fa.launches_tc_wide = fa.launches_simt = 0
     got = ServeEngine(card).generate(p, 6, 306)
-    simt_launches = fa.launches_simt
-    if (fa.launches, simt_launches) != (small.num_layers, small.num_layers):
-        fail("serve reference: the f32 card run did not launch the SIMT flash kernel once per "
+    counts["simt"] = fa.launches_simt
+    if (fa.launches, fa.launches_simt) != (small.num_layers, small.num_layers):
+        fail(f"{tag} reference: the f32 card run did not launch the SIMT flash kernel once per "
              "layer")
     want = ServeEngine(cpu).generate(p, 6, 306)
     if not torch.equal(got.cpu(), want):
-        fail(f"serve reference: greedy tokens on the card {got.tolist()} differ from the "
+        fail(f"{tag} reference: greedy tokens on the card {got.tolist()} differ from the "
              f"CPU's {want.tolist()}")
-    print(f"[6 serve] reference: 2 layers at full width (f32, window 128, prompt 2x300): "
-          f"the card's 6 greedy tokens equal the CPU's ({simt_launches} SIMT flash launches)")
-    return launches, simt_launches
+    window = f", window {small.sliding_window}" if small.sliding_window else ""
+    print(f"[{spec.phase}] reference: 2 layers at full width (f32{window}, head_dim "
+          f"{small.resolved_head_dim}, prompt 2x300): the card's 6 greedy tokens equal the CPU's "
+          f"({counts['simt']} SIMT flash launches)")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return counts
 
 
 MAMBA2 = "mamba2-2.7b"
@@ -1158,7 +1319,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     phase_build()
     cases, noise_cases = phase_kernels(dev)
-    flash_tc, flash_simt = phase_flash(dev)
+    flash_tc, flash_simt, flash_wide = phase_flash(dev)
     ssd = phase_ssd(dev)
 
     ops.dp_aggregate_sums.launches = 0
@@ -1172,8 +1333,13 @@ def main() -> int:
             fail(f"kernel {k} was never launched on the main path")
 
     phase_reference(dev)
-    flash_tc["launches"], flash_simt["launches"] = phase_serve(dev, smi)
+    h2o = phase_serve(dev, smi, SERVE_H2O)
     ssd["launches"] = phase_serve_ssm(dev, smi)
+    gemma = phase_serve(dev, smi, SERVE_GEMMA)
+    flash_tc["launches"] = h2o["tc"]
+    flash_wide["launches"] = gemma["tc_wide"]
+    flash_wide["simt_prefill_ms"] = gemma["simt_prefill_ms"]
+    flash_simt["launches"] = h2o["simt"] + gemma["simt"]
 
     src = "src/repro_torch/kernels/dp_aggregate/csrc/dp_aggregate.cu"
     head = next(c for c in cases if c["shape"] == [1000, 131072] and c["mode"] == "fused")
@@ -1194,6 +1360,7 @@ def main() -> int:
              cases=noise_cases),
         flash_tc,
         flash_simt,
+        flash_wide,
         ssd,
     ]
     print(smi)

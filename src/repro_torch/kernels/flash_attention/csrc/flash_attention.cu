@@ -23,7 +23,9 @@
 // Dh 120, window 4096) that is 7.7e11 operations, 0.78 ms at 989 TFLOP/s bf16,
 // against 0.04 ms for the bytes: it is bound by operations.  This first kernel
 // does its products on the float32 pipes (67 TFLOP/s), not on the tensor cores,
-// so it sits far above that bound: wgmma with TMA-fed tiles is later work.
+// so it sits far above that bound.  The dispatch now sends it float32 only:
+// bf16 at any Dh up to 256 goes to csrc/flash_attention_tc.cu (TMA and wgmma);
+// bf16 here is what simt_kernel takes when called by name.
 //
 // Design, and where it departs from the TPU kernel:
 // * The TPU grid (B*Hq, Sq/bq, Skv/bk) carries the key-tile axis in order,

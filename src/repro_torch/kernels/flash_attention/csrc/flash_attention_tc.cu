@@ -7,14 +7,14 @@
 // (B, Hkv, Skv, Dh) with Hq = group * Hkv (GQA; MQA at Hkv = 1), bfloat16,
 // each with any (batch, head, row) strides that are multiples of 8 elements
 // (16 bytes), a contiguous last axis, 16-byte-aligned base pointers, and Dh a
-// multiple of 8 up to 128.  The output is bf16 with its own strides.
+// multiple of 8 up to 256.  The output is bf16 with its own strides.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (`_kernel`, launched by `flash_attention_kernel_call`) on the bf16 path; the
-// SIMT kernel csrc/flash_attention.cu keeps float32 and Dh > 128.  It computes
-// what that kernel computes: float32 scores, masks, a float32 running max,
-// denominator and accumulator, o = acc / max(l, 1e-30) in q's type, and 0 for
-// a row that sees no key.  Where its arithmetic differs:
+// SIMT kernel csrc/flash_attention.cu keeps float32.  It computes what that
+// kernel computes: float32 scores, masks, a float32 running max, denominator
+// and accumulator, o = acc / max(l, 1e-30) in q's type, and 0 for a row that
+// sees no key.  Where its arithmetic differs:
 // * The scores are the unscaled bf16 q . k on the tensor cores, summed in
 //   float32 (each bf16 x bf16 product is exact in float32), then scaled: the
 //   TPU kernel scales q first.  Only the order of the sum and the place of the
@@ -23,17 +23,19 @@
 //   denominator sums the float32 p.  The TPU kernel multiplies p and v in
 //   float32 (kernel.py:55-76).  This is the one numerical departure:
 //   |d o| <= 2^-9 * max|v| from P's rounding.  ref.py::attention_tc_ref
-//   computes this order in plain PyTorch.
+//   computes this order in plain PyTorch, at the kernel's key tile.
 //
 // What bounds it on the card.  4 * Dh operations per visible (query, key)
 // pair (two products, a multiply and an add each) against q, k, v and o read
-// or written once: at the serve shape (B 2, Hq 32, Hkv 8, S 8192, Dh 120,
-// window 4096) 7.7e11 operations, 0.78 ms at 989 TFLOP/s bf16, against 0.04 ms
-// for the bytes.  It is bound by the tensor cores, so both products run as
-// wgmma, and the softmax (the exp2 of every score) overlaps them across the
-// two consumer warpgroups.
+// or written once: at h2o-danube-3-4b's prefill (B 2, Hq 32, Hkv 8, S 8192,
+// Dh 120, window 4096) 7.7e11 operations, 0.78 ms at 989 TFLOP/s bf16, against
+// 0.04 ms for the bytes; at gemma-2b's (B 2, Hq 8, Hkv 1, S 8176, Dh 256,
+// causal) 5.5e11 operations, 0.55 ms, against 0.05 ms.  It is bound by the
+// tensor cores, so both products run as wgmma, and the softmax (the exp2 of
+// every score) overlaps them across the two consumer warpgroups.
 //
-// Design: a TMA ring feeding warp-specialised wgmma.
+// Design: a TMA ring feeding warp-specialised wgmma, one template over DC,
+// the number of 64-wide boxes in a row of a tile (Dh <= 64 * DC, DC = 1..4).
 // * One block per (batch * head, 128-row query tile), 384 threads: warpgroups
 //   0 and 1 consume, 64 query rows each; warpgroup 2 produces.  The grid's y
 //   axis walks the query tiles from the last: under a causal mask the last
@@ -41,21 +43,29 @@
 // * Producer: one thread issues TMA loads (cp.async.bulk.tensor, 4-d maps over
 //   (Dh, S, H, B) built on the host from the tensors' own strides, so the
 //   model's transposed (B, S, H, Dh) views load without a copy): the Q tile
-//   once, then K and V tiles of 128 keys into a ring of kStages stages, with
-//   full and empty mbarriers.  K and V have their own full barriers, so QK^T
-//   starts while V is in flight.  setmaxnreg gives its registers to the
-//   consumers (24 against 240).
-// * Tiles: 128-byte swizzle, so a row of a box is 64 bf16 values; Dh <= 64
-//   takes one box per tile, Dh <= 128 two.  TMA zero-fills what lies outside
-//   the tensor: the pad columns Dh..127, a ragged Sq or Skv.  Key tiles of 128
-//   (not 64): S and O take 64 float32 registers each, P 32, within the
-//   consumers' 240.
-// * Consumers: S = Q K^T by wgmma m64n128k16 with both operands in shared
-//   memory; the softmax on the accumulator fragments, row max and sum by quad
-//   shuffles, exp2 with scale * log2(e) folded in; masks only on tiles that
-//   touch the diagonal, the window's edge or kv_len.  P is packed to bf16 in
-//   registers, where S's accumulator layout is the A-operand layout of the
-//   next wgmma (m64nNk16, A in registers, V N-major in shared memory).
+//   once, then K and V tiles into a ring of kStages stages, with full and
+//   empty mbarriers.  K and V have their own full barriers, so QK^T starts
+//   while V is in flight.  setmaxnreg gives its registers to the consumers
+//   (24 against 240).
+// * Tiles: 128-byte swizzle, so a row of a box is 64 bf16 values; a tile is DC
+//   boxes side by side.  TMA zero-fills what lies outside the tensor: the pad
+//   columns Dh..64 DC - 1, a ragged Sq or Skv.
+// * Key tiles (Smem<DC>::kKeys): 128 keys up to Dh 128, where S and O take 64
+//   float32 registers each and P 32, within the consumers' 240.  Above 128, 64
+//   keys: at Dh 256 O alone takes 128 registers (64 x 256 float32 over 128
+//   threads), and S at 64 keys 32 more and P 16, 176 in all; at 128 keys S and
+//   P would take 96 and pass 240.  Shared memory at Dh 256: Q 64 KiB and two
+//   stages of K and V at 32 KiB each, 192 KiB, one block an SM.  (The same
+//   choice as FlashAttention-3, Shah et al., arXiv:2407.08608, which serves
+//   head dim 256 on the H100 with a smaller key tile than at 128.)
+// * Consumers: S = Q K^T by wgmma m64nKk16 (K = the key tile) with both
+//   operands in shared memory, over the DC boxes in k-steps of 16; the softmax
+//   on the accumulator fragments, row max and sum by quad shuffles, exp2 with
+//   scale * log2(e) folded in; masks only on tiles that touch the diagonal,
+//   the window's edge or kv_len.  P is packed to bf16 in registers, where S's
+//   accumulator layout is the A-operand layout of the next wgmma (m64nNk16,
+//   N = 64 DC up to wgmma's widest 256, A in registers, V N-major in shared
+//   memory).
 // * Only the causal/window band of key tiles is loaded.  No atomics: each
 //   block writes its own rows, and two launches give identical bits.
 #include <cstdint>
@@ -66,22 +76,25 @@
 namespace {
 
 constexpr int kBlockQ = 128;    // query rows per block: two consumer warpgroups of 64
-constexpr int kBlockK = 128;    // keys per tile
 constexpr int kStages = 2;      // depth of the K/V ring
 constexpr int kBox = 64;        // bf16 values in one 128-byte swizzled row: a TMA box's width
 constexpr int kThreads = 384;   // warpgroups 0 and 1 consume, warpgroup 2 produces
-constexpr int kBoxBytes = kBlockK * kBox * 2;  // one 128-row box: 16 KiB (Q's rows too)
+constexpr int kQBoxBytes = kBlockQ * kBox * 2;  // one box of the Q tile: 16 KiB
+constexpr int kMaxBoxes = 4;    // Dh <= 256
 constexpr float kLog2e = 1.4426950408889634f;
 
-static_assert(kBlockQ == kBlockK, "one box shape serves Q, K and V");
-
-template <int DC>  // boxes per row of a tile: 1 for Dh <= 64, 2 for Dh <= 128
+template <int DC>  // boxes per row of a tile: Dh <= 64 * DC
 struct alignas(1024) Smem {
+  static constexpr int kKeys = DC <= 2 ? 128 : 64;        // keys per K/V tile (see above)
+  static constexpr int kKvBoxBytes = kKeys * kBox * 2;    // one box of a K or V tile
   __nv_bfloat16 q[DC][kBlockQ * kBox];
-  __nv_bfloat16 k[kStages][DC][kBlockK * kBox];
-  __nv_bfloat16 v[kStages][DC][kBlockK * kBox];
+  __nv_bfloat16 k[kStages][DC][kKeys * kBox];
+  __nv_bfloat16 v[kStages][DC][kKeys * kBox];
   uint64_t q_full, k_full[kStages], v_full[kStages], empty[kStages];
 };
+
+// the key tile of the kernel that takes head dim dh
+constexpr int keys_for(int dh) { return dh <= 2 * kBox ? Smem<2>::kKeys : Smem<4>::kKeys; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -159,65 +172,80 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
     for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
+// A wgmma accumulator's registers d[i .. i + 31] as "+f" operands, and the
+// operand numbers %0 .. %127 of the instruction's accumulator list.
+#define WG_D8(i)                                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_D32(i) WG_D8(i), WG_D8(i + 8), WG_D8(i + 16), WG_D8(i + 24)
+#define WG_R0 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+              "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_R32                                                                                 \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_R64                                                                                 \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, " \
+  "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+#define WG_R96                                                                            \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, " \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "  \
+  "%125, %126, %127"
+
+// d (64 x 64, float32) = A (64 x 16, K-major, shared) * B (64 x 16, K-major, shared) [+ d if acc]
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_R0
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D32(0)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
 // d (64 x 128, float32) = A (64 x 16, K-major, shared) * B (128 x 16, K-major, shared) [+ d if acc]
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_R0 ", " WG_R32
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63])
+      : WG_D32(0), WG_D32(32)
       : "l"(a), "l"(b), "r"(acc));
 }
 
-// d (64 x 128, float32) += A (64 x 16, bf16 registers) * B (16 x 128, N-major, shared)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 64, float32) += A (64 x 16, bf16 registers) * B (16 x 64, N-major, shared)
+// d (64 x N, float32) += A (64 x 16, bf16 registers) * B (16 x N, N-major, shared), N = 64 ..
+// 256 in steps of 64: the head dims of DC boxes
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_R0
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : WG_D32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_R0 ", " WG_R32
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_D32(0), WG_D32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {" WG_R0 ", " WG_R32 ", " WG_R64
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : WG_D32(0), WG_D32(32), WG_D32(64)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" WG_R0 ", " WG_R32 ", " WG_R64
+      ", " WG_R96 "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : WG_D32(0), WG_D32(32), WG_D32(64), WG_D32(96)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -234,6 +262,7 @@ template <int DC>
 __device__ __forceinline__ void consume(Smem<DC>& sm, __nv_bfloat16* __restrict__ ob, int64_t os,
                                         int wg, int q0, int sq, int dh, int t_lo, int n_tiles,
                                         int kv_len, float scale_log2, int causal, int window) {
+  constexpr int kKeys = Smem<DC>::kKeys;
   const int t = threadIdx.x % 128, lane = t % 32;
   const int row_lo = q0 + 64 * wg;                // this warpgroup's first query row
   const int r0 = row_lo + 16 * (t / 32) + lane / 4;  // the thread's rows: r0 and r0 + 8
@@ -249,29 +278,28 @@ __device__ __forceinline__ void consume(Smem<DC>& sm, __nv_bfloat16* __restrict_
   for (int i = 0; i < n_tiles; ++i) {
     const int s = i % kStages;
     const uint32_t phase = (i / kStages) & 1;
-    const int k0 = (t_lo + i) * kBlockK;
+    const int k0 = (t_lo + i) * kKeys;
 
     // S = Q K^T, unscaled, over DC boxes of 64 head dims in k-steps of 16
-    float sc[64];
+    float sc[kKeys / 2];
     mbar_wait(&sm.k_full[s], phase);
     const uint64_t dk = smem_desc(sm.k[s][0], 16, 1024);
     wgmma_fence();
 #pragma unroll
     for (int c = 0; c < DC; ++c)
 #pragma unroll
-      for (int kk = 0; kk < kBox / 16; ++kk) {
-        const uint32_t off = (c * kBoxBytes + kk * 32) >> 4;
-        wgmma_ss(sc, dq + off, dk + off, c + kk);
-      }
+      for (int kk = 0; kk < kBox / 16; ++kk)
+        wgmma_ss(sc, dq + ((c * kQBoxBytes + kk * 32) >> 4),
+                 dk + ((c * Smem<DC>::kKvBoxBytes + kk * 32) >> 4), c + kk);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
 
-    const bool edge = k0 + kBlockK > kv_len || (causal && k0 + kBlockK - 1 > row_lo) ||
+    const bool edge = k0 + kKeys > kv_len || (causal && k0 + kKeys - 1 > row_lo) ||
                       (window > 0 && k0 <= row_lo + 63 - window);
     if (edge) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < kKeys / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = k0 + 8 * j + c0 + (e & 1), row = r0 + 8 * (e >> 1);
@@ -285,7 +313,7 @@ __device__ __forceinline__ void consume(Smem<DC>& sm, __nv_bfloat16* __restrict_
     // and takes 0 as its base, so that its p and alpha are 0, not NaN
     float mx[2] = {m[0], m[1]}, base[2], alpha[2], rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kKeys / 8; ++j) {
       mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
       mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
@@ -298,7 +326,7 @@ __device__ __forceinline__ void consume(Smem<DC>& sm, __nv_bfloat16* __restrict_
       m[r] = mx[r];
     }
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < kKeys / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = exp2f(fmaf(sc[4 * j + e], scale_log2, -base[e >> 1]));
@@ -314,18 +342,18 @@ __device__ __forceinline__ void consume(Smem<DC>& sm, __nv_bfloat16* __restrict_
       acc[4 * j + 2] *= alpha[1];
       acc[4 * j + 3] *= alpha[1];
     }
-    uint32_t pa[kBlockK / 16][4];
+    uint32_t pa[kKeys / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk)
+    for (int kk = 0; kk < kKeys / 16; ++kk)
 #pragma unroll
       for (int x = 0; x < 4; ++x) pa[kk][x] = pack_bf16(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
 
-    // O += P V: V's rows are the k dimension, its head dims (N) contiguous
+    // O += P V: V's rows are the k dimension, its head dims (N, DC boxes) contiguous
     mbar_wait(&sm.v_full[s], phase);
-    const uint64_t dv = smem_desc(sm.v[s][0], kBoxBytes, 1024);
+    const uint64_t dv = smem_desc(sm.v[s][0], Smem<DC>::kKvBoxBytes, 1024);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk)
+    for (int kk = 0; kk < kKeys / 16; ++kk)
       wgmma_rs(acc, pa[kk], dv + ((kk * 16 * kBox * 2) >> 4));  // 16 rows of 128 bytes a step
     wgmma_commit();
     wgmma_wait_all();
@@ -360,6 +388,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
                 const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int hq,
                 int group, int sq, int dh, int kv_len, float scale_log2, int causal, int window,
                 int64_t osb, int64_t osh, int64_t oss) {
+  constexpr int kKeys = Smem<DC>::kKeys, kKvBytes = DC * Smem<DC>::kKvBoxBytes;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle wants 1024-byte-aligned tiles; the launch adds 1 KiB of slack
   Smem<DC>& sm =
@@ -371,8 +400,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   const int q_last = min(q0 + kBlockQ, sq) - 1;
   const int k_hi = causal ? min(kv_len, q_last + 1) : kv_len;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int t_lo = k_lo / kBlockK;
-  const int n_tiles = k_hi > k_lo ? (k_hi + kBlockK - 1) / kBlockK - t_lo : 0;
+  const int t_lo = k_lo / kKeys;
+  const int n_tiles = k_hi > k_lo ? (k_hi + kKeys - 1) / kKeys - t_lo : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(&sm.q_full, 1);
@@ -390,17 +419,17 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   if (threadIdx.x >= 256) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 256) {
-      mbar_expect_tx(&sm.q_full, DC * kBoxBytes);
+      mbar_expect_tx(&sm.q_full, DC * kQBoxBytes);
 #pragma unroll
       for (int c = 0; c < DC; ++c) tma_load(sm.q[c], &tm_q, &sm.q_full, c * kBox, q0, h, b);
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % kStages, k0 = (t_lo + i) * kBlockK;
+        const int s = i % kStages, k0 = (t_lo + i) * kKeys;
         mbar_wait(&sm.empty[s], ((i / kStages) & 1) ^ 1);  // the first pass finds it free
-        mbar_expect_tx(&sm.k_full[s], DC * kBoxBytes);
+        mbar_expect_tx(&sm.k_full[s], kKvBytes);
 #pragma unroll
         for (int c = 0; c < DC; ++c)
           tma_load(sm.k[s][c], &tm_k, &sm.k_full[s], c * kBox, k0, hk, b);
-        mbar_expect_tx(&sm.v_full[s], DC * kBoxBytes);
+        mbar_expect_tx(&sm.v_full[s], kKvBytes);
 #pragma unroll
         for (int c = 0; c < DC; ++c)
           tma_load(sm.v[s][c], &tm_v, &sm.v_full[s], c * kBox, k0, hk, b);
@@ -438,38 +467,63 @@ EncodeTiled encode_tiled() {
 }
 
 // A 4-d map over (Dh, rows, heads, batch) of a bf16 tensor with the given
-// element strides, in boxes of 64 head dims x 128 rows, 128-byte swizzle;
-// what lies outside the tensor reads as zero.
+// element strides, in boxes of 64 head dims x box_rows rows, 128-byte
+// swizzle; what lies outside the tensor reads as zero.
 CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* base, int dh, int rows,
-                  int heads, int batch, int64_t sb, int64_t sh, int64_t ss) {
+                  int heads, int batch, int64_t sb, int64_t sh, int64_t ss, int box_rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2, static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kBox, kBlockK, 1, 1};
+  const cuuint32_t box[4] = {kBox, static_cast<cuuint32_t>(box_rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  int batch, hq, hkv, sq, skv, dh, kv_len;
+  float scale_log2;
+  int causal, window;
+  int64_t qs[3], ks[3], vs[3], os[3];  // (batch, head, row) strides in elements
+  cudaStream_t stream;
+};
+
 template <int DC>
-int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, void* o,
-           int batch, int hq, int group, int sq, int dh, int kv_len, float scale_log2, int causal,
-           int window, int64_t osb, int64_t osh, int64_t oss, cudaStream_t stream) {
+int launch(const Args& a, EncodeTiled encode) {
+  // Q's box is the query tile; K's and V's the key tile of this instance
+  CUtensorMap tq, tk, tv;
+  CUresult r = make_map(&tq, encode, a.q, a.dh, a.sq, a.hq, a.batch, a.qs[0], a.qs[1], a.qs[2],
+                        kBlockQ);
+  if (r == CUDA_SUCCESS)
+    r = make_map(&tk, encode, a.k, a.dh, a.skv, a.hkv, a.batch, a.ks[0], a.ks[1], a.ks[2],
+                 Smem<DC>::kKeys);
+  if (r == CUDA_SUCCESS)
+    r = make_map(&tv, encode, a.v, a.dh, a.skv, a.hkv, a.batch, a.vs[0], a.vs[1], a.vs[2],
+                 Smem<DC>::kKeys);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   const int bytes = static_cast<int>(sizeof(Smem<DC>)) + 1024;
   auto kernel = flash_tc_kernel<DC>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(batch * hq, (sq + kBlockQ - 1) / kBlockQ);
-  kernel<<<grid, kThreads, bytes, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), hq,
-                                            group, sq, dh, kv_len, scale_log2, causal, window,
-                                            osb, osh, oss);
+  const dim3 grid(a.batch * a.hq, (a.sq + kBlockQ - 1) / kBlockQ);
+  kernel<<<grid, kThreads, bytes, a.stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(a.o), a.hq, a.hq / a.hkv, a.sq, a.dh, a.kv_len,
+      a.scale_log2, a.causal, a.window, a.os[0], a.os[1], a.os[2]);
   return cudaGetLastError();
 }
 
 }  // namespace
+
+// The key tile of the instance that takes head dim dh (128 up to Dh 128, 64
+// above), or 0 where no instance does.  The wrapper's tc_block_k mirrors it.
+extern "C" int flash_attention_tc_keys(int dh) {
+  return dh < 8 || dh > kMaxBoxes * kBox || dh % 8 != 0 ? 0 : keys_for(dh);
+}
 
 // bf16 only.  window <= 0: no window.  Strides in elements, (batch, head, row)
 // of q, k, v and o; the wrapper checks their alignment.  Returns a cudaError_t
@@ -482,21 +536,18 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k, const voi
                                          int64_t ksh, int64_t kss, int64_t vsb, int64_t vsh,
                                          int64_t vss, int64_t osb, int64_t osh, int64_t oss,
                                          void* stream) {
-  if (dh < 8 || dh > 128 || dh % 8 != 0 || hkv < 1 || hq % hkv != 0 || sq < 1 ||
+  if (flash_attention_tc_keys(dh) == 0 || hkv < 1 || hq % hkv != 0 || sq < 1 ||
       (sq + kBlockQ - 1) / kBlockQ > 65535)
     return cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
-  CUtensorMap tq, tk, tv;
-  CUresult r = make_map(&tq, encode, q, dh, sq, hq, batch, qsb, qsh, qss);
-  if (r == CUDA_SUCCESS) r = make_map(&tk, encode, k, dh, skv, hkv, batch, ksb, ksh, kss);
-  if (r == CUDA_SUCCESS) r = make_map(&tv, encode, v, dh, skv, hkv, batch, vsb, vsh, vss);
-  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
-  const float scale_log2 = scale * kLog2e;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh <= kBox)
-    return launch<1>(tq, tk, tv, o, batch, hq, hq / hkv, sq, dh, kv_len, scale_log2, causal,
-                     window, osb, osh, oss, s);
-  return launch<2>(tq, tk, tv, o, batch, hq, hq / hkv, sq, dh, kv_len, scale_log2, causal, window,
-                   osb, osh, oss, s);
+  const Args a{q, k, v, o, batch, hq, hkv, sq, skv, dh, kv_len, scale * kLog2e, causal, window,
+               {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss}, {osb, osh, oss},
+               static_cast<cudaStream_t>(stream)};
+  switch ((dh + kBox - 1) / kBox) {
+    case 1: return launch<1>(a, encode);
+    case 2: return launch<2>(a, encode);
+    case 3: return launch<3>(a, encode);
+    default: return launch<4>(a, encode);
+  }
 }

@@ -5,24 +5,28 @@ version in ``ref.py``; CUDA tensors launch one of two hand-written kernels, or
 raise.  Which one is a rule of dtype and head dim alone (``kernel_for``), and
 nothing catches a failure of one kernel to try the other:
 
-* bfloat16 with Dh <= 128: the tensor-core kernel (``csrc/flash_attention_tc.cu``,
+* bfloat16 with Dh <= 256: the tensor-core kernel (``csrc/flash_attention_tc.cu``,
   ``tc_kernel``): TMA loads into a ring of shared-memory stages, ``wgmma`` for
-  both products, warp-specialised.  Its TMA maps take 16-byte-aligned base
-  pointers, (batch, head, row) strides that are multiples of 8 elements and
-  Dh a multiple of 8; a tensor that is not raises ``ValueError``.  It rounds
-  P to bf16 before P.V (``ref.attention_tc_ref`` has its rounding order).
-* float32, or Dh > 128: the SIMT kernel (``csrc/flash_attention.cu``,
-  ``simt_kernel``): float32 products on the CUDA cores, any Dh up to 256.
+  both products, warp-specialised; key tiles of 128 up to Dh 128 and of 64
+  above (``tc_block_k``).  Its TMA maps take 16-byte-aligned base pointers,
+  (batch, head, row) strides that are multiples of 8 elements and Dh a
+  multiple of 8; a tensor that is not raises ``ValueError``.  It rounds P to
+  bf16 before P.V (``ref.attention_tc_ref`` at ``tc_block_k`` has its
+  rounding order).
+* float32: the SIMT kernel (``csrc/flash_attention.cu``, ``simt_kernel``):
+  float32 products on the CUDA cores, any Dh up to 256.  It also takes
+  bfloat16, when called by name.
 
 ``flash_attention.launches`` counts every launch, ``launches_tc`` and
-``launches_simt`` each kernel's; ``chip_smoke.py`` zeroes them before it
-drives the serve path and reads them after.
+``launches_simt`` each kernel's, and ``launches_tc_wide`` the tensor-core
+kernel's launches at Dh > 128 (its 64-key instances); ``chip_smoke.py`` zeroes
+them before it drives a serve path and reads them after.
 
 Unlike the JAX wrapper, nothing is padded: the kernels mask ragged lengths
 themselves, and take the tensors' own (batch, head, row) strides, so the
 model's (B, S, H, Dh) projections go in as transposed views without a copy.
-The kernels' tiles are chosen for the H100 (128 x 128 on the tensor cores,
-64 x 64 on the SIMT path); the JAX wrapper's ``block_q``/``block_k`` are TPU
+The kernels' tiles are chosen for the H100 (128 queries x 128 or 64 keys on
+the tensor cores, 64 x 64 on the SIMT path); the JAX wrapper's ``block_q``/``block_k`` are TPU
 tile sizes that no caller sets, and have no counterpart here.
 """
 from __future__ import annotations
@@ -37,13 +41,14 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
-__all__ = ["flash_attention", "kernel_for", "simt_kernel", "tc_kernel", "tma_strides",
-           "load_library", "load_library_tc"]
+__all__ = ["flash_attention", "kernel_for", "simt_kernel", "tc_kernel", "tc_block_k",
+           "tma_strides", "load_library", "load_library_tc"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the SIMT kernel's dtype codes
 _MAX_HEAD_DIM = 256          # the SIMT kernel
-_TC_MAX_HEAD_DIM = 128       # the tensor-core kernel: two 64-wide TMA boxes
+_TC_MAX_HEAD_DIM = 256       # the tensor-core kernel: up to four 64-wide TMA boxes
+_TC_WIDE = 128               # above this head dim, its key tile is 64
 _TC_ALIGN = 16               # bytes: TMA's base and stride alignment
 _TC_ROWS = 128               # the tensor-core kernel's query tile
 _MAX_GRID_Y = 65535
@@ -68,13 +73,24 @@ def load_library_tc() -> ctypes.CDLL:
     """Build (once per source hash) and load the tensor-core kernel; declare its C signature."""
     lib = _build.load_library("flash_attention_tc", (_CSRC / "flash_attention_tc.cu",))
     _declare(lib.flash_attention_tc_launch, 7)
+    lib.flash_attention_tc_keys.argtypes = [ctypes.c_int]
+    lib.flash_attention_tc_keys.restype = ctypes.c_int
     return lib
 
 
 def kernel_for(q: torch.Tensor) -> str:
-    """The CUDA kernel that takes ``q``: ``"tc"`` for bfloat16 with Dh <= 128,
+    """The CUDA kernel that takes ``q``: ``"tc"`` for bfloat16 with Dh <= 256,
     else ``"simt"``."""
     return "tc" if q.dtype == torch.bfloat16 and q.shape[-1] <= _TC_MAX_HEAD_DIM else "simt"
+
+
+def tc_block_k(dh: int) -> int:
+    """The tensor-core kernel's key tile at head dim ``dh``: 128 up to Dh 128,
+    64 above, where a 64 x Dh float32 accumulator leaves registers for no
+    more (``Smem<DC>::kKeys`` in the source; ``flash_attention_tc_keys``
+    returns it from the library).  ``ref.attention_tc_ref`` at this block_k
+    is the kernel's rounding order."""
+    return 128 if dh <= _TC_WIDE else 64
 
 
 def tma_strides(x: torch.Tensor) -> tuple[int, int, int]:
@@ -133,8 +149,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     """Blockwise attention; q (B, Hq, Sq, Dh), k/v (B, Hkv, Skv, Dh) -> (B, Hq, Sq, Dh).
 
     Keys at or past ``kv_len`` (default Skv) are masked.  On CUDA: bfloat16
-    with Dh <= 128 goes to ``tc_kernel``, float32 or Dh > 128 to
-    ``simt_kernel`` (``kernel_for``); no autograd (the kernels have no backward).
+    with Dh <= 256 goes to ``tc_kernel``, float32 to ``simt_kernel``
+    (``kernel_for``); no autograd (the kernels have no backward).
     """
     if q.device.type == "cpu":
         kv_len = _check(q, k, v, window, kv_len)
@@ -170,7 +186,7 @@ def simt_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bo
 def tc_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
               window: int | None = None, kv_len: int | None = None) -> torch.Tensor:
     """The tensor-core kernel on CUDA tensors: bfloat16, Dh a multiple of 8 up
-    to 128, TMA-aligned (``tma_strides``)."""
+    to 256, TMA-aligned (``tma_strides``)."""
     q, k, v, kv_len = _cuda_inputs(q, k, v, window, kv_len)
     b, hq, sq, dh = q.shape
     if q.dtype != torch.bfloat16:
@@ -194,9 +210,11 @@ def tc_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
         raise RuntimeError(f"flash_attention tensor-core kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
     flash_attention.launches_tc += 1
+    flash_attention.launches_tc_wide += dh > _TC_WIDE
     return out
 
 
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
+flash_attention.launches_tc_wide = 0
 flash_attention.launches_simt = 0

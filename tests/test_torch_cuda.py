@@ -8,11 +8,12 @@ Without a card every test here skips.  Only torch is imported, so the file
 also runs where JAX is not installed.  Tolerances: sums at rtol 1e-5 with an
 atol of 1e-5 times the largest entry (float32 sums in other orders); noise at
 1e-5 sigma per element (float32 log/cos/sin/sqrt rounding).  Flash attention on
-the SIMT kernel (float32, or Dh > 128) against attention_ref: float32 at rtol
-1e-5 and atol 1e-5 (float32 sums in other orders); bfloat16 at rtol 2^-7, one
-bfloat16 ulp (both sides compute in float32 and round once), with atol 1e-4
-for outputs near zero.  On the tensor-core kernel (bfloat16, Dh <= 128)
-against attention_tc_ref, its rounding order: the same bfloat16 tolerance
+the SIMT kernel (float32, or bfloat16 called by name) against attention_ref:
+float32 at rtol 1e-5 and atol 1e-5 (float32 sums in other orders); bfloat16
+at rtol 2^-7, one bfloat16 ulp (both sides compute in float32 and round once),
+with atol 1e-4 for outputs near zero.  On the tensor-core kernel (bfloat16,
+Dh <= 256) against attention_tc_ref at its key tile (128 keys up to Dh 128,
+64 above), its rounding order: the same bfloat16 tolerance
 plus one bf16 ulp of a row's largest p (chip_smoke.tc_reference: a p next to
 a rounding boundary may round the other way); against attention_ref within
 the P-rounding bounds chip_smoke.py derives (P_MAX, P_MEAN).  The SSD scan in float32
@@ -173,6 +174,11 @@ FLASH_CASES = {  # b, hq, hkv, sq, skv, dh, causal, window, kv_len
     "window-under-one-tile": (1, 4, 1, 400, 400, 120, True, 37, None),
     "one-row-query-long-keys": (2, 4, 2, 1, 300, 120, False, None, 299),
     "noncausal-window-dh64": (1, 4, 2, 300, 300, 64, False, 50, None),
+    # the tensor-core kernel's 64-key instances (Dh > 128) in bf16
+    "gqa-dh136-window": (2, 8, 2, 300, 300, 136, True, 100, None),
+    "dh192-ragged-kv-len-noncausal": (1, 4, 2, 190, 257, 192, False, None, 201),
+    "mqa-dh256-ragged-sq": (2, 8, 1, 333, 333, 256, True, None, None),
+    "mqa-dh256-window-under-one-tile": (1, 8, 1, 300, 300, 256, True, 37, None),
 }
 
 
@@ -197,12 +203,14 @@ def test_flash_kernel_matches_plain(dev, case, dtype):
     b, hq, hkv, sq, skv, dh, causal, window, kv_len = FLASH_CASES[case]
     q, k, v = _qkv(dev, dtype, b, hq, hkv, sq, skv, dh)
     fa = flash_ops.flash_attention
-    kernel = "tc" if dtype == torch.bfloat16 and dh <= 128 else "simt"
-    before = (fa.launches, fa.launches_tc, fa.launches_simt)
+    kernel = "tc" if dtype == torch.bfloat16 and dh <= 256 else "simt"
+    wide = kernel == "tc" and dh > 128
+    before = (fa.launches, fa.launches_tc, fa.launches_tc_wide, fa.launches_simt)
     kw = dict(causal=causal, window=window, kv_len=kv_len)
     got = fa(q, k, v, **kw)
-    assert (fa.launches, fa.launches_tc, fa.launches_simt) == (
-        before[0] + 1, before[1] + (kernel == "tc"), before[2] + (kernel == "simt"))
+    assert (fa.launches, fa.launches_tc, fa.launches_tc_wide, fa.launches_simt) == (
+        before[0] + 1, before[1] + (kernel == "tc"), before[2] + wide,
+        before[3] + (kernel == "simt"))
     assert got.dtype == dtype and got.shape == q.shape
     if kernel == "tc":
         _tc_close(got, q, k, v, **kw)
@@ -211,8 +219,8 @@ def test_flash_kernel_matches_plain(dev, case, dtype):
         torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
 
 
-def _deterministic_on_strided_views(dev, launch, dtype):
-    b, s, hq, hkv, dh = 2, 257, 8, 2, 120
+def _deterministic_on_strided_views(dev, launch, dtype, dh=120, hkv=2):
+    b, s, hq = 2, 257, 8
     g = torch.Generator(device=dev).manual_seed(3)
     # the model's layout: (B, S, H, Dh), handed over as (B, H, S, Dh) views
     q = torch.randn(b, s, hq, dh, generator=g, device=dev).to(dtype).transpose(1, 2)
@@ -230,6 +238,37 @@ def test_flash_kernel_is_deterministic_and_takes_strided_views(dev):
     _deterministic_on_strided_views(dev, flash_ops.tc_kernel, torch.bfloat16)
 
 
+@pytest.mark.parametrize("dh,hkv", [(136, 2), (192, 2), (256, 1)])
+def test_wide_tc_kernel_is_deterministic_and_takes_strided_views(dev, dh, hkv):
+    """The 64-key instances on the model's transposed views, MQA at Dh 256
+    (gemma-2b's one KV head: a size-1 head axis)."""
+    _deterministic_on_strided_views(dev, flash_ops.tc_kernel, torch.bfloat16, dh, hkv)
+
+
+@pytest.mark.parametrize("dh", [136, 192, 256])
+@pytest.mark.parametrize("causal,window,kv_len", [(True, None, None), (True, 100, None),
+                                                  (False, None, 700), (False, 64, 901)])
+def test_wide_tc_kernel_matches_its_rounding_order(dev, dh, causal, window, kv_len):
+    """Dh in (128, 256], GQA 8/2 with a ragged last query tile and key tile
+    (Sq = Skv = 1000), causal or not, a window or not, a ragged kv_len; the
+    dispatch counts it as a 64-key launch; two launches give the same bits."""
+    q, k, v = _qkv(dev, torch.bfloat16, 2, 8, 2, 1000, 1000, dh, seed=dh)
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    fa = flash_ops.flash_attention
+    before = (fa.launches_tc_wide, fa.launches_simt)
+    got = fa(q, k, v, **kw)
+    assert (fa.launches_tc_wide - before[0], fa.launches_simt - before[1]) == (1, 0)
+    _tc_close(got, q, k, v, **kw)
+    assert torch.equal(got, flash_ops.tc_kernel(q, k, v, **kw))
+
+
+def test_the_librarys_key_tile_is_the_wrappers(dev):
+    lib = flash_ops.load_library_tc()
+    for dh in (8, 64, 120, 128, 136, 192, 200, 256):
+        assert lib.flash_attention_tc_keys(dh) == flash_ops.tc_block_k(dh)
+    assert [lib.flash_attention_tc_keys(dh) for dh in (0, 100, 264)] == [0, 0, 0]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_simt_kernel_is_deterministic_and_takes_strided_views(dev, dtype):
     _deterministic_on_strided_views(dev, flash_ops.simt_kernel, dtype)
@@ -237,7 +276,8 @@ def test_simt_kernel_is_deterministic_and_takes_strided_views(dev, dtype):
 
 def test_flash_dispatch_follows_the_rule_and_refuses_misaligned_views(dev):
     fa = flash_ops.flash_attention
-    for dtype, dh, kernel in ((torch.bfloat16, 120, "tc"), (torch.bfloat16, 256, "simt"),
+    for dtype, dh, kernel in ((torch.bfloat16, 120, "tc"), (torch.bfloat16, 256, "tc"),
+                              (torch.bfloat16, 136, "tc"), (torch.float32, 256, "simt"),
                               (torch.float32, 120, "simt")):
         q, k, v = _qkv(dev, dtype, 1, 2, 1, 64, 64, dh)
         before = (fa.launches_tc, fa.launches_simt)
@@ -267,6 +307,19 @@ def test_tc_kernel_matches_its_rounding_order_at_the_serve_shape(dev):
     assert torch.equal(got, flash_ops.tc_kernel(q, k, v, causal=True, window=4096))
     _, fault = chip_smoke.flash_excess(got, *chip_smoke.tc_reference(q, k, v, causal=True,
                                                                       window=4097))
+    assert fault > 1
+
+
+def test_wide_tc_kernel_matches_its_rounding_order_at_gemmas_shape(dev):
+    """The gemma-2b prefill's attention (8 query heads, one KV head of 256,
+    8176 rows: a ragged last query tile) and a planted fault (a window of
+    4096, chip_smoke.py's phase-8 fault) that the tight check must see."""
+    q, k, v = _qkv(dev, torch.bfloat16, 2, 8, 1, 8176, 8176, 256, seed=8)
+    got = flash_ops.tc_kernel(q, k, v, causal=True)
+    _tc_close(got, q, k, v, causal=True)
+    assert torch.equal(got, flash_ops.tc_kernel(q, k, v, causal=True))
+    _, fault = chip_smoke.flash_excess(got, *chip_smoke.tc_reference(
+        q, k, v, causal=True, window=chip_smoke.GEMMA_FAULT_WINDOW))
     assert fault > 1
 
 

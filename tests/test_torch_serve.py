@@ -2,13 +2,16 @@
 JAX parameters, on the CPU.
 
 Greedy generation must give the JAX package's tokens exactly, for
-``reduced(h2o-danube-3-4b)`` (window 64) and ``reduced(gemma-2b)``, with a
-prompt longer than the window, so that the prefill fills the ring past its
+``reduced(h2o-danube-3-4b)`` (window 64), ``reduced(gemma-2b)`` and the same
+at gemma-2b's head_dim of 256 (the tensor-core flash kernel's 64-key route on
+the card), with a prompt longer than the window, so that the prefill fills the ring past its
 end and the decode steps evict the oldest slots, and for
 ``reduced(mamba2-2.7b)`` (prefill into the conv window and SSM state, then
 the O(1) decode step).  JAX runs its Pallas flash kernel in interpret mode
 and its chunked SSD; the port's kernel path runs the kernels' plain versions.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -26,17 +29,22 @@ from repro_torch.launch import ServeEngine  # noqa: E402
 from repro_torch.models import DecoderLM  # noqa: E402
 
 PROMPT, NEW = 90, 8
+HEAD_DIM = {"gemma-2b-dh256": ("gemma-2b", 256)}   # a reduced config at another head_dim
 
 
-@pytest.mark.parametrize("name", ["h2o-danube-3-4b", "gemma-2b", "mamba2-2.7b"])
+@pytest.mark.parametrize("name", ["h2o-danube-3-4b", "gemma-2b", "mamba2-2.7b", "gemma-2b-dh256"])
 def test_greedy_tokens_equal_jax(name):
-    jcfg = jax_reduced(jax_get_config(name))
+    name, head_dim = HEAD_DIM.get(name, (name, None))
+    jcfg, cfg = jax_reduced(jax_get_config(name)), reduced(get_config(name))
+    if head_dim is not None:
+        jcfg = dataclasses.replace(jcfg, head_dim=head_dim)
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
     jm = JaxDecoderLM(jcfg, attn_impl="pallas")
     params = jm.init(jax.random.PRNGKey(1))
     prompt = np.random.default_rng(7).integers(0, jcfg.vocab_size, (2, PROMPT)).astype(np.int32)
     want = JaxServeEngine(jm).generate(params, jnp.asarray(prompt), NEW, PROMPT + NEW,
                                        dtype=jnp.float32)
-    model = decoder_from_jax(reduced(get_config(name)), jax.device_get(params), "cpu")
+    model = decoder_from_jax(cfg, jax.device_get(params), "cpu")
     got = ServeEngine(model).generate(torch.tensor(prompt), NEW, PROMPT + NEW)
     assert got.shape == (2, NEW)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
