@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each of which exits non-zero on failure:
-  1. build     nvcc builds the dp_aggregate, flash_attention (SIMT and
-               tensor-core) and ssd_scan kernels from csrc/ (ctypes), one
-               process per source, all at once; ptxas's registers and
+  1. build     nvcc builds the dp_aggregate, flash_attention (SIMT, bf16
+               tensor-core and float32 tensor-core) and ssd_scan kernels from
+               csrc/ (ctypes), one process per source, all at once; ptxas's registers and
                spills, and each kernel's tensor-core instructions (HMMA,
                HGMMA) where the toolkit has cuobjdump; dp_aggregate's launch
                plan (cluster size, window, stages, the clusters the card
@@ -22,19 +22,23 @@ Phases, each of which exits non-zero on failure:
                torch.randn at the full shape as a yardstick.
                flash_attention through its dispatch rule (bf16 with Dh <= 256
                to the tensor-core kernel, 128-key tiles up to Dh 128 and 64
-               above; float32 to the SIMT kernel; the counters must say so):
-               the serve shape's head group and all heads, MQA at head_dim
-               256, head_dims 64, 80, 128, 136 and 192, a window under one
-               tile, a ragged kv_len and non-causal attention.  The
-               tensor-core kernel is held tight against its rounding order
-               (ref.attention_tc_ref at its key tile) and within the derived
-               P-rounding bound of attention_ref; a planted fault (window one
-               too wide) must fail the tight check.  At the h2o serve shape
-               both kernels are timed (tensor-core in bf16, SIMT in bf16 and
-               f32) beside SDPA; at gemma-2b's (B 2, Hq 8, Hkv 1, S 8176, Dh
-               256, causal) the tensor-core kernel, checked the same way (the
-               fault: a window of 4096), beside the SIMT kernel in bf16 (the
-               route before), the plain version and SDPA with is_causal.
+               above; float32 with Dh <= 256 to the float32 tensor-core
+               kernel, 3xTF32, 64-, 32- or 16-key tiles; the counters must
+               say so): the serve shape's head group and all heads, MQA at
+               head_dim 256, head_dims 64, 80, 100, 128, 136 and 192, a
+               window under one tile, a ragged kv_len and non-causal
+               attention.  The bf16 kernel is held tight against its rounding
+               order (ref.attention_tc_ref at its key tile) and within the
+               derived P-rounding bound of attention_ref, the float32 one
+               tight against its 3xTF32 order (f32_reference) and within
+               FLASH_TOL of attention_ref; a planted fault (window one too
+               wide, or a window imposed) must fail each tight check; two
+               launches on the model's strided views give the same bits.  At
+               the h2o serve shape both tensor-core kernels are timed (bf16;
+               float32 beside the SIMT kernel in float32, the route before)
+               beside SDPA; at gemma-2b's (B 2, Hq 8, Hkv 1, S 8176, Dh 256,
+               causal) the same in both types (the fault: a window of 4096),
+               beside the SIMT kernel, the plain version and SDPA.
                ssd_scan against the recurrence and the chunked SSD at
                small, ragged (S 300, 1237) and strong-decay shapes, and at
                the Mamba2 serve shape (2, 16384, 80, 64) with N 128 and
@@ -59,7 +63,7 @@ Phases, each of which exits non-zero on failure:
                layers at full width on the card against the CPU (f32,
                window 128, prompt 300): the greedy tokens must be equal.
                The prefill's 24 launches must all be tensor-core launches,
-               the f32 layers' SIMT launches.
+               the f32 layers' float32 tensor-core launches.
   7. serve-ssm mamba2-2.7b at full width and depth, seeded bf16 weights with
                A and dt in Mamba2's initial ranges, float32 caches:
                ServeEngine.generate of 16 greedy tokens after a 16384-token
@@ -78,14 +82,24 @@ Phases, each of which exits non-zero on failure:
                64-key route), none SIMT; the planted fault a window of 4096
                imposed on the plain path; one prefill timed with the SIMT
                kernel in place of the dispatch (the route before); two f32
-               layers card-vs-CPU through the SIMT kernel at Dh 256.
+               layers card-vs-CPU through the float32 tensor-core kernel at
+               Dh 256.
+  9. serve-f32 h2o-danube-3-4b in float32 (the models' default dtype) at full
+               width and depth as phase 6 (3.962 B seeded float32 parameters,
+               a float32 KV cache): 16 greedy tokens after a 2 x 8192 prompt;
+               24 float32 tensor-core flash launches per prefill, none SIMT;
+               the prefill logits against the plain path within the float32
+               bounds (SERVE_F32_MAX_ERR, SERVE_F32_MEAN_ERR), the window
+               dropped on the plain path outside them; one prefill timed with
+               the SIMT kernel in place of the dispatch (the route before).
 Phases 3 and 4 are the round loop's main path, phase 6's bf16 generate the
-dense serve path's (the tensor-core flash kernel), its f32 generate the float32
-serve path's (the SIMT flash kernel), phase 7's generate the Mamba2 serve
-path's, phase 8's bf16 generate the Dh-256 serve path's (the tensor-core
-kernel's 64-key route): every launch counter is set to 0 before a path and
-read after.  The
-line before the last is {"kernels": [...]}, the last {"ok": true, "device":
+dense serve path's (the tensor-core flash kernel), its f32 generate and phase
+9's the float32 serve path's (the float32 tensor-core flash kernel), phase 7's
+generate the Mamba2 serve path's, phase 8's bf16 generate the Dh-256 serve
+path's (the tensor-core kernel's 64-key route): every launch counter is set
+to 0 before a path and read after.  The SIMT flash kernel runs only in the
+route-before prefills of phases 8 and 9, whose launches its entry counts.
+The line before the last is {"kernels": [...]}, the last {"ok": true, "device":
 {...}}.  It imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -165,6 +179,15 @@ def algo_kwargs(name: str, m: int):
     return eta_l, dict(clip_norm=c, sigma=0.7 * c)
 
 
+def timed(label: str, phase, *args):
+    """Run one phase; print its wall time, so that the script's time can be
+    kept within its limit."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"[{label}] phase done in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean ms per call of ``fn`` on the card, from CUDA events around ``iters`` calls."""
     import torch
@@ -188,7 +211,7 @@ def phase_build():
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     t0 = time.perf_counter()
     loaders = (dp_ops.load_library, flash_ops.load_library, flash_ops.load_library_tc,
-               ssd_ops.load_library)
+               flash_ops.load_library_f32, ssd_ops.load_library)
     with ThreadPoolExecutor(len(loaders)) as pool:
         libs = [fut.result() for fut in [pool.submit(load) for load in loaders]]
     print(f"[1 build] kernels built in {time.perf_counter() - t0:.2f} s")
@@ -213,8 +236,10 @@ def phase_build():
     if not Path(cuobjdump).exists():
         print("    sass: no cuobjdump in this toolkit")
         return
-    for lib in libs:
-        for fn, (hmma, hgmma) in sass_mma(cuobjdump, lib._name).items():
+    with ThreadPoolExecutor(len(libs)) as pool:   # one cuobjdump per library, all at once
+        counts = list(pool.map(lambda lib: sass_mma(cuobjdump, lib._name), libs))
+    for lib, count in zip(libs, counts):
+        for fn, (hmma, hgmma) in count.items():
             print(f"    sass: {Path(lib._name).name} {fn}: {hmma} HMMA, {hgmma} HGMMA")
 
 
@@ -448,6 +473,12 @@ def phase_reference(dev):
 
 # flash attention: float32 sums in other orders; bf16 outputs one ulp apart
 # (both sides compute in float32 and round once), atol for outputs near 0.
+# The float32 tensor-core kernel's 3xTF32 products keep float32's: on the CPU
+# its order (f32_reference) uses at most 0.14 of it against attention_ref and
+# 0.11 against the JAX kernel at Dh 64-256, TF32 products alone 61-93x it
+# (tests/test_torch_flash_f32.py, -s).  The card's tensor cores do not round
+# to nearest inside an instruction, so the kernel adds each tile's P.V to O in
+# float32 (one accumulator over a long row drifted to 1.25x the tolerance).
 FLASH_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2**-7, 1e-4)}
 # The tensor-core kernel is held to that bf16 tolerance against
 # ref.attention_tc_ref, which rounds P to bf16 as the kernel does, plus one
@@ -480,6 +511,18 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 2, 8192, 16
 # width too and fails if the bounds do not see it.  Bounds:
 SERVE_MAX_ERR = 0.05    # max |d logit| / max |logit|
 SERVE_MEAN_ERR = 0.03   # mean |d logit| / std(logit)
+# The same in float32 (phase 9, the models' default dtype), kernel vs plain
+# prefill logits: the float32 tensor-core kernel's 3xTF32 products against the
+# plain path's float32 einsums.  On the CPU at d_model 512 over 24 layers the
+# kernel's order moves them by 1.8e-6 of max|logit| and 1.3e-6 of their std,
+# the window dropped by 1.39 and 1.10
+# (tests/test_torch_models.py::test_f32_drift_..., test_a_dropped_window_
+# fails_the_f32_serve_bounds, -s).  On the card the kernel sits up to 7x
+# further from its order than the CPU emulation from attention_ref (phase 2b),
+# and the width is 7.5x, so the bounds leave over 500x the CPU reading and
+# stay 1000x under the fault:
+SERVE_F32_MAX_ERR = 1e-3    # max |d logit| / max |logit|
+SERVE_F32_MEAN_ERR = 1e-3   # mean |d logit| / std(logit)
 GEMMA = "gemma-2b"
 GEMMA_BATCH, GEMMA_PROMPT, GEMMA_NEW = 2, 8176, 16
 GEMMA_FAULT_WINDOW = 4096
@@ -550,14 +593,54 @@ def sdpa_backend(q, k, v, mask, enable_gqa=True, causal=False) -> str:
     return names.get(int(choice), str(choice))
 
 
+def f32_reference(q, k, v, **kw):
+    """The tight check's reference for the float32 tensor-core kernel:
+    attention_tc_ref in its 3xTF32 order at the kernel's key tile for this
+    head dim (ops.f32_block_k)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    return ref.attention_tc_ref(q, k, v, block_k=ops.f32_block_k(q.shape[-1]),
+                                products="3xtf32", **kw)
+
+
+def f32_checks(got, q, k, v, what: str, fault: dict, **kw) -> tuple[float, float, float]:
+    """The float32 tensor-core kernel's checks: within FLASH_TOL of its 3xTF32
+    order (tight) and of attention_ref, and a planted fault (``fault``: the
+    keyword arguments of a wrong mask) that the tight check must see.
+    Returns both errors and the fault's largest ratio to the tolerance."""
+    from repro_torch.kernels.flash_attention import ref
+    tight = flash_close(got, f32_reference(q, k, v, **kw), f"{what} (float32 tensor cores)")
+    err = flash_close(got, ref.attention_ref(q, k, v, **kw),
+                      f"{what} (float32 tensor cores) vs attention_ref")
+    _, ratio = flash_excess(got, f32_reference(q, k, v, **{**kw, **fault}))
+    if ratio <= 1:
+        fail(f"{what}: a planted fault ({fault}) passes the float32 kernel's tight check")
+    return tight, err, ratio
+
+
+def f32_fault(shape, window) -> dict:
+    """The planted fault of a float32 check on (b, hq, hkv, sq, skv, dh): the
+    window one too wide, or a window of half the query rows imposed where
+    there is none (the later rows then lose keys, causal or not)."""
+    return dict(window=window + 1) if window else dict(window=max(1, shape[3] // 2))
+
+
+def strided_bits_equal(launch, q, k, v, **kw) -> bool:
+    """Two launches on the model's layout ((B, S, H, Dh) handed over as
+    (B, H, S, Dh) views) give the same bits as each other and as a launch on
+    contiguous copies."""
+    import torch
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    a = launch(*views, **kw)
+    return torch.equal(a, launch(*views, **kw)) and torch.equal(a, launch(q, k, v, **kw))
+
+
 def phase_flash(dev):
-    """Phase 2b: both flash kernels against their plain versions on the card,
-    through the dispatch rule; at the serve shape the tensor-core kernel's
-    checks and a planted fault, and both kernels' times, bounds and the SDPA
-    yardstick; the same at gemma-2b's shape (Dh 256, the tensor-core kernel's
-    64-key route) with the SIMT kernel's bf16 time there as the "before".
-    Returns the three kernel entries (tensor-core, SIMT, tensor-core at Dh >
-    128)."""
+    """Phase 2b: the flash kernels against their plain versions on the card,
+    through the dispatch rule; at the serve shape the tensor-core kernels'
+    checks and planted faults, and their times, bounds and the SDPA
+    yardstick, the SIMT kernel's beside them (the route before); the same at
+    gemma-2b's shape (Dh 256).  Returns the four kernel entries (tensor-core,
+    SIMT, tensor-core at Dh > 128, float32 tensor-core)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
@@ -569,28 +652,29 @@ def phase_flash(dev):
                      for shape in ((b, hq, sq, dh), (b, hkv, skv, dh), (b, hkv, skv, dh)))
 
     window = 4096
+    f32, bf16 = torch.float32, torch.bfloat16
     checks = [  # name, (b, hq, hkv, sq, skv, dh), causal, window, kv_len, dtype
-        ("serve group f32", (2, 4, 1, SERVE_PROMPT, SERVE_PROMPT, 120), True, window, None,
-         torch.float32),
-        ("serve group bf16", (2, 4, 1, SERVE_PROMPT, SERVE_PROMPT, 120), True, window, None,
-         torch.bfloat16),
-        ("mqa dh256 f32", (1, 8, 1, 1024, 1024, 256), True, None, None, torch.float32),
-        ("mqa dh256 bf16", (1, 8, 1, 2048, 2048, 256), True, None, None, torch.bfloat16),
-        ("ragged kv_len non-causal f32", (2, 8, 2, 1000, 1500, 120), False, None, 1237,
-         torch.float32),
-        ("ragged kv_len non-causal bf16", (2, 8, 2, 1000, 1500, 120), False, None, 1237,
-         torch.bfloat16),
-        ("non-causal window f32", (1, 4, 2, 777, 777, 64), False, 100, None, torch.float32),
-        ("gqa dh128 bf16", (2, 16, 2, 1500, 1500, 128), True, None, None, torch.bfloat16),
-        ("dh80 window 100 bf16", (1, 8, 2, 1000, 1000, 80), True, 100, None, torch.bfloat16),
-        ("mqa dh64 ragged non-causal bf16", (2, 8, 1, 77, 300, 64), False, None, 211,
-         torch.bfloat16),
-        ("gqa dh136 window 100 bf16", (2, 8, 2, 1000, 1000, 136), True, 100, None,
-         torch.bfloat16),
+        ("serve group f32", (2, 4, 1, SERVE_PROMPT, SERVE_PROMPT, 120), True, window, None, f32),
+        ("serve group bf16", (2, 4, 1, SERVE_PROMPT, SERVE_PROMPT, 120), True, window, None, bf16),
+        ("mqa dh256 f32", (1, 8, 1, 1024, 1024, 256), True, None, None, f32),
+        ("mqa dh256 bf16", (1, 8, 1, 2048, 2048, 256), True, None, None, bf16),
+        ("ragged kv_len non-causal f32", (2, 8, 2, 1000, 1500, 120), False, None, 1237, f32),
+        ("ragged kv_len non-causal bf16", (2, 8, 2, 1000, 1500, 120), False, None, 1237, bf16),
+        ("non-causal window f32", (1, 4, 2, 777, 777, 64), False, 100, None, f32),
+        ("gqa dh128 bf16", (2, 16, 2, 1500, 1500, 128), True, None, None, bf16),
+        ("dh80 window 100 bf16", (1, 8, 2, 1000, 1000, 80), True, 100, None, bf16),
+        ("dh80 window 100 f32", (1, 8, 2, 1000, 1000, 80), True, 100, None, f32),
+        ("mqa dh64 ragged non-causal bf16", (2, 8, 1, 77, 300, 64), False, None, 211, bf16),
+        ("mqa dh64 ragged non-causal f32", (2, 8, 1, 77, 300, 64), False, None, 211, f32),
+        ("gqa dh136 window 100 bf16", (2, 8, 2, 1000, 1000, 136), True, 100, None, bf16),
+        ("gqa dh136 window 100 f32", (2, 8, 2, 1000, 1000, 136), True, 100, None, f32),
         ("dh192 ragged kv_len non-causal bf16", (2, 8, 2, 1000, 1500, 192), False, None, 1237,
-         torch.bfloat16),
-        ("mqa dh256 ragged last tile bf16", (2, 8, 1, 1000, 1000, 256), True, None, None,
-         torch.bfloat16),
+         bf16),
+        ("dh192 ragged kv_len non-causal f32", (2, 8, 2, 1000, 1500, 192), False, None, 1237,
+         f32),
+        ("mqa dh256 ragged last tile bf16", (2, 8, 1, 1000, 1000, 256), True, None, None, bf16),
+        ("dh100 not a multiple of 8 f32", (1, 8, 2, 1000, 1000, 100), True, None, None, f32),
+        ("dh99 4-byte loads window 50 f32", (1, 4, 2, 500, 500, 99), True, 50, None, f32),
     ]
     cases = []
     for i, (name, shape, causal, win, kv_len, dtype) in enumerate(checks):
@@ -598,27 +682,28 @@ def phase_flash(dev):
         kw = dict(causal=causal, window=win, kv_len=kv_len)
         kernel = ops.kernel_for(q)
         wide = int(kernel == "tc" and shape[-1] > 128)
-        before = (fa.launches_tc, fa.launches_tc_wide, fa.launches_simt)
+        counters = ("launches_tc", "launches_tc_wide", "launches_f32", "launches_simt")
+        before = [getattr(fa, c) for c in counters]
         got = ops.flash_attention(q, k, v, **kw)
-        if (fa.launches_tc - before[0], fa.launches_tc_wide - before[1],
-                fa.launches_simt - before[2]) != ((1, wide, 0) if kernel == "tc" else (0, 0, 1)):
+        launched = tuple(getattr(fa, c) - n for c, n in zip(counters, before))
+        if launched != {"tc": (1, wide, 0, 0), "f32": (0, 0, 1, 0)}.get(kernel):
             fail(f"flash_attention {name}: the {kernel} kernel was not the one launched")
         case = dict(name=name, shape=list(shape), causal=causal, window=win, kv_len=kv_len,
                     dtype=str(dtype), kernel=kernel)
+        what = f"flash_attention {name} {shape}"
         if kernel == "tc":
             want, flip = tc_reference(q, k, v, **kw)
-            case["max_abs_err"] = flash_close(got, want, f"flash_attention {name} {shape} "
-                                              "(tensor cores)", flip)
-            case["p_rounding"] = p_rounding(got, ref.attention_ref(q, k, v, **kw), v,
-                                            f"flash_attention {name} {shape}")
+            case["max_abs_err"] = flash_close(got, want, f"{what} (tensor cores)", flip)
+            case["p_rounding"] = p_rounding(got, ref.attention_ref(q, k, v, **kw), v, what)
             note = (f"against attention_tc_ref; P-rounding bound used {case['p_rounding'][0]:.3f} "
                     f"(max), {case['p_rounding'][1]:.3f} (mean)")
         else:
-            case["max_abs_err"] = flash_close(got, ref.attention_ref(q, k, v, **kw),
-                                              f"flash_attention {name} {shape} (SIMT)")
-            note = "against attention_ref"
+            fault = f32_fault(shape, win)
+            tight, case["max_abs_err"], case["fault"] = f32_checks(got, q, k, v, what, fault, **kw)
+            note = (f"against attention_ref (tight against the 3xTF32 order: {tight:.3e}; "
+                    f"{fault} fails it at {case['fault']:.1f}x the tolerance)")
         cases.append(case)
-        print(f"[2 kernels] flash_attention {name:32s} {shape} [{kernel}]: max abs err "
+        print(f"[2 kernels] flash_attention {name:35s} {shape} [{kernel}]: max abs err "
               f"{case['max_abs_err']:.3e} {note}")
         del q, k, v, got
 
@@ -666,28 +751,13 @@ def phase_flash(dev):
           f"[{backend}] {library_ms:.4f} ms (max abs diff to plain {sdpa_err:.3e})")
     del got, want, simt
 
-    # the SIMT kernel's own path: float32 at the serve shape
+    # float32 at the serve shape: the float32 tensor-core kernel through the
+    # dispatch, beside the SIMT kernel (the route before), the plain version and SDPA
     q, k, v = q.float(), k.float(), v.float()
-    got = ops.flash_attention(q, k, v, **kw)
-    want = ref.attention_ref(q, k, v, **kw)
-    f32_err = flash_close(got, want, f"flash_attention serve shape {shape} (SIMT, f32)")
-    f32_ms = cuda_ms(lambda: ops.simt_kernel(q, k, v, **kw), 5)
-    f32_plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, **kw), 2, warmup=1)
-    f32_b_ms, f32_b_by = bound(4 * (2 * q.numel() + k.numel() + v.numel()), nops)
-    # SDPA with the heads expanded: its memory-efficient backend takes float32
-    # and a mask, but not enable_gqa
-    kx, vx = (x.repeat_interleave(hq // hkv, 1) for x in (k, v))
-    f32_backend = sdpa_backend(q, kx, vx, band, enable_gqa=False)
-    f32_library_ms = None if f32_backend == "MATH" else cuda_ms(
-        lambda: F.scaled_dot_product_attention(q, kx, vx, attn_mask=band), 3, warmup=1)
-    print(f"[2 kernels] flash_attention serve shape, f32: SIMT kernel {f32_ms:.4f} ms (max abs "
-          f"err {f32_err:.3e})  plain {f32_plain_ms:.4f} ms  bound {f32_b_ms:.4f} ms "
-          f"({f32_b_by})  SDPA [{f32_backend}] "
-          + ("not timed (the math backend)" if f32_library_ms is None
-             else f"{f32_library_ms:.4f} ms"))
-    del q, k, v, kx, vx, got, want, band
+    f32 = f32_timing(q, k, v, "serve shape", dict(window=window + 1), kw, mask=band)
+    del q, k, v, band
     torch.cuda.empty_cache()
-    wide = phase_flash_gemma(dev, qkv)
+    wide, f32_gemma = phase_flash_gemma(dev, qkv)
     headline = f"bf16 (B {b}, Hq {hq}, Hkv {hkv}, S {s}, Dh {dh}), causal, window {window}"
     library = f"scaled_dot_product_attention [{backend}]"
     tc = dict(name="flash_attention_tc", route="cuda",
@@ -704,21 +774,96 @@ def phase_flash(dev):
                 replaces="src/repro/kernels/flash_attention/kernel.py:33", launches=0,
                 max_abs_err=simt_err, ms=simt_ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms, library=library, headline=headline,
-                f32=dict(ms=f32_ms, plain_ms=f32_plain_ms, bound_ms=f32_b_ms, bound_by=f32_b_by,
-                         library_ms=f32_library_ms,
-                         library=f"scaled_dot_product_attention [{f32_backend}]",
-                         max_abs_err=f32_err),
-                cases=[c for c in cases if c["kernel"] == "simt"])
-    return tc, simt, wide
+                role="the route before of bf16 at Dh > 128 and of float32, called by name",
+                f32={k: f32[k] for k in ("simt_ms", "simt_max_abs_err")},
+                f32_gemma={k: f32_gemma[k] for k in ("simt_ms", "simt_max_abs_err")})
+    f32_entry = dict(
+        name="flash_attention_f32", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_f32.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:33", launches=0,
+        max_abs_err=max([f32["max_abs_err"], f32_gemma["max_abs_err"]]
+                        + [c["max_abs_err"] for c in cases if c["kernel"] == "f32"]),
+        ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
+        bound_by=f32["bound_by"], library_ms=f32["library_ms"], library=f32["library"],
+        headline=f"float32 (B {b}, Hq {hq}, Hkv {hkv}, S {s}, Dh {dh}), causal, window "
+                 f"{window}; 3xTF32, bound at {TF32X3_OPS_PER_S / 1e12:.0f} TFLOP/s",
+        serve_shape=f32, gemma_shape=f32_gemma,
+        cases=[c for c in cases if c["kernel"] == "f32"])
+    return tc, simt, wide, f32_entry
 
 
-def phase_flash_gemma(dev, qkv) -> dict:
+def f32_timing(q, k, v, label: str, fault: dict, kw: dict, mask=None) -> dict:
+    """The float32 tensor-core kernel at a main path's shape: through the
+    dispatch, its checks (f32_checks), bitwise determinism on strided views,
+    its time beside the SIMT kernel's (the route before), the plain
+    version's and SDPA's with the heads expanded and TF32 off (its
+    memory-efficient backend takes float32, but not enable_gqa), and the
+    bounds at 165 TFLOP/s (3xTF32) and 67 (float32)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    fa = ops.flash_attention
+    b, hq, s, dh = q.shape
+    hkv = k.shape[1]
+    shape = (b, hq, hkv, s, dh)
+    before = (fa.launches_f32, fa.launches_simt)
+    got = ops.flash_attention(q, k, v, **kw)
+    if (fa.launches_f32 - before[0], fa.launches_simt - before[1]) != (1, 0):
+        fail(f"flash_attention: the float32 {label} did not go to the float32 tensor-core kernel")
+    what = f"flash_attention {label} {shape}"
+    tight, err, fault_ratio = f32_checks(got, q, k, v, what, fault, **kw)
+    if not torch.equal(got, ops.f32_kernel(q, k, v, **kw)):
+        fail(f"{what}: two float32 tensor-core launches differ in bits")
+    if not strided_bits_equal(ops.f32_kernel, q, k, v, **kw):
+        fail(f"{what}: the float32 tensor-core kernel's bits differ on strided views")
+    plain = ref.attention_ref(q, k, v, **kw)
+    simt_err = flash_close(ops.simt_kernel(q, k, v, **kw), plain, f"{what} (SIMT, f32)")
+    del got, plain
+    window = kw.get("window")
+    nops = 4 * dh * visible_pairs(s, s, kw["causal"], window) * b * hq
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    b_ms, b_by = bound(nbytes, nops, TF32X3_OPS_PER_S)
+    b67_ms, _ = bound(nbytes, nops)
+    ms = cuda_ms(lambda: ops.f32_kernel(q, k, v, **kw), 10)
+    simt_ms = cuda_ms(lambda: ops.simt_kernel(q, k, v, **kw), 3)
+    ms_again = cuda_ms(lambda: ops.f32_kernel(q, k, v, **kw), 10)
+    plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, **kw), 2, warmup=1)
+    kx, vx = (x.repeat_interleave(hq // hkv, 1) for x in (k, v))
+    causal_only = window is None and kw["causal"]
+    backend = sdpa_backend(q, kx, vx, None if causal_only else mask, enable_gqa=False,
+                           causal=causal_only)
+
+    def sdpa():
+        if causal_only:
+            return F.scaled_dot_product_attention(q, kx, vx, is_causal=True)
+        return F.scaled_dot_product_attention(q, kx, vx, attn_mask=mask)
+
+    library_ms = None if backend == "MATH" else cuda_ms(sdpa, 3, warmup=1)
+    del kx, vx
+    print(f"[2 kernels] flash_attention {label} (B {b}, Hq {hq}, Hkv {hkv}, S {s}, Dh {dh}, "
+          f"{'causal' if kw['causal'] else 'non-causal'}, window {window}, f32; key tile "
+          f"{ops.f32_block_k(dh)}): float32 tensor-core kernel {ms:.4f} ms (again {ms_again:.4f}; "
+          f"max abs err {err:.3e} against attention_ref, {tight:.3e} against its 3xTF32 order; "
+          f"two launches and strided views bit-identical; {fault} fails the tight check at "
+          f"{fault_ratio:.1f}x its tolerance)  SIMT kernel {simt_ms:.4f} ms (max abs err "
+          f"{simt_err:.3e})  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; {nops:.4g} "
+          f"operations at {TF32X3_OPS_PER_S / 1e12:.0f} TFLOP/s, 3xTF32), {b67_ms:.4f} ms at "
+          f"{F32_OPS_PER_S / 1e12:.0f} float32  SDPA [{backend}] "
+          + ("not timed (the math backend)" if library_ms is None else f"{library_ms:.4f} ms"))
+    return dict(ms=ms, ms_again=ms_again, max_abs_err=err, tight_err=tight, fault=fault_ratio,
+                simt_ms=simt_ms, simt_max_abs_err=simt_err, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, bound_f32_ms=b67_ms, library_ms=library_ms,
+                library=f"scaled_dot_product_attention [{backend}], heads expanded")
+
+
+def phase_flash_gemma(dev, qkv) -> tuple[dict, dict]:
     """Phase 2b at gemma-2b's prefill (every head of one layer: B 2, Hq 8,
     Hkv 1, S 8176, Dh 256, causal): the tensor-core kernel's 64-key route
     through the dispatch rule, its tight check, a planted fault (the window of
     phase 8's fault imposed), bitwise determinism; its time beside the SIMT
     kernel's in bf16 (the earlier route of bf16 Dh 256), the plain version's,
-    SDPA's with is_causal and the bound.  Returns its kernel entry."""
+    SDPA's with is_causal and the bound.  Then the same shape in float32
+    (f32_timing).  Returns the bf16 kernel entry and the float32 timings."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
@@ -766,7 +911,10 @@ def phase_flash_gemma(dev, qkv) -> dict:
           f"kernel {simt_ms:.4f} ms (max abs err {simt_err:.3e})  plain {plain_ms:.4f} ms  "
           f"bound {b_ms:.4f} ms ({b_by}; {nops:.4g} operations)  SDPA is_causal [{backend}] "
           f"{library_ms:.4f} ms (max abs diff to plain {sdpa_err:.3e})")
-    del q, k, v, plain
+    q, k, v = q.float(), k.float(), v.float()
+    del plain
+    f32 = f32_timing(q, k, v, "gemma shape", dict(window=GEMMA_FAULT_WINDOW), dict(causal=True))
+    del q, k, v
     torch.cuda.empty_cache()
     return dict(name="flash_attention_tc_wide", route="cuda",
                 source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_tc.cu",
@@ -777,7 +925,8 @@ def phase_flash_gemma(dev, qkv) -> dict:
                          f"tensor-core kernel at Dh > 128 (key tile {ops.tc_block_k(dh)})",
                 simt_ms=simt_ms, simt_max_abs_err=simt_err,
                 p_rounding=dict(max=p_max, mean=p_mean), beyond_bf16_tolerance_alone=flips,
-                fault_window=fault)
+                fault_window=fault), f32
+
 
 
 # ssd_scan: the chunked dual form against the recurrence and the chunked SSD
@@ -930,7 +1079,8 @@ def device_window(fn, label: str, phase: str = "6 serve") -> dict:
 class DenseServe(NamedTuple):
     """A dense serve path of chip_smoke.py: a config at full width and depth,
     its request, the planted fault of the plain path (config fields it
-    changes) and the config of the two-layer float32 check."""
+    changes), the config of the two-layer float32 check (None: none), the
+    weights' dtype and the logit bounds (max, mean) against the plain path."""
     name: str
     phase: str
     batch: int
@@ -938,7 +1088,9 @@ class DenseServe(NamedTuple):
     new: int
     fault: str
     fault_cfg: dict
-    f32_cfg: dict
+    f32_cfg: dict | None
+    dtype: str = "bfloat16"
+    bounds: tuple[float, float] = (SERVE_MAX_ERR, SERVE_MEAN_ERR)
 
 
 SERVE_H2O = DenseServe(H2O, "6 serve", SERVE_BATCH, SERVE_PROMPT, SERVE_NEW,
@@ -947,15 +1099,19 @@ SERVE_H2O = DenseServe(H2O, "6 serve", SERVE_BATCH, SERVE_PROMPT, SERVE_NEW,
 SERVE_GEMMA = DenseServe(GEMMA, "8 serve-gemma", GEMMA_BATCH, GEMMA_PROMPT, GEMMA_NEW,
                          f"a window of {GEMMA_FAULT_WINDOW} imposed",
                          dict(sliding_window=GEMMA_FAULT_WINDOW), {})
+SERVE_F32 = DenseServe(H2O, "9 serve-f32", SERVE_BATCH, SERVE_PROMPT, SERVE_NEW,
+                       "the window dropped", dict(sliding_window=None), None, "float32",
+                       (SERVE_F32_MAX_ERR, SERVE_F32_MEAN_ERR))
 
 
 def phase_serve(dev, smi: str, spec: DenseServe) -> dict:
-    """Phases 6 and 8: a dense config at full width and depth through
-    ServeEngine; returns the flash launches of the bf16 generate (all on the
-    tensor cores; ``tc_wide`` of them at Dh > 128) and the SIMT launches of
-    the f32 one.  At Dh > 128 (the tensor-core kernel's 64-key route), also
-    one prefill with the SIMT kernel in place of the dispatch, timed: the
-    route bf16 took there before."""
+    """Phases 6, 8 and 9: a dense config at full width and depth through
+    ServeEngine in ``spec.dtype``; returns the flash launches of its generate
+    (bf16: ``tc``, ``tc_wide`` of them at Dh > 128; float32: ``f32``) and of
+    the two-layer float32 check (``f32_check``).  At Dh > 128 in bf16 (the
+    tensor-core kernel's 64-key route) and in float32, also one prefill with
+    the SIMT kernel in place of the dispatch, timed: the route taken there
+    before (``simt``, its launches)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops
@@ -964,9 +1120,11 @@ def phase_serve(dev, smi: str, spec: DenseServe) -> dict:
     from repro_torch.models import attention as attn_mod
 
     cfg, tag = get_config(spec.name), spec.phase.split()[-1]
-    wide = cfg.resolved_head_dim > 128        # the tensor-core kernel's 64-key route
+    f32 = spec.dtype == "float32"             # the float32 tensor-core kernel
+    wide = not f32 and cfg.resolved_head_dim > 128   # the bf16 kernel's 64-key route
+    max_err, mean_err = spec.bounds
     t0 = time.perf_counter()
-    model = DecoderLM(cfg, dtype=torch.bfloat16, device=dev,
+    model = DecoderLM(cfg, dtype=getattr(torch, spec.dtype), device=dev,
                       generator=torch.Generator(device=dev).manual_seed(0))
     n_params = sum(p.numel() for p in model.parameters())
     prompt = torch.randint(0, cfg.vocab_size, (spec.batch, spec.prompt), device=dev,
@@ -975,24 +1133,27 @@ def phase_serve(dev, smi: str, spec: DenseServe) -> dict:
     engine = ServeEngine(model)
     engine.generate(prompt[:, :256], 2, 272)          # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
-    print(f"[{spec.phase}] {spec.name}: {n_params / 1e9:.3f} B parameters in bf16, built in "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"[{spec.phase}] {spec.name}: {n_params / 1e9:.3f} B parameters in {spec.dtype}, "
+          f"built in {time.perf_counter() - t0:.2f} s")
 
     fa = ops.flash_attention
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = fa.launches_tc = fa.launches_tc_wide = fa.launches_simt = 0
+    fa.launches = fa.launches_tc = fa.launches_tc_wide = fa.launches_f32 = fa.launches_simt = 0
     t0 = time.perf_counter()
     tokens = engine.generate(prompt, spec.new, cache_len)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    counts = dict(tc=fa.launches_tc, tc_wide=fa.launches_tc_wide)
+    counts = dict(launches=fa.launches, tc=fa.launches_tc, tc_wide=fa.launches_tc_wide,
+                  f32=fa.launches_f32)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     layers = cfg.num_layers
-    if (fa.launches, fa.launches_tc, fa.launches_tc_wide, fa.launches_simt) != \
-            (layers, layers, layers if wide else 0, 0):
+    kernel = "float32 tensor-core" if f32 else "tensor-core"
+    if (fa.launches, fa.launches_tc, fa.launches_tc_wide, fa.launches_f32, fa.launches_simt) != \
+            (layers, 0 if f32 else layers, layers if wide else 0, layers if f32 else 0, 0):
         fail(f"{tag}: {fa.launches} flash launches in one generate ({fa.launches_tc} "
-             f"tensor-core, {fa.launches_tc_wide} of them at Dh > 128, {fa.launches_simt} SIMT), "
-             f"want {layers} tensor-core launches (one per layer of the prefill)")
+             f"tensor-core, {fa.launches_tc_wide} of them at Dh > 128, {fa.launches_f32} float32 "
+             f"tensor-core, {fa.launches_simt} SIMT), want {layers} {kernel} launches (one per "
+             "layer of the prefill)")
     if tokens.shape != (spec.batch, spec.new):
         fail(f"{tag}: generate gave tokens of shape {tuple(tokens.shape)}")
 
@@ -1021,9 +1182,9 @@ def phase_serve(dev, smi: str, spec: DenseServe) -> dict:
         del caches
         device_window(lambda: model.prefill(prompt, model.init_cache(spec.batch, cache_len)),
                       "one prefill", spec.phase)
-        if wide:
-            # the route bf16 Dh 256 took before: the SIMT kernel in place of the
-            # dispatch, for this one timed prefill
+        if wide or f32:
+            # the route bf16 Dh 256 and float32 took before: the SIMT kernel in
+            # place of the dispatch, for this one timed prefill
             before = fa.launches_simt
             attn_mod.flash_attention = ops.simt_kernel
             try:
@@ -1037,6 +1198,7 @@ def phase_serve(dev, smi: str, spec: DenseServe) -> dict:
                 attn_mod.flash_attention = ops.flash_attention
             if fa.launches_simt - before != layers:
                 fail(f"{tag}: the SIMT prefill did not launch the SIMT kernel once per layer")
+            counts["simt"] = fa.launches_simt - before
             del caches
         model.attn_impl = "dense"                     # the plain path, same weights
         plain, _ = model.prefill(prompt, model.init_cache(spec.batch, cache_len))
@@ -1056,32 +1218,36 @@ def phase_serve(dev, smi: str, spec: DenseServe) -> dict:
     same = int((logits.argmax(-1) == plain.argmax(-1)).sum())
     route = " at Dh > 128 (key tile 64)" if wide else ""
     print(f"[{spec.phase}] generate of {spec.new} tokens after a {spec.batch}x{spec.prompt} "
-          f"prompt: {gen_s:.3f} s; flash launches {counts['tc']}, all on the tensor cores"
+          f"prompt: {gen_s:.3f} s; flash launches {counts['launches']}, all {kernel} launches"
           f"{route}; peak memory {peak_gb:.3f} GB  [{smi}]")
     print(f"[{spec.phase}] prefill {prefill_ms:.3f} ms "
           f"({spec.batch * spec.prompt / (t1 - t0):.0f} prompt tokens/s); decode "
           f"{decode_ms:.3f} ms/token step ({spec.batch * 1e3 / decode_ms:.1f} tokens/s at batch "
           f"{spec.batch})")
-    if wide:
+    if wide or f32:
         _, simt_max, simt_mean = drift(simt_logits)
         print(f"[{spec.phase}] prefill with the SIMT kernel in place of the dispatch (the "
               f"route before): {simt_prefill_ms:.3f} ms "
               f"({spec.batch * spec.prompt * 1e3 / simt_prefill_ms:.0f} prompt tokens/s); its "
-              f"logits against plain {simt_max:.4f} of max|logit|, {simt_mean:.4f} of the std")
+              f"logits against plain {simt_max:.4g} of max|logit|, {simt_mean:.4g} of the std")
         counts["simt_prefill_ms"] = simt_prefill_ms
         del simt_logits
     print(f"[{spec.phase}] prefill logits, kernel vs plain attention: max abs diff "
-          f"{d.max().item():.4f} ({max_rel:.4f} of max|logit|), mean {d.mean().item():.4f} "
-          f"({mean_rel:.4f} of the std); greedy first token equal in {same}/{spec.batch}")
+          f"{d.max().item():.4g} ({max_rel:.4g} of max|logit|), mean {d.mean().item():.4g} "
+          f"({mean_rel:.4g} of the std); greedy first token equal in {same}/{spec.batch}")
     print(f"[{spec.phase}] planted fault, plain path with {spec.fault}: {fault_max:.4f} of "
-          f"max|logit|, {fault_mean:.4f} of the std (bounds {SERVE_MAX_ERR}, {SERVE_MEAN_ERR})")
-    if fault_max <= SERVE_MAX_ERR or fault_mean <= SERVE_MEAN_ERR:
+          f"max|logit|, {fault_mean:.4f} of the std (bounds {max_err}, {mean_err})")
+    if fault_max <= max_err or fault_mean <= mean_err:
         fail(f"{tag}: a planted fault ({spec.fault}) stays within the logit bounds")
-    if max_rel > SERVE_MAX_ERR or mean_rel > SERVE_MEAN_ERR:
-        fail(f"{tag}: kernel and plain prefill logits differ beyond {SERVE_MAX_ERR} of "
-             f"max|logit| or {SERVE_MEAN_ERR} of their std")
+    if max_rel > max_err or mean_rel > mean_err:
+        fail(f"{tag}: kernel and plain prefill logits differ beyond {max_err} of "
+             f"max|logit| or {mean_err} of their std")
+    counts.update(prefill_ms=prefill_ms, decode_ms=decode_ms, peak_gb=peak_gb,
+                  logits_drift=(max_rel, mean_rel), fault_drift=(fault_max, fault_mean))
     del model, plain, faulty, logits, all_logits
     torch.cuda.empty_cache()
+    if spec.f32_cfg is None:
+        return counts
 
     # two layers at full width, float32, on the card (kernel) and the CPU (plain)
     small = dataclasses.replace(cfg, num_layers=2, **spec.f32_cfg)
@@ -1089,12 +1255,12 @@ def phase_serve(dev, smi: str, spec: DenseServe) -> dict:
     cpu = DecoderLM(small, device="cpu")
     cpu.load_state_dict(card.state_dict())
     p = torch.randint(0, small.vocab_size, (2, 300), generator=torch.Generator().manual_seed(3))
-    fa.launches = fa.launches_tc = fa.launches_tc_wide = fa.launches_simt = 0
+    fa.launches = fa.launches_tc = fa.launches_tc_wide = fa.launches_f32 = fa.launches_simt = 0
     got = ServeEngine(card).generate(p, 6, 306)
-    counts["simt"] = fa.launches_simt
-    if (fa.launches, fa.launches_simt) != (small.num_layers, small.num_layers):
-        fail(f"{tag} reference: the f32 card run did not launch the SIMT flash kernel once per "
-             "layer")
+    counts["f32_check"] = fa.launches_f32
+    if (fa.launches, fa.launches_f32) != (small.num_layers, small.num_layers):
+        fail(f"{tag} reference: the f32 card run did not launch the float32 tensor-core flash "
+             "kernel once per layer")
     want = ServeEngine(cpu).generate(p, 6, 306)
     if not torch.equal(got.cpu(), want):
         fail(f"{tag} reference: greedy tokens on the card {got.tolist()} differ from the "
@@ -1102,7 +1268,7 @@ def phase_serve(dev, smi: str, spec: DenseServe) -> dict:
     window = f", window {small.sliding_window}" if small.sliding_window else ""
     print(f"[{spec.phase}] reference: 2 layers at full width (f32{window}, head_dim "
           f"{small.resolved_head_dim}, prompt 2x300): the card's 6 greedy tokens equal the CPU's "
-          f"({counts['simt']} SIMT flash launches)")
+          f"({counts['f32_check']} float32 tensor-core flash launches)")
     del card, cpu
     torch.cuda.empty_cache()
     return counts
@@ -1317,29 +1483,34 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
-    phase_build()
-    cases, noise_cases = phase_kernels(dev)
-    flash_tc, flash_simt, flash_wide = phase_flash(dev)
-    ssd = phase_ssd(dev)
+    timed("1 build", phase_build)
+    cases, noise_cases = timed("2 kernels: dp_aggregate", phase_kernels, dev)
+    flash_tc, flash_simt, flash_wide, flash_f32 = timed("2 kernels: flash", phase_flash, dev)
+    ssd = timed("2 kernels: ssd_scan", phase_ssd, dev)
 
     ops.dp_aggregate_sums.launches = 0
     ops.generate_ldp_noise.launches = 0
-    phase_paper(dev)
-    phase_full(dev, cases)
+    timed("3 paper", phase_paper, dev)
+    timed("4 full", phase_full, dev, cases)
     launches = {"dp_aggregate": ops.dp_aggregate_sums.launches,
                 "ldp_noise": ops.generate_ldp_noise.launches}
     for k, n in launches.items():
         if n < 1:
             fail(f"kernel {k} was never launched on the main path")
 
-    phase_reference(dev)
-    h2o = phase_serve(dev, smi, SERVE_H2O)
-    ssd["launches"] = phase_serve_ssm(dev, smi)
-    gemma = phase_serve(dev, smi, SERVE_GEMMA)
+    timed("5 reference", phase_reference, dev)
+    h2o = timed("6 serve", phase_serve, dev, smi, SERVE_H2O)
+    ssd["launches"] = timed("7 serve-ssm", phase_serve_ssm, dev, smi)
+    gemma = timed("8 serve-gemma", phase_serve, dev, smi, SERVE_GEMMA)
+    f32 = timed("9 serve-f32", phase_serve, dev, smi, SERVE_F32)
     flash_tc["launches"] = h2o["tc"]
     flash_wide["launches"] = gemma["tc_wide"]
     flash_wide["simt_prefill_ms"] = gemma["simt_prefill_ms"]
-    flash_simt["launches"] = h2o["simt"] + gemma["simt"]
+    flash_f32["launches"] = f32["f32"] + h2o["f32_check"] + gemma["f32_check"]
+    flash_f32["serve_f32"] = {k: f32[k] for k in ("prefill_ms", "simt_prefill_ms", "decode_ms",
+                                                  "peak_gb", "logits_drift", "fault_drift")}
+    # the route-before prefills of phases 8 and 9: the SIMT kernel in place of the dispatch
+    flash_simt["launches"] = gemma["simt"] + f32["simt"]
 
     src = "src/repro_torch/kernels/dp_aggregate/csrc/dp_aggregate.cu"
     head = next(c for c in cases if c["shape"] == [1000, 131072] and c["mode"] == "fused")
@@ -1361,6 +1532,7 @@ def main() -> int:
         flash_tc,
         flash_simt,
         flash_wide,
+        flash_f32,
         ssd,
     ]
     print(smi)

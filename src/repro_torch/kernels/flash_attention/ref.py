@@ -6,8 +6,9 @@ kernels' layout (B, H, S, Dh), with the kernels' masks: causal, sliding
 window, and keys at or past ``kv_len``.  The CPU path runs it, the tests hold
 it against the JAX package, and ``chip_smoke.py`` holds the CUDA kernels
 against it on the card.  ``attention_tc_ref``: the same function in the
-tensor-core kernel's rounding order, for the tight check of that kernel;
-nothing on the model path calls it.  Both walk the queries in chunks of
+tensor-core kernels' rounding order, for the tight check of those kernels
+(bf16 with P rounded; float32 with 3xTF32 products); nothing on the model
+path calls it.  Both walk the queries in chunks of
 ``_Q_CHUNK`` rows, so at the serve shape (2, 32, 8192, 8192) they never build
 the 17 GB float32 score tensor; each row's softmax is its own, so the
 chunking does not change the result.
@@ -18,7 +19,7 @@ import math
 
 import torch
 
-__all__ = ["attention_ref", "attention_tc_ref"]
+__all__ = ["attention_ref", "attention_tc_ref", "tf32", "einsum_products"]
 
 _Q_CHUNK = 512
 _NEG_INF = -1e30
@@ -57,8 +58,31 @@ def attention_ref(q, k, v, *, causal=True, window=None, kv_len=None, softcap=Non
     return out
 
 
+def tf32(t: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 as cvt.rna.tf32.f32 does (the CUDA kernels'
+    ``tf32_rna``): to nearest, ties away from zero, the low 13 bits of the
+    significand dropped."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def einsum_products(eq: str, a: torch.Tensor, b: torch.Tensor,
+                    products: str = "float32") -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` of float32 operands with the products a
+    kernel makes: ``"float32"``, or ``"3xtf32"`` as the float32 tensor-core
+    kernel computes them (each operand split into hi = tf32(x) and lo =
+    tf32(x - hi), float32 sums of lo*hi, hi*lo and hi*hi; products of TF32
+    values are exact in float32)."""
+    if products == "float32":
+        return torch.einsum(eq, a, b)
+    if products != "3xtf32":
+        raise ValueError(f"products must be float32 or 3xtf32, got {products!r}")
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    return torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + torch.einsum(eq, ah, bh)
+
+
 def attention_tc_ref(q, k, v, *, causal=True, window=None, kv_len=None, block_k=128,
-                     return_denominator=False):
+                     return_denominator=False, products="float32"):
     """``attention_ref`` in the rounding order of the tensor-core kernel
     (``csrc/flash_attention_tc.cu``), in plain PyTorch.
 
@@ -68,9 +92,12 @@ def attention_tc_ref(q, k, v, *, causal=True, window=None, kv_len=None, block_k=
     the denominator sums the float32 p.  A row that sees no key gives 0.  In
     bfloat16 this is the kernel's order up to the order of float32 sums; with
     float32 inputs and ``block_k=64`` it is the SIMT kernel's, whose p stays
-    float32.  ``return_denominator`` also returns each row's float32
-    denominator l (B, Hq, Sq), relative to the row's max score: at least 1
-    where the row sees a key, 0 where it sees none.
+    float32.  ``products="3xtf32"`` at ``ops.f32_block_k(Dh)`` is the float32
+    tensor-core kernel's order: both products split into TF32 hi and lo
+    (``einsum_products``), p split from its float32 value.
+    ``return_denominator`` also returns each row's float32 denominator l (B,
+    Hq, Sq), relative to the row's max score: at least 1 where the row sees a
+    key, 0 where it sees none.
     """
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -90,7 +117,7 @@ def attention_tc_ref(q, k, v, *, causal=True, window=None, kv_len=None, block_k=
         hi = min(kv_len, i0 + n) if causal else kv_len
         for k0 in range(lo - lo % block_k, hi, block_k):
             kt, vt = k[:, :, k0:k0 + block_k].float(), v[:, :, k0:k0 + block_k].float()
-            s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kt) * scale
+            s = einsum_products("bhgqd,bhkd->bhgqk", qc, kt, products) * scale
             k_idx = torch.arange(k0, k0 + kt.shape[2], device=q.device)
             mask = k_idx[None, :] < kv_len
             if causal:
@@ -103,7 +130,8 @@ def attention_tc_ref(q, k, v, *, causal=True, window=None, kv_len=None, block_k=
             p = torch.exp(s - base)
             alpha = torch.exp(m - base)
             l = alpha * l + p.sum(-1, keepdim=True)
-            acc = alpha * acc + torch.einsum("bhgqk,bhkd->bhgqd", p.to(q.dtype).float(), vt)
+            acc = alpha * acc + einsum_products("bhgqk,bhkd->bhgqd", p.to(q.dtype).float(), vt,
+                                                products)
             m = m_new
         out[:, :, i0:i0 + n] = (acc / l.clamp_min(1e-30)).reshape(b, hq, n, dh).to(q.dtype)
         denominator[:, :, i0:i0 + n] = l.reshape(b, hq, n)

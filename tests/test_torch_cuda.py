@@ -8,8 +8,10 @@ Without a card every test here skips.  Only torch is imported, so the file
 also runs where JAX is not installed.  Tolerances: sums at rtol 1e-5 with an
 atol of 1e-5 times the largest entry (float32 sums in other orders); noise at
 1e-5 sigma per element (float32 log/cos/sin/sqrt rounding).  Flash attention on
-the SIMT kernel (float32, or bfloat16 called by name) against attention_ref:
-float32 at rtol 1e-5 and atol 1e-5 (float32 sums in other orders); bfloat16
+the float32 tensor-core kernel (float32, Dh <= 256) against its 3xTF32 order
+(chip_smoke.f32_reference) and against attention_ref, and on the SIMT kernel
+(called by name, float32 or bfloat16) against attention_ref: float32 at rtol
+1e-5 and atol 1e-5 (float32 sums in other orders); bfloat16
 at rtol 2^-7, one bfloat16 ulp (both sides compute in float32 and round once),
 with atol 1e-4 for outputs near zero.  On the tensor-core kernel (bfloat16,
 Dh <= 256) against attention_tc_ref at its key tile (128 keys up to Dh 128,
@@ -191,6 +193,15 @@ def _tc_close(got, q, k, v, **kw):
                           "tensor-core kernel vs attention_ref")
 
 
+def _f32_close(got, q, k, v, **kw):
+    """chip_smoke.py's checks of the float32 tensor-core kernel: within
+    FLASH_TOL of its 3xTF32 order (tight) and of attention_ref."""
+    chip_smoke.flash_close(got, chip_smoke.f32_reference(q, k, v, **kw),
+                           "float32 tensor-core kernel vs its 3xTF32 order")
+    chip_smoke.flash_close(got, attention_ref(q, k, v, **kw),
+                           "float32 tensor-core kernel vs attention_ref")
+
+
 def _qkv(dev, dtype, b, hq, hkv, sq, skv, dh, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -203,20 +214,20 @@ def test_flash_kernel_matches_plain(dev, case, dtype):
     b, hq, hkv, sq, skv, dh, causal, window, kv_len = FLASH_CASES[case]
     q, k, v = _qkv(dev, dtype, b, hq, hkv, sq, skv, dh)
     fa = flash_ops.flash_attention
-    kernel = "tc" if dtype == torch.bfloat16 and dh <= 256 else "simt"
+    kernel = "tc" if dtype == torch.bfloat16 else "f32"   # every case has Dh <= 256
     wide = kernel == "tc" and dh > 128
-    before = (fa.launches, fa.launches_tc, fa.launches_tc_wide, fa.launches_simt)
+    counters = ("launches", "launches_tc", "launches_tc_wide", "launches_f32", "launches_simt")
+    before = [getattr(fa, c) for c in counters]
     kw = dict(causal=causal, window=window, kv_len=kv_len)
     got = fa(q, k, v, **kw)
-    assert (fa.launches, fa.launches_tc, fa.launches_tc_wide, fa.launches_simt) == (
-        before[0] + 1, before[1] + (kernel == "tc"), before[2] + wide,
-        before[3] + (kernel == "simt"))
+    assert [getattr(fa, c) - n for c, n in zip(counters, before)] == [
+        1, kernel == "tc", wide, kernel == "f32", 0]
     assert got.dtype == dtype and got.shape == q.shape
     if kernel == "tc":
         _tc_close(got, q, k, v, **kw)
     else:
-        want = attention_ref(q, k, v, **kw)
-        torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+        _f32_close(got, q, k, v, **kw)
+        assert torch.equal(got, flash_ops.f32_kernel(q, k, v, **kw))
 
 
 def _deterministic_on_strided_views(dev, launch, dtype, dh=120, hkv=2):
@@ -274,16 +285,64 @@ def test_simt_kernel_is_deterministic_and_takes_strided_views(dev, dtype):
     _deterministic_on_strided_views(dev, flash_ops.simt_kernel, dtype)
 
 
+@pytest.mark.parametrize("dh,hkv", [(120, 2), (64, 2), (136, 2), (192, 2), (256, 1), (99, 2)])
+def test_f32_kernel_is_deterministic_and_takes_strided_views(dev, dh, hkv):
+    """The float32 tensor-core kernel on the model's transposed views at every
+    instance (Dh 64, 120, 136/192, 256), MQA at Dh 256, and Dh 99 (4-byte
+    loads)."""
+    _deterministic_on_strided_views(dev, flash_ops.f32_kernel, torch.float32, dh, hkv)
+
+
+@pytest.mark.parametrize("dh", [64, 80, 100, 120, 136, 192, 256])
+@pytest.mark.parametrize("causal,window,kv_len", [(True, None, None), (True, 37, None),
+                                                  (False, None, 700), (False, 64, 901)])
+def test_f32_kernel_matches_its_3xtf32_order(dev, dh, causal, window, kv_len):
+    """Phase 2b's float32 cases: GQA 8/2 with a ragged last query tile and key
+    tile (Sq = Skv = 1000), causal or not, a window under a tile or not, a
+    ragged kv_len; through the dispatch, one float32 tensor-core launch."""
+    q, k, v = _qkv(dev, torch.float32, 2, 8, 2, 1000, 1000, dh, seed=dh)
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    fa = flash_ops.flash_attention
+    before = (fa.launches_f32, fa.launches_simt, fa.launches_tc)
+    got = fa(q, k, v, **kw)
+    assert (fa.launches_f32 - before[0], fa.launches_simt - before[1],
+            fa.launches_tc - before[2]) == (1, 0, 0)
+    _f32_close(got, q, k, v, **kw)
+
+
+@pytest.mark.parametrize("shape,window,fault", [
+    ((2, 32, 8, 8192, 120), 4096, dict(window=4097)),
+    ((2, 8, 1, 8176, 256), None, dict(window=4096)),
+], ids=["h2o", "gemma"])
+def test_f32_kernel_matches_its_3xtf32_order_at_the_serve_shapes(dev, shape, window, fault):
+    """The float32 prefills' attention at h2o-danube-3-4b's and gemma-2b's
+    shapes, with the planted fault of phase 2b that the tight check must see."""
+    b, hq, hkv, s, dh = shape
+    q, k, v = _qkv(dev, torch.float32, b, hq, hkv, s, s, dh, seed=7)
+    got = flash_ops.f32_kernel(q, k, v, causal=True, window=window)
+    _f32_close(got, q, k, v, causal=True, window=window)
+    _, ratio = chip_smoke.flash_excess(got, chip_smoke.f32_reference(
+        q, k, v, causal=True, **{"window": window, **fault}))
+    assert ratio > 1
+
+
+def test_the_f32_librarys_key_tile_is_the_wrappers(dev):
+    lib = flash_ops.load_library_f32()
+    for dh in (1, 8, 64, 99, 120, 128, 129, 136, 192, 193, 256):
+        assert lib.flash_attention_f32_keys(dh) == flash_ops.f32_block_k(dh)
+    assert [lib.flash_attention_f32_keys(dh) for dh in (0, 257)] == [0, 0]
+
+
 def test_flash_dispatch_follows_the_rule_and_refuses_misaligned_views(dev):
     fa = flash_ops.flash_attention
     for dtype, dh, kernel in ((torch.bfloat16, 120, "tc"), (torch.bfloat16, 256, "tc"),
-                              (torch.bfloat16, 136, "tc"), (torch.float32, 256, "simt"),
-                              (torch.float32, 120, "simt")):
+                              (torch.bfloat16, 136, "tc"), (torch.float32, 256, "f32"),
+                              (torch.float32, 120, "f32"), (torch.float32, 99, "f32")):
         q, k, v = _qkv(dev, dtype, 1, 2, 1, 64, 64, dh)
-        before = (fa.launches_tc, fa.launches_simt)
+        before = (fa.launches_tc, fa.launches_f32, fa.launches_simt)
         fa(q, k, v)
-        assert (fa.launches_tc - before[0], fa.launches_simt - before[1]) == \
-            ((1, 0) if kernel == "tc" else (0, 1))
+        assert (fa.launches_tc - before[0], fa.launches_f32 - before[1],
+                fa.launches_simt - before[2]) == ((1, 0, 0) if kernel == "tc" else (0, 1, 0))
     wide = torch.zeros(1, 2, 64, 128, device=dev, dtype=torch.bfloat16)
     before = fa.launches
     with pytest.raises(ValueError, match="aligned"):       # base 2 bytes off
@@ -294,8 +353,11 @@ def test_flash_dispatch_follows_the_rule_and_refuses_misaligned_views(dev):
     assert fa.launches == before   # nothing else was tried
     with pytest.raises(TypeError, match="bfloat16"):
         flash_ops.tc_kernel(wide.float(), wide.float(), wide.float())
-    q, k, v = _qkv(dev, torch.bfloat16, 1, 2, 1, 5, 7, 64)
-    assert torch.equal(fa(q, k, v, causal=False, kv_len=0), torch.zeros_like(q))
+    with pytest.raises(TypeError, match="float32"):
+        flash_ops.f32_kernel(wide, wide, wide)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _qkv(dev, dtype, 1, 2, 1, 5, 7, 64)
+        assert torch.equal(fa(q, k, v, causal=False, kv_len=0), torch.zeros_like(q))
 
 
 def test_tc_kernel_matches_its_rounding_order_at_the_serve_shape(dev):

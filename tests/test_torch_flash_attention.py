@@ -136,8 +136,9 @@ def test_a_window_one_too_wide_fails_the_tight_check():
 
 @pytest.mark.parametrize("dtype,dh,kernel", [
     (torch.bfloat16, 120, "tc"), (torch.bfloat16, 128, "tc"), (torch.bfloat16, 32, "tc"),
-    (torch.bfloat16, 256, "tc"), (torch.float32, 120, "simt"), (torch.float32, 64, "simt"),
-    (torch.bfloat16, 136, "tc"), (torch.bfloat16, 264, "simt"), (torch.float32, 256, "simt"),
+    (torch.bfloat16, 256, "tc"), (torch.float32, 120, "f32"), (torch.float32, 64, "f32"),
+    (torch.bfloat16, 136, "tc"), (torch.bfloat16, 264, "simt"), (torch.float32, 256, "f32"),
+    (torch.float32, 100, "f32"), (torch.float32, 264, "simt"),
 ])
 def test_kernel_for_routes_by_dtype_and_head_dim(dtype, dh, kernel):
     assert ops.kernel_for(torch.zeros(1, 2, 3, dh, dtype=dtype)) == kernel

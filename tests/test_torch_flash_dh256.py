@@ -106,7 +106,7 @@ def test_gemmas_views_go_to_the_tensor_cores_with_tma_strides():
     assert ops.kernel_for(q) == ops.kernel_for(k) == "tc"
     assert ops.tma_strides(q) == (s * 8 * DH, DH, 8 * DH)
     assert ops.tma_strides(k) == (s * DH, 8, DH)   # the size-1 head axis is never stepped
-    assert ops.kernel_for(q.float()) == "simt"
+    assert ops.kernel_for(q.float()) == "f32"   # float32: the 3xTF32 tensor-core kernel
     assert ops.kernel_for(torch.zeros(1, 1, 4, 264, dtype=torch.bfloat16)) == "simt"
     with pytest.raises(ValueError, match="multiples of 8"):   # a row stride of 260
         ops.tma_strides(torch.zeros(1, 4, 1, 260, dtype=torch.bfloat16)[..., :256]
