@@ -20,6 +20,11 @@ Phases, each of which exits non-zero on failure:
                with their float32-rate bound and the pair generator's integer
                bound at the SM clock nvidia-smi reads under load;
                torch.randn at the full shape as a yardstick.
+               dp_aggregate also with C as a 0-d tensor on the card (the
+               adaptive clip's), in every mode at every shape: the float-C
+               launch's bits, the plain version's values, and a planted fault
+               (C read as 2C) that must fail wherever a row clips; at the
+               full shape timed beside the float-C launch.
                flash_attention through its dispatch rule (bf16 with Dh <= 256
                to the tensor-core kernel, 128-key tiles up to Dh 128 and 64
                above; float32 with Dh <= 256 to the float32 tensor-core
@@ -47,13 +52,22 @@ Phases, each of which exits non-zero on failure:
                the bound for 3xTF32 tensor-core products and for float32
                ones, and a profiled split over the four stages.
   3. paper     the paper's synthetic linear regression (M=1000, tau=20,
-               50 rounds; d=500 CDP/noiseless, d=100 LDP) for the six
-               ported names, plus the two LDP names on the materialized-
-               noise backend; launch counts must rise by one per round.
-  4. full      ldp-fedexp-gauss (fused mode) and cdp-fedexp (none mode) at
-               M=1000, d=131072 for 5 rounds: ms per round and its split.
+               50 rounds; d=500 CDP/noiseless, d=100 LDP and PrivUnit) for
+               the fifteen ported names (PrivUnit at eps0 = eps1 = eps2 = 2;
+               adaptive clipping from c0 = C, z_mult = sigma / C; schedules
+               decaying by 0.97 a round), the Gaussian LDP names also on
+               the materialized-noise backend; dp_aggregate launches must
+               rise by one a round, by none for the PrivUnit names.
+  4. full      ldp-fedexp-gauss (fused mode), cdp-fedexp (none mode),
+               ldp-fedexp-privunit (no kernel) and cdp-fedexp-adaptive-clip
+               (none mode, C on the card) at M=1000, d=131072 for 5 rounds:
+               ms per round, its split, peak memory, and the synchronizing
+               CUDA operations of one round (an adaptive-clip round may make
+               no more than cdp-fedexp's); PrivUnit's release time.
   5. reference the port on the card against the port on the CPU (plain
-               versions, same seeds, same noise) on a small problem.
+               versions, same seeds, same noise) on a small problem: fedexp,
+               ldp-fedexp-gauss, ldp-gauss-fedadam, ldp-fedexp-schedule and
+               cdp-fedexp-adaptive-clip without noise.
   6. serve     h2o-danube-3-4b at full width and depth, seeded bf16 weights
                and a bf16 KV cache: ServeEngine.generate of 16 greedy tokens
                after an 8192-token prompt (batch 2, twice the window); 24
@@ -141,9 +155,20 @@ NOISE_ATOL = 1e-5           # per element, in units of sigma: f32 log/cos/sin/sq
 HP = {  # (eta_l, C) of benchmarks/e1_synthetic.py; noiseless names at eta_l 0.1
     "fedavg": (0.1, None), "fedexp": (0.1, None),
     "dp-fedavg-ldp-gauss": (0.3, 1.0), "ldp-fedexp-gauss": (0.3, 0.3),
+    "dp-fedavg-privunit": (0.3, 3.0), "ldp-fedexp-privunit": (0.1, 1.0),
     "dp-fedavg-cdp": (0.3, 3.0), "cdp-fedexp": (0.1, 0.3),
 }
-FEDEXP_NAMES = ("fedexp", "ldp-fedexp-gauss", "cdp-fedexp")
+# the other names take the (eta_l, C) of their base name
+BASE = {"privunit-fedexp-adaptive-clip": "ldp-fedexp-privunit",
+        "cdp-fedexp-adaptive-clip": "cdp-fedexp", "dp-fedadam-cdp": "dp-fedavg-cdp",
+        "ldp-gauss-fedadam": "dp-fedavg-ldp-gauss", "cdp-fedmom": "dp-fedavg-cdp",
+        "ldp-fedexp-schedule": "ldp-fedexp-gauss", "cdp-fedexp-schedule": "cdp-fedexp"}
+NAMES = (*HP, *BASE)
+PRIVUNIT = dict(eps0=2.0, eps1=2.0, eps2=2.0)    # benchmarks/common.py, the paper's budgets
+DECAY = 0.97                                     # the schedules' sigma(t) = sigma0 0.97^t
+FEDEXP_NAMES = ("fedexp", "ldp-fedexp-gauss", "cdp-fedexp", "ldp-fedexp-privunit",
+                "privunit-fedexp-adaptive-clip", "cdp-fedexp-adaptive-clip",
+                "ldp-fedexp-schedule", "cdp-fedexp-schedule")
 
 
 def fail(msg: str) -> None:
@@ -168,15 +193,32 @@ def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def algo_kwargs(name: str, m: int):
+def algo_kwargs(name: str, m: int, d: int):
     """(eta_l, make_algorithm kwargs) of the paper's protocol for ``name``:
-    sigma = 5C/sqrt(M) for CDP, 0.7C for LDP."""
-    eta_l, c = HP[name]
+    sigma = 5C/sqrt(M) for CDP, 0.7C for LDP, eps0 = eps1 = eps2 = 2 for
+    PrivUnit.  Adaptive clipping starts at c0 = C, with z_mult = sigma / C;
+    the schedules decay by DECAY a round."""
+    eta_l, c = HP[BASE.get(name, name)]
     if c is None:
         return eta_l, {}
-    if "cdp" in name:
-        return eta_l, dict(clip_norm=c, sigma=5 * c / math.sqrt(m), num_clients=m)
-    return eta_l, dict(clip_norm=c, sigma=0.7 * c)
+    if "privunit" in name:
+        kw = dict(clip_norm=c, dim=d, **PRIVUNIT)
+    elif "cdp" in name:
+        kw = dict(clip_norm=c, sigma=5 * c / math.sqrt(m), num_clients=m)
+    else:
+        kw = dict(clip_norm=c, sigma=0.7 * c)
+    if "adaptive-clip" in name:
+        kw["c0"] = c
+        if "cdp" in name:
+            kw = dict(z_mult=kw["sigma"] / c, num_clients=m, c0=c)
+    if "schedule" in name:
+        kw["decay"] = DECAY
+    return eta_l, kw
+
+
+def launches_per_round(name: str) -> int:
+    """dp_aggregate launches a round of ``name``: PrivUnit reaches no kernel."""
+    return 0 if "privunit" in name else 1
 
 
 def timed(label: str, phase, *args):
@@ -278,6 +320,34 @@ DP_SHAPES = ((1000, 500), (1000, 100), (1000, 131072), (37, 129), (1, 1), (300, 
              (8, 300001))
 
 
+def excess(got, want) -> float:
+    """Largest |got - want| over close()'s tolerance RTOL (|want| + max|want|)."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (RTOL * (want.abs() + want.abs().max()))).max())
+
+
+def device_clip_checks(u, clip: float, kw: dict, got, want, what: str) -> dict:
+    """dp_aggregate with C as a 0-d tensor on the card: the float-C launch's
+    bits, the plain version's values; and a planted fault (C read as 2C) that
+    must fail the same check wherever a row clips at C."""
+    import torch
+    from repro_torch.kernels.dp_aggregate import ops
+    clip_t = torch.full((), clip, device=u.device)
+    on_card = ops.dp_aggregate_sums(u, clip_t, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(on_card, got)):
+        fail(f"dp_aggregate {what}: C on the card differs from C as a float in bits")
+    for i, (a, b) in enumerate(zip(on_card, want)):
+        close(a, b, f"dp_aggregate {what} with C on the card, output {i}")
+    fault = ops.dp_aggregate_sums(u, 2 * clip_t, **kw)
+    fault_excess = max(excess(a, b) for a, b in zip(fault, want))
+    if bool((torch.linalg.vector_norm(u, dim=1) > clip).any()):
+        if fault_excess <= 1.0:
+            fail(f"dp_aggregate {what}: the planted fault (C read as 2C) passed the check")
+    else:
+        fault_excess = None
+    return dict(bits_equal=True, fault_excess=fault_excess)
+
+
 def phase_kernels(dev):
     """Kernel vs plain at every shape and mode; returns the timing cases."""
     import torch
@@ -336,19 +406,29 @@ def phase_kernels(dev):
                            for i, (a, b) in enumerate(zip(got, as_operand)))
                 print(f"    fused vs operand fed the noise-only kernel ({m},{d}): "
                       f"max abs err {ferr:.3e}")
+            on_card = device_clip_checks(u, clip, kw, got, want, f"{mode} ({m},{d})")
             b_ms, b_by = bound(m * d * 4 * (2 if mode == "operand" else 1) + d * 4,
                                m * d * OPS_PER_ELEM[mode])
             cases.append(dict(
                 shape=[m, d], mode=mode, max_abs_err=err,
                 ms=cuda_ms(lambda: ops.dp_aggregate_sums(u, clip, **kw), 10),
                 plain_ms=cuda_ms(plain[mode], 2 if big else 10, warmup=1),
-                bound_ms=b_ms, bound_by=b_by))
+                bound_ms=b_ms, bound_by=b_by, device_clip=on_card))
             c = cases[-1]
+            if big:   # the device-C launch beside the float-C one, in turns
+                clip_t = torch.full((), clip, device=dev)
+                on_card["ms"] = cuda_ms(lambda: ops.dp_aggregate_sums(u, clip_t, **kw), 10)
+                c["ms_again"] = cuda_ms(lambda: ops.dp_aggregate_sums(u, clip, **kw), 10)
             print(f"[2 kernels] dp_aggregate {mode:7s} ({m},{d}): max abs err {err:.3e}  "
                   f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  "
                   f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})"
                   + (f"  integer bound {int_bound_ms(m, d, mhz):.4f} ms" if mode == "fused"
                      else ""))
+            print(f"    C on the card: the float-C bits; planted fault (C read as 2C) "
+                  + ("off by " + f"{on_card['fault_excess']:.3g}x the tolerance"
+                     if on_card["fault_excess"] is not None else "invisible: no row clips")
+                  + (f"; {on_card['ms']:.4f} ms against {c['ms']:.4f}, {c['ms_again']:.4f} ms "
+                     "with C a float" if big else ""))
         nc = noise_cases[-1]
         print(f"[2 kernels] ldp_noise ({m},{d}): max abs err {nerr:.3e}  kernel "
               f"{nc['ms']:.4f} ms  plain {nc['plain_ms']:.4f} ms  bound {nc['bound_ms']:.4f} ms "
@@ -362,8 +442,9 @@ def phase_kernels(dev):
     return cases, noise_cases
 
 
-def run_session(name, m, d, rounds, tau, dev, *, seed=0, backend="auto", data=None):
-    """One FederatedSession run of ``name`` on the synthetic linear regression."""
+def run_session(name, m, d, rounds, tau, dev, *, seed=0, backend="auto", data=None, kw=None):
+    """One FederatedSession run of ``name`` on the synthetic linear regression
+    (``kw`` updates the protocol's make_algorithm kwargs)."""
     import torch
     from repro_torch.core.fedexp import make_algorithm
     from repro_torch.data.synthetic import distance_to_opt, linreg_loss, make_synthetic_linreg
@@ -371,7 +452,8 @@ def run_session(name, m, d, rounds, tau, dev, *, seed=0, backend="auto", data=No
 
     if data is None:
         data = make_synthetic_linreg(torch.Generator(device=dev).manual_seed(0), m, d)
-    eta_l, kw = algo_kwargs(name, m)
+    eta_l, base_kw = algo_kwargs(name, m, d)
+    kw = {**base_kw, **(kw or {})}
     session = FederatedSession(
         make_algorithm(name, backend=backend, **kw), linreg_loss, torch.zeros(d, device=dev),
         data.client_batches(), train=TrainSpec(rounds=rounds, tau=tau, eta_l=eta_l),
@@ -393,11 +475,12 @@ def check_run(name, result, rounds):
 def phase_paper(dev):
     """Phase 3: the paper workload for every ported name, with launch counts."""
     from repro_torch.kernels.dp_aggregate import ops
-    m, tau, rounds = 1000, 20, 50
+    m, tau, rounds = PAPER
     finals = {}
-    for name in HP:
-        d = 100 if "ldp" in name else 500
-        for backend in ("auto", "kernel") if "ldp" in name else ("auto",):
+    for name in NAMES:
+        d = 100 if "ldp" in name or "privunit" in name else 500
+        gauss_ldp = "ldp" in name and "privunit" not in name
+        for backend in ("auto", "kernel") if gauss_ldp else ("auto",):
             before = (ops.dp_aggregate_sums.launches, ops.generate_ldp_noise.launches)
             t0 = time.perf_counter()
             _, r, data = run_session(name, m, d, rounds, tau, dev, backend=backend)
@@ -406,32 +489,67 @@ def phase_paper(dev):
             check_run(name, r, rounds)
             agg = ops.dp_aggregate_sums.launches - before[0]
             noise = ops.generate_ldp_noise.launches - before[1]
+            want_agg = rounds * launches_per_round(name)
             want_noise = rounds if backend == "kernel" else 0
-            if agg != rounds or noise != want_noise:
+            if agg != want_agg or noise != want_noise:
                 fail(f"{name} [{backend}]: {agg} dp_aggregate and {noise} ldp_noise "
-                     f"launches in {rounds} rounds (want {rounds} and {want_noise})")
-            print(f"[3 paper] {name:20s} [{backend:6s}] d={d}: final ||w - w*|| = {dist:.4f}  "
+                     f"launches in {rounds} rounds (want {want_agg} and {want_noise})")
+            print(f"[3 paper] {name:29s} [{backend:6s}] d={d}: final ||w - w*|| = {dist:.4f}  "
                   f"eta_g in [{r.eta_history.min().item():.3f}, "
                   f"{r.eta_history.max().item():.3f}]  {secs:.2f} s")
-            finals[(name, backend)] = r.final_w
-    for name in ("dp-fedavg-ldp-gauss", "ldp-fedexp-gauss"):
-        # the same seed keys the same noise: fused and materialized agree
-        close(finals[(name, "kernel")], finals[(name, "auto")],
-              f"{name}: kernel-fused vs materialized-noise backend")
+            finals[(name, backend)] = (r.final_w, dist)
+    for name, backend in finals:
+        if backend == "kernel":
+            # the same seed keys the same noise: fused and materialized agree
+            close(finals[(name, "kernel")][0], finals[(name, "auto")][0],
+                  f"{name}: kernel-fused vs materialized-noise backend")
+    fedexp, fedavg = (finals[(n, "auto")][1] for n in ("ldp-fedexp-privunit",
+                                                      "dp-fedavg-privunit"))
+    print(f"[3 paper] ldp-fedexp-privunit ends {'nearer' if fedexp < fedavg else 'farther'} "
+          f"than dp-fedavg-privunit from w* on seed 0: {fedexp:.4f} vs {fedavg:.4f}")
 
 
-def phase_full(dev, cases):
-    """Phase 4: full-size rounds, timed, with the local/server split of one round."""
+def syncs_of(fn) -> list[str]:
+    """The synchronizing CUDA operations ``fn`` makes, as PyTorch's sync
+    debug mode reports them: the file and line of each."""
+    import warnings
+
     import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [f"{Path(w.filename).name}:{w.lineno}" for w in seen
+            if "synchroniz" in str(w.message)]
+
+
+PAPER = (1000, 20, 50)                 # M, tau, rounds; d 500 or 100 by name
+FULL_SIZE = (1000, 131072, 20, 5)      # M, d, tau, rounds
+FULL = (("ldp-fedexp-gauss", "fused"), ("cdp-fedexp", "none"),
+        ("ldp-fedexp-privunit", None), ("cdp-fedexp-adaptive-clip", "none"))
+
+
+def phase_full(dev, cases) -> dict:
+    """Phase 4: full-size rounds, timed, with the local/server split of one
+    round; the syncs of an adaptive-clip round against cdp-fedexp's; PrivUnit's
+    release time and peak memory."""
+    import torch
+    from repro_torch.core import mechanisms
     from repro_torch.core.algorithm import round_generator
     from repro_torch.data.synthetic import linreg_loss
     from repro_torch.fedsim import cohort_updates
-    m, d, tau, rounds = 1000, 131072, 20, 5
+    from repro_torch.fedsim.server import round_step
+    m, d, tau, rounds = FULL_SIZE
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     kernel_ms = {c["mode"]: c["ms"] for c in cases if c["shape"] == [m, d]}
-    data = None
-    for name, mode in (("ldp-fedexp-gauss", "fused"), ("cdp-fedexp", "none")):
+    data, out = None, {}
+    for name, mode in FULL:
         run_session(name, m, d, 1, tau, dev, data=data)              # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -440,35 +558,70 @@ def phase_full(dev, cases):
         per_round = 1e3 * (time.perf_counter() - t0) / rounds
         check_run(name, r, rounds)
         # one more round split into local training and the server's release
-        w, gen = r.last_w, round_generator(1, rounds)
+        alg, w, gen = session.algorithm, r.last_w, round_generator(1, rounds)
+        state = alg.init_state(w)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.reset_peak_memory_stats()
         ev[0].record()
         deltas = cohort_updates(linreg_loss, w, session.client_batches, tau,
                                 session.train.eta_l)
         ev[1].record()
-        session.algorithm.apply_round_stateful(gen, w, deltas, ())
+        alg.apply_round_stateful(gen, w, deltas, state, t=rounds)
         ev[2].record()
         torch.cuda.synchronize()
+        row = dict(ms_per_round=per_round, local_ms=ev[0].elapsed_time(ev[1]),
+                   server_ms=ev[1].elapsed_time(ev[2]),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        step = round_step(alg, session._local_fn, session.eval_fn)
+        syncs = syncs_of(lambda: step(w, state, round_generator(2, 0), 0,
+                                      session.client_batches, session.train.eta_l))
+        row["syncs"], row["sync_at"] = len(syncs), syncs
+        kern = (f"dp_aggregate {mode} kernel {kernel_ms[mode]:.4f} ms/launch" if mode
+                else "no kernel (plain PyTorch)")
         print(f"[4 full] {name} M={m} d={d} tau={tau}: {per_round:.3f} ms/round "
-              f"(local training {ev[0].elapsed_time(ev[1]):.3f} ms, server release+step "
-              f"{ev[1].elapsed_time(ev[2]):.3f} ms); dp_aggregate {mode} kernel "
-              f"{kernel_ms[mode]:.4f} ms/launch (CUDA events)  [{smi}]")
+              f"(local training {row['local_ms']:.3f} ms, server release+step "
+              f"{row['server_ms']:.3f} ms); {kern} (CUDA events); peak "
+              f"{row['peak_gb']:.2f} GB; {row['syncs']} synchronizing CUDA operations in a "
+              f"round (sync debug mode){' at ' + ', '.join(syncs) if syncs else ''}  [{smi}]")
+        if "privunit" in name:
+            noise = alg.draw_noise(round_generator(3, 0), m, d, dev)
+            alg.mechanism.release(noise, deltas)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            release_ms = cuda_ms(lambda: alg.mechanism.release(noise, deltas), 5, warmup=0)
+            host_ms = 1e3 * (time.perf_counter() - t0) / 5
+            q0 = time.perf_counter()
+            mechanisms.privunit_quantile(noise.cap_u, noise.u01, alg.mechanism.pu)
+            row.update(release_ms=release_ms, release_wall_ms=host_ms,
+                       quantile_ms=1e3 * (time.perf_counter() - q0))
+            print(f"[4 full] {name}: PrivUnit release (clip, quantiles, randomize, reduce, "
+                  f"Algorithm 4) {release_ms:.3f} ms (CUDA events), {host_ms:.3f} ms wall; "
+                  f"of it the host's float64 quantiles {row['quantile_ms']:.3f} ms  [{smi}]")
+        out[name] = row
         del deltas
+    if out["cdp-fedexp-adaptive-clip"]["syncs"] > out["cdp-fedexp"]["syncs"]:
+        fail(f"an adaptive-clip round syncs {out['cdp-fedexp-adaptive-clip']['syncs']} times, "
+             f"cdp-fedexp's {out['cdp-fedexp']['syncs']}")
     torch.cuda.empty_cache()
+    return out
 
 
 def phase_reference(dev):
     """The port on the card (kernels) vs on the CPU (plain versions): the same
-    seeds key the same LDP noise.  Tolerance 1e-4: float32 sums in other
+    seeds key the same LDP noise; the adaptive clip without noise (z_mult 0,
+    sigma_b 0) is deterministic.  Tolerance 1e-4: float32 sums in other
     orders, amplified by the FedEXP ratio over five rounds."""
     m, d, tau, rounds = 40, 32, 5, 5
-    for name in ("fedexp", "ldp-fedexp-gauss"):
-        _, g, data = run_session(name, m, d, rounds, tau, dev, seed=7)
+    for name, kw in (("fedexp", None), ("ldp-fedexp-gauss", None), ("ldp-gauss-fedadam", None),
+                     ("ldp-fedexp-schedule", None),
+                     ("cdp-fedexp-adaptive-clip", dict(z_mult=0.0, sigma_b=0.0))):
+        _, g, data = run_session(name, m, d, rounds, tau, dev, seed=7, kw=kw)
         cpu_data = type(data)(x=data.x.cpu(), y=data.y.cpu(), w_star=data.w_star.cpu())
-        _, c, _ = run_session(name, m, d, rounds, tau, "cpu", seed=7, data=cpu_data)
+        _, c, _ = run_session(name, m, d, rounds, tau, "cpu", seed=7, data=cpu_data, kw=kw)
         err = close(g.final_w.cpu(), c.final_w, f"{name}: card vs CPU final w", 1e-4)
         close(g.eta_history.cpu(), c.eta_history, f"{name}: card vs CPU eta history", 1e-4)
-        print(f"[5 reference] {name}: card vs CPU max abs err of final w {err:.3e}")
+        print(f"[5 reference] {name}{'' if kw is None else ' ' + str(kw)}: card vs CPU max abs "
+              f"err of final w {err:.3e}")
 
 
 # flash attention: float32 sums in other orders; bf16 outputs one ulp apart
@@ -1491,7 +1644,7 @@ def main() -> int:
     ops.dp_aggregate_sums.launches = 0
     ops.generate_ldp_noise.launches = 0
     timed("3 paper", phase_paper, dev)
-    timed("4 full", phase_full, dev, cases)
+    full = timed("4 full", phase_full, dev, cases)
     launches = {"dp_aggregate": ops.dp_aggregate_sums.launches,
                 "ldp_noise": ops.generate_ldp_noise.launches}
     for k, n in launches.items():
@@ -1521,7 +1674,7 @@ def main() -> int:
              launches=launches["dp_aggregate"], max_abs_err=max(c["max_abs_err"] for c in cases),
              ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
              bound_by=head["bound_by"], library_ms=None, headline="fused (1000, 131072)",
-             cases=cases),
+             cases=cases, full_rounds=full),
         dict(name="ldp_noise", route="cuda", source=src,
              replaces="src/repro/kernels/dp_aggregate/kernel.py:222",
              launches=launches["ldp_noise"],

@@ -10,6 +10,8 @@ Layers
 ------
 - ``repro_torch.core``     — the paper's contribution: DP mechanisms, adaptive
   global step-size rules (LDP/CDP-FedEXP), clipping, privacy accounting.
+- ``repro_torch.optim``    — server optimizers (SGD, momentum, Adam) over
+  pseudo-gradients.
 - ``repro_torch.fedsim``   — the M-client federated simulation (the eager
   round loop of ``FederatedSession``).
 - ``repro_torch.kernels``  — hand-written CUDA kernels for Hopper

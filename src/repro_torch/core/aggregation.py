@@ -101,7 +101,9 @@ def fused_clip_aggregate(
 
     Args:
       raw_updates: (M, d) raw client updates.
-      clip_norm: clipping threshold C (``inf`` releases the rows unclipped).
+      clip_norm: clipping threshold C (``inf`` releases the rows unclipped): a
+        float, or a 0-d float32 tensor on the updates' device that the kernel
+        reads there (an adaptive threshold that changes every round).
       noise: optional pre-materialized (M, d) noise matrix (LDP Gaussian);
         None for CDP (noise is added to the mean by the caller, which needs
         ``mean_sq_clipped``).

@@ -4,9 +4,9 @@ repro/core/algorithm.py).
 A round's randomness comes from one CPU ``torch.Generator`` seeded from the
 run's seed and the round index (``round_generator``).  Before the round
 runs, the algorithm draws from it everything its release consumes into a
-``RoundNoise``: host scalars (the kernel's 32-bit noise seed, the CDP
-numerator noise) come straight from it, device tensors from a device
-generator seeded by it.  Tests pass a ``RoundNoise`` of their own to replay
+``RoundNoise``: host values (the kernel's 32-bit noise seed, the CDP
+numerator noise, PrivUnit's per-client scalars, the clip-bit noise) come
+straight from it, device tensors from a device generator seeded by it.  Tests pass a ``RoundNoise`` of their own to replay
 the JAX package's noise exactly.
 """
 from __future__ import annotations
@@ -25,6 +25,7 @@ __all__ = [
     "round_generator",
     "device_normal",
     "draw_seed32",
+    "host_to_device",
     "set_moment_count",
 ]
 
@@ -51,6 +52,15 @@ def device_normal(gen: torch.Generator, shape, device) -> torch.Tensor:
     return torch.randn(shape, generator=dev_gen, device=device)
 
 
+def host_to_device(x: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``, copied from pinned memory without waiting
+    for the device (a pageable copy would synchronise the stream)."""
+    device = torch.device(device)
+    if x.device.type == device.type:
+        return x
+    return x.pin_memory().to(device, non_blocking=True)
+
+
 @dataclasses.dataclass
 class RoundNoise:
     """Everything random that one round's release consumes."""
@@ -59,6 +69,16 @@ class RoundNoise:
     ldp: torch.Tensor | None = None         # (M, d) materialized per-client noise
     central: torch.Tensor | None = None     # (d,) N(0, 1) of the CDP mean
     xi: torch.Tensor | None = None          # N(0, 1) of the CDP FedEXP numerator
+    # PrivUnit: (M,) host uniforms of the cap and its quantile, (M, d) N(0, 1)
+    # on the device, and ScalarDP's (M,) rounding and keep uniforms and
+    # integers in [0, k) on the host
+    cap_u: torch.Tensor | None = None
+    u01: torch.Tensor | None = None
+    g: torch.Tensor | None = None
+    round_u: torch.Tensor | None = None
+    keep_u: torch.Tensor | None = None
+    u_int: torch.Tensor | None = None
+    bit: torch.Tensor | None = None         # N(0, 1) of the adaptive clip's bit sum
 
 
 def set_moment_count(moments, m_total: int):
@@ -89,10 +109,11 @@ class RoundAux:
 class ServerAlgorithm:
     """Base class; subclasses set ``name`` and implement ``apply_round_stateful``.
 
-    A dense round is ``apply_round_stateful(gen, w, raw_deltas, state, noise)``:
+    A dense round is ``apply_round_stateful(gen, w, raw_deltas, state, noise, t)``:
     ``gen`` is the round's generator, ``raw_deltas`` the (M, d) unclipped
-    local updates, ``state`` the server carry (``init_state``), and ``noise``
-    an optional ``RoundNoise`` that replaces the draws from ``gen``.
+    local updates, ``state`` the server carry (``init_state``), ``noise``
+    an optional ``RoundNoise`` that replaces the draws from ``gen``, and
+    ``t`` the round index (read by round-indexed noise schedules).
     """
 
     name: str = "base"
@@ -102,16 +123,17 @@ class ServerAlgorithm:
         """Initial server carry for a run starting from ``w``."""
         return ()
 
-    def draw_noise(self, gen: torch.Generator, m: int, d: int, device) -> RoundNoise:
-        """All randomness of one round, drawn from ``gen`` in a fixed order."""
+    def draw_noise(self, gen: torch.Generator, m: int, d: int, device, t=None) -> RoundNoise:
+        """All randomness of round ``t``, drawn from ``gen`` in a fixed order."""
         return RoundNoise()
 
-    def apply_round_stateful(self, gen, w, raw_deltas, state, noise: RoundNoise | None = None):
+    def apply_round_stateful(self, gen, w, raw_deltas, state, noise: RoundNoise | None = None,
+                             t=None):
         """One dense round: ``-> (w_next, RoundAux, state)``."""
         raise NotImplementedError
 
-    def apply_round(self, gen, w, raw_deltas, noise: RoundNoise | None = None):
-        """One stateless dense round: ``-> (w_next, RoundAux)``."""
+    def apply_round(self, gen, w, raw_deltas, noise: RoundNoise | None = None, t=None):
+        """One dense round from a fresh carry: ``-> (w_next, RoundAux)``."""
         w_next, aux, _ = self.apply_round_stateful(gen, w, raw_deltas, self.init_state(w),
-                                                   noise)
+                                                   noise, t)
         return w_next, aux

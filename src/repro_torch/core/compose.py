@@ -1,54 +1,72 @@
 """Composable algorithm stack: privacy mechanism x aggregation x global step.
 
 Counterpart of repro/core/compose.py, holding what the dense round of the
-paper's six Gaussian and noiseless algorithms needs:
+paper's noiseless, Gaussian and PrivUnit algorithms, server optimizers,
+adaptive clipping and noise schedules need:
 
     PrivacyMechanism   clipping + noise + the step-size bias correction + the
                        accounting of its release: ``NoPrivacy``,
-                       ``GaussianLDP``, ``CentralGaussian`` (fixed sigma).
+                       ``GaussianLDP``, ``PrivUnitLDP``, ``CentralGaussian``
+                       (fixed sigma or the adaptive-clip noise multiplier
+                       ``z_mult``), ``NoiseSchedule`` (sigma(t) over a
+                       fixed-sigma Gaussian).
     Aggregation        ``MeanAggregation``, the paper's uniform mean.
-    GlobalStep         ``FixedEta`` (DP-FedAvg) and ``FedEXPStep`` (the
-                       paper's adaptive extrapolation, Eqs. 2/6/8).
+    GlobalStep         ``FixedEta`` (DP-FedAvg), ``FedEXPStep`` (the paper's
+                       adaptive extrapolation, Eqs. 2/6/7/8), ``ServerOpt``
+                       (server Adam / momentum) and ``AdaptiveClipStep``
+                       (quantile-tracked clip threshold, Andrew et al. 2021).
 
-Every release reduces through ``fused_clip_aggregate``: on the card that is
-the CUDA ``dp_aggregate`` kernel (fused noise for ``GaussianLDP``, none mode
-for ``CentralGaussian`` and, with C = inf, for ``NoPrivacy``).
+Every Gaussian release reduces through ``fused_clip_aggregate``: on the card
+that is the CUDA ``dp_aggregate`` kernel (fused noise for ``GaussianLDP``,
+none mode for ``CentralGaussian`` and, with C = inf, for ``NoPrivacy``).
+Under ``AdaptiveClipStep`` the clip threshold C is a 0-d tensor on the
+device that the kernel reads there.  ``PrivUnitLDP`` is plain PyTorch, as it
+reaches no kernel in the JAX package.
 
 Randomness (``repro_torch.core.algorithm``): ``draw`` methods take what the
 round consumes from its generator, mechanism first, then step; ``release``
-and ``apply`` only read the resulting ``RoundNoise``.
+and ``apply`` only read the resulting ``RoundNoise``.  ``release`` and
+``extrapolation`` take ``clip``: None for the mechanism's own static
+``clip_norm``, or the step's per-round override.
 
-PrivUnit, per-client and scheduled noise, weighted and compressed
-aggregation, server optimizers and adaptive clipping come in later slices
-(ROADMAP.md, queue 1).
+Per-client noise, weighted and compressed aggregation and SCAFFOLD come in
+later slices (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.core import accounting, stepsize
-from repro_torch.core.aggregation import RoundStats, fused_clip_aggregate
+from repro_torch.core import adaptive_clip as ac
+from repro_torch.core import mechanisms as mech
+from repro_torch.core.aggregation import RoundStats, aggregate_stats, fused_clip_aggregate
 from repro_torch.core.algorithm import (
     RoundAux,
     RoundNoise,
     ServerAlgorithm,
     device_normal,
     draw_seed32,
+    host_to_device,
 )
 
 __all__ = [
     "PrivacyMechanism",
     "NoPrivacy",
     "GaussianLDP",
+    "PrivUnitLDP",
     "CentralGaussian",
+    "NoiseSchedule",
     "Aggregation",
     "MeanAggregation",
     "GlobalStep",
     "FixedEta",
     "FedEXPStep",
+    "ServerOpt",
+    "AdaptiveClipStep",
     "ComposedAlgorithm",
     "compose_algorithm",
 ]
@@ -62,23 +80,39 @@ class PrivacyMechanism:
     """One client randomizer + its clipping regime + its accounting.
 
         draw(gen, m, d, device)                 -> RoundNoise fields it consumes
-        release(noise, deltas)                  dense (M, d) -> RoundStats
-        extrapolation(noise, stats, dim)        -> (eta_g, eta_naive, eta_target)
+        release(noise, deltas, clip)            dense (M, d) -> (RoundStats, extras)
+        extrapolation(noise, stats, extras, dim, clip, m_eff)
+                                                -> (eta_g, eta_naive, eta_target)
         budget(delta, rounds, dim, sampling_q, with_numerator) -> PrivacyReport
     """
 
     is_private = True
     needs_xi_key = False            # CDP-style post-aggregation numerator noise
+    is_round_indexed = False        # NoiseSchedule: resolved per round by at_round(t)
+
+    def at_round(self, t):
+        """The mechanism governing round ``t`` (self unless round-indexed)."""
+        return self
+
+    @property
+    def clip_independent_budget(self) -> bool:
+        """True when the guarantee does not move with the clip threshold (so an
+        AdaptiveClipStep override keeps the budget sound)."""
+        return False
+
+    def _clip(self, clip):
+        return getattr(self, "clip_norm", None) if clip is None else clip
 
     def draw(self, gen: torch.Generator, m: int, d: int, device) -> dict:
         """The ``RoundNoise`` fields this release consumes, drawn from ``gen``."""
         return {}
 
-    def release(self, noise: RoundNoise, deltas: torch.Tensor):
-        """Dense release: clip + randomize + reduce M rows to ``RoundStats``."""
+    def release(self, noise: RoundNoise, deltas: torch.Tensor, clip=None):
+        """Dense release: clip + randomize + reduce M rows to ``(RoundStats, extras)``."""
         raise NotImplementedError
 
-    def extrapolation(self, noise: RoundNoise, stats: RoundStats, dim: int):
+    def extrapolation(self, noise: RoundNoise, stats: RoundStats, extras: dict, dim: int,
+                      clip, m_eff):
         """This mechanism's debiased step size: ``(eta_g, eta_naive, eta_target)``."""
         raise NotImplementedError
 
@@ -97,12 +131,12 @@ class NoPrivacy(PrivacyMechanism):
 
     is_private = False
 
-    def release(self, noise, deltas):
+    def release(self, noise, deltas, clip=None):
         """Dense release: the three reductions of the unclipped rows."""
         s = fused_clip_aggregate(deltas, math.inf)
-        return RoundStats(cbar=s.cbar, mean_sq=s.mean_sq, agg_sq=s.agg_sq)
+        return RoundStats(cbar=s.cbar, mean_sq=s.mean_sq, agg_sq=s.agg_sq), {}
 
-    def extrapolation(self, noise, stats, dim):
+    def extrapolation(self, noise, stats, extras, dim, clip, m_eff):
         """Eq. (2) on the unprivatized statistics."""
         return stepsize.fedexp(stats.mean_sq, stats.agg_sq), None, None
 
@@ -124,15 +158,15 @@ class GaussianLDP(PrivacyMechanism):
         """The round's 32-bit noise seed."""
         return {"seed": draw_seed32(gen)}
 
-    def release(self, noise, deltas):
+    def release(self, noise, deltas, clip=None):
         """Dense release: clip, add sigma * N(0, 1) per client, reduce."""
+        c = self._clip(clip)
         if noise.ldp is not None:
-            return fused_clip_aggregate(deltas, self.clip_norm, noise.ldp,
-                                        backend=self.backend)
-        return fused_clip_aggregate(deltas, self.clip_norm, noise_seed=noise.seed,
-                                    noise_sigma=self.sigma, backend=self.backend)
+            return fused_clip_aggregate(deltas, c, noise.ldp, backend=self.backend), {}
+        return fused_clip_aggregate(deltas, c, noise_seed=noise.seed, noise_sigma=self.sigma,
+                                    backend=self.backend), {}
 
-    def extrapolation(self, noise, stats, dim):
+    def extrapolation(self, noise, stats, extras, dim, clip, m_eff):
         """Eq. (6), with the naive (Eq. 3) and target (Eq. 5) diagnostics."""
         eta = stepsize.ldp_gaussian(stats.mean_sq, stats.agg_sq, dim, self.sigma)
         return (eta,
@@ -145,56 +179,275 @@ class GaussianLDP(PrivacyMechanism):
 
 
 @dataclasses.dataclass(frozen=True)
+class PrivUnitLDP(PrivacyMechanism):
+    """Per-client clip + PrivUnit direction x ScalarDP magnitude (pure LDP).
+
+    With a clip override (adaptive clipping) the ScalarDP lattice built at
+    ``clip_norm`` is reused through exact public rescaling: rows are released
+    on the reference scale and multiplied back by ``clip / clip_norm``
+    (ScalarDP's debias transform is linear in ``r_max``, so this is the
+    r_max = clip release).  Plain PyTorch: the release reaches no kernel.
+    """
+
+    clip_norm: float
+    eps0: float
+    eps1: float
+    eps2: float
+    dim: int
+
+    def __post_init__(self):
+        object.__setattr__(self, "pu", mech.make_privunit_params(self.dim, self.eps0, self.eps1))
+        object.__setattr__(self, "sc", mech.make_scalardp_params(self.eps2, self.clip_norm))
+
+    @property
+    def clip_independent_budget(self) -> bool:
+        """Pure (eps0+eps1+eps2)-LDP at any clip threshold."""
+        return True
+
+    def draw(self, gen, m, d, device):
+        """Per client: the cap and quantile uniforms and ScalarDP's rounding
+        uniform, keep uniform and integer in [0, k), on the host; the (M, d)
+        normal on the device."""
+        fields = {f: torch.rand(m, generator=gen) for f in ("cap_u", "u01", "round_u", "keep_u")}
+        fields["u_int"] = torch.randint(0, self.sc.k, (m,), generator=gen, dtype=torch.int32)
+        fields["g"] = device_normal(gen, (m, d), device)
+        return fields
+
+    def _randomize(self, noise, deltas, clip):
+        """Per-client clip + PrivUnit release: (released, clipped) rows."""
+        dev = deltas.device
+        c = self._clip(clip)
+        norms = torch.linalg.vector_norm(deltas, dim=-1)
+        clipped = deltas * torch.clamp(c / torch.clamp(norms, min=1e-12), max=1.0)[:, None]
+        t = mech.privunit_quantile(noise.cap_u, noise.u01, self.pu).to(torch.float32)
+        t = host_to_device(t, dev)
+        draws = [host_to_device(noise.round_u, dev), host_to_device(noise.keep_u, dev),
+                 host_to_device(noise.u_int, dev)]
+        if clip is None:
+            released = mech.privunit_randomize(clipped, t, noise.g, *draws, self.pu, self.sc)
+        else:  # the release on the reference scale, rescaled publicly
+            to_ref = self.clip_norm / c
+            released = mech.privunit_randomize(clipped * to_ref, t, noise.g, *draws,
+                                               self.pu, self.sc) / to_ref
+        return released, clipped
+
+    def _s_hat(self, released, clip):
+        if clip is None:
+            return mech.estimate_norm_sq(released, self.pu, self.sc)
+        to_ref = self.clip_norm / self._clip(clip)
+        return mech.estimate_norm_sq(released * to_ref, self.pu, self.sc) / torch.square(to_ref)
+
+    def release(self, noise, deltas, clip=None):
+        """Dense release: clip, randomize, reduce; extras hold mean_i s_hat_i."""
+        m = deltas.shape[0]
+        released, clipped = self._randomize(noise, deltas, clip)
+        stats = aggregate_stats(released)
+        stats.mean_sq_clipped = torch.sum(torch.sum(torch.square(clipped), dim=-1)) / m
+        return stats, {"mean_s_hat": torch.sum(self._s_hat(released, clip)) / m}
+
+    def extrapolation(self, noise, stats, extras, dim, clip, m_eff):
+        """Eq. (7), with the naive (Eq. 3) and target (Eq. 5) diagnostics."""
+        eta = stepsize.ldp_privunit(extras["mean_s_hat"], stats.agg_sq)
+        return (eta,
+                stepsize.naive_noisy(stats.mean_sq, stats.agg_sq),
+                stepsize.target(stats.mean_sq_clipped, stats.agg_sq))
+
+    def budget(self, delta, *, rounds, dim, sampling_q, with_numerator):
+        """Lemma B.1: pure (eps0 + eps1 + eps2)-LDP per release."""
+        return accounting.privunit_budget(self.eps0, self.eps1, self.eps2)
+
+
+@dataclasses.dataclass(frozen=True)
 class CentralGaussian(PrivacyMechanism):
     """Clip-only clients + server-side Gaussian noise on the mean (CDP).
 
-    Fixed ``sigma`` (the paper): server noise std ``sigma / sqrt(M)`` with the
-    static configured client count — the release Proposition 4.2 accounts.
-    The adaptive ``z_mult`` mode comes with adaptive clipping.
+    Two noise modes:
+      * fixed ``sigma`` (the paper): server noise std ``sigma / sqrt(M)``
+        with the static configured client count, the release Proposition
+        4.2 accounts;
+      * ``z_mult`` (adaptive clipping, Andrew et al.): std ``z C / sqrt(m)``
+        tracking the current clip threshold and the realized cohort size, so
+        the guarantee is C-independent.
     """
 
     clip_norm: float | None = None
     sigma: float | None = None
     num_clients: int = 0
     sigma_xi: float | None = None     # numerator noise; None = d sigma^2 / M
+    z_mult: float | None = None       # adaptive mode: sigma = z * C
     backend: str = "auto"
 
     needs_xi_key = True
 
     def __post_init__(self):
-        if self.sigma is None or self.clip_norm is None:
-            raise ValueError("CentralGaussian needs clip_norm and a fixed sigma "
-                             "(the z_mult mode comes with adaptive clipping)")
+        if (self.sigma is None) == (self.z_mult is None):
+            raise ValueError("set exactly one of sigma (fixed) / z_mult (adaptive)")
+        if self.sigma is not None and self.clip_norm is None:
+            raise ValueError("fixed-sigma CentralGaussian requires clip_norm")
         if self.num_clients < 1:
             raise ValueError("CentralGaussian requires num_clients >= 1")
+
+    @property
+    def clip_independent_budget(self) -> bool:
+        """True in the z mode: the noise tracks z C, so C cancels."""
+        return self.z_mult is not None
+
+    def _sigma(self, clip):
+        return self.sigma if self.z_mult is None else self.z_mult * self._clip(clip)
+
+    def _m_noise(self, m_eff):
+        """Divisor of the server-noise std: the static configured M for the
+        fixed-sigma release, the realized cohort for the z-tracking one."""
+        return float(self.num_clients) if self.z_mult is None else m_eff
 
     def draw(self, gen, m, d, device):
         """N(0, 1) of the (d,) mean, drawn on the device."""
         return {"central": device_normal(gen, (d,), device)}
 
-    def release(self, noise, deltas):
+    def release(self, noise, deltas, clip=None):
         """Dense release: clip, reduce, then noise the mean."""
-        stats = fused_clip_aggregate(deltas, self.clip_norm, None, backend=self.backend)
-        cbar = stats.cbar + (self.sigma / math.sqrt(self.num_clients)) * noise.central
+        stats = fused_clip_aggregate(deltas, self._clip(clip), None, backend=self.backend)
+        std = self._sigma(clip) / math.sqrt(self._m_noise(float(deltas.shape[0])))
+        cbar = stats.cbar + std * noise.central
         return RoundStats(cbar=cbar, mean_sq=stats.mean_sq, agg_sq=torch.sum(cbar * cbar),
-                          mean_sq_clipped=stats.mean_sq_clipped)
+                          mean_sq_clipped=stats.mean_sq_clipped), {}
 
-    def extrapolation(self, noise, stats, dim):
+    def extrapolation(self, noise, stats, extras, dim, clip, m_eff):
         """Eq. (8): the clipped numerator plus sigma_xi * xi, and the target."""
+        sigma = self._sigma(clip)
         sigma_xi = (self.sigma_xi if self.sigma_xi is not None
-                    else dim * self.sigma**2 / self.num_clients)
+                    else dim * sigma**2 / self._m_noise(m_eff))
         xi = sigma_xi * noise.xi
         eta = stepsize.cdp(stats.mean_sq_clipped, xi, stats.agg_sq)
         return eta, None, stepsize.target(stats.mean_sq_clipped, stats.agg_sq)
 
     def budget(self, delta, *, rounds, dim, sampling_q, with_numerator):
         """Composed GDP budget of the noised mean (and numerator, with FedEXP)."""
+        q = sampling_q
+        if self.z_mult is not None:
+            # the C/sigma ratio is the constant 1/z: stated in C = 1 units,
+            # with the realized cohort's count M/q (the clip-bit release adds
+            # adaptive_clip_rho, negligible at sigma_b ~ 10)
+            return accounting.cdp_budget(
+                1.0, self.z_mult, self.num_clients / q, rounds, delta,
+                sigma_xi=(dim * self.z_mult**2 / self.num_clients if with_numerator else None),
+                sampling_q=q)
         sigma_xi = None
         if with_numerator:
             sigma_xi = (self.sigma_xi if self.sigma_xi is not None
                         else dim * self.sigma**2 / self.num_clients)
         return accounting.cdp_budget(self.clip_norm, self.sigma, self.num_clients, rounds,
-                                     delta, sigma_xi=sigma_xi, sampling_q=sampling_q)
+                                     delta, sigma_xi=sigma_xi, sampling_q=q)
+
+
+@dataclasses.dataclass(frozen=True)
+class NoiseSchedule(PrivacyMechanism):
+    """Round-indexed noise schedule sigma(t) over a fixed-sigma Gaussian mechanism.
+
+    A configuration wrapper: it never releases itself.  ``at_round(t)``
+    resolves it to the inner mechanism with ``sigma = sigma(t)``, a host
+    float (the loop knows t), where
+
+        sigma(t) = sigma0 * decay**t * step_factor(t)
+
+    in float32 as the JAX package traces it; ``step_factor`` is 1 before the
+    first boundary and ``scales[i]`` from ``boundaries[i]`` on.  A constant
+    schedule (decay 1, no boundaries) resolves to the inner mechanism object
+    unchanged.  ``budget`` composes the sequence (``schedule_ldp_budget`` /
+    ``schedule_cdp_budget``) from the float64 ``sigma_value``; a constant
+    schedule reports the inner mechanism's budget.
+    """
+
+    inner: PrivacyMechanism = None
+    decay: float = 1.0
+    boundaries: tuple[int, ...] = ()
+    scales: tuple[float, ...] = ()
+
+    def __post_init__(self):
+        if not isinstance(self.inner, (GaussianLDP, CentralGaussian)):
+            raise ValueError(
+                "NoiseSchedule wraps a fixed-sigma Gaussian mechanism "
+                f"(GaussianLDP or CentralGaussian); got {type(self.inner).__name__}")
+        if isinstance(self.inner, CentralGaussian) and self.inner.sigma is None:
+            raise ValueError(
+                "NoiseSchedule needs a fixed-sigma CentralGaussian; the z_mult "
+                "(adaptive-clip) mode already rescales its noise per round and has no "
+                "static sigma to schedule")
+        if not (isinstance(self.decay, (int, float)) and self.decay > 0):
+            raise ValueError(f"decay must be positive, got {self.decay!r}")
+        bounds = tuple(int(b) for b in self.boundaries)
+        if any(b < 0 for b in bounds) or list(bounds) != sorted(set(bounds)):
+            raise ValueError("boundaries must be strictly increasing nonnegative rounds")
+        scales = tuple(float(s) for s in self.scales)
+        if len(scales) != len(bounds):
+            raise ValueError("scales must match boundaries one-to-one")
+        if any(s <= 0 for s in scales):
+            raise ValueError("scales must be positive")
+        object.__setattr__(self, "boundaries", bounds)
+        object.__setattr__(self, "scales", scales)
+
+    @property
+    def is_constant(self) -> bool:
+        """True when sigma(t) == sigma0 for every t."""
+        return self.decay == 1.0 and not self.boundaries
+
+    @property
+    def is_round_indexed(self):
+        """Only a varying schedule needs the round index."""
+        return not self.is_constant
+
+    @property
+    def needs_xi_key(self):
+        """The inner mechanism's numerator noise."""
+        return self.inner.needs_xi_key
+
+    def at_round(self, t):
+        """The inner mechanism at round ``t``; the inner object itself for a
+        constant schedule."""
+        if self.is_constant:
+            return self.inner
+        return dataclasses.replace(self.inner, sigma=self.sigma_at(t))
+
+    def _step_factor(self, t: int) -> float:
+        factor = 1.0
+        for b, sc in zip(self.boundaries, self.scales):
+            if t >= b:
+                factor = sc
+        return factor
+
+    def sigma_at(self, t: int) -> float:
+        """sigma(t) computed in float32, as the JAX package's traced value."""
+        s = np.float32(self.inner.sigma) * np.power(np.float32(self.decay), np.float32(t))
+        return float(np.float32(s) * np.float32(self._step_factor(t)))
+
+    def sigma_value(self, t: int) -> float:
+        """sigma(t) in float64 (the accounting's value)."""
+        return float(self.inner.sigma) * float(self.decay) ** int(t) * self._step_factor(t)
+
+    def __getattr__(self, item):
+        if item.startswith("__") or item == "inner":
+            raise AttributeError(item)
+        inner = object.__getattribute__(self, "__dict__").get("inner")
+        if inner is None:
+            raise AttributeError(item)
+        return getattr(inner, item)
+
+    def budget(self, delta, *, rounds, dim, sampling_q, with_numerator):
+        """GDP composition of the non-uniform sigma sequence; a constant
+        schedule's is the inner mechanism's own."""
+        if self.is_constant:
+            return self.inner.budget(delta, rounds=rounds, dim=dim, sampling_q=sampling_q,
+                                     with_numerator=with_numerator)
+        sigmas = [self.sigma_value(t) for t in range(rounds)]
+        if isinstance(self.inner, GaussianLDP):
+            return accounting.schedule_ldp_budget(self.inner.clip_norm, sigmas, delta)
+        sigma_xis = None
+        if with_numerator:
+            sigma_xis = [self.inner.sigma_xi if self.inner.sigma_xi is not None
+                         else dim * s**2 / self.inner.num_clients for s in sigmas]
+        return accounting.schedule_cdp_budget(self.inner.clip_norm, sigmas,
+                                              self.inner.num_clients, delta,
+                                              sigma_xis=sigma_xis, sampling_q=sampling_q)
 
 
 # ---------------------------------------------------------------------------
@@ -217,17 +470,23 @@ class MeanAggregation(Aggregation):
 class GlobalStep:
     """Server-side update policy + owner of the carry state and its extra draws."""
 
+    stateful = False
+    needs_clip_bits = False
     uses_extrapolation = False
 
     def draw(self, gen: torch.Generator, mechanism: PrivacyMechanism) -> dict:
         """The ``RoundNoise`` fields this step consumes, drawn after the mechanism's."""
         return {}
 
+    def clip_override(self, state):
+        """The round's clip threshold from the carry; None = the mechanism's static."""
+        return None
+
     def init(self, w):
         """Initial step-owned carry state."""
         return ()
 
-    def apply(self, noise, w, stats, mechanism, state):
+    def apply(self, noise, w, stats, extras, mechanism, clip, m_eff, state):
         """``-> (w_next, RoundAux, state)`` from the released round statistics."""
         raise NotImplementedError
 
@@ -238,32 +497,112 @@ class FixedEta(GlobalStep):
 
     eta: float = 1.0
 
-    def apply(self, noise, w, stats, mechanism, state):
+    def apply(self, noise, w, stats, extras, mechanism, clip, m_eff, state):
         """Apply the constant step."""
         w_next = w + stats.cbar if self.eta == 1.0 else w + self.eta * stats.cbar
-        return w_next, RoundAux(eta_g=torch.tensor(self.eta, device=w.device)), state
+        return w_next, RoundAux(eta_g=torch.full((), self.eta, device=w.device)), state
+
+
+def _draw_xi(gen, mechanism) -> dict:
+    """xi ~ N(0, 1) when the mechanism privatizes the FedEXP numerator."""
+    return {"xi": torch.randn((), generator=gen)} if mechanism.needs_xi_key else {}
 
 
 @dataclasses.dataclass(frozen=True)
 class FedEXPStep(GlobalStep):
-    """The paper's adaptive extrapolation (Eqs. 2/6/8): the mechanism supplies
+    """The paper's adaptive extrapolation (Eqs. 2/6/7/8): the mechanism supplies
     its debiased numerator; this step extrapolates by the ratio, floored at 1."""
 
     uses_extrapolation = True
 
     def draw(self, gen, mechanism):
         """xi ~ N(0, 1) when the mechanism privatizes the numerator."""
-        if not mechanism.needs_xi_key:
-            return {}
-        return {"xi": torch.randn((), generator=gen)}
+        return _draw_xi(gen, mechanism)
 
-    def apply(self, noise, w, stats, mechanism, state):
+    def apply(self, noise, w, stats, extras, mechanism, clip, m_eff, state):
         """Extrapolate: w + eta_g * cbar."""
-        eta, naive, target = mechanism.extrapolation(noise, stats, w.shape[-1])
+        eta, naive, target = mechanism.extrapolation(noise, stats, extras, w.shape[-1], clip,
+                                                     m_eff)
         eta = eta.to(w.device)
         aux = RoundAux(eta_g=eta, eta_naive=naive, eta_target=target,
                        update_norm=eta * torch.linalg.vector_norm(stats.cbar))
         return w + eta * stats.cbar, aux, state
+
+
+@dataclasses.dataclass(frozen=True)
+class ServerOpt(GlobalStep):
+    """FedOpt servers (Reddi et al. 2021): Adam / momentum over the released
+    pseudo-gradient, composable with any mechanism."""
+
+    kind: str = "adam"
+    lr: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+
+    stateful = True
+
+    def __post_init__(self):
+        from repro_torch import optim
+        if self.kind == "adam":
+            opt = optim.adam(lr=self.lr, b1=self.beta1, b2=self.beta2, eps=self.eps)
+        elif self.kind == "momentum":
+            opt = optim.momentum(lr=self.lr, beta=self.beta1)
+        else:
+            raise ValueError(f"unknown ServerOpt kind {self.kind!r}")
+        object.__setattr__(self, "_opt", opt)
+
+    def init(self, w):
+        """The optimizer's moments, on ``w``'s device."""
+        return self._opt.init(w)
+
+    def apply(self, noise, w, stats, extras, mechanism, clip, m_eff, state):
+        """One optimizer step on the released mean."""
+        step, state = self._opt.update(stats.cbar, state)
+        return w + step, RoundAux(eta_g=torch.full((), self.lr, device=w.device)), state
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveClipStep(GlobalStep):
+    """Quantile-tracked clipping (Andrew et al. 2021) over any mechanism.
+
+    The clip threshold C lives in the carry as a 0-d tensor on the device,
+    overrides the mechanism's static threshold each round (the kernel reads
+    it there), and updates from the privatized below-threshold bit sum.  The
+    step size is the mechanism's extrapolation read at the current C.
+    """
+
+    c0: float = 1.0
+    gamma: float = 0.5
+    clip_lr: float = 0.2
+    sigma_b: float = 10.0
+
+    stateful = True
+    needs_clip_bits = True
+    uses_extrapolation = True
+
+    def draw(self, gen, mechanism):
+        """xi when the mechanism needs it, then the bit-sum noise."""
+        fields = _draw_xi(gen, mechanism)
+        fields["bit"] = torch.randn((), generator=gen)
+        return fields
+
+    def clip_override(self, state):
+        """The carried threshold."""
+        return state.clip
+
+    def init(self, w):
+        """The tracker at c0, on ``w``'s device."""
+        return ac.init_state(self.c0, w.device)
+
+    def apply(self, noise, w, stats, extras, mechanism, clip, m_eff, state):
+        """Extrapolate at the current C, then move C toward the gamma-quantile."""
+        c = state.clip
+        eta, _, _ = mechanism.extrapolation(noise, stats, extras, w.shape[-1], clip, m_eff)
+        eta = eta.to(w.device)
+        cfg = ac.AdaptiveClipConfig(gamma=self.gamma, lr=self.clip_lr, sigma_b=self.sigma_b)
+        state, _ = ac.update_clip_from_stats(noise.bit, state, extras["count_below"], m_eff, cfg)
+        return w + eta * stats.cbar, RoundAux(eta_g=eta, update_norm=c), state
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +633,11 @@ class ComposedAlgorithm(ServerAlgorithm):
         """Whether the composed release carries a DP guarantee (the mechanism's)."""
         return self.mechanism.is_private
 
+    @property
+    def needs_round_index(self):
+        """True when the mechanism is a varying NoiseSchedule."""
+        return self.mechanism.is_round_indexed
+
     def __getattr__(self, item):
         if item.startswith("__"):
             raise AttributeError(item)
@@ -305,22 +649,37 @@ class ComposedAlgorithm(ServerAlgorithm):
         raise AttributeError(
             f"{type(self).__name__} {d.get('name')!r} has no attribute {item!r}")
 
+    def _mech_at(self, t):
+        """The mechanism releasing round ``t``: ``at_round(t)`` of a varying
+        schedule, else the mechanism (a constant schedule's inner)."""
+        if self.needs_round_index and t is None:
+            raise ValueError(f"{self.name!r} carries a round-indexed noise schedule; pass "
+                             "the round index t")
+        return self.mechanism.at_round(t)
+
     def init_state(self, w):
         """Initial carry for a run starting from ``w`` (the step's)."""
         return self.step.init(w)
 
-    def draw_noise(self, gen, m, d, device) -> RoundNoise:
-        """The round's randomness: the mechanism's draws, then the step's."""
-        fields = self.mechanism.draw(gen, m, d, device)
-        fields.update(self.step.draw(gen, self.mechanism))
+    def draw_noise(self, gen, m, d, device, t=None) -> RoundNoise:
+        """Round ``t``'s randomness: the mechanism's draws, then the step's."""
+        mech_t = self._mech_at(t)
+        fields = mech_t.draw(gen, m, d, device)
+        fields.update(self.step.draw(gen, mech_t))
         return RoundNoise(**fields)
 
-    def apply_round_stateful(self, gen, w, raw_deltas, state, noise=None):
-        """Dense round: release the (M, d) raw deltas, then step."""
+    def apply_round_stateful(self, gen, w, raw_deltas, state, noise=None, t=None):
+        """Dense round ``t``: release the (M, d) raw deltas at the step's clip, then step."""
+        mech_t = self._mech_at(t)
         if noise is None:
-            noise = self.draw_noise(gen, *raw_deltas.shape, raw_deltas.device)
-        stats = self.mechanism.release(noise, raw_deltas)
-        return self.step.apply(noise, w, stats, self.mechanism, state)
+            noise = self.draw_noise(gen, *raw_deltas.shape, raw_deltas.device, t)
+        clip = self.step.clip_override(state)
+        m = float(raw_deltas.shape[0])
+        stats, extras = mech_t.release(noise, raw_deltas, clip)
+        if self.step.needs_clip_bits:
+            norms = torch.linalg.vector_norm(raw_deltas, dim=-1)
+            extras = {**extras, "count_below": torch.sum((norms <= clip).to(torch.float32))}
+        return self.step.apply(noise, w, stats, extras, mech_t, clip, m, state)
 
     def budget(self, delta: float, *, rounds: int, dim: int,
                sampling_q: float = 1.0) -> accounting.PrivacyReport:
@@ -328,6 +687,12 @@ class ComposedAlgorithm(ServerAlgorithm):
         the step also releases the privatized FedEXP numerator."""
         if not self.mechanism.is_private:
             raise ValueError(f"{self.name!r} is not a private algorithm")
+        if self.step.needs_clip_bits and not self.mechanism.clip_independent_budget:
+            raise ValueError(
+                f"{self.name!r} composes a fixed-noise mechanism with adaptive clipping: its "
+                "per-round guarantee tracks the realized clip threshold and has no static "
+                "budget.  Use CentralGaussian(z_mult=...) (noise tracks C) or PrivUnitLDP "
+                "(pure-DP, C-independent) under AdaptiveClipStep.")
         with_num = self.step.uses_extrapolation and self.mechanism.needs_xi_key
         return self.mechanism.budget(delta, rounds=rounds, dim=dim, sampling_q=sampling_q,
                                      with_numerator=with_num)

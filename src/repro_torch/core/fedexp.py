@@ -1,9 +1,10 @@
 """Algorithm registry (counterpart of the registry in repro/core/fedexp.py).
 
 Every name is a (mechanism, step) composition under the uniform
-``MeanAggregation``.  This slice ports the paper's noiseless and Gaussian
-names; the JAX package's other names raise ``NotImplementedError`` naming the
-slice that brings them (ROADMAP.md, queue 1).
+``MeanAggregation``.  The port builds the JAX registry's names but two:
+``ldp-fedexp-perclient`` (weighted aggregation) and ``dp-scaffold`` (client
+control variates) raise ``NotImplementedError`` naming the slice that brings
+them (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -23,10 +24,35 @@ def _gauss_ldp(kw) -> _compose.GaussianLDP:
     return _compose.GaussianLDP(kw["clip_norm"], kw["sigma"], backend=_backend(kw))
 
 
+def _privunit(kw) -> _compose.PrivUnitLDP:
+    return _compose.PrivUnitLDP(kw["clip_norm"], kw["eps0"], kw["eps1"], kw["eps2"], kw["dim"])
+
+
 def _cdp(kw) -> _compose.CentralGaussian:
     return _compose.CentralGaussian(clip_norm=kw["clip_norm"], sigma=kw["sigma"],
                                     num_clients=kw["num_clients"],
                                     sigma_xi=kw.get("sigma_xi"), backend=_backend(kw))
+
+
+def _adaptive_cdp(kw) -> _compose.CentralGaussian:
+    return _compose.CentralGaussian(z_mult=kw["z_mult"], num_clients=kw["num_clients"],
+                                    backend=_backend(kw))
+
+
+def _adaptive_step(kw) -> _compose.AdaptiveClipStep:
+    return _compose.AdaptiveClipStep(c0=kw.get("c0", 1.0), gamma=kw.get("gamma", 0.5),
+                                     clip_lr=kw.get("clip_lr", 0.2),
+                                     sigma_b=kw.get("sigma_b", 10.0))
+
+
+def _schedule(inner, kw) -> _compose.NoiseSchedule:
+    return _compose.NoiseSchedule(inner=inner, decay=kw.get("decay", 1.0),
+                                  boundaries=tuple(kw.get("boundaries", ())),
+                                  scales=tuple(kw.get("scales", ())))
+
+
+def _adam(kw) -> _compose.ServerOpt:
+    return _compose.ServerOpt(kind="adam", lr=kw.get("server_lr", 0.1))
 
 
 def _composed(name: str, mechanism, step) -> _compose.ComposedAlgorithm:
@@ -42,25 +68,37 @@ _FACTORIES: dict[str, Callable[..., ServerAlgorithm]] = {
         "dp-fedavg-ldp-gauss", _gauss_ldp(kw), _compose.FixedEta()),
     "ldp-fedexp-gauss": lambda **kw: _composed(
         "ldp-fedexp-gauss", _gauss_ldp(kw), _compose.FedEXPStep()),
+    "dp-fedavg-privunit": lambda **kw: _composed(
+        "dp-fedavg-privunit", _privunit(kw), _compose.FixedEta()),
+    "ldp-fedexp-privunit": lambda **kw: _composed(
+        "ldp-fedexp-privunit", _privunit(kw), _compose.FedEXPStep()),
     "dp-fedavg-cdp": lambda **kw: _composed(
         "dp-fedavg-cdp", _cdp(kw), _compose.FixedEta()),
     "cdp-fedexp": lambda **kw: _composed(
         "cdp-fedexp", _cdp(kw), _compose.FedEXPStep()),
+    "dp-fedadam-cdp": lambda **kw: _composed(
+        "dp-fedadam-cdp", _cdp(kw), _adam(kw)),
+    "cdp-fedexp-adaptive-clip": lambda **kw: _composed(
+        "cdp-fedexp-adaptive-clip", _adaptive_cdp(kw), _adaptive_step(kw)),
+    "ldp-gauss-fedadam": lambda **kw: _composed(
+        "ldp-gauss-fedadam", _gauss_ldp(kw), _adam(kw)),
+    "cdp-fedmom": lambda **kw: _composed(
+        "cdp-fedmom", _cdp(kw),
+        _compose.ServerOpt(kind="momentum", lr=kw.get("server_lr", 1.0),
+                           beta1=kw.get("server_beta", 0.9))),
+    "privunit-fedexp-adaptive-clip": lambda **kw: _composed(
+        "privunit-fedexp-adaptive-clip",
+        _privunit({**kw, "clip_norm": kw.get("clip_norm", kw.get("c0", 1.0))}),
+        _adaptive_step(kw)),
+    "ldp-fedexp-schedule": lambda **kw: _composed(
+        "ldp-fedexp-schedule", _schedule(_gauss_ldp(kw), kw), _compose.FedEXPStep()),
+    "cdp-fedexp-schedule": lambda **kw: _composed(
+        "cdp-fedexp-schedule", _schedule(_cdp(kw), kw), _compose.FedEXPStep()),
 }
 
 # the JAX package's other registry names, with the slice that ports each
 _LATER: dict[str, str] = {
-    "dp-fedavg-privunit": "the PrivUnit slice (queue 1, item 8)",
-    "ldp-fedexp-privunit": "the PrivUnit slice (queue 1, item 8)",
-    "privunit-fedexp-adaptive-clip":
-        "the PrivUnit and adaptive-clip slices (queue 1, items 8 and 11)",
-    "cdp-fedexp-adaptive-clip": "the adaptive-clip slice (queue 1, item 11)",
-    "dp-fedadam-cdp": "the server-optimizer slice (queue 1, item 11)",
-    "ldp-gauss-fedadam": "the server-optimizer slice (queue 1, item 11)",
-    "cdp-fedmom": "the server-optimizer slice (queue 1, item 11)",
     "ldp-fedexp-perclient": "the heterogeneous-privacy slice (queue 1, item 11)",
-    "ldp-fedexp-schedule": "the noise-schedule slice (queue 1, item 11)",
-    "cdp-fedexp-schedule": "the noise-schedule slice (queue 1, item 11)",
     "dp-scaffold": "the variance-reduction slice (queue 1, item 11)",
 }
 
@@ -75,10 +113,15 @@ def make_algorithm(name: str, **kwargs) -> ServerAlgorithm:
 
     Args:
       name: one of ``list_algorithms()``.
-      **kwargs: the composition's knobs: ``clip_norm`` and ``sigma`` for the
-        Gaussian names, plus ``num_clients`` (and optionally ``sigma_xi``)
-        for CDP; ``backend`` ("auto" | "kernel" | "kernel-fused" | "torch")
-        for the Gaussian names.
+      **kwargs: the composition's knobs, as the JAX registry's:
+        ``clip_norm`` and ``sigma`` for the Gaussian names, plus
+        ``num_clients`` (and optionally ``sigma_xi``) for CDP;
+        ``eps0``/``eps1``/``eps2``/``dim`` for PrivUnit; ``z_mult``,
+        ``num_clients`` and ``c0``/``gamma``/``clip_lr``/``sigma_b`` for
+        adaptive clipping; ``server_lr`` (and ``server_beta`` for momentum)
+        for the server optimizers; ``decay``/``boundaries``/``scales`` for
+        the schedules; ``backend`` ("auto" | "kernel" | "kernel-fused" |
+        "torch") for the Gaussian names.
     """
     if name in _LATER:
         raise NotImplementedError(f"{name!r} is not ported yet; it comes with {_LATER[name]} "

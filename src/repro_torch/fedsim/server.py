@@ -2,8 +2,10 @@
 
 Ported so far: ``RunResult`` with ``avg_last`` iterate averaging, the
 unsampled, unfaulted branch of ``_round_step`` and the eager round loop of
-``_run_eager``, as a plain Python loop.  Nothing in the loop waits for the
-device: histories stay tensors until the run ends.
+``_run_eager``, as a plain Python loop that threads the round index t into
+every round (noise schedules read it).  Nothing in the loop waits for the
+device: histories stay tensors until the run ends, and state such as an
+adaptive clip threshold stays on the device.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ def round_step(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn, eval_eve
 
     def step(w, state, gen, t, client_batches, eta_l):
         deltas = local_fn(w, client_batches, eta_l)
-        w_next, aux, state = algorithm.apply_round_stateful(gen, w, deltas, state)
+        w_next, aux, state = algorithm.apply_round_stateful(gen, w, deltas, state, t=t)
         metric = _eval_metric(eval_fn, eval_every, w_next, t, w.device)
         return w_next, state, (aux.eta_g, metric, aux.eta_naive, aux.eta_target)
 

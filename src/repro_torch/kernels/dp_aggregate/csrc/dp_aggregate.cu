@@ -63,6 +63,10 @@
 //   __fmul_rn/__fadd_rn so nvcc cannot contract them into an FMA: fused mode
 //   then releases exactly clip(u) + (sigma * z), as operand mode does when fed
 //   the noise-only kernel's matrix.
+// * The clip threshold C comes as a float or, where it changes every round
+//   on the device (adaptive clipping), as a pointer to a float there, read
+//   in the kernel as the TPU kernel reads it from its scalar prefetch: the
+//   host never reads C and nothing recompiles.
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -149,6 +153,7 @@ struct Params {
   const float* noise;    // (m, d), operand mode
   int64_t m, d, row_start, rows_per_cluster;
   float clip, sigma;
+  const float* clip_at;  // C in device memory, or nullptr: C is `clip`
   uint32_t seed;
   int window;            // W columns per block, a multiple of 4
   int stages;            // ring stages (ring path)
@@ -159,6 +164,14 @@ struct Params {
   int* tickets;          // K window tickets and one for the scalars; 0 at entry and exit
   float* out;            // sum_released (d), sq_released, sq_clipped
 };
+
+// C for this launch: the parameter, or the float the pointer names.  Read
+// where each row's scale is taken: a C loaded once at entry and held in a
+// register cost the ring path 2-3% in none and operand modes
+// (tools/dp_aggregate_variants.py).
+__device__ __forceinline__ float clip_of(const Params& p) {
+  return p.clip_at != nullptr ? __ldg(p.clip_at) : p.clip;
+}
 
 // Float offset of u[row, col0] from the 16-byte-aligned address below it.
 __device__ __forceinline__ int misalignment(const Params& p, int64_t row, int64_t col0) {
@@ -387,7 +400,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) aggregate_kernel(const Params 
         }
       }
       const float norm = receive_norm(i, k, warps, nrows, slots, norm_bar);
-      const float scale = fminf(1.0f, p.clip / sqrtf(fmaxf(norm, kEps)));
+      const float scale = fminf(1.0f, clip_of(p) / sqrtf(fmaxf(norm, kEps)));
       if (b == 0 && t == 0) clip_sq += norm * (scale * scale);
       const int off = misalignment(p, row, col0);
       const float* x = ring + s * p.slot_floats + off;
@@ -438,7 +451,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) aggregate_kernel(const Params 
       for (int j = t; j < w; j += nt) part = fmaf(x[j], x[j], part);
       send_partial(part, i, k, b, warps, slots, norm_bar);
       const float norm = receive_norm(i, k, warps, nrows, slots, norm_bar);
-      const float scale = fminf(1.0f, p.clip / sqrtf(fmaxf(norm, kEps)));
+      const float scale = fminf(1.0f, clip_of(p) / sqrtf(fmaxf(norm, kEps)));
       if (b == 0 && t == 0) clip_sq += norm * (scale * scale);
       for (int q = t; q < npairs; q += nt) {  // second read of the window: from L2
         const bool odd = 2 * q + 1 < w;
@@ -607,11 +620,13 @@ bool valid_shape(int pairs, int cluster, int threads, int smem_bytes) {
 // synchronises, and the caller owns every buffer: scratch holds
 // clusters * (d + cluster + 1) floats, tickets 16 ints that are 0 before the
 // first launch on the stream (the kernel leaves them 0), out d + 2 floats
-// (sum_released, sq_released, sq_clipped).  The shape plan (cluster, window,
+// (sum_released, sq_released, sq_clipped).  C is `clip`, or *clip_at where
+// clip_at is not null (a float in device memory).  The shape plan (cluster, window,
 // threads, pairs, stages, slot_floats, smem_bytes, clusters, rows_per_cluster)
 // comes from ops.py::_launch_plan.  Returns a cudaError_t (0 = cudaSuccess).
 extern "C" int dp_aggregate_launch(const float* u, const float* noise, int mode, int64_t m,
-                                   int64_t d, float clip, float sigma, uint32_t seed,
+                                   int64_t d, float clip, const float* clip_at,
+                                   float sigma, uint32_t seed,
                                    int64_t row_start, int cluster, int window, int threads,
                                    int pairs, int stages, int slot_floats, int smem_bytes,
                                    int clusters, int64_t rows_per_cluster, float* scratch,
@@ -634,6 +649,7 @@ extern "C" int dp_aggregate_launch(const float* u, const float* noise, int mode,
   p.row_start = row_start;
   p.rows_per_cluster = rows_per_cluster;
   p.clip = clip;
+  p.clip_at = clip_at;
   p.sigma = sigma;
   p.seed = seed;
   p.window = window;

@@ -109,7 +109,7 @@ def load_library() -> ctypes.CDLL:
     p, i64, f32, u32, i32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_uint32,
                              ctypes.c_int)
     lib.dp_aggregate_launch.argtypes = [
-        p, p, i32, i64, i64, f32, f32, u32, i64,
+        p, p, i32, i64, i64, f32, p, f32, u32, i64,
         i32, i32, i32, i32, i32, i32, i32, i32, i64, p, p, p, p]
     lib.dp_aggregate_launch.restype = i32
     lib.dp_aggregate_max_clusters.argtypes = [i32, i32, i32, i32, i32, ctypes.POINTER(i32)]
@@ -192,6 +192,18 @@ def _check(name: str, x: torch.Tensor, shape=None) -> torch.Tensor:
     return x.to(torch.float32).contiguous()
 
 
+def _clip_arg(clip_norm, device: torch.device) -> tuple[float, int | None]:
+    """(C as a float, or the address of a 0-d float32 tensor on ``device`` holding C)."""
+    if not isinstance(clip_norm, torch.Tensor):
+        return float(clip_norm), None
+    if clip_norm.dim() != 0 or clip_norm.dtype != torch.float32:
+        raise ValueError(f"a tensor clip_norm must be 0-d float32, got shape "
+                         f"{tuple(clip_norm.shape)} {clip_norm.dtype}")
+    if clip_norm.device != device:
+        raise ValueError(f"clip_norm lies on {clip_norm.device}, the updates on {device}")
+    return 0.0, clip_norm.data_ptr()
+
+
 def _seed32(seed) -> int:
     seed = int(seed)
     if not 0 <= seed < 2**32:
@@ -208,6 +220,8 @@ def dp_aggregate_sums(updates: torch.Tensor, clip_norm, noise: torch.Tensor | No
     float32 on the input's device.  Noise modes: none (neither ``noise`` nor
     ``noise_seed``), operand (a materialized (M, d) ``noise``), fused
     (``noise_seed`` and ``noise_sigma``: the kernel draws sigma * N(0, 1)).
+    ``clip_norm`` is a Python float or a 0-d float32 tensor on the updates'
+    device, which the kernel reads there (no host read of it).
     """
     if noise is not None and noise_seed is not None:
         raise ValueError("materialized noise and in-kernel noise are exclusive")
@@ -220,6 +234,7 @@ def dp_aggregate_sums(updates: torch.Tensor, clip_norm, noise: torch.Tensor | No
         raise ValueError(f"updates must be non-empty, got shape {(m, d)}")
     if noise is not None:
         noise = _check("noise", noise, (m, d))
+    clip, clip_at = _clip_arg(clip_norm, u.device)
     if u.device.type == "cpu":
         if noise_seed is not None:
             noise = ref.ldp_noise_ref(m, d, _seed32(noise_seed), noise_sigma,
@@ -238,7 +253,7 @@ def dp_aggregate_sums(updates: torch.Tensor, clip_norm, noise: torch.Tensor | No
     out = torch.empty(d + 2, **f32)
     err = lib.dp_aggregate_launch(
         u.data_ptr(), None if noise is None else noise.data_ptr(), _MODES[mode],
-        m, d, float(clip_norm), float(noise_sigma or 0.0), _seed32(noise_seed or 0),
+        m, d, clip, clip_at, float(noise_sigma or 0.0), _seed32(noise_seed or 0),
         int(row_start), plan.cluster, plan.window, plan.threads, plan.pairs, plan.stages,
         plan.slot_floats, plan.smem_bytes, plan.clusters, plan.rows_per_cluster,
         scratch.data_ptr(), _tickets_for(u.device, stream).data_ptr(), out.data_ptr(), stream)

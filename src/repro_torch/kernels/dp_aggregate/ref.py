@@ -69,7 +69,13 @@ def ldp_noise_ref(m: int, d: int, seed: int, sigma: float, *, row_start: int = 0
 
 
 def clip_scale(sq_norms: torch.Tensor, clip_norm) -> torch.Tensor:
-    """Per-row scale min(1, C / sqrt(max(||u||^2, eps))), as the kernel computes it."""
+    """Per-row scale min(1, C / sqrt(max(||u||^2, eps))), as the kernel computes it.
+
+    C is a float or a 0-d float32 tensor on the rows' device; either way the
+    quotient is a float32 division, as in the kernel (a float divided by a
+    tensor would be a reciprocal and a product)."""
+    if not isinstance(clip_norm, torch.Tensor):
+        clip_norm = torch.full_like(sq_norms, clip_norm)
     return torch.clamp(clip_norm / torch.sqrt(torch.clamp(sq_norms, min=_EPS)), max=1.0)
 
 

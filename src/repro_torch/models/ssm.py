@@ -158,9 +158,6 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *, cache: dict | 
         cache["conv"].copy_(hist[:, 1:])
         cache["state"].copy_(state)
     else:
-        if cache is not None and s < width - 1:
-            raise ValueError(f"a prefill of {s} tokens is shorter than the conv window's "
-                             f"{width - 1} cached steps; prefill at least {width - 1} tokens")
         conv_out = _causal_conv(conv_in, params["ssm_conv_w"], params["ssm_conv_b"])
         xc, bc, cc = conv_out.split([di, n, n], dim=-1)
         xh = xc.reshape(b, s, heads, p).float()
@@ -174,7 +171,10 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *, cache: dict | 
         y = y + params["ssm_d_skip"][None, None, :, None] * xh
         y = y.reshape(b, s, di)
         if cache is not None:
-            cache["conv"].copy_(conv_in[:, -(width - 1):])
+            # the conv window's last width - 1 inputs; a prefill shorter than
+            # that is left-padded with the zeros it was convolved with
+            tail = F.pad(conv_in, (0, 0, max(0, width - 1 - s), 0))[:, -(width - 1):]
+            cache["conv"].copy_(tail)
             cache["state"].copy_(state)
 
     y = rms_norm(y, params["ssm_norm"], cfg.norm_eps) * F.silu(z)

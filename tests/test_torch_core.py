@@ -39,6 +39,11 @@ from repro_torch.fedsim.local import cohort_updates  # noqa: E402
 
 NAMES = ["fedavg", "fedexp", "dp-fedavg-ldp-gauss", "ldp-fedexp-gauss",
          "dp-fedavg-cdp", "cdp-fedexp"]
+# every name the port builds: the six above, PrivUnit, server optimizers,
+# adaptive clipping and noise schedules
+PORTED = NAMES + ["dp-fedavg-privunit", "ldp-fedexp-privunit", "privunit-fedexp-adaptive-clip",
+                  "cdp-fedexp-adaptive-clip", "dp-fedadam-cdp", "ldp-gauss-fedadam",
+                  "cdp-fedmom", "ldp-fedexp-schedule", "cdp-fedexp-schedule"]
 
 
 def _close_vec(got, want, rtol=1e-5):
@@ -236,15 +241,15 @@ class TestDenseRound:
 
 class TestRegistry:
     def test_names(self):
-        assert list_algorithms() == sorted(NAMES)
-        assert set(NAMES) <= set(jax_list())
+        assert list_algorithms() == sorted(PORTED)
+        assert set(PORTED) <= set(jax_list())
 
     def test_later_names_raise_not_implemented(self):
-        for name in sorted(set(jax_list()) - set(NAMES)):
-            # the message points at ROADMAP queue 1: PrivUnit is item 8, the rest item 11
-            item = r"items 8 and 11" if "adaptive-clip" in name and "privunit" in name else (
-                r"item 8\)" if "privunit" in name else r"item 11\)")
-            with pytest.raises(NotImplementedError, match=f"not ported yet.*{item}"):
+        later = sorted(set(jax_list()) - set(PORTED))
+        assert later == ["dp-scaffold", "ldp-fedexp-perclient"]
+        for name in later:
+            # the message points at ROADMAP queue 1, item 11
+            with pytest.raises(NotImplementedError, match=r"not ported yet.*item 11\)"):
                 make_algorithm(name, clip_norm=1.0, sigma=1.0, num_clients=10)
         with pytest.raises(KeyError, match="unknown algorithm"):
             make_algorithm("no-such-name")
@@ -259,5 +264,5 @@ class TestRegistry:
         assert c.name == "centralgaussian-fedexpstep"
         with pytest.raises(ValueError, match="not a private algorithm"):
             make_algorithm("fedavg").budget(1e-5, rounds=3, dim=4)
-        with pytest.raises(ValueError, match="fixed sigma"):
+        with pytest.raises(ValueError, match="exactly one of sigma"):
             CentralGaussian(num_clients=5)

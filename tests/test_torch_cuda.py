@@ -82,6 +82,36 @@ def test_kernel_matches_plain(dev, m, d, mode):
         _close(a, b)
 
 
+@pytest.mark.parametrize("m,d", DP_SHAPES)
+@pytest.mark.parametrize("mode", ["none", "operand", "fused"])
+def test_a_device_clip_gives_the_float_clips_bits(dev, m, d, mode):
+    """C as a 0-d float32 tensor on the card (adaptive clipping): the kernel
+    reads it there; its bits equal the float-C launch's and it matches the
+    plain version fed the same tensor; a C twice as large does not."""
+    u, noise = _dp_inputs(m, d, dev)
+    kw = {"operand": dict(noise=noise), "fused": dict(noise_seed=42, noise_sigma=0.3)}.get(mode, {})
+    plain_noise = {"operand": noise,
+                   "fused": ref.ldp_noise_ref(m, d, 42, 0.3, device=dev)}.get(mode)
+    clip = torch.full((), 0.5, device=dev)
+    before = ops.dp_aggregate_sums.launches
+    got = ops.dp_aggregate_sums(u, clip, **kw)
+    assert ops.dp_aggregate_sums.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, ops.dp_aggregate_sums(u, 0.5, **kw)))
+    for a, b in zip(got, ref.dp_aggregate_ref(u, plain_noise, clip)):
+        _close(a, b)
+    doubled = ops.dp_aggregate_sums(u, 2 * clip, **kw)
+    clipped = bool((torch.linalg.vector_norm(u, dim=1) > 0.5).any())
+    assert torch.equal(doubled[2], got[2]) != clipped   # the clipped squares move with C
+
+
+def test_a_device_clip_must_lie_on_the_updates_device(dev):
+    u = torch.randn(4, 8, device=dev)
+    with pytest.raises(ValueError, match="lies on cpu"):
+        ops.dp_aggregate_sums(u, torch.tensor(1.0))
+    with pytest.raises(ValueError, match="0-d float32"):
+        ops.dp_aggregate_sums(u, torch.ones(1, device=dev))
+
+
 @pytest.mark.parametrize("m,d", [(37, 129), (1000, 131072), (8, 300001)])
 @pytest.mark.parametrize("mode", ["none", "operand", "fused"])
 def test_two_launches_give_identical_bits(dev, m, d, mode):

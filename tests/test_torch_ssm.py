@@ -101,10 +101,28 @@ class TestSSMApply:
             np.testing.assert_allclose(_np(tc[key]), _np(jc[key]), err_msg=key, **TOL)
 
     def test_short_prefill_and_unknown_impl_raise(self, layer):
+        """A prefill shorter than the conv window's cached steps, then decode
+        steps, equals one prefill of the same tokens (the JAX package
+        corrupts the decode steps after such a prefill, so it is no
+        reference here); an unknown impl raises."""
         _, tp = layer
-        with pytest.raises(ValueError, match="shorter than the conv window"):
-            ssm.ssm_apply(tp, torch.tensor(self._x(2, 3)), PORT_CFG,
-                          cache=ssm.init_ssm_cache(PORT_CFG, 2))
+        width = PORT_CFG.ssm_conv_width
+        x = self._x(width + 2, 3)
+        for impl in ("kernel", "dense"):
+            for short in range(1, width - 1):
+                whole, wc = ssm.ssm_apply(tp, torch.tensor(x), PORT_CFG,
+                                          cache=ssm.init_ssm_cache(PORT_CFG, 2), impl=impl)
+                got, tc = ssm.ssm_apply(tp, torch.tensor(x[:, :short]), PORT_CFG,
+                                        cache=ssm.init_ssm_cache(PORT_CFG, 2), impl=impl)
+                outs = [got]
+                for t in range(short, x.shape[1]):
+                    y, tc = ssm.ssm_apply(tp, torch.tensor(x[:, t:t + 1]), PORT_CFG, cache=tc,
+                                          impl=impl)
+                    outs.append(y)
+                np.testing.assert_allclose(_np(torch.cat(outs, dim=1)), _np(whole),
+                                           err_msg=f"{impl} prefill {short}", **TOL)
+                for key in ("conv", "state"):
+                    np.testing.assert_allclose(_np(tc[key]), _np(wc[key]), err_msg=key, **TOL)
         with pytest.raises(NotImplementedError, match="not ported"):
             ssm.ssm_apply(tp, torch.tensor(self._x(5, 3)), PORT_CFG, impl="pallas")
 
