@@ -25,6 +25,17 @@ Phases, each of which exits non-zero on failure:
                launch's bits, the plain version's values, and a planted fault
                (C read as 2C) that must fail wherever a row clips; at the
                full shape timed beside the float-C launch.
+               dp_aggregate also with a row gate and row ids (the sampled
+               round's), in every mode at every shape: an all-on gate gives
+               the ungated bits; ~10% of the rows on with NaN planted in the
+               rest gives the plain version's sums, and ignoring the gate (a
+               planted fault) must fail; an all-off gate gives zero sums; a
+               gathered block of ~10% of the clients plus two padding slots
+               draws exactly their rows of the dense noise (the noise-only
+               kernel, bits), fused mode on it the plain version's sums, and
+               keying its noise by row in place of client (a planted fault)
+               must fail.  Timed: gated at (1000, 131072) with ~10% on, and
+               the gathered block of CohortSpec(q=0.1) at (176, 131072).
                flash_attention through its dispatch rule (bf16 with Dh <= 256
                to the tensor-core kernel, 128-key tiles up to Dh 128 and 64
                above; float32 with Dh <= 256 to the float32 tensor-core
@@ -53,21 +64,36 @@ Phases, each of which exits non-zero on failure:
                ones, and a profiled split over the four stages.
   3. paper     the paper's synthetic linear regression (M=1000, tau=20,
                50 rounds; d=500 CDP/noiseless, d=100 LDP and PrivUnit) for
-               the fifteen ported names (PrivUnit at eps0 = eps1 = eps2 = 2;
+               the sixteen ported names (PrivUnit at eps0 = eps1 = eps2 = 2;
                adaptive clipping from c0 = C, z_mult = sigma / C; schedules
-               decaying by 0.97 a round), the Gaussian LDP names also on
-               the materialized-noise backend; dp_aggregate launches must
-               rise by one a round, by none for the PrivUnit names.
+               decaying by 0.97 a round; ldp-fedexp-perclient with 1000
+               epsilons in three tiers), the Gaussian LDP names also on the
+               materialized-noise backend; each name again under
+               CohortSpec(q=0.1) dense and gathered and CohortSpec(size=100),
+               each round of the dense q=0.1 run taken again gathered from
+               the same iterate and equal at rtol 1e-5 (the two whole runs'
+               gap printed: cdp-fedexp's extrapolation and PrivUnit's
+               release compound rounding over 50 rounds);
+               dp_aggregate launches must rise by one a round, by none for
+               the PrivUnit names and the weighted ldp-fedexp-perclient
+               (which launches the noise-only kernel once a round).
   4. full      ldp-fedexp-gauss (fused mode), cdp-fedexp (none mode),
-               ldp-fedexp-privunit (no kernel) and cdp-fedexp-adaptive-clip
-               (none mode, C on the card) at M=1000, d=131072 for 5 rounds:
-               ms per round, its split, peak memory, and the synchronizing
-               CUDA operations of one round (an adaptive-clip round may make
-               no more than cdp-fedexp's); PrivUnit's release time.
+               ldp-fedexp-privunit (no kernel), cdp-fedexp-adaptive-clip
+               (none mode, C on the card), ldp-fedexp-gauss under
+               CohortSpec(q=0.1, gather=True) (fused, gated, row ids),
+               cdp-fedexp under CohortSpec(size=100) (none mode, gated) and
+               ldp-fedexp-perclient (plain weighted sums) at M=1000,
+               d=131072 for 5 rounds: ms per round, its split, peak memory,
+               and the synchronizing CUDA operations of one round (an
+               adaptive-clip round may make no more than cdp-fedexp's, a
+               sampled round no more than its name's full round); PrivUnit's
+               release time.
   5. reference the port on the card against the port on the CPU (plain
                versions, same seeds, same noise) on a small problem: fedexp,
-               ldp-fedexp-gauss, ldp-gauss-fedadam, ldp-fedexp-schedule and
-               cdp-fedexp-adaptive-clip without noise.
+               ldp-fedexp-gauss (also under CohortSpec(q=0.25), dense and
+               gathered), ldp-gauss-fedadam, ldp-fedexp-schedule,
+               ldp-fedexp-perclient and cdp-fedexp-adaptive-clip without
+               noise.
   6. serve     h2o-danube-3-4b at full width and depth, seeded bf16 weights
                and a bf16 KV cache: ServeEngine.generate of 16 greedy tokens
                after an 8192-token prompt (batch 2, twice the window); 24
@@ -162,13 +188,22 @@ HP = {  # (eta_l, C) of benchmarks/e1_synthetic.py; noiseless names at eta_l 0.1
 BASE = {"privunit-fedexp-adaptive-clip": "ldp-fedexp-privunit",
         "cdp-fedexp-adaptive-clip": "cdp-fedexp", "dp-fedadam-cdp": "dp-fedavg-cdp",
         "ldp-gauss-fedadam": "dp-fedavg-ldp-gauss", "cdp-fedmom": "dp-fedavg-cdp",
-        "ldp-fedexp-schedule": "ldp-fedexp-gauss", "cdp-fedexp-schedule": "cdp-fedexp"}
+        "ldp-fedexp-schedule": "ldp-fedexp-gauss", "cdp-fedexp-schedule": "cdp-fedexp",
+        "ldp-fedexp-perclient": "ldp-fedexp-gauss"}
 NAMES = (*HP, *BASE)
+# ldp-fedexp-perclient's budgets: three tiers of clients (a quarter at eps 1,
+# a quarter at 2, half at 8), delta 1e-5
+PERCLIENT_TIERS = ((0.25, 1.0), (0.25, 2.0), (0.5, 8.0))
+PERCLIENT_DELTA = 1e-5
 PRIVUNIT = dict(eps0=2.0, eps1=2.0, eps2=2.0)    # benchmarks/common.py, the paper's budgets
 DECAY = 0.97                                     # the schedules' sigma(t) = sigma0 0.97^t
 FEDEXP_NAMES = ("fedexp", "ldp-fedexp-gauss", "cdp-fedexp", "ldp-fedexp-privunit",
                 "privunit-fedexp-adaptive-clip", "cdp-fedexp-adaptive-clip",
-                "ldp-fedexp-schedule", "cdp-fedexp-schedule")
+                "ldp-fedexp-schedule", "cdp-fedexp-schedule", "ldp-fedexp-perclient")
+# phase 3's cohorts (CohortSpec kwargs): Bernoulli 0.1 dense and gathered, and
+# a fixed cohort of 100 of the 1000 clients
+SAMPLED = {"q=0.1": dict(q=0.1), "q=0.1 gathered": dict(q=0.1, gather=True),
+           "size=100": dict(size=100)}
 
 
 def fail(msg: str) -> None:
@@ -193,14 +228,27 @@ def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def perclient_epsilons(m: int) -> tuple[float, ...]:
+    """m per-client budgets in PERCLIENT_TIERS, in client order."""
+    eps, start = [], 0
+    for i, (share, e) in enumerate(PERCLIENT_TIERS):
+        n = m - start if i == len(PERCLIENT_TIERS) - 1 else int(round(share * m))
+        eps += [e] * n
+        start += n
+    return tuple(eps)
+
+
 def algo_kwargs(name: str, m: int, d: int):
     """(eta_l, make_algorithm kwargs) of the paper's protocol for ``name``:
     sigma = 5C/sqrt(M) for CDP, 0.7C for LDP, eps0 = eps1 = eps2 = 2 for
     PrivUnit.  Adaptive clipping starts at c0 = C, with z_mult = sigma / C;
-    the schedules decay by DECAY a round."""
+    the schedules decay by DECAY a round; ldp-fedexp-perclient's budgets are
+    PERCLIENT_TIERS."""
     eta_l, c = HP[BASE.get(name, name)]
     if c is None:
         return eta_l, {}
+    if name == "ldp-fedexp-perclient":
+        return eta_l, dict(clip_norm=c, epsilons=perclient_epsilons(m), delta=PERCLIENT_DELTA)
     if "privunit" in name:
         kw = dict(clip_norm=c, dim=d, **PRIVUNIT)
     elif "cdp" in name:
@@ -216,9 +264,16 @@ def algo_kwargs(name: str, m: int, d: int):
     return eta_l, kw
 
 
-def launches_per_round(name: str) -> int:
-    """dp_aggregate launches a round of ``name``: PrivUnit reaches no kernel."""
-    return 0 if "privunit" in name else 1
+def launches_per_round(name: str, backend: str = "auto") -> tuple[int, int]:
+    """(dp_aggregate, ldp_noise) launches a round of ``name``: PrivUnit reaches
+    no kernel; the weighted ldp-fedexp-perclient reduces in plain PyTorch and
+    draws its unit noise with the noise-only kernel; the Gaussian LDP names on
+    the materialized-noise backend draw theirs there too."""
+    if "privunit" in name:
+        return 0, 0
+    if name == "ldp-fedexp-perclient":
+        return 0, 1
+    return 1, int(backend == "kernel")
 
 
 def timed(label: str, phase, *args):
@@ -266,11 +321,13 @@ def phase_build():
         for mode in ("none", "operand", "fused"):
             plan = dp_ops.launch_plan(m, d, mode, "cuda")
             attrs = dp_ops.kernel_attributes(mode, plan.pairs)
+            gated = dp_ops.kernel_attributes(mode, plan.pairs, gated=True)
             print(f"    dp_aggregate {mode} ({m},{d}): {plan}; the card holds "
                   f"{dp_ops.max_active_clusters(m, d, mode, 'cuda')} such clusters at once; "
                   f"{attrs['registers']} registers, "
                   f"{attrs['local_bytes']} B local (stack or spills), "
-                  f"{attrs['static_smem']} B static + {plan.smem_bytes} B dynamic shared memory")
+                  f"{attrs['static_smem']} B static + {plan.smem_bytes} B dynamic shared memory; "
+                  f"gated instance {gated['registers']} registers, {gated['local_bytes']} B local")
     attrs = dp_ops.kernel_attributes(None)
     print(f"    ldp_noise: {attrs['registers']} registers, {attrs['local_bytes']} B local "
           "(stack or spills)")
@@ -348,8 +405,169 @@ def device_clip_checks(u, clip: float, kw: dict, got, want, what: str) -> dict:
     return dict(bits_equal=True, fault_excess=fault_excess)
 
 
+GATHER_Q = 0.1          # the gathered round's Bernoulli rate: cap 176 of M = 1000
+
+
+def gate_of(m: int, d: int):
+    """~10% of m rows gated on (values 1 or 2: a gate > 0 enters once), row 0
+    always; drawn on the host."""
+    import torch
+    g = torch.Generator().manual_seed(7 * m + d)
+    gate = (torch.rand(m, generator=g) < 0.1).to(torch.float32)
+    gate *= torch.randint(1, 3, (m,), generator=g)
+    gate[0] = 1.0
+    return gate
+
+
+def slot_table(m: int, d: int):
+    """A gathered block of an m-client cohort on the host: ~10% of the
+    clients in index order, none at its own row (where m > 1, so that keying
+    by row in place of client shows), then two padding slots at client 0;
+    and its gate (the padding off)."""
+    import torch
+    n_on = max(1, m // 10)
+    g = torch.Generator().manual_seed(3 * m + d)
+    on = (torch.sort(torch.randperm(m - 1, generator=g)[:n_on] + 1).values if m > 1
+          else torch.zeros(1, dtype=torch.int64))
+    slots = torch.cat([on, torch.zeros(2, dtype=torch.int64)])
+    gate = torch.cat([torch.ones(on.numel()), torch.zeros(2)])
+    return slots, gate
+
+
+def caught(fault, want) -> float | None:
+    """How far a planted fault's sums land from the right ones, in units of
+    close()'s tolerance (inf where it is not finite)."""
+    import torch
+    if not all(bool(torch.isfinite(x).all()) for x in fault):
+        return math.inf
+    return max(excess(a, b) for a, b in zip(fault, want))
+
+
+def gate_checks(u, clip: float, mode: str, kw: dict, got, opnoise, pn, m: int, d: int) -> dict:
+    """dp_aggregate with a row gate on the card: an all-on gate gives the
+    ungated bits; ~10% on with NaN (and, in operand mode, Inf noise) planted
+    in the rows gated off gives the plain version's sums, and ignoring the
+    gate (the planted fault) must fail; an all-off gate gives zero sums."""
+    import torch
+    from repro_torch.kernels.dp_aggregate import ops, ref
+    dev = u.device
+    on = ops.dp_aggregate_sums(u, clip, row_gate=torch.ones(m, device=dev), **kw)
+    if not all(torch.equal(a, b) for a, b in zip(on, got)):
+        fail(f"dp_aggregate {mode} ({m},{d}): an all-on gate differs from no gate in bits")
+    gate = gate_of(m, d).to(dev)
+    off = gate == 0
+    u_nan = u.clone()
+    u_nan[off] = float("nan")
+    kw_nan, noise_nan = dict(kw), None
+    if mode == "operand":
+        noise_nan = opnoise.clone()
+        noise_nan[off] = float("inf")
+        kw_nan["noise"] = noise_nan
+    gated = ops.dp_aggregate_sums(u_nan, clip, row_gate=gate, **kw_nan)
+    want = ref.dp_aggregate_ref(u_nan, {"operand": noise_nan, "fused": pn}.get(mode), clip,
+                                row_gate=gate)
+    err = max(close(a, b, f"gated dp_aggregate {mode} ({m},{d}) output {i}")
+              for i, (a, b) in enumerate(zip(gated, want)))
+    fault = None                      # invisible where no row is gated off (m = 1)
+    if bool(off.any()):
+        fault = caught(ops.dp_aggregate_sums(u_nan, clip, **kw_nan), want)
+        if fault <= 1.0:
+            fail(f"dp_aggregate {mode} ({m},{d}): the planted fault (gate ignored) passed")
+    zero = ops.dp_aggregate_sums(u_nan, clip, row_gate=torch.zeros(m, device=dev), **kw_nan)
+    if not all(bool((x == 0).all()) for x in zero):
+        fail(f"dp_aggregate {mode} ({m},{d}): an all-off gate gives non-zero sums")
+    del u_nan, noise_nan
+    return dict(all_on_bits_equal=True, max_abs_err=err, gate_ignored_excess=fault,
+                all_off_zero=True, rows_on=int((gate > 0).sum()))
+
+
+def row_id_checks(u, clip: float, kn, pn, m: int, d: int, seed: int, sigma: float) -> dict:
+    """A gathered block (slot_table) keyed by row ids: the noise-only kernel
+    draws exactly its clients' rows of the dense noise (bits); fused mode with
+    the gate and ids gives the plain version's sums, and operand mode's fed
+    those rows; keying by row_start + row (the planted fault) must fail
+    where a slot is not its row."""
+    import torch
+    from repro_torch.kernels.dp_aggregate import ops, ref
+    dev = u.device
+    slots, gate = (x.to(dev) for x in slot_table(m, d))
+    cap = slots.numel()
+    block = ops.generate_ldp_noise(cap, d, seed, sigma, device=dev, row_ids=slots)
+    if not torch.equal(block, kn[slots]):
+        fail(f"ldp_noise ({m},{d}): the gathered block's rows differ from the dense noise's")
+    ub = u[slots]
+    fkw = dict(noise_seed=seed, noise_sigma=sigma, row_gate=gate)
+    fused = ops.dp_aggregate_sums(ub, clip, row_ids=slots, **fkw)
+    want = ref.dp_aggregate_ref(ub, pn[slots], clip, row_gate=gate)
+    err = max(close(a, b, f"gathered fused ({m},{d}) output {i}")
+              for i, (a, b) in enumerate(zip(fused, want)))
+    operand = ops.dp_aggregate_sums(ub, clip, kn[slots], row_gate=gate)
+    oerr = max(close(a, b, f"gathered fused vs operand ({m},{d}) output {i}")
+               for i, (a, b) in enumerate(zip(fused, operand)))
+    fault = caught(ops.dp_aggregate_sums(ub, clip, **fkw), want)
+    if m > 1 and fault <= 1.0:
+        fail(f"dp_aggregate ({m},{d}): the planted fault (row_start + row in place of row_ids) "
+             "passed")
+    return dict(noise_rows_bits_equal=True, max_abs_err=err, vs_operand_err=oerr,
+                fused_equals_operand_bits=all(torch.equal(a, b)
+                                              for a, b in zip(fused, operand)),
+                row_key_fault_excess=fault if m > 1 else None, cap=cap)
+
+
+def gathered_timing(dev, cases, seed: int, sigma: float) -> dict:
+    """The gated kernel at the full shape with ~10% of the rows on, and a
+    gathered block at (cap, 131072) for CohortSpec(q=0.1) of 1000 clients,
+    each mode beside the ungated launch, with the bound of the rows on; the
+    noise-only kernel with row ids at that block."""
+    import torch
+    from repro_torch.core.algorithm import round_generator
+    from repro_torch.fedsim import CohortSpec, gather_slots
+    from repro_torch.kernels.dp_aggregate import ops
+    m, d = 1000, 131072
+    g = torch.Generator(device=dev).manual_seed(99)
+    u = torch.randn(m, d, generator=g, device=dev)
+    u *= 2 * torch.rand(m, 1, generator=g, device=dev) / math.sqrt(d)
+    noise = 0.5 * torch.randn(m, d, generator=g, device=dev)
+    cohort = CohortSpec(q=GATHER_Q, gather=True)
+    cap = cohort.resolved_cap(m)
+    mask = cohort.round_mask(round_generator(0, 0), m)
+    slots, slot_mask, _ = gather_slots(mask, cap)
+    slots, slot_mask, mask = slots.to(dev), slot_mask.to(dev), mask.to(dev)
+    n_on = int((mask > 0).sum())
+    ub, nb = u[slots], noise[slots]
+    out = dict(gated_shape=[m, d], gathered_shape=[cap, d], rows_on=n_on, modes={})
+    for mode in ("none", "operand", "fused"):
+        kw = dict(operand=dict(noise=noise), fused=dict(noise_seed=seed, noise_sigma=sigma)
+                  ).get(mode, {})
+        bkw = dict(operand=dict(noise=nb), fused=dict(noise_seed=seed, noise_sigma=sigma,
+                                                      row_ids=slots)).get(mode, {})
+        scale = 2 if mode == "operand" else 1
+        rows_bound = bound(n_on * d * 4 * scale + d * 4 + m * 4, n_on * d * OPS_PER_ELEM[mode])
+        ungated = next(c["ms"] for c in cases if c["shape"] == [m, d] and c["mode"] == mode)
+        row = dict(
+            gated_ms=cuda_ms(lambda: ops.dp_aggregate_sums(u, 1.0, row_gate=mask, **kw), 10),
+            gathered_ms=cuda_ms(lambda: ops.dp_aggregate_sums(ub, 1.0, row_gate=slot_mask,
+                                                              **bkw), 10),
+            ungated_ms=ungated, bound_ms=rows_bound[0], bound_by=rows_bound[1])
+        out["modes"][mode] = row
+        print(f"[2 kernels] dp_aggregate {mode:7s} gated ({m},{d}), {n_on} rows on: "
+              f"{row['gated_ms']:.4f} ms; gathered ({cap},{d}) with row ids: "
+              f"{row['gathered_ms']:.4f} ms; ungated {ungated:.4f} ms; bound of the rows on "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    out["noise_rows_ms"] = cuda_ms(lambda: ops.generate_ldp_noise(
+        cap, d, seed, sigma, device=dev, row_ids=slots), 10)
+    nb_ms, nb_by = bound(cap * d * 4, cap * d * GEN_OPS)
+    out["noise_rows_bound_ms"], out["noise_rows_bound_by"] = nb_ms, nb_by
+    print(f"[2 kernels] ldp_noise ({cap},{d}) with row ids: {out['noise_rows_ms']:.4f} ms, "
+          f"bound {nb_ms:.4f} ms ({nb_by})")
+    del u, noise, ub, nb
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(dev):
-    """Kernel vs plain at every shape and mode; returns the timing cases."""
+    """Kernel vs plain at every shape and mode, with and without a row gate
+    and row ids; returns the timing cases."""
     import torch
     from repro_torch.kernels.dp_aggregate import ops, ref
 
@@ -377,8 +595,15 @@ def phase_kernels(dev):
         if not torch.isfinite(kn).all() or nerr > NOISE_ATOL * sigma:
             fail(f"ldp_noise ({m},{d}): max abs err {nerr:.3e} > {NOISE_ATOL} sigma")
         b_ms, b_by = bound(m * d * 4, m * d * GEN_OPS)
+        ids = row_id_checks(u, clip, kn, pn, m, d, seed, sigma)
+        print(f"    row ids ({m},{d}), a gathered block of {ids['cap']}: the dense noise's rows "
+              f"in bits; fused vs plain {ids['max_abs_err']:.3e}, vs operand "
+              f"{ids['vs_operand_err']:.3e} (bits equal: {ids['fused_equals_operand_bits']}); "
+              "planted fault (row_start + row) "
+              + (f"off by {ids['row_key_fault_excess']:.3g}x the tolerance"
+                 if ids["row_key_fault_excess"] is not None else "invisible: one client"))
         noise_cases.append(dict(
-            shape=[m, d], max_abs_err=nerr,
+            shape=[m, d], max_abs_err=nerr, row_ids=ids,
             ms=cuda_ms(lambda: ops.generate_ldp_noise(m, d, seed, sigma, device=dev), 10),
             plain_ms=cuda_ms(lambda: ref.ldp_noise_ref(m, d, seed, sigma, device=dev),
                              2 if big else 10, warmup=1),
@@ -407,13 +632,20 @@ def phase_kernels(dev):
                 print(f"    fused vs operand fed the noise-only kernel ({m},{d}): "
                       f"max abs err {ferr:.3e}")
             on_card = device_clip_checks(u, clip, kw, got, want, f"{mode} ({m},{d})")
+            gated = gate_checks(u, clip, mode, kw, got, opnoise, pn, m, d)
+            print(f"    gate ({m},{d}) {mode}: all on = no gate in bits; {gated['rows_on']} rows "
+                  f"on, NaN in the rest: max abs err {gated['max_abs_err']:.3e}; planted fault "
+                  "(gate ignored) "
+                  + (f"off by {gated['gate_ignored_excess']:.3g}x the tolerance"
+                     if gated["gate_ignored_excess"] is not None else "invisible: no row off")
+                  + "; all off: zero sums")
             b_ms, b_by = bound(m * d * 4 * (2 if mode == "operand" else 1) + d * 4,
                                m * d * OPS_PER_ELEM[mode])
             cases.append(dict(
                 shape=[m, d], mode=mode, max_abs_err=err,
                 ms=cuda_ms(lambda: ops.dp_aggregate_sums(u, clip, **kw), 10),
                 plain_ms=cuda_ms(plain[mode], 2 if big else 10, warmup=1),
-                bound_ms=b_ms, bound_by=b_by, device_clip=on_card))
+                bound_ms=b_ms, bound_by=b_by, device_clip=on_card, gate=gated))
             c = cases[-1]
             if big:   # the device-C launch beside the float-C one, in turns
                 clip_t = torch.full((), clip, device=dev)
@@ -439,16 +671,19 @@ def phase_kernels(dev):
                   "generator (Philox, other bits: not the same function), a yardstick only")
         del u, opnoise, kn, pn, plain
         torch.cuda.empty_cache()
-    return cases, noise_cases
+    gathered = gathered_timing(dev, cases, seed, sigma)
+    return cases, noise_cases, gathered
 
 
-def run_session(name, m, d, rounds, tau, dev, *, seed=0, backend="auto", data=None, kw=None):
+def run_session(name, m, d, rounds, tau, dev, *, seed=0, backend="auto", data=None, kw=None,
+                cohort=None):
     """One FederatedSession run of ``name`` on the synthetic linear regression
-    (``kw`` updates the protocol's make_algorithm kwargs)."""
+    (``kw`` updates the protocol's make_algorithm kwargs; ``cohort`` is a dict
+    of CohortSpec kwargs, None for full participation)."""
     import torch
     from repro_torch.core.fedexp import make_algorithm
     from repro_torch.data.synthetic import distance_to_opt, linreg_loss, make_synthetic_linreg
-    from repro_torch.fedsim import FederatedSession, TrainSpec
+    from repro_torch.fedsim import CohortSpec, FederatedSession, TrainSpec
 
     if data is None:
         data = make_synthetic_linreg(torch.Generator(device=dev).manual_seed(0), m, d)
@@ -457,6 +692,7 @@ def run_session(name, m, d, rounds, tau, dev, *, seed=0, backend="auto", data=No
     session = FederatedSession(
         make_algorithm(name, backend=backend, **kw), linreg_loss, torch.zeros(d, device=dev),
         data.client_batches(), train=TrainSpec(rounds=rounds, tau=tau, eta_l=eta_l),
+        cohort=None if cohort is None else CohortSpec(**cohort),
         eval_fn=distance_to_opt(data.w_star), device=dev)
     return session, session.run(seed), data
 
@@ -472,32 +708,47 @@ def check_run(name, result, rounds):
         fail(f"{name}: eta_g < 1 in a FedEXP run")
 
 
-def phase_paper(dev):
-    """Phase 3: the paper workload for every ported name, with launch counts."""
+def paper_run(name, d, dev, backend="auto", cohort=None):
+    """One paper-workload run, checked: finite, eta_g >= 1 for FedEXP names,
+    and the kernel launches a round of ``launches_per_round``.  Returns the
+    result and the final distance to w*."""
     from repro_torch.kernels.dp_aggregate import ops
     m, tau, rounds = PAPER
+    label = "full" if cohort is None else next(k for k, v in SAMPLED.items() if v == cohort)
+    before = (ops.dp_aggregate_sums.launches, ops.generate_ldp_noise.launches)
+    t0 = time.perf_counter()
+    _, r, data = run_session(name, m, d, rounds, tau, dev, backend=backend, cohort=cohort)
+    dist = float(data.w_star.sub(r.final_w).norm())
+    secs = time.perf_counter() - t0
+    check_run(name, r, rounds)
+    agg = ops.dp_aggregate_sums.launches - before[0]
+    noise = ops.generate_ldp_noise.launches - before[1]
+    want_agg, want_noise = (rounds * n for n in launches_per_round(name, backend))
+    if agg != want_agg or noise != want_noise:
+        fail(f"{name} [{backend}, {label}]: {agg} dp_aggregate and {noise} ldp_noise launches "
+             f"in {rounds} rounds (want {want_agg} and {want_noise})")
+    print(f"[3 paper] {name:29s} [{backend:6s}] {label:14s} d={d}: final ||w - w*|| = "
+          f"{dist:.4f}  eta_g in [{r.eta_history.min().item():.3f}, "
+          f"{r.eta_history.max().item():.3f}]  {secs:.2f} s")
+    return r, dist
+
+
+def phase_paper(dev):
+    """Phase 3: the paper workload for every ported name, under full
+    participation and the SAMPLED cohorts, with launch counts; gathered and
+    dense runs of one seed must agree."""
     finals = {}
     for name in NAMES:
         d = 100 if "ldp" in name or "privunit" in name else 500
-        gauss_ldp = "ldp" in name and "privunit" not in name
+        gauss_ldp = "ldp" in name and "privunit" not in name and "perclient" not in name
         for backend in ("auto", "kernel") if gauss_ldp else ("auto",):
-            before = (ops.dp_aggregate_sums.launches, ops.generate_ldp_noise.launches)
-            t0 = time.perf_counter()
-            _, r, data = run_session(name, m, d, rounds, tau, dev, backend=backend)
-            dist = float(data.w_star.sub(r.final_w).norm())
-            secs = time.perf_counter() - t0
-            check_run(name, r, rounds)
-            agg = ops.dp_aggregate_sums.launches - before[0]
-            noise = ops.generate_ldp_noise.launches - before[1]
-            want_agg = rounds * launches_per_round(name)
-            want_noise = rounds if backend == "kernel" else 0
-            if agg != want_agg or noise != want_noise:
-                fail(f"{name} [{backend}]: {agg} dp_aggregate and {noise} ldp_noise "
-                     f"launches in {rounds} rounds (want {want_agg} and {want_noise})")
-            print(f"[3 paper] {name:29s} [{backend:6s}] d={d}: final ||w - w*|| = {dist:.4f}  "
-                  f"eta_g in [{r.eta_history.min().item():.3f}, "
-                  f"{r.eta_history.max().item():.3f}]  {secs:.2f} s")
+            r, dist = paper_run(name, d, dev, backend)
             finals[(name, backend)] = (r.final_w, dist)
+        runs = {label: paper_run(name, d, dev, cohort=spec)[0] for label, spec in SAMPLED.items()}
+        gathered_rounds(name, d, dev, runs["q=0.1"], runs["q=0.1 gathered"])
+    # the materialized-noise backend of a gathered round: the noise-only kernel with row ids
+    paper_run("ldp-fedexp-gauss", 100, dev, "kernel", SAMPLED["q=0.1 gathered"])
+    local_training_bits(dev)
     for name, backend in finals:
         if backend == "kernel":
             # the same seed keys the same noise: fused and materialized agree
@@ -507,6 +758,82 @@ def phase_paper(dev):
                                                       "dp-fedavg-privunit"))
     print(f"[3 paper] ldp-fedexp-privunit ends {'nearer' if fedexp < fedavg else 'farther'} "
           f"than dp-fedavg-privunit from w* on seed 0: {fedexp:.4f} vs {fedavg:.4f}")
+
+
+def gathered_rounds(name, d, dev, dense, gathered):
+    """Gathered = dense at rtol 1e-5 for every round of the run: each round
+    of the dense run (seed 0, q = 0.1) is taken again, gathered, from the
+    same iterate and carry.  The two whole runs are compared too, and their
+    gap printed: where the step extrapolates by tens a round (cdp-fedexp)
+    or the release amplifies its input (PrivUnit's rows have norm |r_hat| /
+    m), float32 rounding in sums of other orders compounds over the rounds.
+    PrivUnit's release also takes discrete decisions on each row's norm
+    (ScalarDP's randomized rounding), which a last-bit difference in local
+    training can flip; its gathered rounds take the dense round's local
+    updates of the sampled clients, so that they hold the protocol (gather,
+    row keys, mask) and not the batched products' rounding.  The iterate is
+    held; eta_g's largest relative gap is printed, as the FedEXP ratio
+    subtracts the noise's expected square (Eq. 6) and so amplifies a sum's
+    last bits (2.3e-5 at a round of ldp-fedexp-schedule)."""
+    from repro_torch.core.algorithm import round_generator
+    from repro_torch.fedsim import CohortSpec, gather_slots
+    from repro_torch.fedsim.server import round_step, sampled_round
+    m, tau, rounds = PAPER
+    session, _, _ = run_session(name, m, d, 1, tau, dev, cohort=SAMPLED["q=0.1"])
+    alg, batches, eta_l = session.algorithm, session.client_batches, session.train.eta_l
+    specs = [CohortSpec(**SAMPLED[k]) for k in ("q=0.1", "q=0.1 gathered")]
+    steps = [round_step(alg, session._local_fn, None, 1, spec) for spec in specs]
+    shared = "privunit" in name
+    w, state, worst, eta_gap = session._w0, alg.init_state(session._w0), 0.0, 0.0
+    for t in range(rounds):
+        if shared:
+            gen = round_generator(0, t)
+            mask = specs[0].round_mask(gen, m)
+            noise = alg.draw_noise(gen, m, d, dev, t)
+            deltas = session._local_fn(w, batches, eta_l)
+            slots = gather_slots(mask, specs[1].resolved_cap(m))[0].to(dev)
+            w_d, aux_d, s_d = sampled_round(alg, lambda *_: deltas, w, state, noise, mask,
+                                            specs[0], t, batches, eta_l)
+            w_g, aux_g, _ = sampled_round(alg, lambda *_: deltas[slots], w, state, noise,
+                                          mask, specs[1], t, batches, eta_l)
+            out_d, out_g = (aux_d.eta_g,), (aux_g.eta_g,)
+        else:
+            w_d, s_d, out_d = steps[0](w, state, round_generator(0, t), t, batches, eta_l)
+            w_g, _, out_g = steps[1](w, state, round_generator(0, t), t, batches, eta_l)
+        worst = max(worst, close(w_g, w_d, f"{name}: gathered vs dense w, round {t}"))
+        eta_gap = max(eta_gap, float((out_g[0] - out_d[0]).abs() / out_d[0].abs()))
+        w, state = w_d, s_d
+    close(w, dense.last_w, f"{name}: the dense rounds retaken vs the dense run")
+    apart = (gathered.eta_history - dense.eta_history).abs() > RTOL * dense.eta_history.abs()
+    first = int(apart.nonzero()[0]) if bool(apart.any()) else None
+    print(f"[3 paper] {name}: gathered vs dense (q=0.1, seed 0), each of {rounds} rounds from "
+          f"the same iterate{' and local updates' if shared else ''}: max abs err of w "
+          f"{worst:.3e}, of eta_g {eta_gap:.2e} relative; the two whole runs: final w "
+          f"{float((gathered.final_w - dense.final_w).abs().max()):.3e} apart (max |w| "
+          f"{float(dense.final_w.abs().max()):.3f}), eta_g within rtol 1e-5 "
+          + ("throughout" if first is None else f"until round {first}"))
+
+
+def local_training_bits(dev):
+    """Whether the card trains a client to the same bits in the dense cohort
+    of 1000 and in the gathered block of 176 (the batched products differ in
+    shape)."""
+    import torch
+    from repro_torch.core.algorithm import round_generator
+    from repro_torch.data.synthetic import linreg_loss, make_synthetic_linreg
+    from repro_torch.fedsim import CohortSpec, cohort_updates, gather_rows, gather_slots
+    m, tau, _ = PAPER
+    data = make_synthetic_linreg(torch.Generator(device=dev).manual_seed(0), m, 100)
+    spec = CohortSpec(**SAMPLED["q=0.1 gathered"])
+    mask = spec.round_mask(round_generator(0, 0), m)
+    slots = gather_slots(mask, spec.resolved_cap(m))[0].to(dev)
+    w = 0.1 * torch.ones(100, device=dev)
+    dense = cohort_updates(linreg_loss, w, data.client_batches(), tau, 0.3)
+    block = cohort_updates(linreg_loss, w, gather_rows(data.client_batches(), slots), tau, 0.3)
+    on = int((mask > 0).sum())
+    diff = float((block[:on] - dense[slots[:on]]).abs().max())
+    print(f"[3 paper] local training of the {on} sampled clients, gathered block vs dense "
+          f"cohort: max abs diff {diff:.3e} (bits equal: {diff == 0.0})")
 
 
 def syncs_of(fn) -> list[str]:
@@ -530,60 +857,108 @@ def syncs_of(fn) -> list[str]:
 
 PAPER = (1000, 20, 50)                 # M, tau, rounds; d 500 or 100 by name
 FULL_SIZE = (1000, 131072, 20, 5)      # M, d, tau, rounds
-FULL = (("ldp-fedexp-gauss", "fused"), ("cdp-fedexp", "none"),
-        ("ldp-fedexp-privunit", None), ("cdp-fedexp-adaptive-clip", "none"))
+FULL = (("ldp-fedexp-gauss", "fused", None), ("cdp-fedexp", "none", None),
+        ("ldp-fedexp-privunit", None, None), ("cdp-fedexp-adaptive-clip", "none", None),
+        ("ldp-fedexp-gauss", "fused", SAMPLED["q=0.1 gathered"]),
+        ("cdp-fedexp", "none", SAMPLED["size=100"]),
+        ("ldp-fedexp-perclient", None, None))
+# a sampled round may sync no more than its name's full round
+SYNC_BASE = {"ldp-fedexp-gauss q=0.1 gathered": "ldp-fedexp-gauss",
+             "cdp-fedexp size=100": "cdp-fedexp",
+             "cdp-fedexp-adaptive-clip": "cdp-fedexp"}
+
+
+def split_round(session, w, state, t, cohort):
+    """One more round of ``session``'s algorithm at ``w``, split by CUDA
+    events into local training (of the gathered block, under a gathering
+    cohort) and the rest of the round: (local ms, server ms)."""
+    import torch
+    from repro_torch.core.algorithm import round_generator
+    from repro_torch.data.synthetic import linreg_loss
+    from repro_torch.fedsim import CohortSpec, cohort_updates, gather_rows, gather_slots
+    from repro_torch.fedsim.server import sampled_round
+    alg, batches, eta_l, tau = (session.algorithm, session.client_batches,
+                                session.train.eta_l, session.train.tau)
+    m, d = session.num_clients, session.dim
+    gen = round_generator(1, t)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    if cohort is None:
+        ev[0].record()
+        deltas = cohort_updates(linreg_loss, w, batches, tau, eta_l)
+        ev[1].record()
+        alg.apply_round_stateful(gen, w, deltas, state, t=t)
+        ev[2].record()
+    else:
+        spec = CohortSpec(**cohort)
+        mask = spec.round_mask(gen, m)
+        noise = alg.draw_noise(gen, m, d, w.device, t)
+        block = batches
+        if spec.gather:
+            slots = gather_slots(mask, spec.resolved_cap(m))[0]
+            block = gather_rows(batches, slots.to(w.device))
+        ev[0].record()
+        deltas = cohort_updates(linreg_loss, w, block, tau, eta_l)
+        ev[1].record()
+        sampled_round(alg, lambda *_: deltas, w, state, noise, mask, spec, t, batches, eta_l)
+        ev[2].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
 
 
 def phase_full(dev, cases) -> dict:
     """Phase 4: full-size rounds, timed, with the local/server split of one
-    round; the syncs of an adaptive-clip round against cdp-fedexp's; PrivUnit's
-    release time and peak memory."""
+    round, peak memory and the synchronizing CUDA operations of a round (an
+    adaptive-clip round may make no more than cdp-fedexp's, a sampled round
+    no more than its name's full round); PrivUnit's release time."""
     import torch
     from repro_torch.core import mechanisms
     from repro_torch.core.algorithm import round_generator
     from repro_torch.data.synthetic import linreg_loss
-    from repro_torch.fedsim import cohort_updates
+    from repro_torch.fedsim import CohortSpec, cohort_updates
     from repro_torch.fedsim.server import round_step
     m, d, tau, rounds = FULL_SIZE
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     kernel_ms = {c["mode"]: c["ms"] for c in cases if c["shape"] == [m, d]}
     data, out = None, {}
-    for name, mode in FULL:
-        run_session(name, m, d, 1, tau, dev, data=data)              # warm-up
+    for name, mode, cohort in FULL:
+        label = name if cohort is None else name + " " + next(
+            k for k, v in SAMPLED.items() if v == cohort)
+        run_session(name, m, d, 1, tau, dev, data=data, cohort=cohort)      # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        session, r, data = run_session(name, m, d, rounds, tau, dev, data=data)
+        session, r, data = run_session(name, m, d, rounds, tau, dev, data=data, cohort=cohort)
         torch.cuda.synchronize()
         per_round = 1e3 * (time.perf_counter() - t0) / rounds
         check_run(name, r, rounds)
-        # one more round split into local training and the server's release
-        alg, w, gen = session.algorithm, r.last_w, round_generator(1, rounds)
-        state = alg.init_state(w)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        torch.cuda.reset_peak_memory_stats()
-        ev[0].record()
-        deltas = cohort_updates(linreg_loss, w, session.client_batches, tau,
-                                session.train.eta_l)
-        ev[1].record()
-        alg.apply_round_stateful(gen, w, deltas, state, t=rounds)
-        ev[2].record()
+        t0 = time.perf_counter()      # the same run again without building the session
+        session.run(0)
         torch.cuda.synchronize()
-        row = dict(ms_per_round=per_round, local_ms=ev[0].elapsed_time(ev[1]),
-                   server_ms=ev[1].elapsed_time(ev[2]),
-                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-        step = round_step(alg, session._local_fn, session.eval_fn)
+        run_only = 1e3 * (time.perf_counter() - t0) / rounds
+        alg, w = session.algorithm, r.last_w
+        state = alg.init_state(w)
+        torch.cuda.reset_peak_memory_stats()
+        local_ms, server_ms = split_round(session, w, state, rounds, cohort)
+        row = dict(ms_per_round=per_round, run_ms_per_round=run_only, local_ms=local_ms,
+                   server_ms=server_ms,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9, cohort=cohort)
+        step = round_step(alg, session._local_fn, session.eval_fn, cohort=None if cohort is None
+                          else CohortSpec(**cohort))
         syncs = syncs_of(lambda: step(w, state, round_generator(2, 0), 0,
                                       session.client_batches, session.train.eta_l))
         row["syncs"], row["sync_at"] = len(syncs), syncs
-        kern = (f"dp_aggregate {mode} kernel {kernel_ms[mode]:.4f} ms/launch" if mode
-                else "no kernel (plain PyTorch)")
-        print(f"[4 full] {name} M={m} d={d} tau={tau}: {per_round:.3f} ms/round "
-              f"(local training {row['local_ms']:.3f} ms, server release+step "
-              f"{row['server_ms']:.3f} ms); {kern} (CUDA events); peak "
+        kern = (f"dp_aggregate {mode} kernel {kernel_ms[mode]:.4f} ms/launch ungated" if mode
+                else "no dp_aggregate launch (plain PyTorch"
+                + (", the noise-only kernel)" if "perclient" in name else ")"))
+        print(f"[4 full] {label} M={m} d={d} tau={tau}: {per_round:.3f} ms/round "
+              f"({run_only:.3f} without building the session; local training "
+              f"{row['local_ms']:.3f} ms, server release+step {row['server_ms']:.3f} ms); "
+              f"{kern} (CUDA events); peak "
               f"{row['peak_gb']:.2f} GB; {row['syncs']} synchronizing CUDA operations in a "
               f"round (sync debug mode){' at ' + ', '.join(syncs) if syncs else ''}  [{smi}]")
         if "privunit" in name:
+            deltas = cohort_updates(linreg_loss, w, session.client_batches, tau,
+                                    session.train.eta_l)
             noise = alg.draw_noise(round_generator(3, 0), m, d, dev)
             alg.mechanism.release(noise, deltas)
             torch.cuda.synchronize()
@@ -597,11 +972,11 @@ def phase_full(dev, cases) -> dict:
             print(f"[4 full] {name}: PrivUnit release (clip, quantiles, randomize, reduce, "
                   f"Algorithm 4) {release_ms:.3f} ms (CUDA events), {host_ms:.3f} ms wall; "
                   f"of it the host's float64 quantiles {row['quantile_ms']:.3f} ms  [{smi}]")
-        out[name] = row
-        del deltas
-    if out["cdp-fedexp-adaptive-clip"]["syncs"] > out["cdp-fedexp"]["syncs"]:
-        fail(f"an adaptive-clip round syncs {out['cdp-fedexp-adaptive-clip']['syncs']} times, "
-             f"cdp-fedexp's {out['cdp-fedexp']['syncs']}")
+        out[label] = row
+    for label, base in SYNC_BASE.items():
+        if out[label]["syncs"] > out[base]["syncs"]:
+            fail(f"a {label} round syncs {out[label]['syncs']} times, {base}'s "
+                 f"{out[base]['syncs']}")
     torch.cuda.empty_cache()
     return out
 
@@ -612,15 +987,20 @@ def phase_reference(dev):
     sigma_b 0) is deterministic.  Tolerance 1e-4: float32 sums in other
     orders, amplified by the FedEXP ratio over five rounds."""
     m, d, tau, rounds = 40, 32, 5, 5
-    for name, kw in (("fedexp", None), ("ldp-fedexp-gauss", None), ("ldp-gauss-fedadam", None),
-                     ("ldp-fedexp-schedule", None),
-                     ("cdp-fedexp-adaptive-clip", dict(z_mult=0.0, sigma_b=0.0))):
-        _, g, data = run_session(name, m, d, rounds, tau, dev, seed=7, kw=kw)
+    for name, kw, cohort in (
+            ("fedexp", None, None), ("ldp-fedexp-gauss", None, None),
+            ("ldp-gauss-fedadam", None, None), ("ldp-fedexp-schedule", None, None),
+            ("cdp-fedexp-adaptive-clip", dict(z_mult=0.0, sigma_b=0.0), None),
+            ("ldp-fedexp-gauss", None, dict(q=0.25, gather=True)),
+            ("ldp-fedexp-gauss", None, dict(q=0.25)), ("ldp-fedexp-perclient", None, None)):
+        _, g, data = run_session(name, m, d, rounds, tau, dev, seed=7, kw=kw, cohort=cohort)
         cpu_data = type(data)(x=data.x.cpu(), y=data.y.cpu(), w_star=data.w_star.cpu())
-        _, c, _ = run_session(name, m, d, rounds, tau, "cpu", seed=7, data=cpu_data, kw=kw)
+        _, c, _ = run_session(name, m, d, rounds, tau, "cpu", seed=7, data=cpu_data, kw=kw,
+                              cohort=cohort)
         err = close(g.final_w.cpu(), c.final_w, f"{name}: card vs CPU final w", 1e-4)
         close(g.eta_history.cpu(), c.eta_history, f"{name}: card vs CPU eta history", 1e-4)
-        print(f"[5 reference] {name}{'' if kw is None else ' ' + str(kw)}: card vs CPU max abs "
+        print(f"[5 reference] {name}{'' if kw is None else ' ' + str(kw)}"
+              f"{'' if cohort is None else ' CohortSpec' + str(cohort)}: card vs CPU max abs "
               f"err of final w {err:.3e}")
 
 
@@ -1637,7 +2017,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     timed("1 build", phase_build)
-    cases, noise_cases = timed("2 kernels: dp_aggregate", phase_kernels, dev)
+    cases, noise_cases, gathered = timed("2 kernels: dp_aggregate", phase_kernels, dev)
     flash_tc, flash_simt, flash_wide, flash_f32 = timed("2 kernels: flash", phase_flash, dev)
     ssd = timed("2 kernels: ssd_scan", phase_ssd, dev)
 
@@ -1674,14 +2054,17 @@ def main() -> int:
              launches=launches["dp_aggregate"], max_abs_err=max(c["max_abs_err"] for c in cases),
              ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
              bound_by=head["bound_by"], library_ms=None, headline="fused (1000, 131072)",
-             cases=cases, full_rounds=full),
+             cases=cases, gated=gathered["modes"], gated_rows_on=gathered["rows_on"],
+             gathered_shape=gathered["gathered_shape"], full_rounds=full),
         dict(name="ldp_noise", route="cuda", source=src,
              replaces="src/repro/kernels/dp_aggregate/kernel.py:222",
              launches=launches["ldp_noise"],
              max_abs_err=max(c["max_abs_err"] for c in noise_cases),
              ms=nhead["ms"], plain_ms=nhead["plain_ms"], bound_ms=nhead["bound_ms"],
              bound_by=nhead["bound_by"], library_ms=None, headline="(1000, 131072)",
-             cases=noise_cases),
+             cases=noise_cases, row_ids_ms=gathered["noise_rows_ms"],
+             row_ids_bound_ms=gathered["noise_rows_bound_ms"],
+             row_ids_shape=gathered["gathered_shape"]),
         flash_tc,
         flash_simt,
         flash_wide,

@@ -9,7 +9,14 @@ from repro_torch.core import (
     mechanisms,
     stepsize,
 )
-from repro_torch.core.aggregation import RoundStats, aggregate_stats, fused_clip_aggregate
+from repro_torch.core.aggregation import (
+    RoundMoments,
+    RoundStats,
+    aggregate_stats,
+    fused_clip_aggregate,
+    partial_clip_moments,
+    raw_moments,
+)
 from repro_torch.core.algorithm import RoundAux, RoundNoise, ServerAlgorithm
 from repro_torch.core.clipping import clip_batch, clip_by_l2, global_l2_norm_tree
 from repro_torch.core.compose import (
@@ -22,8 +29,10 @@ from repro_torch.core.compose import (
     MeanAggregation,
     NoiseSchedule,
     NoPrivacy,
+    PerClientGaussian,
     PrivUnitLDP,
     ServerOpt,
+    WeightedAggregation,
     compose_algorithm,
 )
 from repro_torch.core.fedexp import list_algorithms, make_algorithm
@@ -31,10 +40,12 @@ from repro_torch.core.fedexp import list_algorithms, make_algorithm
 __all__ = [
     "accounting", "adaptive_clip", "aggregation", "clipping", "compose", "mechanisms",
     "stepsize",
-    "RoundStats", "aggregate_stats", "fused_clip_aggregate",
+    "RoundStats", "RoundMoments", "aggregate_stats", "fused_clip_aggregate",
+    "partial_clip_moments", "raw_moments",
     "clip_batch", "clip_by_l2", "global_l2_norm_tree",
     "ServerAlgorithm", "RoundAux", "RoundNoise", "make_algorithm", "list_algorithms",
     "ComposedAlgorithm", "compose_algorithm",
-    "NoPrivacy", "GaussianLDP", "PrivUnitLDP", "CentralGaussian", "NoiseSchedule",
-    "MeanAggregation", "FixedEta", "FedEXPStep", "ServerOpt", "AdaptiveClipStep",
+    "NoPrivacy", "GaussianLDP", "PerClientGaussian", "PrivUnitLDP", "CentralGaussian",
+    "NoiseSchedule", "MeanAggregation", "WeightedAggregation", "FixedEta", "FedEXPStep",
+    "ServerOpt", "AdaptiveClipStep",
 ]

@@ -22,10 +22,22 @@ optionally adds per-client noise and reduces, through one of three backends:
 
 The kernel wrappers themselves run their plain version on a CPU tensor, so
 every backend computes the same function, with the same noise for a seed.
+
+Moments (the masked-moment protocol of a sampled round).  The three
+reductions are sums over clients, so ``partial_clip_moments`` returns them as
+SUMS (``RoundMoments``) over the rows a ``weight_mask`` gates in, with
+optional per-row ``row_weights``; ``raw_moments`` is the unclipped version
+for the noiseless names.  A block of rows names its clients by ``start``:
+the global index of row 0, or a (m,) host tensor of global indices (a
+gathered cohort, ``global_client_indices``).  On the card the unweighted
+masked release is one launch of the kernel, whose ``row_gate`` does what
+JAX's ``where`` does outside its kernel and whose ``row_ids`` key a gathered
+block's noise by client.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -34,7 +46,11 @@ __all__ = [
     "RoundMoments",
     "aggregate_stats",
     "fused_clip_aggregate",
+    "global_client_indices",
+    "partial_clip_moments",
+    "raw_moments",
     "resolve_backend",
+    "row_keys",
 ]
 
 _BACKENDS = ("kernel", "kernel-fused", "torch")
@@ -65,6 +81,28 @@ class RoundMoments:
         return RoundStats(cbar=cbar, mean_sq=self.sum_sq / self.count,
                           agg_sq=torch.sum(cbar * cbar),
                           mean_sq_clipped=self.sum_sq_clipped / self.count)
+
+
+def global_client_indices(start, m: int) -> torch.Tensor:
+    """(m,) global client indices (int64, on the host) of a block of m rows.
+
+    ``start`` is the global index of row 0 (a contiguous block: ``start +
+    arange(m)``) or already a (m,) tensor of global indices (a gathered
+    block, where row j holds client ``start[j]``), which passes through.
+    """
+    if isinstance(start, torch.Tensor) and start.dim() == 1:
+        return start
+    return torch.arange(int(start), int(start) + m)
+
+
+def row_keys(start, device) -> dict:
+    """The noise keys of a block of clients at ``start``, as the kernel
+    wrappers take them: ``row_start`` for a contiguous block, or ``row_ids``,
+    a gathered block's client indices as int32 on ``device``."""
+    if not isinstance(start, torch.Tensor):
+        return {"row_start": int(start), "row_ids": None}
+    from repro_torch.core.algorithm import host_to_device
+    return {"row_start": 0, "row_ids": host_to_device(start.to(torch.int32), device)}
 
 
 def aggregate_stats(updates: torch.Tensor) -> RoundStats:
@@ -141,3 +179,132 @@ def fused_clip_aggregate(
     if backend == "kernel":
         return ops.dp_aggregate(raw_updates, clip_norm, noise)
     return RoundMoments(*ref.dp_aggregate_ref(raw_updates, noise, clip_norm), count=m).stats()
+
+
+def partial_clip_moments(
+    raw_updates: torch.Tensor,
+    clip_norm,
+    noise: torch.Tensor | None = None,
+    *,
+    noise_seed: int | None = None,
+    noise_sigma=None,
+    start=0,
+    weight_mask: torch.Tensor | None = None,
+    row_weights: torch.Tensor | None = None,
+    backend: str = "auto",
+) -> RoundMoments:
+    """Clip -> (optional noise) -> the release's PARTIAL SUMS over the rows.
+
+    The moment half of ``fused_clip_aggregate`` (JAX's
+    ``partial_clip_moments`` without ``compress_fn``).  Noise is a
+    materialized (m, d) ``noise`` or drawn from ``noise_seed`` with std
+    ``noise_sigma`` for the block's clients: ``start`` (module doc) keys row
+    i by its global client index, so any block draws its rows of the whole
+    cohort's noise.
+
+    ``weight_mask`` ((m,) float) gates each row: a row whose value is not > 0
+    is zeroed with ``where`` (not multiplied) before the clip, its noise too,
+    so a NaN there cannot leak; a row with a value > 0 enters ONCE, even a
+    with-replacement multiplicity (the reference's documented limitation;
+    ``raw_moments`` weights by multiplicity instead).  ``count`` is the sum
+    of the mask, or of ``mask * row_weights``; it is the float m when neither
+    is given.
+
+    ``row_weights`` ((m,) float) weights each released row after its clip
+    and noise (weighted aggregation): ``sum_c = sum_i v_i c_i`` with ``v =
+    mask * row_weights``, and the scalar sums alike.  It takes the plain
+    path, as the reference's weighted sums take ``jnp``.
+
+    Backends as ``fused_clip_aggregate``'s.  On the card the unweighted
+    release is one ``dp_aggregate`` launch with the mask as its ``row_gate``
+    (and a gathered block's ids as its ``row_ids``): no pass over the matrix
+    besides the kernel's.
+    """
+    if noise is not None and noise_seed is not None:
+        raise ValueError("pass either a materialized `noise` or `noise_seed`, not both")
+    if noise_seed is not None and noise_sigma is None:
+        raise ValueError("`noise_seed` requires `noise_sigma`")
+    from repro_torch.kernels.dp_aggregate import ops, ref
+
+    m, d = raw_updates.shape
+    dev = raw_updates.device
+    backend = resolve_backend(backend, dev, wants_noise_gen=noise_seed is not None)
+    if row_weights is not None:
+        backend = "torch"
+    if weight_mask is None and row_weights is None:
+        count = float(m)
+    elif row_weights is None:
+        count = torch.sum(weight_mask)
+    else:
+        count = torch.sum(row_weights if weight_mask is None else weight_mask * row_weights)
+    keys = row_keys(start, dev) if noise_seed is not None else {}
+
+    if backend in ("kernel", "kernel-fused"):
+        kw = {}
+        if noise_seed is not None and backend == "kernel-fused":
+            kw = dict(noise_seed=noise_seed, noise_sigma=noise_sigma, **keys)
+        elif noise_seed is not None:
+            noise = ops.generate_ldp_noise(m, d, noise_seed, noise_sigma, device=dev, **keys)
+        sums = ops.dp_aggregate_sums(raw_updates, clip_norm, noise, row_gate=weight_mask, **kw)
+        return RoundMoments(*sums, count=count)
+
+    if noise_seed is not None:
+        noise = ref.ldp_noise_ref(m, d, noise_seed, noise_sigma, device=dev, **keys)
+    u = raw_updates.to(torch.float32)
+    if weight_mask is not None:
+        keep = (weight_mask > 0)[:, None]
+        u = torch.where(keep, u, 0.0)
+        if noise is not None:
+            noise = torch.where(keep, noise, 0.0)
+    sq_norms = torch.sum(u * u, dim=-1)
+    scale = ref.clip_scale(sq_norms, clip_norm)
+    released = u * scale[:, None]
+    if noise is not None:
+        released = released + noise
+    sq_clipped = sq_norms * (scale * scale)
+    if row_weights is not None:
+        v = row_weights if weight_mask is None else weight_mask * row_weights
+        sum_sq_clipped = v @ sq_clipped
+        sum_sq = sum_sq_clipped if noise is None else v @ torch.sum(released * released, dim=-1)
+        return RoundMoments(v @ released, sum_sq, sum_sq_clipped, count)
+    sum_sq_clipped = torch.sum(sq_clipped)
+    sum_sq = (sum_sq_clipped if noise is None
+              else torch.sum(torch.sum(released * released, dim=-1)))
+    return RoundMoments(released.sum(dim=0), sum_sq, sum_sq_clipped, count)
+
+
+def raw_moments(deltas: torch.Tensor, mask: torch.Tensor | None,
+                row_weights: torch.Tensor | None = None, *,
+                binary_mask: bool = False) -> RoundMoments:
+    """Unclipped partial sums (the noiseless names), weighted by the mask.
+
+    Rows whose mask is not > 0 are zeroed with ``where`` first; each other
+    row is weighted by its mask value (a with-replacement multiplicity
+    counts that many times) times its ``row_weights``; ``count`` is the
+    weight sum.  ``mask=None`` is full participation (count m, or the
+    weights' sum).
+
+    ``binary_mask``: the caller knows the mask is {0, 1} (a cohort without
+    replacement), so gating a row once IS weighting it by its mask.  Then,
+    without row weights, a CUDA tensor reduces in one ``dp_aggregate``
+    launch (none mode, C = inf, the mask as its gate), as the dense noiseless
+    release does; otherwise the sums are plain PyTorch, as in the reference.
+    """
+    m = deltas.shape[0]
+    if deltas.device.type == "cuda" and row_weights is None and (mask is None or binary_mask):
+        from repro_torch.kernels.dp_aggregate import ops
+        sums = ops.dp_aggregate_sums(deltas, math.inf, row_gate=mask)
+        return RoundMoments(*sums, count=float(m) if mask is None else torch.sum(mask))
+    if mask is None:
+        v = row_weights
+        count = float(m) if row_weights is None else torch.sum(row_weights)
+    else:
+        deltas = torch.where((mask > 0)[:, None], deltas, 0.0)
+        v = mask if row_weights is None else mask * row_weights
+        count = torch.sum(v)
+    sq = torch.sum(deltas * deltas, dim=-1)
+    if v is None:
+        sum_sq = torch.sum(sq)
+        return RoundMoments(deltas.sum(dim=0), sum_sq, sum_sq, count)
+    sum_sq = v @ sq
+    return RoundMoments(v @ deltas, sum_sq, sum_sq, count)

@@ -7,7 +7,10 @@ runs, the algorithm draws from it everything its release consumes into a
 ``RoundNoise``: host values (the kernel's 32-bit noise seed, the CDP
 numerator noise, PrivUnit's per-client scalars, the clip-bit noise) come
 straight from it, device tensors from a device generator seeded by it.  Tests pass a ``RoundNoise`` of their own to replay
-the JAX package's noise exactly.
+the JAX package's noise exactly.  A sampled round draws its cohort mask
+first (``CohortSpec.round_mask``), then the algorithm's noise for the whole
+cohort of M clients, so a gathered block of clients reads its rows of the
+same draws as the dense round.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.aggregation import RoundMoments
+from repro_torch.core.aggregation import RoundMoments, global_client_indices
 
 __all__ = [
     "RoundAux",
@@ -26,7 +29,9 @@ __all__ = [
     "device_normal",
     "draw_seed32",
     "host_to_device",
+    "rows_at",
     "set_moment_count",
+    "clamp_moment_counts",
 ]
 
 
@@ -61,6 +66,15 @@ def host_to_device(x: torch.Tensor, device) -> torch.Tensor:
     return x.pin_memory().to(device, non_blocking=True)
 
 
+def rows_at(x: torch.Tensor, start, m: int) -> torch.Tensor:
+    """The rows of a per-client (M, ...) tensor that a block of m clients at
+    ``start`` owns (``global_client_indices``): a slice for a contiguous
+    block, a gather for a gathered one (indices copied to ``x``'s device)."""
+    if not isinstance(start, torch.Tensor):
+        return x if start == 0 and x.shape[0] == m else x[start:start + m]
+    return x.index_select(0, host_to_device(global_client_indices(start, m), x.device))
+
+
 @dataclasses.dataclass
 class RoundNoise:
     """Everything random that one round's release consumes."""
@@ -81,13 +95,34 @@ class RoundNoise:
     bit: torch.Tensor | None = None         # N(0, 1) of the adaptive clip's bit sum
 
 
-def set_moment_count(moments, m_total: int):
-    """Swap the count of every RoundMoments in ``moments`` (a RoundMoments or a
-    tuple holding some) for the statically known client count."""
-    def fix(x):
-        return dataclasses.replace(x, count=float(m_total)) if isinstance(x, RoundMoments) else x
+def _map_moments(moments, fix):
+    """``fix`` applied to every RoundMoments in ``moments`` (a RoundMoments or
+    a tuple holding some)."""
+    def one(x):
+        return fix(x) if isinstance(x, RoundMoments) else x
 
-    return tuple(fix(x) for x in moments) if isinstance(moments, tuple) else fix(moments)
+    return tuple(one(x) for x in moments) if isinstance(moments, tuple) else one(moments)
+
+
+def set_moment_count(moments, m_total: int):
+    """Swap the count of every RoundMoments in ``moments`` for the statically
+    known client count (the fixed cohort size of a sampled round)."""
+    return _map_moments(moments, lambda x: dataclasses.replace(x, count=float(m_total)))
+
+
+def clamp_moment_counts(moments, floor: float = 1.0):
+    """Clamp every RoundMoments count to >= ``floor``, on the device.
+
+    A Bernoulli cohort can be empty: its sums are 0, and a count of 1 makes
+    the round a zero update instead of NaN.  A weighted count is a weight
+    sum that may be below 1; its caller passes a tiny floor that only guards
+    the empty round."""
+    def clamp(x):
+        c = x.count
+        c = torch.clamp(c, min=floor) if isinstance(c, torch.Tensor) else max(float(c), floor)
+        return dataclasses.replace(x, count=c)
+
+    return _map_moments(moments, clamp)
 
 
 @dataclasses.dataclass
@@ -114,10 +149,24 @@ class ServerAlgorithm:
     local updates, ``state`` the server carry (``init_state``), ``noise``
     an optional ``RoundNoise`` that replaces the draws from ``gen``, and
     ``t`` the round index (read by round-indexed noise schedules).
+
+    A sampled round is the masked-moment protocol, two halves around the
+    round's ``RoundNoise`` (``draw_noise`` for all M clients):
+
+        local_moments(noise, w, deltas, mask, start, state, t)  -> SUMS
+        apply_from_moments(noise, w, moments, state, t)         -> (w', aux, state)
+
+    ``deltas`` are the (m, d) rows of a block of clients at ``start`` (the
+    global index of row 0, or a (m,) host tensor of global indices), ``mask``
+    their (m,) participation weights.  The moments are sums, so blocks add.
     """
 
     name: str = "base"
     is_private: bool = True
+    # the count of a RoundMoments is the number of participating clients, so
+    # a sampled round may replace it with the fixed cohort size; weighted
+    # aggregation (count = a weight sum) sets this False
+    supports_static_count: bool = True
 
     def init_state(self, w: torch.Tensor):
         """Initial server carry for a run starting from ``w``."""
@@ -131,6 +180,15 @@ class ServerAlgorithm:
                              t=None):
         """One dense round: ``-> (w_next, RoundAux, state)``."""
         raise NotImplementedError
+
+    def local_moments(self, noise: RoundNoise, w, deltas, mask, start, state, t=None, *,
+                      binary_mask: bool = False):
+        """Partial sums of this algorithm's release over a block of clients."""
+        raise NotImplementedError(f"{self.name} has no masked-moment round")
+
+    def apply_from_moments(self, noise: RoundNoise, w, moments, state, t=None):
+        """The server update from the cohort's moments: ``-> (w_next, RoundAux, state)``."""
+        raise NotImplementedError(f"{self.name} has no masked-moment round")
 
     def apply_round(self, gen, w, raw_deltas, noise: RoundNoise | None = None, t=None):
         """One dense round from a fresh carry: ``-> (w_next, RoundAux)``."""

@@ -1,36 +1,45 @@
 """Composable algorithm stack: privacy mechanism x aggregation x global step.
 
-Counterpart of repro/core/compose.py, holding what the dense round of the
-paper's noiseless, Gaussian and PrivUnit algorithms, server optimizers,
-adaptive clipping and noise schedules need:
+Counterpart of repro/core/compose.py, holding what the paper's noiseless,
+Gaussian and PrivUnit algorithms, server optimizers, adaptive clipping,
+noise schedules and heterogeneous privacy need, in the dense round and in
+the masked-moment round of a sampled cohort:
 
     PrivacyMechanism   clipping + noise + the step-size bias correction + the
                        accounting of its release: ``NoPrivacy``,
-                       ``GaussianLDP``, ``PrivUnitLDP``, ``CentralGaussian``
-                       (fixed sigma or the adaptive-clip noise multiplier
-                       ``z_mult``), ``NoiseSchedule`` (sigma(t) over a
-                       fixed-sigma Gaussian).
-    Aggregation        ``MeanAggregation``, the paper's uniform mean.
+                       ``GaussianLDP``, ``PerClientGaussian`` (a sigma per
+                       client from its own epsilon), ``PrivUnitLDP``,
+                       ``CentralGaussian`` (fixed sigma or the adaptive-clip
+                       noise multiplier ``z_mult``), ``NoiseSchedule``
+                       (sigma(t) over a fixed-sigma Gaussian).
+    Aggregation        ``MeanAggregation``, the paper's uniform mean, and
+                       ``WeightedAggregation`` (public per-client weights
+                       applied after each release).
     GlobalStep         ``FixedEta`` (DP-FedAvg), ``FedEXPStep`` (the paper's
                        adaptive extrapolation, Eqs. 2/6/7/8), ``ServerOpt``
                        (server Adam / momentum) and ``AdaptiveClipStep``
                        (quantile-tracked clip threshold, Andrew et al. 2021).
 
-Every Gaussian release reduces through ``fused_clip_aggregate``: on the card
-that is the CUDA ``dp_aggregate`` kernel (fused noise for ``GaussianLDP``,
-none mode for ``CentralGaussian`` and, with C = inf, for ``NoPrivacy``).
-Under ``AdaptiveClipStep`` the clip threshold C is a 0-d tensor on the
-device that the kernel reads there.  ``PrivUnitLDP`` is plain PyTorch, as it
-reaches no kernel in the JAX package.
+Every Gaussian release reduces through ``fused_clip_aggregate`` (dense) or
+``partial_clip_moments`` (masked): on the card that is the CUDA
+``dp_aggregate`` kernel (fused noise for ``GaussianLDP``, none mode for
+``CentralGaussian`` and, with C = inf, for ``NoPrivacy``), one launch a
+round, with the cohort mask as the kernel's row gate.  Under
+``AdaptiveClipStep`` the clip threshold C is a 0-d tensor on the device that
+the kernel reads there.  ``PrivUnitLDP`` is plain PyTorch, as it reaches no
+kernel in the JAX package; so are weighted sums and per-row sigmas, which
+the kernel does not take (``PerClientGaussian`` draws its unit noise with
+the noise-only kernel).
 
 Randomness (``repro_torch.core.algorithm``): ``draw`` methods take what the
-round consumes from its generator, mechanism first, then step; ``release``
-and ``apply`` only read the resulting ``RoundNoise``.  ``release`` and
-``extrapolation`` take ``clip``: None for the mechanism's own static
-``clip_norm``, or the step's per-round override.
+round consumes from its generator, mechanism first, then step, always for
+the whole cohort of M clients; ``release``, ``moments`` and ``apply`` only
+read the resulting ``RoundNoise``, a block of clients its rows at their
+global indices.  ``release`` and ``extrapolation`` take ``clip``: None for
+the mechanism's own static ``clip_norm``, or the step's per-round override.
 
-Per-client noise, weighted and compressed aggregation and SCAFFOLD come in
-later slices (ROADMAP.md, queue 1).
+Compressed aggregation and SCAFFOLD come in later slices (ROADMAP.md,
+queue 1).
 """
 from __future__ import annotations
 
@@ -43,7 +52,16 @@ import torch
 from repro_torch.core import accounting, stepsize
 from repro_torch.core import adaptive_clip as ac
 from repro_torch.core import mechanisms as mech
-from repro_torch.core.aggregation import RoundStats, aggregate_stats, fused_clip_aggregate
+from repro_torch.core.aggregation import (
+    RoundMoments,
+    RoundStats,
+    aggregate_stats,
+    fused_clip_aggregate,
+    global_client_indices,
+    partial_clip_moments,
+    raw_moments,
+    row_keys,
+)
 from repro_torch.core.algorithm import (
     RoundAux,
     RoundNoise,
@@ -51,17 +69,20 @@ from repro_torch.core.algorithm import (
     device_normal,
     draw_seed32,
     host_to_device,
+    rows_at,
 )
 
 __all__ = [
     "PrivacyMechanism",
     "NoPrivacy",
     "GaussianLDP",
+    "PerClientGaussian",
     "PrivUnitLDP",
     "CentralGaussian",
     "NoiseSchedule",
     "Aggregation",
     "MeanAggregation",
+    "WeightedAggregation",
     "GlobalStep",
     "FixedEta",
     "FedEXPStep",
@@ -81,6 +102,10 @@ class PrivacyMechanism:
 
         draw(gen, m, d, device)                 -> RoundNoise fields it consumes
         release(noise, deltas, clip)            dense (M, d) -> (RoundStats, extras)
+        moments(noise, deltas, mask, start, clip, row_weights)
+                                                -> (RoundMoments, extras) partial SUMS
+        finalize(noise, mom, extras, clip, m_eff)
+                                                cohort moments -> (RoundStats, extras')
         extrapolation(noise, stats, extras, dim, clip, m_eff)
                                                 -> (eta_g, eta_naive, eta_target)
         budget(delta, rounds, dim, sampling_q, with_numerator) -> PrivacyReport
@@ -111,6 +136,17 @@ class PrivacyMechanism:
         """Dense release: clip + randomize + reduce M rows to ``(RoundStats, extras)``."""
         raise NotImplementedError
 
+    def moments(self, noise: RoundNoise, deltas: torch.Tensor, mask, start, clip=None,
+                row_weights=None, *, binary_mask: bool = False):
+        """Partial SUMS of the release over the masked rows of a block of
+        clients at ``start`` (``ServerAlgorithm``); ``binary_mask``: the
+        caller knows the mask is {0, 1}."""
+        raise NotImplementedError
+
+    def finalize(self, noise: RoundNoise, mom: RoundMoments, extras: dict, clip, m_eff):
+        """The cohort's moments -> the ``RoundStats`` the step reads."""
+        return mom.stats(), {}
+
     def extrapolation(self, noise: RoundNoise, stats: RoundStats, extras: dict, dim: int,
                       clip, m_eff):
         """This mechanism's debiased step size: ``(eta_g, eta_naive, eta_target)``."""
@@ -135,6 +171,11 @@ class NoPrivacy(PrivacyMechanism):
         """Dense release: the three reductions of the unclipped rows."""
         s = fused_clip_aggregate(deltas, math.inf)
         return RoundStats(cbar=s.cbar, mean_sq=s.mean_sq, agg_sq=s.agg_sq), {}
+
+    def moments(self, noise, deltas, mask, start, clip=None, row_weights=None, *,
+                binary_mask=False):
+        """The unclipped rows' sums, weighted by the mask (``raw_moments``)."""
+        return raw_moments(deltas, mask, row_weights, binary_mask=binary_mask), {}
 
     def extrapolation(self, noise, stats, extras, dim, clip, m_eff):
         """Eq. (2) on the unprivatized statistics."""
@@ -166,6 +207,18 @@ class GaussianLDP(PrivacyMechanism):
         return fused_clip_aggregate(deltas, c, noise_seed=noise.seed, noise_sigma=self.sigma,
                                     backend=self.backend), {}
 
+    def moments(self, noise, deltas, mask, start, clip=None, row_weights=None, *,
+                binary_mask=False):
+        """The masked release's sums; each row's noise is its client's."""
+        c, m = self._clip(clip), deltas.shape[0]
+        if noise.ldp is not None:
+            return partial_clip_moments(deltas, c, rows_at(noise.ldp, start, m),
+                                        weight_mask=mask, row_weights=row_weights,
+                                        backend=self.backend), {}
+        return partial_clip_moments(deltas, c, noise_seed=noise.seed, noise_sigma=self.sigma,
+                                    start=start, weight_mask=mask, row_weights=row_weights,
+                                    backend=self.backend), {}
+
     def extrapolation(self, noise, stats, extras, dim, clip, m_eff):
         """Eq. (6), with the naive (Eq. 3) and target (Eq. 5) diagnostics."""
         eta = stepsize.ldp_gaussian(stats.mean_sq, stats.agg_sq, dim, self.sigma)
@@ -176,6 +229,129 @@ class GaussianLDP(PrivacyMechanism):
     def budget(self, delta, *, rounds, dim, sampling_q, with_numerator):
         """Per-release local guarantee (Prop. 4.1), whatever the step."""
         return accounting.ldp_gaussian_budget(self.clip_norm, self.sigma, delta)
+
+
+def _rows_of(values: torch.Tensor, start, m: int) -> torch.Tensor:
+    """A block's rows of a per-client (M,) host vector, zero past M (padding)."""
+    padded = torch.cat([values, torch.zeros(m, dtype=values.dtype)])
+    if isinstance(start, torch.Tensor):
+        return padded[torch.clamp(global_client_indices(start, m), max=values.shape[0])]
+    return padded[int(start):int(start) + m]
+
+
+@dataclasses.dataclass(frozen=True)
+class PerClientGaussian(PrivacyMechanism):
+    """Heterogeneous-privacy Gaussian LDP: client i carries its own epsilon.
+
+    sigma_i comes from (eps_i, delta) at sensitivity 2C
+    (``mechanisms.per_client_sigmas``, float64 on the host), indexed by
+    global client index as ``WeightedAggregation.weights`` are.  Row i's
+    noise is client i's unit-sigma stream (the kernels' Threefry noise at
+    sigma 1, or ``RoundNoise.ldp`` read as N(0, 1)) times sigma_i.  The
+    FedEXP correction subtracts ``d * mean(sigma_i^2)`` over the realized
+    cohort (``stepsize.ldp_gaussian_mixed``).  When every epsilon is equal
+    the release is ``GaussianLDP``'s with the common sigma, expression for
+    expression.  ``inverse_variance_weights()`` are the public 1/sigma_i^2
+    weights that ``ldp-fedexp-perclient`` aggregates with.
+    """
+
+    clip_norm: float
+    epsilons: tuple[float, ...]
+    delta: float
+    backend: str = "auto"
+
+    def __post_init__(self):
+        from repro_torch.core import mechanisms as _mech
+        eps = tuple(float(e) for e in self.epsilons)
+        if not eps:
+            raise ValueError("PerClientGaussian requires per-client epsilons")
+        object.__setattr__(self, "epsilons", eps)
+        sigmas = _mech.per_client_sigmas(eps, self.delta, self.clip_norm)
+        object.__setattr__(self, "sigmas", sigmas)
+        object.__setattr__(self, "_uniform", len(set(sigmas)) == 1)
+        object.__setattr__(self, "_sigma_host", torch.tensor(sigmas, dtype=torch.float32))
+
+    def inverse_variance_weights(self) -> tuple[float, ...]:
+        """Public 1/sigma_i^2 aggregation weights (for ``WeightedAggregation``)."""
+        return tuple(1.0 / (s * s) for s in self.sigmas)
+
+    def _sigma_rows(self, start, m: int, device) -> torch.Tensor:
+        """(m,) float32 sigmas of a block of clients on ``device`` (0 past M)."""
+        return host_to_device(_rows_of(self._sigma_host, start, m), device)
+
+    def draw(self, gen, m, d, device):
+        """The round's 32-bit noise seed."""
+        return {"seed": draw_seed32(gen)}
+
+    def _noise(self, noise, shape, start, device) -> torch.Tensor:
+        """The block's noise: each client's unit-sigma rows times its sigma."""
+        from repro_torch.kernels.dp_aggregate import ops
+        m, d = shape
+        if noise.ldp is not None:
+            unit = rows_at(noise.ldp, start, m)
+        else:
+            unit = ops.generate_ldp_noise(m, d, noise.seed, 1.0, device=device,
+                                          **row_keys(start, device))
+        return unit * self._sigma_rows(start, m, device)[:, None]
+
+    def _uniform_noise(self, noise, start, m) -> dict:
+        """GaussianLDP's noise arguments at the common sigma."""
+        if noise.ldp is not None:
+            return {"noise": self.sigmas[0] * rows_at(noise.ldp, start, m)}
+        return {"noise_seed": noise.seed, "noise_sigma": self.sigmas[0]}
+
+    def release(self, noise, deltas, clip=None):
+        """Dense release: clip, add sigma_i * N(0, 1) to row i, reduce."""
+        c, m = self._clip(clip), deltas.shape[0]
+        if self._uniform:
+            return fused_clip_aggregate(deltas, c, **self._uniform_noise(noise, 0, m),
+                                        backend=self.backend), {}
+        stats = fused_clip_aggregate(deltas, c, self._noise(noise, deltas.shape, 0, deltas.device),
+                                     backend=self.backend)
+        sig_sq = torch.square(self._sigma_rows(0, m, deltas.device))
+        return stats, {"mean_sigma_sq": torch.sum(sig_sq) / m}
+
+    def moments(self, noise, deltas, mask, start, clip=None, row_weights=None, *,
+                binary_mask=False):
+        """The masked release's sums, and the cohort's sum of sigma_i^2."""
+        c, m = self._clip(clip), deltas.shape[0]
+        if self._uniform:
+            kw = self._uniform_noise(noise, start, m)
+            if "noise_seed" in kw:
+                kw["start"] = start
+            return partial_clip_moments(deltas, c, weight_mask=mask, row_weights=row_weights,
+                                        backend=self.backend, **kw), {}
+        mom = partial_clip_moments(deltas, c, self._noise(noise, deltas.shape, start,
+                                                          deltas.device),
+                                   weight_mask=mask, row_weights=row_weights,
+                                   backend=self.backend)
+        v = mask if row_weights is None else mask * row_weights
+        sig_sq = torch.square(self._sigma_rows(start, m, deltas.device))
+        return mom, {"sum_sigma_sq": v @ sig_sq}
+
+    def finalize(self, noise, mom, extras, clip, m_eff):
+        """The cohort's stats, and its mean sigma^2 when sigmas differ."""
+        if self._uniform:
+            return mom.stats(), {}
+        return mom.stats(), {"mean_sigma_sq": extras["sum_sigma_sq"] / mom.count}
+
+    def extrapolation(self, noise, stats, extras, dim, clip, m_eff):
+        """Eq. (6) with the cohort's mean sigma^2, and the diagnostics."""
+        if self._uniform:
+            eta = stepsize.ldp_gaussian(stats.mean_sq, stats.agg_sq, dim, self.sigmas[0])
+        else:
+            eta = stepsize.ldp_gaussian_mixed(stats.mean_sq, stats.agg_sq, dim,
+                                              extras["mean_sigma_sq"])
+        return (eta,
+                stepsize.naive_noisy(stats.mean_sq, stats.agg_sq),
+                stepsize.target(stats.mean_sq_clipped, stats.agg_sq))
+
+    def budget(self, delta, *, rounds, dim, sampling_q, with_numerator):
+        """Worst-client budget: the LDP guarantee of the smallest sigma; every
+        other client's release is more private."""
+        rep = accounting.ldp_gaussian_budget(self.clip_norm, min(self.sigmas), delta)
+        return dataclasses.replace(
+            rep, setting=f"LDP (Gaussian, per-client worst of {len(self.epsilons)})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,6 +421,33 @@ class PrivUnitLDP(PrivacyMechanism):
         stats.mean_sq_clipped = torch.sum(torch.sum(torch.square(clipped), dim=-1)) / m
         return stats, {"mean_s_hat": torch.sum(self._s_hat(released, clip)) / m}
 
+    def moments(self, noise, deltas, mask, start, clip=None, row_weights=None, *,
+                binary_mask=False):
+        """The masked release's sums over the block's clients, each randomized
+        with its own draws (the rows of the cohort's at its global index);
+        masked rows where-zeroed in both the released and the clipped sets,
+        each other row weighted by its mask value (and weight)."""
+        m = deltas.shape[0]
+        if not (isinstance(start, int) and start == 0 and noise.g.shape[0] == m):
+            idx = global_client_indices(start, m)
+            host = {f: getattr(noise, f)[idx] for f in ("cap_u", "u01", "round_u", "keep_u",
+                                                         "u_int")}
+            noise = dataclasses.replace(noise, g=rows_at(noise.g, start, m), **host)
+        released, clipped = self._randomize(noise, deltas, clip)
+        keep = (mask > 0)[:, None]
+        released = torch.where(keep, released, 0.0)
+        clipped = torch.where(keep, clipped, 0.0)
+        v = mask if row_weights is None else mask * row_weights
+        mom = RoundMoments(sum_c=v @ released,
+                           sum_sq=v @ torch.sum(torch.square(released), dim=-1),
+                           sum_sq_clipped=v @ torch.sum(torch.square(clipped), dim=-1),
+                           count=torch.sum(v))
+        return mom, {"sum_s_hat": v @ self._s_hat(released, clip)}
+
+    def finalize(self, noise, mom, extras, clip, m_eff):
+        """The cohort's stats and mean s_hat."""
+        return mom.stats(), {"mean_s_hat": extras["sum_s_hat"] / mom.count}
+
     def extrapolation(self, noise, stats, extras, dim, clip, m_eff):
         """Eq. (7), with the naive (Eq. 3) and target (Eq. 5) diagnostics."""
         eta = stepsize.ldp_privunit(extras["mean_s_hat"], stats.agg_sq)
@@ -297,8 +500,18 @@ class CentralGaussian(PrivacyMechanism):
 
     def _m_noise(self, m_eff):
         """Divisor of the server-noise std: the static configured M for the
-        fixed-sigma release, the realized cohort for the z-tracking one."""
-        return float(self.num_clients) if self.z_mult is None else m_eff
+        fixed-sigma release, the realized cohort for the z-tracking one (a
+        count on the device floored at 1, as the reference floors a traced
+        count; a host count as it is)."""
+        if self.z_mult is None:
+            return float(self.num_clients)
+        return torch.clamp(m_eff, min=1.0) if isinstance(m_eff, torch.Tensor) else m_eff
+
+    def _noised(self, noise, cbar, clip, m_eff):
+        """cbar + sigma / sqrt(m) * N(0, 1) on the device."""
+        m = self._m_noise(m_eff)
+        root = torch.sqrt(m) if isinstance(m, torch.Tensor) else math.sqrt(m)
+        return cbar + (self._sigma(clip) / root) * noise.central
 
     def draw(self, gen, m, d, device):
         """N(0, 1) of the (d,) mean, drawn on the device."""
@@ -307,10 +520,22 @@ class CentralGaussian(PrivacyMechanism):
     def release(self, noise, deltas, clip=None):
         """Dense release: clip, reduce, then noise the mean."""
         stats = fused_clip_aggregate(deltas, self._clip(clip), None, backend=self.backend)
-        std = self._sigma(clip) / math.sqrt(self._m_noise(float(deltas.shape[0])))
-        cbar = stats.cbar + std * noise.central
+        cbar = self._noised(noise, stats.cbar, clip, float(deltas.shape[0]))
         return RoundStats(cbar=cbar, mean_sq=stats.mean_sq, agg_sq=torch.sum(cbar * cbar),
                           mean_sq_clipped=stats.mean_sq_clipped), {}
+
+    def moments(self, noise, deltas, mask, start, clip=None, row_weights=None, *,
+                binary_mask=False):
+        """The clipped rows' sums (none mode); the noise comes in ``finalize``."""
+        return partial_clip_moments(deltas, self._clip(clip), None, weight_mask=mask,
+                                    row_weights=row_weights, backend=self.backend), {}
+
+    def finalize(self, noise, mom, extras, clip, m_eff):
+        """Normalize, then noise the mean for the realized cohort ``m_eff``."""
+        cbar = self._noised(noise, mom.sum_c / mom.count, clip, m_eff)
+        return RoundStats(cbar=cbar, mean_sq=mom.sum_sq / mom.count,
+                          agg_sq=torch.sum(cbar * cbar),
+                          mean_sq_clipped=mom.sum_sq_clipped / mom.count), {}
 
     def extrapolation(self, noise, stats, extras, dim, clip, m_eff):
         """Eq. (8): the clipped numerator plus sigma_xi * xi, and the target."""
@@ -457,10 +682,42 @@ class NoiseSchedule(PrivacyMechanism):
 class Aggregation:
     """How released client updates combine into the round's moments."""
 
+    is_weighted = False
+    is_compressed = False
+
+    def row_weights(self, start, m_local: int, device):
+        """Per-client weights of a block of clients at ``start``; None = uniform."""
+        return None
+
 
 @dataclasses.dataclass(frozen=True)
 class MeanAggregation(Aggregation):
     """Uniform mean over the cohort — the paper's aggregation."""
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightedAggregation(Aggregation):
+    """Public per-client weights applied after each client's DP release: the
+    round releases ``sum_i v_i c_i / sum_i v_i``, so each client's guarantee
+    is the mechanism's.  ``weights`` is a per-client tuple indexed by global
+    client index.  The moment count is a weight sum, not a client count, so
+    a sampled round never replaces it with the cohort size."""
+
+    weights: tuple[float, ...] = ()
+
+    is_weighted = True
+
+    def __post_init__(self):
+        if not self.weights:
+            raise ValueError("WeightedAggregation requires per-client weights")
+        if any(w < 0 for w in self.weights) or sum(self.weights) <= 0:
+            raise ValueError("weights must be nonnegative with positive sum")
+        object.__setattr__(self, "_host", torch.tensor(self.weights, dtype=torch.float32))
+
+    def row_weights(self, start, m_local, device):
+        """(m_local,) float32 weights of the block's clients on ``device``;
+        padding rows past M weigh 0."""
+        return host_to_device(_rows_of(self._host, start, m_local), device)
 
 
 # ---------------------------------------------------------------------------
@@ -520,9 +777,10 @@ class FedEXPStep(GlobalStep):
         return _draw_xi(gen, mechanism)
 
     def apply(self, noise, w, stats, extras, mechanism, clip, m_eff, state):
-        """Extrapolate: w + eta_g * cbar."""
+        """Extrapolate: w + eta_g * cbar (a weighted round's client count
+        rides in ``extras["n_clients"]``)."""
         eta, naive, target = mechanism.extrapolation(noise, stats, extras, w.shape[-1], clip,
-                                                     m_eff)
+                                                     extras.get("n_clients", m_eff))
         eta = eta.to(w.device)
         aux = RoundAux(eta_g=eta, eta_naive=naive, eta_target=target,
                        update_norm=eta * torch.linalg.vector_norm(stats.cbar))
@@ -598,10 +856,12 @@ class AdaptiveClipStep(GlobalStep):
     def apply(self, noise, w, stats, extras, mechanism, clip, m_eff, state):
         """Extrapolate at the current C, then move C toward the gamma-quantile."""
         c = state.clip
-        eta, _, _ = mechanism.extrapolation(noise, stats, extras, w.shape[-1], clip, m_eff)
+        m_clients = extras.get("n_clients", m_eff)   # a weighted round's client count
+        eta, _, _ = mechanism.extrapolation(noise, stats, extras, w.shape[-1], clip, m_clients)
         eta = eta.to(w.device)
         cfg = ac.AdaptiveClipConfig(gamma=self.gamma, lr=self.clip_lr, sigma_b=self.sigma_b)
-        state, _ = ac.update_clip_from_stats(noise.bit, state, extras["count_below"], m_eff, cfg)
+        state, _ = ac.update_clip_from_stats(noise.bit, state, extras["count_below"],
+                                             m_clients, cfg)
         return w + eta * stats.cbar, RoundAux(eta_g=eta, update_norm=c), state
 
 
@@ -623,10 +883,16 @@ class ComposedAlgorithm(ServerAlgorithm):
     name: str = "composed"
 
     def __post_init__(self):
-        if not isinstance(self.aggregation, MeanAggregation):
+        if self.aggregation.is_compressed or not isinstance(
+                self.aggregation, (MeanAggregation, WeightedAggregation)):
             raise NotImplementedError(
-                f"{type(self.aggregation).__name__} is not ported yet: weighted and "
-                "compressed aggregation come in later slices (ROADMAP.md, queue 1)")
+                f"{type(self.aggregation).__name__} is not ported yet: compressed "
+                "aggregation comes in a later slice (ROADMAP.md, queue 1, item 14)")
+
+    @property
+    def supports_static_count(self):
+        """False under weighted aggregation: the moment count is a weight sum."""
+        return not self.aggregation.is_weighted
 
     @property
     def is_private(self):
@@ -669,10 +935,17 @@ class ComposedAlgorithm(ServerAlgorithm):
         return RoundNoise(**fields)
 
     def apply_round_stateful(self, gen, w, raw_deltas, state, noise=None, t=None):
-        """Dense round ``t``: release the (M, d) raw deltas at the step's clip, then step."""
+        """Dense round ``t``: release the (M, d) raw deltas at the step's clip,
+        then step.  A weighted composition takes the moment route with an
+        all-ones mask, as the reference's does."""
         mech_t = self._mech_at(t)
         if noise is None:
             noise = self.draw_noise(gen, *raw_deltas.shape, raw_deltas.device, t)
+        if self.aggregation.is_weighted:
+            ones = torch.ones(raw_deltas.shape[0], device=raw_deltas.device)
+            moments = self.local_moments(noise, w, raw_deltas, ones, 0, state, t,
+                                         binary_mask=True)
+            return self.apply_from_moments(noise, w, moments, state, t)
         clip = self.step.clip_override(state)
         m = float(raw_deltas.shape[0])
         stats, extras = mech_t.release(noise, raw_deltas, clip)
@@ -680,6 +953,37 @@ class ComposedAlgorithm(ServerAlgorithm):
             norms = torch.linalg.vector_norm(raw_deltas, dim=-1)
             extras = {**extras, "count_below": torch.sum((norms <= clip).to(torch.float32))}
         return self.step.apply(noise, w, stats, extras, mech_t, clip, m, state)
+
+    def local_moments(self, noise, w, deltas, mask, start, state, t=None, *,
+                      binary_mask=False):
+        """A block's partial sums of round ``t``'s release (``ServerAlgorithm``):
+        ``(RoundMoments, extras)``, extras holding the mechanism's scalar sums,
+        the adaptive clip's ``count_below`` and a weighted round's
+        ``n_clients``, all sums."""
+        clip = self.step.clip_override(state)
+        mech_t = self._mech_at(t)
+        weights = self.aggregation.row_weights(start, deltas.shape[0], deltas.device)
+        mom, extras = mech_t.moments(noise, deltas, mask, start, clip, weights,
+                                     binary_mask=binary_mask)
+        if self.step.needs_clip_bits:
+            below = (torch.linalg.vector_norm(deltas, dim=-1) <= clip).to(torch.float32)
+            extras = {**extras, "count_below": mask @ below}
+        if self.aggregation.is_weighted:
+            # mom.count is a weight sum; the clip update and the realized
+            # cohort's noise read the client count
+            extras = {**extras, "n_clients": torch.sum(mask)}
+        return mom, extras
+
+    def apply_from_moments(self, noise, w, moments, state, t=None):
+        """The server update of round ``t`` from the cohort's moments."""
+        mom, extras = moments
+        clip = self.step.clip_override(state)
+        mech_t = self._mech_at(t)
+        m_eff = extras.get("n_clients", mom.count)
+        stats, more = mech_t.finalize(noise, mom, extras, clip, m_eff)
+        if more:
+            extras = {**extras, **more}
+        return self.step.apply(noise, w, stats, extras, mech_t, clip, mom.count, state)
 
     def budget(self, delta: float, *, rounds: int, dim: int,
                sampling_q: float = 1.0) -> accounting.PrivacyReport:
@@ -704,5 +1008,8 @@ def compose_algorithm(mechanism: PrivacyMechanism, step: GlobalStep,
     """Build a ComposedAlgorithm with a derived name when none is given."""
     agg = MeanAggregation() if aggregation is None else aggregation
     if name is None:
-        name = "-".join([type(mechanism).__name__.lower(), type(step).__name__.lower()])
+        parts = [type(mechanism).__name__.lower(), type(step).__name__.lower()]
+        if agg.is_weighted:
+            parts.insert(1, "weighted")
+        name = "-".join(parts)
     return ComposedAlgorithm(mechanism=mechanism, step=step, aggregation=agg, name=name)

@@ -1,10 +1,11 @@
 """Algorithm registry (counterpart of the registry in repro/core/fedexp.py).
 
 Every name is a (mechanism, step) composition under the uniform
-``MeanAggregation``.  The port builds the JAX registry's names but two:
-``ldp-fedexp-perclient`` (weighted aggregation) and ``dp-scaffold`` (client
-control variates) raise ``NotImplementedError`` naming the slice that brings
-them (ROADMAP.md, queue 1).
+``MeanAggregation``, but ``ldp-fedexp-perclient``: a sigma per client from
+its own epsilon (``PerClientGaussian``) under the inverse-variance
+``WeightedAggregation``.  The port builds 16 of the JAX registry's 17 names;
+``dp-scaffold`` (client control variates) raises ``NotImplementedError``
+naming the slice that brings it (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -59,6 +60,17 @@ def _composed(name: str, mechanism, step) -> _compose.ComposedAlgorithm:
     return _compose.ComposedAlgorithm(mechanism=mechanism, step=step, name=name)
 
 
+def _perclient_weighted(kw) -> _compose.ComposedAlgorithm:
+    # per-client sigmas from the public epsilons, aggregated with the
+    # matching public inverse-variance weights
+    mechanism = _compose.PerClientGaussian(kw["clip_norm"], tuple(kw["epsilons"]), kw["delta"],
+                                           backend=_backend(kw))
+    return _compose.ComposedAlgorithm(
+        mechanism=mechanism, step=_compose.FedEXPStep(),
+        aggregation=_compose.WeightedAggregation(mechanism.inverse_variance_weights()),
+        name="ldp-fedexp-perclient")
+
+
 _FACTORIES: dict[str, Callable[..., ServerAlgorithm]] = {
     "fedavg": lambda **kw: _composed(
         "fedavg", _compose.NoPrivacy(), _compose.FixedEta()),
@@ -94,11 +106,11 @@ _FACTORIES: dict[str, Callable[..., ServerAlgorithm]] = {
         "ldp-fedexp-schedule", _schedule(_gauss_ldp(kw), kw), _compose.FedEXPStep()),
     "cdp-fedexp-schedule": lambda **kw: _composed(
         "cdp-fedexp-schedule", _schedule(_cdp(kw), kw), _compose.FedEXPStep()),
+    "ldp-fedexp-perclient": lambda **kw: _perclient_weighted(kw),
 }
 
 # the JAX package's other registry names, with the slice that ports each
 _LATER: dict[str, str] = {
-    "ldp-fedexp-perclient": "the heterogeneous-privacy slice (queue 1, item 11)",
     "dp-scaffold": "the variance-reduction slice (queue 1, item 11)",
 }
 
@@ -120,8 +132,9 @@ def make_algorithm(name: str, **kwargs) -> ServerAlgorithm:
         ``num_clients`` and ``c0``/``gamma``/``clip_lr``/``sigma_b`` for
         adaptive clipping; ``server_lr`` (and ``server_beta`` for momentum)
         for the server optimizers; ``decay``/``boundaries``/``scales`` for
-        the schedules; ``backend`` ("auto" | "kernel" | "kernel-fused" |
-        "torch") for the Gaussian names.
+        the schedules; ``epsilons`` (one per client) and ``delta`` with
+        ``clip_norm`` for ``ldp-fedexp-perclient``; ``backend`` ("auto" |
+        "kernel" | "kernel-fused" | "torch") for the Gaussian names.
     """
     if name in _LATER:
         raise NotImplementedError(f"{name!r} is not ported yet; it comes with {_LATER[name]} "

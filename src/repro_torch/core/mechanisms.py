@@ -1,12 +1,14 @@
-"""PrivUnit and ScalarDP (counterpart of the PrivUnit section of
-repro/core/mechanisms.py).
+"""PrivUnit, ScalarDP and per-client sigmas (counterpart of the PrivUnit
+section and ``per_client_sigmas`` of repro/core/mechanisms.py).
 
 - PrivUnit (Bhowmick et al., 2018), Algorithm 5: privatizes the *direction*
   of an update on the unit sphere with pure epsilon-DP;
 - ScalarDP, Algorithm 6: privatizes the update *norm* with randomized
   rounding and randomized response;
 - the norm-squared estimator of Algorithm 4 that the LDP-FedEXP(PrivUnit)
-  step size (Eq. 7) reads.
+  step size (Eq. 7) reads;
+- ``per_client_sigmas``, the heterogeneous-privacy calibration (each
+  client's sigma from its own epsilon).
 
 The static constants (gamma, the unbiasing scale m, ScalarDP's a, b, k and
 the variance-bound constants c1, c2, c3) are float64 Python computed once per
@@ -39,6 +41,7 @@ __all__ = [
     "scalardp_magnitude",
     "privunit_randomize",
     "estimate_norm_sq",
+    "per_client_sigmas",
 ]
 
 
@@ -304,3 +307,23 @@ def estimate_norm_sq(c: torch.Tensor, pu: PrivUnitParams, sc: ScalarDPParams) ->
     dist_neg = torch.abs(j_neg - torch.round(j_neg))
     r_hat = torch.where(dist_pos <= dist_neg, r_tilde, -r_tilde)
     return (r_hat**2 - sc.c2 * r_hat - sc.c3) / (1.0 + sc.c1)
+
+
+def per_client_sigmas(epsilons, delta: float, clip_norm: float) -> tuple[float, ...]:
+    """Per-client noise stds meeting each (eps_i, delta) at sensitivity 2C.
+
+    Inverts the Gaussian single-release GDP curve (``sigma_for_epsilon``)
+    for each client, in float64 on the host: larger budgets get smaller
+    sigmas, and ``1 / sigma_i^2`` are the inverse-variance aggregation
+    weights of ``ldp-fedexp-perclient``.  Each distinct epsilon is inverted
+    once (a bisection of ~20 ms): budgets come in a few tiers.
+    """
+    from repro_torch.core import accounting
+    eps = tuple(float(e) for e in epsilons)
+    if not eps:
+        raise ValueError("per_client_sigmas requires at least one epsilon")
+    if any(e <= 0 for e in eps):
+        raise ValueError("per-client epsilons must be positive")
+    sigma_of = {e: accounting.sigma_for_epsilon(e, delta, sensitivity=2.0 * clip_norm)
+                for e in set(eps)}
+    return tuple(sigma_of[e] for e in eps)

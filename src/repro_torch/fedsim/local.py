@@ -6,6 +6,11 @@ its own data from the broadcast model and returns the raw local update
 ``Delta~_i = w_i^{(t-1,tau)} - w^{(t-1)}``.  The gradient is
 ``torch.func.grad`` of the plain loss, and ``torch.func.vmap`` runs the whole
 cohort as one batched program.
+
+A sampled round (``CohortSpec``) zeroes the updates of the clients left out
+(``mask_rows``) or trains only the sampled ones: ``gather_slots`` packs the
+host mask into a static slot table, on the host, and ``gather_rows`` takes
+those clients' data on the device.
 """
 from __future__ import annotations
 
@@ -13,7 +18,9 @@ from typing import Callable
 
 import torch
 
-__all__ = ["local_update", "cohort_updates"]
+from repro_torch.tree import tree_map
+
+__all__ = ["local_update", "cohort_updates", "mask_rows", "gather_slots", "gather_rows"]
 
 
 def local_update(loss_fn: Callable, w0: torch.Tensor, client_batch, tau: int,
@@ -35,3 +42,39 @@ def cohort_updates(loss_fn: Callable, w: torch.Tensor, client_batches, tau: int,
     """
     return torch.func.vmap(
         lambda batch: local_update(loss_fn, w, batch, tau, eta_l))(client_batches)
+
+
+def mask_rows(deltas: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Zero the rows whose mask is not > 0, with ``where`` (not a multiply):
+    a non-finite update from a left-out client's dummy rows cannot leak into
+    the moments as 0 * nan."""
+    return torch.where((mask > 0)[:, None], deltas, 0.0)
+
+
+def gather_slots(mask: torch.Tensor, cap: int):
+    """Pack a host participation mask into a dense slot table of ``cap`` rows.
+
+    Returns, on the host:
+
+        slots:      (cap,) int64 — slot j holds the global index of the j-th
+                    participant in index order; padding slots hold 0
+        slot_mask:  (cap,) float32 — the participant's mask value, 0 on padding
+        overflow:   float — participants that did not fit in ``cap`` slots
+
+    Padding slots point at client 0 (real data, so their local training stays
+    finite) and carry mask 0, which keeps them out of every sum.  Computed on
+    the host from the host mask, so nothing reads the device.
+    """
+    on = torch.nonzero(mask > 0).flatten()
+    slots = torch.zeros(cap, dtype=torch.int64)
+    kept = on[:cap]
+    slots[:kept.numel()] = kept
+    slot_mask = torch.zeros(cap, dtype=torch.float32)
+    slot_mask[:kept.numel()] = mask[kept].to(torch.float32)
+    return slots, slot_mask, float(max(on.numel() - cap, 0))
+
+
+def gather_rows(tree, slots: torch.Tensor):
+    """The slot rows of every leaf of a per-client tree (client axis leading);
+    ``slots`` lies on the leaves' device."""
+    return tree_map(lambda x: x.index_select(0, slots), tree)

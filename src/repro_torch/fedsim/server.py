@@ -1,11 +1,18 @@
 """The round loop (counterpart of repro/fedsim/server.py).
 
 Ported so far: ``RunResult`` with ``avg_last`` iterate averaging, the
-unsampled, unfaulted branch of ``_round_step`` and the eager round loop of
+unfaulted branches of ``_round_step`` and the eager round loop of
 ``_run_eager``, as a plain Python loop that threads the round index t into
-every round (noise schedules read it).  Nothing in the loop waits for the
-device: histories stay tensors until the run ends, and state such as an
-adaptive clip threshold stays on the device.
+every round (noise schedules read it).  A full-participation round is one
+dense ``apply_round_stateful``.  A sampled round (``CohortSpec``) is the
+masked-moment protocol: the cohort mask, drawn first from the round's
+generator on the host, then the algorithm's noise for all M clients; local
+training on every client, or with ``gather`` on the sampled ones only;
+``mask_rows``; ``local_moments``; the count resolved; ``apply_from_moments``.
+Nothing in the loop waits for the device: host values reach it by pinned
+non-blocking copies, histories stay tensors until the run ends, and state
+such as an adaptive clip threshold stays on the device.  Faults, streaming
+and sharding come in later slices (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -15,9 +22,18 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.core.algorithm import ServerAlgorithm, round_generator
+from repro_torch.core.algorithm import (
+    ServerAlgorithm,
+    clamp_moment_counts,
+    host_to_device,
+    round_generator,
+    set_moment_count,
+)
+from repro_torch.fedsim.local import gather_rows, gather_slots, mask_rows
+from repro_torch.fedsim.specs import CohortSpec
+from repro_torch.tree import tree_leaves
 
-__all__ = ["RunResult", "run_eager"]
+__all__ = ["RunResult", "run_eager", "round_step", "sampled_round"]
 
 
 @dataclasses.dataclass
@@ -45,12 +61,53 @@ def _eval_metric(eval_fn, eval_every: int, w_next, t: int, device) -> torch.Tens
     return torch.as_tensor(eval_fn(w_next), dtype=torch.float32)
 
 
-def round_step(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn, eval_every: int = 1):
-    """One full-participation server round as ``step(w, state, gen, t, batches, eta_l)``."""
+def _resolve_sampled_count(moments, cohort: CohortSpec, algorithm):
+    """The client count of a sampled round's moments: a fixed cohort's size
+    (static), else the count clamped to >= 1, so an empty Bernoulli round is
+    a zero update and not NaN.  A weighted count is a weight sum: only the
+    empty round is guarded (floor 1e-12)."""
+    if getattr(algorithm, "supports_static_count", True):
+        if cohort.size is not None:
+            return set_moment_count(moments, cohort.size)
+        return clamp_moment_counts(moments)
+    return clamp_moment_counts(moments, floor=1e-12)
+
+
+def sampled_round(algorithm: ServerAlgorithm, local_fn: Callable, w, state, noise, mask,
+                  cohort: CohortSpec, t, client_batches, eta_l):
+    """One masked-moment round for the host participation ``mask`` (M,) and
+    the round's ``noise`` (drawn for all M clients): ``-> (w_next, aux, state)``."""
+    m = mask.shape[0]
+    if cohort.gather:
+        slots, slot_mask, _ = gather_slots(mask, cohort.resolved_cap(m))
+        client_batches = gather_rows(client_batches, host_to_device(slots, w.device))
+        mask, start = slot_mask, slots
+    else:
+        start = 0
+    mask = host_to_device(mask, w.device)
+    deltas = mask_rows(local_fn(w, client_batches, eta_l), mask)
+    moments = algorithm.local_moments(noise, w, deltas, mask, start, state, t,
+                                      binary_mask=not cohort.replace)
+    moments = _resolve_sampled_count(moments, cohort, algorithm)
+    return algorithm.apply_from_moments(noise, w, moments, state, t)
+
+
+def round_step(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn, eval_every: int = 1,
+               cohort: CohortSpec | None = None):
+    """One server round as ``step(w, state, gen, t, batches, eta_l)``: the
+    dense round, or with a sampling ``cohort`` the masked-moment round."""
+    sampled = cohort is not None and cohort.is_sampled
 
     def step(w, state, gen, t, client_batches, eta_l):
-        deltas = local_fn(w, client_batches, eta_l)
-        w_next, aux, state = algorithm.apply_round_stateful(gen, w, deltas, state, t=t)
+        if not sampled:
+            deltas = local_fn(w, client_batches, eta_l)
+            w_next, aux, state = algorithm.apply_round_stateful(gen, w, deltas, state, t=t)
+        else:
+            m = tree_leaves(client_batches)[0].shape[0]
+            mask = cohort.round_mask(gen, m)
+            noise = algorithm.draw_noise(gen, m, w.shape[-1], w.device, t)
+            w_next, aux, state = sampled_round(algorithm, local_fn, w, state, noise, mask,
+                                               cohort, t, client_batches, eta_l)
         metric = _eval_metric(eval_fn, eval_every, w_next, t, w.device)
         return w_next, state, (aux.eta_g, metric, aux.eta_naive, aux.eta_target)
 
@@ -59,9 +116,10 @@ def round_step(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn, eval_eve
 
 def run_eager(algorithm: ServerAlgorithm, local_fn: Callable, w0: torch.Tensor,
               client_batches, *, rounds: int, eta_l: float, seed: int, eval_fn,
-              avg_last: int, eval_every: int = 1) -> RunResult:
+              avg_last: int, eval_every: int = 1, cohort: CohortSpec | None = None
+              ) -> RunResult:
     """``rounds`` rounds from ``w0``; round t draws from ``round_generator(seed, t)``."""
-    step = round_step(algorithm, local_fn, eval_fn, eval_every)
+    step = round_step(algorithm, local_fn, eval_fn, eval_every, cohort)
     w = w0
     state = algorithm.init_state(w0)
     tail: list[torch.Tensor] = []

@@ -1,14 +1,18 @@
 """Declarative run specs (counterpart of repro/fedsim/specs.py).
 
-The port runs full-batch local GD, full participation and the eager round
-loop; ``LocalSpec``, ``CohortSpec``, ``ShardSpec``, ``StreamSpec`` and
-``FaultSpec`` come with later slices (ROADMAP.md, queue 1).
+The port runs full-batch local GD and the eager round loop, with full
+participation or a sampled cohort (``CohortSpec``); ``LocalSpec``,
+``ShardSpec``, ``StreamSpec`` and ``FaultSpec`` come with later slices
+(ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
-__all__ = ["TrainSpec", "EngineSpec"]
+import torch
+
+__all__ = ["TrainSpec", "EngineSpec", "CohortSpec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,3 +51,85 @@ class EngineSpec:
                 f"engine={self.engine!r} is not ported yet; the port runs 'eager'")
         if self.engine != "eager":
             raise ValueError(f"unknown engine {self.engine!r}; the port runs 'eager'")
+
+
+@dataclasses.dataclass(frozen=True)
+class CohortSpec:
+    """Who participates each round: per-round client sampling.
+
+    ``q=1.0`` and ``size=None`` (the default) is full participation and takes
+    the unsampled round, bit for bit.  ``q < 1`` is per-round Bernoulli
+    (Poisson) sampling; ``size=k`` a uniform cohort of exactly k, with
+    multiplicities when ``replace``.  ``gather=True`` trains only the
+    sampled clients: the mask is packed into a static ``(cap,)`` slot table
+    (``fedsim.local.gather_slots``) and local training runs on that block.
+    ``cap`` is the fixed ``size``, else ``gather_cap``, else a Bernoulli
+    bound (``resolved_cap``).  Randomness is keyed by global client index,
+    so a gathered round equals the dense one at rtol 1e-5; participants
+    beyond the cap are dropped from the round.
+    """
+
+    q: float = 1.0              # Bernoulli participation probability
+    size: int | None = None     # fixed cohort size (exclusive with q < 1)
+    replace: bool = False       # fixed-size sampling with replacement
+    gather: bool = False        # train only the sampled clients
+    gather_cap: int | None = None  # static slot-table size; None = derived
+
+    def __post_init__(self):
+        if not (0.0 < self.q <= 1.0):
+            raise ValueError(f"q must be in (0, 1], got {self.q}")
+        if self.size is not None and self.size < 1:
+            raise ValueError(f"size must be >= 1, got {self.size}")
+        if self.q < 1.0 and self.size is not None:
+            raise ValueError("specify q<1 (Bernoulli) OR size (fixed), not both")
+        if self.replace and self.size is None:
+            raise ValueError("replace=True requires a fixed cohort size")
+        if self.gather and not self.is_sampled:
+            raise ValueError("gather=True requires sampling (q < 1 or size=k); "
+                             "a full-participation round has nothing to skip")
+        if self.gather and self.replace:
+            # a multiplicity mask gates a row once in the clipped sums; a
+            # gathered block would need duplicated rows to stay exact
+            raise ValueError("gather=True does not support replace=True "
+                             "(multiplicity-weighted cohorts); drop gather or "
+                             "sample without replacement")
+        if self.gather_cap is not None:
+            if self.gather_cap < 1:
+                raise ValueError(f"gather_cap must be >= 1, got {self.gather_cap}")
+            if not self.gather:
+                raise ValueError("gather_cap requires gather=True")
+
+    @property
+    def is_sampled(self) -> bool:
+        """True when this spec subsamples (q < 1 or a fixed size)."""
+        return self.q < 1.0 or self.size is not None
+
+    def resolved_cap(self, num_clients: int) -> int:
+        """Static slot-table size of the gathered block for M clients: the
+        fixed size; else ``gather_cap``; else ``qM + 6 sqrt(qM) + 16`` (about
+        six standard deviations of headroom and a small-M floor), at most M."""
+        if self.size is not None:
+            return min(self.size, num_clients)
+        if self.gather_cap is not None:
+            return min(self.gather_cap, num_clients)
+        qm = self.q * num_clients
+        return min(num_clients, int(math.ceil(qm + 6.0 * math.sqrt(qm) + 16.0)))
+
+    def sampling_rate(self, num_clients: int) -> float:
+        """Expected per-round participation fraction (for accounting)."""
+        if self.size is not None:
+            return min(1.0, self.size / float(num_clients))
+        return self.q
+
+    def round_mask(self, gen: torch.Generator, num_clients: int) -> torch.Tensor:
+        """(num_clients,) float32 participation mask on the host, drawn from
+        the round's CPU generator: {0, 1} (Bernoulli, or a uniform size-subset
+        from a random permutation) or multiplicities summing to ``size``
+        (with replacement)."""
+        if self.size is not None:
+            if self.replace:
+                idx = torch.randint(0, num_clients, (self.size,), generator=gen)
+                return torch.bincount(idx, minlength=num_clients).to(torch.float32)
+            perm = torch.randperm(num_clients, generator=gen)
+            return (perm < self.size).to(torch.float32)
+        return (torch.rand(num_clients, generator=gen) < self.q).to(torch.float32)

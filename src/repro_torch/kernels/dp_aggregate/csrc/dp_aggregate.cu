@@ -67,6 +67,18 @@
 //   on the device (adaptive clipping), as a pointer to a float there, read
 //   in the kernel as the TPU kernel reads it from its scalar prefetch: the
 //   host never reads C and nothing recompiles.
+// * A sampled cohort (the masked-moment round) passes two optional device
+//   arrays.  `row_gate` (float, (m,)): a row whose gate is not > 0 adds
+//   nothing to any sum, whatever it holds (NaN included), draws no noise and
+//   is not even copied in (its ring stage's barrier gets a plain arrival); a
+//   gate > 0 enters the row once.  The TPU kernel is fed rows zeroed by
+//   `where` outside it (repro/core/aggregation.py:329-343); here the zeroing
+//   would not stop fused mode's noise, which is drawn inside.  `row_ids`
+//   (int32, (m,)): each row's Threefry key in place of row_start + row, so a
+//   gathered (cap, d) block of clients draws exactly their rows of the dense
+//   (M, d) noise.  Both are read where the row's scale or noise is taken, as
+//   C is.  With both null the kernel is the parent's: the gated code is a
+//   second instance of the template (kGated), never the null-pointer one.
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -163,6 +175,9 @@ struct Params {
   float* clippart;       // (clusters) squared-clipped sums of each cluster
   int* tickets;          // K window tickets and one for the scalars; 0 at entry and exit
   float* out;            // sum_released (d), sq_released, sq_clipped
+  // last, so that the fields above keep the offsets the ungated instance reads
+  const float* row_gate; // (m,) a row enters the sums where its gate is > 0; or nullptr
+  const int* row_ids;    // (m,) each row's noise key in place of row_start + row; or nullptr
 };
 
 // C for this launch: the parameter, or the float the pointer names.  Read
@@ -173,14 +188,33 @@ __device__ __forceinline__ float clip_of(const Params& p) {
   return p.clip_at != nullptr ? __ldg(p.clip_at) : p.clip;
 }
 
+// Whether a row enters the sums (kGated: its gate is > 0, or there is no gate).
+template <bool kGated>
+__device__ __forceinline__ bool row_on(const Params& p, int64_t row) {
+  return !kGated || p.row_gate == nullptr || __ldg(p.row_gate + row) > 0.0f;
+}
+
+// The row's Threefry counter word: its id (kGated with row_ids), else row_start + row.
+template <bool kGated>
+__device__ __forceinline__ uint32_t row_key(const Params& p, int64_t row) {
+  if (kGated && p.row_ids != nullptr) return static_cast<uint32_t>(__ldg(p.row_ids + row));
+  return static_cast<uint32_t>(p.row_start + row);
+}
+
 // Float offset of u[row, col0] from the 16-byte-aligned address below it.
 __device__ __forceinline__ int misalignment(const Params& p, int64_t row, int64_t col0) {
   return static_cast<int>((reinterpret_cast<uintptr_t>(p.u + row * p.d + col0) & 15u) >> 2);
 }
 
 // Thread 0: bulk-copy the 16-byte-aligned span holding u[row, col0 : col0 + w] into `slot`.
+// A gated-off row is not copied: its phase completes on a plain arrival.
+template <bool kGated>
 __device__ __forceinline__ void issue_row(const Params& p, int64_t row, int64_t col0, int w,
                                           float* slot, uint64_t* bar) {
+  if (!row_on<kGated>(p, row)) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+    return;
+  }
   const uintptr_t a = reinterpret_cast<uintptr_t>(p.u + row * p.d + col0);
   const uintptr_t a16 = a & ~static_cast<uintptr_t>(15);
   const uint32_t bytes = static_cast<uint32_t>((a - a16 + 4u * static_cast<uint32_t>(w) + 15u) &
@@ -289,8 +323,10 @@ __device__ __forceinline__ void release_pair(float2 u, float scale, bool odd, fl
 }
 
 // This thread's sum of squares over its pairs of row i's window, once the row
-// has landed in its ring stage (0 for an empty window).
-template <int kPairs>
+// has landed in its ring stage (0 for an empty window or a gated-off row, whose
+// stage holds no copy of it; its phase is still waited for, to keep the ring's
+// parities).
+template <int kPairs, bool kGated>
 __device__ __forceinline__ float window_sq(const Params& p, const float* ring, uint64_t* full,
                                            int i, int64_t row0, int64_t col0, int w) {
   if (w == 0) return 0.0f;
@@ -300,6 +336,7 @@ __device__ __forceinline__ float window_sq(const Params& p, const float* ring, u
   const bool even = (off & 1) == 0, whole = even && npairs == kPairs * nt && (w & 1) == 0;
   mbar_wait(&full[i % p.stages], (i / p.stages) & 1);
   float part = 0.0f;
+  if (!row_on<kGated>(p, row0 + i)) return part;
   if (whole) {  // every pair of every thread in the window, 8-byte aligned
     const float2* x2 = reinterpret_cast<const float2*>(x);
 #pragma unroll
@@ -325,8 +362,9 @@ __device__ __forceinline__ float window_sq(const Params& p, const float* ring, u
 // Block (cluster c, rank b) of the aggregation.  kPairs > 0: the ring path,
 // each thread owning column pairs q = t + j * blockDim.x (j < kPairs) of the
 // window; kPairs == 0: the L2 path.  Warps run through the rows on their own:
-// a row's stage is refilled by the last warp to finish with it.
-template <int kMode, int kPairs>
+// a row's stage is refilled by the last warp to finish with it.  kGated: the
+// instance that reads row_gate and row_ids (either may still be null).
+template <int kMode, int kPairs, bool kGated>
 __global__ void __launch_bounds__(kMaxThreads, 1) aggregate_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __shared__ uint64_t full[kMaxStages];
@@ -365,21 +403,22 @@ __global__ void __launch_bounds__(kMaxThreads, 1) aggregate_kernel(const Params 
   if constexpr (kPairs > 0) {
     if (t == 0 && w > 0)
       for (int i = 0; i < min(p.stages, nrows); ++i)
-        issue_row(p, row0 + i, col0, w, ring + i * p.slot_floats, &full[i]);
+        issue_row<kGated>(p, row0 + i, col0, w, ring + i * p.slot_floats, &full[i]);
     float acc[2 * kPairs], nz[2 * kPairs];
 #pragma unroll
     for (int j = 0; j < 2 * kPairs; ++j) acc[j] = nz[j] = 0.0f;
     // A warp's rows run one ahead: it sends row i + 1's partial before it
     // waits for row i's norm, so the partials travel while row i is finished.
-    if (nrows > 0) send_partial(window_sq<kPairs>(p, ring, full, 0, row0, col0, w), 0, k, b,
-                                warps, slots, norm_bar);
+    if (nrows > 0) send_partial(window_sq<kPairs, kGated>(p, ring, full, 0, row0, col0, w), 0, k,
+                                b, warps, slots, norm_bar);
     for (int i = 0; i < nrows; ++i) {
       const int64_t row = row0 + i;
       const int s = i % p.stages;
+      const bool on = row_on<kGated>(p, row);
       if (i + 1 < nrows)
-        send_partial(window_sq<kPairs>(p, ring, full, i + 1, row0, col0, w), i + 1, k, b,
+        send_partial(window_sq<kPairs, kGated>(p, ring, full, i + 1, row0, col0, w), i + 1, k, b,
                      warps, slots, norm_bar);
-      if (kMode != kNone) {  // the row's noise, fetched or drawn while the partials travel
+      if (kMode != kNone && on) {  // the row's noise, fetched or drawn while the partials travel
 #pragma unroll
         for (int j = 0; j < kPairs; ++j) {
           const int q = t + j * nt;
@@ -390,8 +429,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) aggregate_kernel(const Params 
               n.x = src[0];
               if (2 * q + 1 < w) n.y = src[1];
             } else {
-              const float2 z = normal_pair(p.seed, static_cast<uint32_t>(p.row_start + row),
-                                           pair0 + q);
+              const float2 z = normal_pair(p.seed, row_key<kGated>(p, row), pair0 + q);
               n = make_float2(__fmul_rn(p.sigma, z.x), __fmul_rn(p.sigma, z.y));
             }
           }
@@ -401,10 +439,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1) aggregate_kernel(const Params 
       }
       const float norm = receive_norm(i, k, warps, nrows, slots, norm_bar);
       const float scale = fminf(1.0f, clip_of(p) / sqrtf(fmaxf(norm, kEps)));
-      if (b == 0 && t == 0) clip_sq += norm * (scale * scale);
+      if (b == 0 && t == 0 && on) clip_sq += norm * (scale * scale);
       const int off = misalignment(p, row, col0);
       const float* x = ring + s * p.slot_floats + off;
-      if ((off & 1) == 0 && npairs == kPairs * nt && (w & 1) == 0) {  // the whole window
+      if (!on) {
+        // a gated-off row adds nothing: its stage holds no copy of it
+      } else if ((off & 1) == 0 && npairs == kPairs * nt && (w & 1) == 0) {  // the whole window
         const float2* x2 = reinterpret_cast<const float2*>(x);
 #pragma unroll
         for (int j = 0; j < kPairs; ++j) {
@@ -426,7 +466,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) aggregate_kernel(const Params 
       if (w > 0 && lane == 0 && atomicAdd(&stage_done[s], 1) == warps - 1) {
         stage_done[s] = 0;
         if (i + p.stages < nrows)
-          issue_row(p, row + p.stages, col0, w, ring + s * p.slot_floats, &full[s]);
+          issue_row<kGated>(p, row + p.stages, col0, w, ring + s * p.slot_floats, &full[s]);
       }
     }
     float* dst = p.colpart + c * p.d + col0;
@@ -447,10 +487,13 @@ __global__ void __launch_bounds__(kMaxThreads, 1) aggregate_kernel(const Params 
     for (int i = 0; i < nrows; ++i) {
       const int64_t row = row0 + i;
       const float* x = p.u + row * p.d + col0;
+      const bool on = row_on<kGated>(p, row);  // a gated-off row is not read
       float part = 0.0f;
-      for (int j = t; j < w; j += nt) part = fmaf(x[j], x[j], part);
+      if (on)
+        for (int j = t; j < w; j += nt) part = fmaf(x[j], x[j], part);
       send_partial(part, i, k, b, warps, slots, norm_bar);
       const float norm = receive_norm(i, k, warps, nrows, slots, norm_bar);
+      if (!on) continue;
       const float scale = fminf(1.0f, clip_of(p) / sqrtf(fmaxf(norm, kEps)));
       if (b == 0 && t == 0) clip_sq += norm * (scale * scale);
       for (int q = t; q < npairs; q += nt) {  // second read of the window: from L2
@@ -462,8 +505,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) aggregate_kernel(const Params 
           v0 = __fadd_rn(v0, src[0]);
           if (odd) v1 = __fadd_rn(v1, src[1]);
         } else if (kMode == kFused) {
-          const float2 z =
-              normal_pair(p.seed, static_cast<uint32_t>(p.row_start + row), pair0 + q);
+          const float2 z = normal_pair(p.seed, row_key<kGated>(p, row), pair0 + q);
           v0 = __fadd_rn(v0, __fmul_rn(p.sigma, z.x));
           if (odd) v1 = __fadd_rn(v1, __fmul_rn(p.sigma, z.y));
         }
@@ -526,16 +568,19 @@ __global__ void __launch_bounds__(kMaxThreads, 1) aggregate_kernel(const Params 
   }
 }
 
-// Noise-only: out[i, j] = sigma * z(seed, row_start + i, j); grid (m, tiles of
-// 8 * kNoiseThreads columns), four column pairs a thread.
+// Noise-only: out[i, j] = sigma * z(seed, key_i, j) with key_i = row_ids[i], or
+// row_start + i where row_ids is null; grid (m, tiles of 8 * kNoiseThreads
+// columns), four column pairs a thread.
 __global__ void __launch_bounds__(kNoiseThreads) noise_kernel(float* __restrict__ out, int64_t d,
                                                               float sigma, uint32_t seed,
-                                                              int64_t row_start) {
+                                                              int64_t row_start,
+                                                              const int* __restrict__ row_ids) {
   const int64_t i = blockIdx.x;
   const int64_t c0 =
       (static_cast<int64_t>(blockIdx.y) * kNoiseThreads + threadIdx.x) * (2 * kNoisePairs);
   if (c0 >= d) return;
-  const uint32_t row = static_cast<uint32_t>(row_start + i);
+  const uint32_t row = static_cast<uint32_t>(row_ids != nullptr ? __ldg(row_ids + i)
+                                                                : row_start + i);
   float v[2 * kNoisePairs];
 #pragma unroll
   for (int j = 0; j < kNoisePairs; ++j) {
@@ -558,26 +603,31 @@ __global__ void __launch_bounds__(kNoiseThreads) noise_kernel(float* __restrict_
 
 using AggregateFn = void (*)(Params);
 
-template <int kMode>
+template <int kMode, bool kGated>
 AggregateFn aggregate_for(int pairs) {
   switch (pairs) {
-    case 0: return aggregate_kernel<kMode, 0>;
-    case 1: return aggregate_kernel<kMode, 1>;
-    case 2: return aggregate_kernel<kMode, 2>;
-    case 4: return aggregate_kernel<kMode, 4>;
-    case 8: return aggregate_kernel<kMode, 8>;
-    case 16: return aggregate_kernel<kMode, 16>;
+    case 0: return aggregate_kernel<kMode, 0, kGated>;
+    case 1: return aggregate_kernel<kMode, 1, kGated>;
+    case 2: return aggregate_kernel<kMode, 2, kGated>;
+    case 4: return aggregate_kernel<kMode, 4, kGated>;
+    case 8: return aggregate_kernel<kMode, 8, kGated>;
+    case 16: return aggregate_kernel<kMode, 16, kGated>;
     default: return nullptr;
   }
 }
 
+template <bool kGated>
 AggregateFn aggregate_for(int mode, int pairs) {
   switch (mode) {
-    case kNone: return aggregate_for<kNone>(pairs);
-    case kOperand: return aggregate_for<kOperand>(pairs);
-    case kFused: return aggregate_for<kFused>(pairs);
+    case kNone: return aggregate_for<kNone, kGated>(pairs);
+    case kOperand: return aggregate_for<kOperand, kGated>(pairs);
+    case kFused: return aggregate_for<kFused, kGated>(pairs);
     default: return nullptr;
   }
+}
+
+AggregateFn aggregate_for(int mode, int pairs, bool gated) {
+  return gated ? aggregate_for<true>(mode, pairs) : aggregate_for<false>(mode, pairs);
 }
 
 cudaLaunchConfig_t cluster_config(int clusters, int cluster, int threads, int smem_bytes,
@@ -596,20 +646,21 @@ cudaLaunchConfig_t cluster_config(int clusters, int cluster, int threads, int sm
   return cfg;
 }
 
-// Let the kernel for (mode, pairs) take `bytes` of dynamic shared memory.
-// The limit only ever rises: a smaller shape must not lower it under a larger
-// one that launches later.
-cudaError_t allow_smem(int mode, int pairs, int bytes) {
-  static int allowed[3][17] = {};
-  if (bytes <= allowed[mode][pairs]) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(aggregate_for(mode, pairs),
+// Let the kernel for (mode, pairs, gated) take `bytes` of dynamic shared
+// memory.  The limit only ever rises: a smaller shape must not lower it under
+// a larger one that launches later.
+cudaError_t allow_smem(int mode, int pairs, bool gated, int bytes) {
+  static int allowed[2][3][17] = {};
+  int& now = allowed[gated][mode][pairs];
+  if (bytes <= now) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(aggregate_for(mode, pairs, gated),
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) allowed[mode][pairs] = bytes;
+  if (err == cudaSuccess) now = bytes;
   return err;
 }
 
 bool valid_shape(int pairs, int cluster, int threads, int smem_bytes) {
-  return aggregate_for(kNone, pairs) != nullptr && (cluster == 1 || cluster == 2 ||
+  return aggregate_for(kNone, pairs, false) != nullptr && (cluster == 1 || cluster == 2 ||
          cluster == 4 || cluster == 8) && threads >= 32 && threads <= kMaxThreads &&
          threads % 32 == 0 && smem_bytes >= 0;
 }
@@ -621,17 +672,21 @@ bool valid_shape(int pairs, int cluster, int threads, int smem_bytes) {
 // clusters * (d + cluster + 1) floats, tickets 16 ints that are 0 before the
 // first launch on the stream (the kernel leaves them 0), out d + 2 floats
 // (sum_released, sq_released, sq_clipped).  C is `clip`, or *clip_at where
-// clip_at is not null (a float in device memory).  The shape plan (cluster, window,
+// clip_at is not null (a float in device memory).  row_gate (m floats) and
+// row_ids (m int32) may each be null; either one non-null launches the gated
+// instance.  The shape plan (cluster, window,
 // threads, pairs, stages, slot_floats, smem_bytes, clusters, rows_per_cluster)
 // comes from ops.py::_launch_plan.  Returns a cudaError_t (0 = cudaSuccess).
 extern "C" int dp_aggregate_launch(const float* u, const float* noise, int mode, int64_t m,
                                    int64_t d, float clip, const float* clip_at,
                                    float sigma, uint32_t seed,
-                                   int64_t row_start, int cluster, int window, int threads,
+                                   int64_t row_start, const float* row_gate, const int* row_ids,
+                                   int cluster, int window, int threads,
                                    int pairs, int stages, int slot_floats, int smem_bytes,
                                    int clusters, int64_t rows_per_cluster, float* scratch,
                                    int* tickets, float* out, void* stream) {
-  const AggregateFn kernel = aggregate_for(mode, pairs);
+  const bool gated = row_gate != nullptr || row_ids != nullptr;
+  const AggregateFn kernel = aggregate_for(mode, pairs, gated);
   if (kernel == nullptr || !valid_shape(pairs, cluster, threads, smem_bytes) || clusters < 1 ||
       window % 4 != 0 || static_cast<int64_t>(window) * cluster < d ||
       (pairs > 0 && (stages < 2 || stages > kMaxStages ||
@@ -639,7 +694,7 @@ extern "C" int dp_aggregate_launch(const float* u, const float* noise, int mode,
                      smem_bytes < 4 * slot_floats * stages)) ||
       clusters * rows_per_cluster < m)
     return kBadPlan;
-  const cudaError_t err = allow_smem(mode, pairs, smem_bytes);
+  const cudaError_t err = allow_smem(mode, pairs, gated, smem_bytes);
   if (err != cudaSuccess) return err;
   Params p;
   p.u = u;
@@ -650,6 +705,8 @@ extern "C" int dp_aggregate_launch(const float* u, const float* noise, int mode,
   p.rows_per_cluster = rows_per_cluster;
   p.clip = clip;
   p.clip_at = clip_at;
+  p.row_gate = row_gate;
+  p.row_ids = row_ids;
   p.sigma = sigma;
   p.seed = seed;
   p.window = window;
@@ -667,13 +724,14 @@ extern "C" int dp_aggregate_launch(const float* u, const float* noise, int mode,
 }
 
 // How many clusters of this shape the card holds at once
-// (cudaOccupancyMaxActiveClusters), into *out.
+// (cudaOccupancyMaxActiveClusters), into *out; for the ungated instance, on
+// which the gated one's plan is the same.
 extern "C" int dp_aggregate_max_clusters(int mode, int pairs, int cluster, int threads,
                                          int smem_bytes, int* out) {
-  const AggregateFn kernel = aggregate_for(mode, pairs);
+  const AggregateFn kernel = aggregate_for(mode, pairs, false);
   if (kernel == nullptr || !valid_shape(pairs, cluster, threads, smem_bytes))
     return cudaErrorInvalidValue;
-  const cudaError_t err = allow_smem(mode, pairs, smem_bytes);
+  const cudaError_t err = allow_smem(mode, pairs, false, smem_bytes);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(1, cluster, threads, smem_bytes, nullptr, &attr);
@@ -681,11 +739,12 @@ extern "C" int dp_aggregate_max_clusters(int mode, int pairs, int cluster, int t
 }
 
 // Registers, local (spill) bytes and static shared memory of the aggregation
-// kernel for (mode, pairs), or of the noise-only kernel for mode -1.
-extern "C" int dp_aggregate_attributes(int mode, int pairs, int* regs, int* local_bytes,
-                                       int* static_smem) {
+// kernel for (mode, pairs, gated), or of the noise-only kernel for mode -1.
+extern "C" int dp_aggregate_attributes(int mode, int pairs, int gated, int* regs,
+                                       int* local_bytes, int* static_smem) {
   const void* kernel = mode < 0 ? reinterpret_cast<const void*>(noise_kernel)
-                                : reinterpret_cast<const void*>(aggregate_for(mode, pairs));
+                                : reinterpret_cast<const void*>(aggregate_for(mode, pairs,
+                                                                              gated != 0));
   if (kernel == nullptr) return cudaErrorInvalidValue;
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
@@ -701,12 +760,13 @@ extern "C" const char* dp_aggregate_error_name(int err) {
                          : cudaGetErrorName(static_cast<cudaError_t>(err));
 }
 
+// row_ids: m int32 row keys, or null for row_start + i.
 extern "C" int ldp_noise_launch(float* out, int64_t m, int64_t d, float sigma, uint32_t seed,
-                                int64_t row_start, void* stream) {
+                                int64_t row_start, const int* row_ids, void* stream) {
   const int64_t tile = 2 * kNoisePairs * kNoiseThreads;
   const int64_t tiles = (d + tile - 1) / tile;
   if (m < 1 || d < 1 || m > 0x7fffffff || tiles > 65535) return cudaErrorInvalidValue;
   noise_kernel<<<dim3(static_cast<unsigned>(m), static_cast<unsigned>(tiles)), kNoiseThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(out, d, sigma, seed, row_start);
+                 static_cast<cudaStream_t>(stream)>>>(out, d, sigma, seed, row_start, row_ids);
   return cudaGetLastError();
 }

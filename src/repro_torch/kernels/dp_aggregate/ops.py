@@ -9,10 +9,13 @@ drives the main path and reads after.
 
 Unlike the JAX wrapper, nothing is padded: the kernel masks ragged M and d
 itself.  Noise is keyed by (seed, global row, column pair), so ``row_start``
-gives a slice of the cohort the rows of the whole cohort's noise.  The
-aggregation is one launch whose shape (cluster size, column window, threads,
-ring stages, clusters) ``_launch_plan`` computes here, where the CPU tests
-reach it.
+gives a slice of the cohort the rows of the whole cohort's noise, and
+``row_ids`` gives any block of clients (a gathered cohort) their rows.  A
+``row_gate`` keeps the rows whose gate is not > 0 out of every sum, and out
+of the noise, whatever they hold: the masked-moment round of a sampled
+cohort.  The aggregation is one launch whose shape (cluster size, column
+window, threads, ring stages, clusters) ``_launch_plan`` computes here,
+where the CPU tests reach it.
 """
 from __future__ import annotations
 
@@ -109,16 +112,16 @@ def load_library() -> ctypes.CDLL:
     p, i64, f32, u32, i32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_uint32,
                              ctypes.c_int)
     lib.dp_aggregate_launch.argtypes = [
-        p, p, i32, i64, i64, f32, p, f32, u32, i64,
+        p, p, i32, i64, i64, f32, p, f32, u32, i64, p, p,
         i32, i32, i32, i32, i32, i32, i32, i32, i64, p, p, p, p]
     lib.dp_aggregate_launch.restype = i32
     lib.dp_aggregate_max_clusters.argtypes = [i32, i32, i32, i32, i32, ctypes.POINTER(i32)]
     lib.dp_aggregate_max_clusters.restype = i32
-    lib.dp_aggregate_attributes.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
+    lib.dp_aggregate_attributes.argtypes = [i32, i32, i32] + [ctypes.POINTER(i32)] * 3
     lib.dp_aggregate_attributes.restype = i32
     lib.dp_aggregate_error_name.argtypes = [i32]
     lib.dp_aggregate_error_name.restype = ctypes.c_char_p
-    lib.ldp_noise_launch.argtypes = [p, i64, i64, f32, u32, i64, p]
+    lib.ldp_noise_launch.argtypes = [p, i64, i64, f32, u32, i64, p, p]
     lib.ldp_noise_launch.restype = i32
     return lib
 
@@ -160,12 +163,13 @@ def _card_plan(m: int, d: int, mode: str, index: int) -> LaunchPlan:
                         max_clusters=max_active_clusters(m, d, mode, index))
 
 
-def kernel_attributes(mode: str | None, pairs: int = 0) -> dict[str, int]:
+def kernel_attributes(mode: str | None, pairs: int = 0, gated: bool = False) -> dict[str, int]:
     """Registers, spill (local) bytes and static shared memory of the
-    aggregation kernel for (mode, pairs), or of the noise-only kernel (mode None)."""
+    aggregation kernel for (mode, pairs), its gated instance with ``gated``,
+    or of the noise-only kernel (mode None)."""
     vals = [ctypes.c_int(0) for _ in range(3)]
     err = load_library().dp_aggregate_attributes(-1 if mode is None else _MODES[mode], pairs,
-                                                 *map(ctypes.byref, vals))
+                                                 int(gated), *map(ctypes.byref, vals))
     if err != 0:
         raise RuntimeError(f"dp_aggregate attributes ({mode}, {pairs}): CUDA error {err}")
     return dict(zip(("registers", "local_bytes", "static_smem"), (v.value for v in vals)))
@@ -204,6 +208,25 @@ def _clip_arg(clip_norm, device: torch.device) -> tuple[float, int | None]:
     return 0.0, clip_norm.data_ptr()
 
 
+def _row_arg(name: str, x: torch.Tensor | None, m: int, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor | None:
+    """A per-row operand as the kernel reads it: (m,) of ``dtype``, contiguous,
+    on ``device`` (a cast or copy stays on the device: nothing is read back)."""
+    if x is None:
+        return None
+    if not isinstance(x, torch.Tensor) or x.dim() != 1 or x.shape[0] != m:
+        raise ValueError(f"{name} must be a ({m},) tensor, got "
+                         f"{tuple(x.shape) if isinstance(x, torch.Tensor) else type(x)}")
+    if x.device.type != device.type or (device.index is not None
+                                        and x.device.index != device.index):
+        raise ValueError(f"{name} lies on {x.device}, the rows on {device}")
+    return x.to(dtype).contiguous()
+
+
+def _ptr(x: torch.Tensor | None) -> int | None:
+    return None if x is None else x.data_ptr()
+
+
 def _seed32(seed) -> int:
     seed = int(seed)
     if not 0 <= seed < 2**32:
@@ -213,7 +236,8 @@ def _seed32(seed) -> int:
 
 def dp_aggregate_sums(updates: torch.Tensor, clip_norm, noise: torch.Tensor | None = None,
                       *, noise_seed: int | None = None, noise_sigma=None,
-                      row_start: int = 0):
+                      row_start: int = 0, row_gate: torch.Tensor | None = None,
+                      row_ids: torch.Tensor | None = None):
     """Clip rows to L2 <= C, add noise, reduce: raw SUMS, not means.
 
     Returns ``(sum_released (d,), sum_sq_released (), sum_sq_clipped ())``,
@@ -222,6 +246,11 @@ def dp_aggregate_sums(updates: torch.Tensor, clip_norm, noise: torch.Tensor | No
     (``noise_seed`` and ``noise_sigma``: the kernel draws sigma * N(0, 1)).
     ``clip_norm`` is a Python float or a 0-d float32 tensor on the updates'
     device, which the kernel reads there (no host read of it).
+    ``row_gate`` ((M,) on the updates' device): a row enters the sums only
+    where its gate is > 0, once, whatever the gate's size; a row gated off
+    adds nothing, NaN or not, and draws no noise.  ``row_ids`` ((M,) integer
+    client indices on that device): row i's fused noise is client
+    ``row_ids[i]``'s, in place of ``row_start + i``.
     """
     if noise is not None and noise_seed is not None:
         raise ValueError("materialized noise and in-kernel noise are exclusive")
@@ -235,11 +264,13 @@ def dp_aggregate_sums(updates: torch.Tensor, clip_norm, noise: torch.Tensor | No
     if noise is not None:
         noise = _check("noise", noise, (m, d))
     clip, clip_at = _clip_arg(clip_norm, u.device)
+    row_gate = _row_arg("row_gate", row_gate, m, torch.float32, u.device)
+    row_ids = _row_arg("row_ids", row_ids, m, torch.int32, u.device)
     if u.device.type == "cpu":
         if noise_seed is not None:
             noise = ref.ldp_noise_ref(m, d, _seed32(noise_seed), noise_sigma,
-                                      row_start=row_start)
-        return ref.dp_aggregate_ref(u, noise, clip_norm)
+                                      row_start=row_start, row_ids=row_ids)
+        return ref.dp_aggregate_ref(u, noise, clip_norm, row_gate=row_gate)
     if u.device.type != "cuda":
         raise ValueError(f"dp_aggregate runs on cpu or cuda tensors, got {u.device}")
     if noise is not None and noise.device != u.device:
@@ -254,8 +285,9 @@ def dp_aggregate_sums(updates: torch.Tensor, clip_norm, noise: torch.Tensor | No
     err = lib.dp_aggregate_launch(
         u.data_ptr(), None if noise is None else noise.data_ptr(), _MODES[mode],
         m, d, clip, clip_at, float(noise_sigma or 0.0), _seed32(noise_seed or 0),
-        int(row_start), plan.cluster, plan.window, plan.threads, plan.pairs, plan.stages,
-        plan.slot_floats, plan.smem_bytes, plan.clusters, plan.rows_per_cluster,
+        int(row_start), _ptr(row_gate), _ptr(row_ids), plan.cluster, plan.window,
+        plan.threads, plan.pairs, plan.stages, plan.slot_floats, plan.smem_bytes, plan.clusters,
+        plan.rows_per_cluster,
         scratch.data_ptr(), _tickets_for(u.device, stream).data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"dp_aggregate kernel launch failed for {plan}: "
@@ -277,19 +309,23 @@ def dp_aggregate(updates: torch.Tensor, clip_norm, noise: torch.Tensor | None = 
 
 
 def generate_ldp_noise(m: int, d: int, noise_seed: int, noise_sigma, *, device,
-                       row_start: int = 0) -> torch.Tensor:
-    """The (m, d) noise the fused mode draws for ``noise_seed`` (its test oracle)."""
+                       row_start: int = 0, row_ids: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """The (m, d) noise the fused mode draws for ``noise_seed`` (its test
+    oracle): row i is client ``row_start + i``'s, or ``row_ids[i]``'s."""
     device = torch.device(device)
     if m < 1 or d < 1 or not math.isfinite(float(noise_sigma)):
         raise ValueError(f"bad noise request m={m} d={d} sigma={noise_sigma}")
+    row_ids = _row_arg("row_ids", row_ids, m, torch.int32, device)
     if device.type == "cpu":
-        return ref.ldp_noise_ref(m, d, _seed32(noise_seed), noise_sigma, row_start=row_start)
+        return ref.ldp_noise_ref(m, d, _seed32(noise_seed), noise_sigma, row_start=row_start,
+                                 row_ids=row_ids)
     if device.type != "cuda":
         raise ValueError(f"generate_ldp_noise runs on cpu or cuda, got {device}")
     out = torch.empty(m, d, dtype=torch.float32, device=device)
     err = load_library().ldp_noise_launch(
         out.data_ptr(), m, d, float(noise_sigma), _seed32(noise_seed), int(row_start),
-        torch.cuda.current_stream(device).cuda_stream)
+        _ptr(row_ids), torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ldp_noise kernel launch failed: CUDA error {err}")
     generate_ldp_noise.launches += 1

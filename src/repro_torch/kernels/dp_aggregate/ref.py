@@ -47,10 +47,11 @@ def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
 
 
 def ldp_noise_ref(m: int, d: int, seed: int, sigma: float, *, row_start: int = 0,
-                  device="cpu") -> torch.Tensor:
+                  row_ids: torch.Tensor | None = None, device="cpu") -> torch.Tensor:
     """(m, d) float32 noise: sigma * N(0, 1), two normals per Threefry call.
 
-    Row ``r = row_start + i`` and column pair ``k`` take
+    Row ``r = row_start + i`` (or ``r = row_ids[i]``, a gathered block's
+    client indices, on ``device``) and column pair ``k`` take
     ``(b0, b1) = threefry2x32((seed, 0x9E3779B9), (r, k))``; then
     ``rho = sqrt(-2 log unit(b0))``, ``theta = 2 pi unit(b1)`` and
     ``z[r, 2k] = rho cos theta``, ``z[r, 2k + 1] = rho sin theta``.  An odd d
@@ -58,7 +59,10 @@ def ldp_noise_ref(m: int, d: int, seed: int, sigma: float, *, row_start: int = 0
     this draw.
     """
     pairs = (d + 1) // 2
-    rows = torch.arange(row_start, row_start + m, dtype=torch.int64, device=device)
+    if row_ids is None:
+        rows = torch.arange(row_start, row_start + m, dtype=torch.int64, device=device)
+    else:
+        rows = row_ids.to(device=device, dtype=torch.int64) & _MASK
     ks = torch.arange(pairs, dtype=torch.int64, device=device)
     b0, b1 = threefry2x32(int(seed), _GOLDEN, rows[:, None].expand(m, pairs),
                           ks[None, :].expand(m, pairs))
@@ -79,9 +83,19 @@ def clip_scale(sq_norms: torch.Tensor, clip_norm) -> torch.Tensor:
     return torch.clamp(clip_norm / torch.sqrt(torch.clamp(sq_norms, min=_EPS)), max=1.0)
 
 
-def dp_aggregate_ref(updates: torch.Tensor, noise: torch.Tensor | None, clip_norm):
-    """(sum_released (d,), sum_sq_released (), sum_sq_clipped ()) in float32."""
+def dp_aggregate_ref(updates: torch.Tensor, noise: torch.Tensor | None, clip_norm,
+                     row_gate: torch.Tensor | None = None):
+    """(sum_released (d,), sum_sq_released (), sum_sq_clipped ()) in float32.
+
+    With ``row_gate``, the rows whose gate is not > 0 are zeroed, and their
+    noise too, with ``where`` before anything else (a NaN there cannot
+    leak): they add nothing to any sum."""
     u = updates.to(torch.float32)
+    if row_gate is not None:
+        keep = (row_gate > 0)[:, None]
+        u = torch.where(keep, u, 0.0)
+        if noise is not None:
+            noise = torch.where(keep, noise.to(torch.float32), 0.0)
     sq_norms = torch.sum(u * u, dim=-1)
     scale = clip_scale(sq_norms, clip_norm)
     clipped = u * scale[:, None]

@@ -43,7 +43,8 @@ NAMES = ["fedavg", "fedexp", "dp-fedavg-ldp-gauss", "ldp-fedexp-gauss",
 # adaptive clipping and noise schedules
 PORTED = NAMES + ["dp-fedavg-privunit", "ldp-fedexp-privunit", "privunit-fedexp-adaptive-clip",
                   "cdp-fedexp-adaptive-clip", "dp-fedadam-cdp", "ldp-gauss-fedadam",
-                  "cdp-fedmom", "ldp-fedexp-schedule", "cdp-fedexp-schedule"]
+                  "cdp-fedmom", "ldp-fedexp-schedule", "cdp-fedexp-schedule",
+                  "ldp-fedexp-perclient"]
 
 
 def _close_vec(got, want, rtol=1e-5):
@@ -246,7 +247,7 @@ class TestRegistry:
 
     def test_later_names_raise_not_implemented(self):
         later = sorted(set(jax_list()) - set(PORTED))
-        assert later == ["dp-scaffold", "ldp-fedexp-perclient"]
+        assert later == ["dp-scaffold"]
         for name in later:
             # the message points at ROADMAP queue 1, item 11
             with pytest.raises(NotImplementedError, match=r"not ported yet.*item 11\)"):

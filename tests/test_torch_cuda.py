@@ -7,7 +7,11 @@ Run where there is a CUDA card (an H100: the kernels build for sm_90a):
 Without a card every test here skips.  Only torch is imported, so the file
 also runs where JAX is not installed.  Tolerances: sums at rtol 1e-5 with an
 atol of 1e-5 times the largest entry (float32 sums in other orders); noise at
-1e-5 sigma per element (float32 log/cos/sin/sqrt rounding).  Flash attention on
+1e-5 sigma per element (float32 log/cos/sin/sqrt rounding); dp_aggregate with a
+row gate (NaN in the rows gated off) and row ids against the plain version
+at the same sum tolerance, and bit for bit where the same sums are taken in
+the same order (an all-on gate or the identity row ids against neither, a
+gathered block's noise against the dense noise's rows).  Flash attention on
 the float32 tensor-core kernel (float32, Dh <= 256) against its 3xTF32 order
 (chip_smoke.f32_reference) and against attention_ref, and on the SIMT kernel
 (called by name, float32 or bfloat16) against attention_ref: float32 at rtol
@@ -183,11 +187,114 @@ def test_kernel_backends_agree_with_the_cpu(dev):
             _close(getattr(got, f), getattr(want, f))
 
 
+def _gate(m, dev, frac, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gate = (torch.rand(m, generator=g, device=dev) < frac).to(torch.float32)
+    return gate * torch.randint(1, 3, (m,), generator=g, device=dev)   # values > 0 enter once
+
+
+@pytest.mark.parametrize("m,d", DP_SHAPES)
+@pytest.mark.parametrize("mode", ["none", "operand", "fused"])
+def test_gated_kernel_matches_plain_with_nan_in_gated_off_rows(dev, m, d, mode):
+    """~10% of the rows on (multiplicities 1 or 2, each entering once), NaN
+    planted in the rows gated off: the plain version's sums."""
+    u, noise = _dp_inputs(m, d, dev)
+    gate = _gate(m, dev, 0.1)
+    gate[0] = 1.0
+    u[gate == 0] = float("nan")
+    noise[gate == 0] = float("inf")
+    kw = {"operand": dict(noise=noise), "fused": dict(noise_seed=42, noise_sigma=0.3)}.get(mode, {})
+    plain_noise = {"operand": noise,
+                   "fused": ref.ldp_noise_ref(m, d, 42, 0.3, device=dev)}.get(mode)
+    before = ops.dp_aggregate_sums.launches
+    got = ops.dp_aggregate_sums(u, 0.5, row_gate=gate, **kw)
+    assert ops.dp_aggregate_sums.launches == before + 1
+    for a, b in zip(got, ref.dp_aggregate_ref(u, plain_noise, 0.5, row_gate=gate)):
+        assert torch.isfinite(a).all()
+        _close(a, b)
+
+
+@pytest.mark.parametrize("m,d", DP_SHAPES)
+@pytest.mark.parametrize("mode", ["none", "operand", "fused"])
+def test_all_on_gate_gives_the_ungated_bits_and_all_off_gives_zero(dev, m, d, mode):
+    u, noise = _dp_inputs(m, d, dev)
+    kw = {"operand": dict(noise=noise), "fused": dict(noise_seed=42, noise_sigma=0.3)}.get(mode, {})
+    want = ops.dp_aggregate_sums(u, 0.5, **kw)
+    on = ops.dp_aggregate_sums(u, 0.5, row_gate=torch.ones(m, device=dev), **kw)
+    ids = ops.dp_aggregate_sums(u, 0.5, row_ids=torch.arange(m, device=dev), **kw)
+    assert all(torch.equal(a, b) for a, b in zip(on, want))
+    assert all(torch.equal(a, b) for a, b in zip(ids, want))
+    off = ops.dp_aggregate_sums(u.fill_(float("nan")), 0.5, row_gate=torch.zeros(m, device=dev),
+                                **kw)
+    assert all(bool((x == 0).all()) for x in off)
+
+
+@pytest.mark.parametrize("m,d", [(40, 129), (300, 4099), (1000, 131072), (20, 300001)])
+def test_row_ids_draw_the_gathered_clients_rows_of_the_dense_noise(dev, m, d):
+    """A gathered block (slots with two padding slots at client 0, gated off)
+    draws its clients' rows of the dense noise, bit for bit, in the noise-only
+    kernel and in fused mode; row_start + row in their place fails."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    cap = max(3, m // 8)                 # at least one client besides the two padding slots
+    slots = torch.sort(torch.randperm(m, generator=g, device=dev)[:cap - 2]).values
+    slots = torch.cat([slots, torch.zeros(2, dtype=slots.dtype, device=dev)])
+    gate = torch.cat([torch.ones(cap - 2, device=dev), torch.zeros(2, device=dev)])
+    dense = ops.generate_ldp_noise(m, d, 5, 0.8, device=dev)
+    block = ops.generate_ldp_noise(cap, d, 5, 0.8, device=dev, row_ids=slots)
+    assert torch.equal(block, dense[slots])
+    u, _ = _dp_inputs(m, d, dev)
+    ub = u[slots]
+    fused = ops.dp_aggregate_sums(ub, 1.0, noise_seed=5, noise_sigma=0.8, row_gate=gate,
+                                  row_ids=slots)
+    operand = ops.dp_aggregate_sums(ub, 1.0, dense[slots], row_gate=gate)
+    for a, b in zip(fused, operand):
+        _close(a, b)
+    dense_gate = torch.zeros(m, device=dev)
+    dense_gate[slots[:cap - 2]] = 1.0
+    whole = ops.dp_aggregate_sums(u, 1.0, noise_seed=5, noise_sigma=0.8, row_gate=dense_gate)
+    for a, b in zip(fused, whole):
+        _close(a, b)
+    wrong = ops.dp_aggregate_sums(ub, 1.0, noise_seed=5, noise_sigma=0.8, row_gate=gate)
+    assert not torch.allclose(wrong[0], fused[0], rtol=1e-5,
+                              atol=1e-5 * float(fused[0].abs().max()))
+
+
+def test_masked_moments_are_one_launch_on_the_card(dev):
+    """partial_clip_moments with a mask, and a gathered block's seed noise,
+    take one dp_aggregate launch and no plain fallback; the CPU agrees."""
+    from repro_torch.core.aggregation import partial_clip_moments, raw_moments
+    u, _ = _dp_inputs(64, 300, dev)
+    mask = _gate(64, dev, 0.3)
+    slots = torch.tensor([3, 9, 20, 0])
+    for kw in (dict(), dict(noise_seed=3, noise_sigma=0.5),
+               dict(noise_seed=3, noise_sigma=0.5, start=slots)):
+        rows = u[slots.to(dev)] if "start" in kw else u
+        gate = torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev) if "start" in kw else mask
+        before = ops.dp_aggregate_sums.launches
+        got = partial_clip_moments(rows, 0.7, weight_mask=gate, **kw)
+        assert ops.dp_aggregate_sums.launches == before + 1
+        want = partial_clip_moments(rows.cpu(), 0.7, weight_mask=gate.cpu(), **kw)
+        for f in ("sum_c", "sum_sq", "sum_sq_clipped", "count"):
+            _close(getattr(got, f), torch.as_tensor(getattr(want, f)))
+    binary = (mask > 0).to(torch.float32)
+    before = ops.dp_aggregate_sums.launches
+    got = raw_moments(u, binary, binary_mask=True)
+    assert ops.dp_aggregate_sums.launches == before + 1
+    want = raw_moments(u.cpu(), binary.cpu())
+    for f in ("sum_c", "sum_sq", "count"):
+        _close(getattr(got, f), torch.as_tensor(getattr(want, f)))
+
+
 def test_cuda_tensors_never_reach_the_plain_version_silently(dev):
     with pytest.raises(ValueError, match="shape"):
         ops.dp_aggregate_sums(torch.zeros(4, 8, device=dev), 1.0, torch.zeros(4, 9, device=dev))
     with pytest.raises(ValueError, match="device"):
         ops.dp_aggregate_sums(torch.zeros(4, 8, device=dev), 1.0, torch.zeros(4, 8))
+    with pytest.raises(ValueError, match="row_gate lies on cpu"):
+        ops.dp_aggregate_sums(torch.zeros(4, 8, device=dev), 1.0, row_gate=torch.ones(4))
+    with pytest.raises(ValueError, match=r"row_ids must be a \(4,\) tensor"):
+        ops.dp_aggregate_sums(torch.zeros(4, 8, device=dev), 1.0,
+                              row_ids=torch.arange(5, device=dev))
 
 
 FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),

@@ -41,8 +41,8 @@ def main() -> int:
         scratch = torch.empty(plan.clusters * (d + plan.cluster + 1), device=dev)
         out = torch.empty(d + 2, device=dev)
         err = lib.dp_aggregate_launch(
-            u.data_ptr(), None, ops._MODES[mode], m, d, 1.0, 0.5, 1, 0, plan.cluster,
-            plan.window, plan.threads, plan.pairs, plan.stages, plan.slot_floats,
+            u.data_ptr(), None, ops._MODES[mode], m, d, 1.0, None, 0.5, 1, 0, None, None,
+            plan.cluster, plan.window, plan.threads, plan.pairs, plan.stages, plan.slot_floats,
             plan.smem_bytes, plan.clusters, plan.rows_per_cluster, scratch.data_ptr(),
             tickets.data_ptr(), out.data_ptr(), stream)
         if err != 0:

@@ -113,8 +113,8 @@ def main() -> int:
             out = torch.empty(D + 2, device=dev)
             err = lib.dp_aggregate_launch(
                 u.data_ptr(), None if nz is None else nz.data_ptr(), code, M, D, 1.0,
-                clip_at, sigma, seed, 0, plan.cluster, plan.window, plan.threads, plan.pairs,
-                plan.stages, plan.slot_floats, plan.smem_bytes, plan.clusters,
+                clip_at, sigma, seed, 0, None, None, plan.cluster, plan.window, plan.threads,
+                plan.pairs, plan.stages, plan.slot_floats, plan.smem_bytes, plan.clusters,
                 plan.rows_per_cluster, scratch.data_ptr(), tickets.data_ptr(), out.data_ptr(),
                 stream)
             if err != 0:
