@@ -64,36 +64,50 @@ Phases, each of which exits non-zero on failure:
                ones, and a profiled split over the four stages.
   3. paper     the paper's synthetic linear regression (M=1000, tau=20,
                50 rounds; d=500 CDP/noiseless, d=100 LDP and PrivUnit) for
-               the sixteen ported names (PrivUnit at eps0 = eps1 = eps2 = 2;
-               adaptive clipping from c0 = C, z_mult = sigma / C; schedules
-               decaying by 0.97 a round; ldp-fedexp-perclient with 1000
-               epsilons in three tiers), the Gaussian LDP names also on the
+               all seventeen names, dp-scaffold in both modes (LDP sigma =
+               0.7C, CDP 5C/sqrt(M), (eta_l, C) = (0.3, 0.3)) (PrivUnit at
+               eps0 = eps1 = eps2 = 2; adaptive clipping from c0 = C, z_mult
+               = sigma / C; schedules decaying by 0.97 a round;
+               ldp-fedexp-perclient with 1000 epsilons in three tiers), the
+               Gaussian LDP names and dp-scaffold's LDP also on the
                materialized-noise backend; each name again under
                CohortSpec(q=0.1) dense and gathered and CohortSpec(size=100),
                each round of the dense q=0.1 run taken again gathered from
-               the same iterate and equal at rtol 1e-5 (the two whole runs'
-               gap printed: cdp-fedexp's extrapolation and PrivUnit's
-               release compound rounding over 50 rounds);
-               dp_aggregate launches must rise by one a round, by none for
-               the PrivUnit names and the weighted ldp-fedexp-perclient
-               (which launches the noise-only kernel once a round).
+               the same iterate and carry and equal at rtol 1e-5 (dp-scaffold's
+               variate table too; the two whole runs' gap printed:
+               cdp-fedexp's extrapolation and PrivUnit's release compound
+               rounding over 50 rounds); dp_aggregate launches must rise by
+               one a round, by two for dp-scaffold (its model and variate
+               releases), by none for the PrivUnit names and the weighted
+               ldp-fedexp-perclient (which launches the noise-only kernel
+               once a round).
+  3b. e1       the paper's e1 comparison (benchmarks/e1_synthetic.py): for
+               cdp (d=500), ldp-gauss and ldp-privunit (d=100), DP-FedAvg,
+               DP-FedEXP and DP-SCAFFOLD at e1's (eta_l, C), each through
+               FederatedSession.run_batched over 5 seeds: the final
+               ||w - w*|| as mean +/- std, and OK/WARN for DP-FedEXP <
+               DP-FedAvg, printed as e1 prints it; in ldp-gauss each seed's
+               slice must equal its own run() in bits.
   4. full      ldp-fedexp-gauss (fused mode), cdp-fedexp (none mode),
                ldp-fedexp-privunit (no kernel), cdp-fedexp-adaptive-clip
                (none mode, C on the card), ldp-fedexp-gauss under
                CohortSpec(q=0.1, gather=True) (fused, gated, row ids),
-               cdp-fedexp under CohortSpec(size=100) (none mode, gated) and
-               ldp-fedexp-perclient (plain weighted sums) at M=1000,
-               d=131072 for 5 rounds: ms per round, its split, peak memory,
-               and the synchronizing CUDA operations of one round (an
-               adaptive-clip round may make no more than cdp-fedexp's, a
-               sampled round no more than its name's full round); PrivUnit's
-               release time.
+               cdp-fedexp under CohortSpec(size=100) (none mode, gated),
+               ldp-fedexp-perclient (plain weighted sums), and dp-scaffold
+               LDP (two fused launches), CDP (two none launches) and LDP
+               under CohortSpec(q=0.1, gather=True) at M=1000, d=131072 for
+               5 rounds: ms per round, its split, peak memory (dp-scaffold's
+               (M, d) variate table is 0.52 GB), and the synchronizing CUDA
+               operations of one round (an adaptive-clip round may make no
+               more than cdp-fedexp's, a sampled round no more than its
+               name's full round, a dp-scaffold round no more than
+               ldp-fedexp-gauss's); PrivUnit's release time.
   5. reference the port on the card against the port on the CPU (plain
                versions, same seeds, same noise) on a small problem: fedexp,
                ldp-fedexp-gauss (also under CohortSpec(q=0.25), dense and
                gathered), ldp-gauss-fedadam, ldp-fedexp-schedule,
-               ldp-fedexp-perclient and cdp-fedexp-adaptive-clip without
-               noise.
+               ldp-fedexp-perclient, cdp-fedexp-adaptive-clip without
+               noise, and dp-scaffold LDP (also gathered under q=0.25).
   6. serve     h2o-danube-3-4b at full width and depth, seeded bf16 weights
                and a bf16 KV cache: ServeEngine.generate of 16 greedy tokens
                after an 8192-token prompt (batch 2, twice the window); 24
@@ -132,7 +146,7 @@ Phases, each of which exits non-zero on failure:
                bounds (SERVE_F32_MAX_ERR, SERVE_F32_MEAN_ERR), the window
                dropped on the plain path outside them; one prefill timed with
                the SIMT kernel in place of the dispatch (the route before).
-Phases 3 and 4 are the round loop's main path, phase 6's bf16 generate the
+Phases 3, 3b and 4 are the round loop's main path, phase 6's bf16 generate the
 dense serve path's (the tensor-core flash kernel), its f32 generate and phase
 9's the float32 serve path's (the float32 tensor-core flash kernel), phase 7's
 generate the Mamba2 serve path's, phase 8's bf16 generate the Dh-256 serve
@@ -183,7 +197,11 @@ HP = {  # (eta_l, C) of benchmarks/e1_synthetic.py; noiseless names at eta_l 0.1
     "dp-fedavg-ldp-gauss": (0.3, 1.0), "ldp-fedexp-gauss": (0.3, 0.3),
     "dp-fedavg-privunit": (0.3, 3.0), "ldp-fedexp-privunit": (0.1, 1.0),
     "dp-fedavg-cdp": (0.3, 3.0), "cdp-fedexp": (0.1, 0.3),
+    "dp-scaffold-ldp": (0.3, 0.3), "dp-scaffold-cdp": (0.3, 0.3),
 }
+# dp-scaffold runs in both modes: these labels name the registry's
+# "dp-scaffold" with central=False (LDP, sigma = 0.7C) and True (CDP)
+SCAFFOLD = {"dp-scaffold-ldp": False, "dp-scaffold-cdp": True}
 # the other names take the (eta_l, C) of their base name
 BASE = {"privunit-fedexp-adaptive-clip": "ldp-fedexp-privunit",
         "cdp-fedexp-adaptive-clip": "cdp-fedexp", "dp-fedadam-cdp": "dp-fedavg-cdp",
@@ -204,6 +222,9 @@ FEDEXP_NAMES = ("fedexp", "ldp-fedexp-gauss", "cdp-fedexp", "ldp-fedexp-privunit
 # a fixed cohort of 100 of the 1000 clients
 SAMPLED = {"q=0.1": dict(q=0.1), "q=0.1 gathered": dict(q=0.1, gather=True),
            "size=100": dict(size=100)}
+# dp-scaffold also draws a fixed cohort of 100 with replacement: each draw is a
+# row of its own, and its two releases stay two launches a round
+REPLACE = {"size=100 replace": dict(size=100, replace=True)}
 
 
 def fail(msg: str) -> None:
@@ -238,12 +259,18 @@ def perclient_epsilons(m: int) -> tuple[float, ...]:
     return tuple(eps)
 
 
-def algo_kwargs(name: str, m: int, d: int):
+def registry_name(name: str) -> str:
+    """The make_algorithm name of a phase's label (SCAFFOLD's two modes)."""
+    return "dp-scaffold" if name in SCAFFOLD else name
+
+
+def algo_kwargs(name: str, m: int, d: int, tau: int):
     """(eta_l, make_algorithm kwargs) of the paper's protocol for ``name``:
     sigma = 5C/sqrt(M) for CDP, 0.7C for LDP, eps0 = eps1 = eps2 = 2 for
     PrivUnit.  Adaptive clipping starts at c0 = C, with z_mult = sigma / C;
     the schedules decay by DECAY a round; ldp-fedexp-perclient's budgets are
-    PERCLIENT_TIERS."""
+    PERCLIENT_TIERS; dp-scaffold's server mirrors the local phase (tau,
+    eta_l)."""
     eta_l, c = HP[BASE.get(name, name)]
     if c is None:
         return eta_l, {}
@@ -261,6 +288,8 @@ def algo_kwargs(name: str, m: int, d: int):
             kw = dict(z_mult=kw["sigma"] / c, num_clients=m, c0=c)
     if "schedule" in name:
         kw["decay"] = DECAY
+    if name in SCAFFOLD:
+        kw.update(central=SCAFFOLD[name], num_clients=m, tau=tau, eta_l=eta_l)
     return eta_l, kw
 
 
@@ -268,12 +297,14 @@ def launches_per_round(name: str, backend: str = "auto") -> tuple[int, int]:
     """(dp_aggregate, ldp_noise) launches a round of ``name``: PrivUnit reaches
     no kernel; the weighted ldp-fedexp-perclient reduces in plain PyTorch and
     draws its unit noise with the noise-only kernel; the Gaussian LDP names on
-    the materialized-noise backend draw theirs there too."""
+    the materialized-noise backend draw theirs there too; dp-scaffold's two
+    releases make two of each."""
     if "privunit" in name:
         return 0, 0
     if name == "ldp-fedexp-perclient":
         return 0, 1
-    return 1, int(backend == "kernel")
+    n = 2 if name in SCAFFOLD else 1
+    return n, n * int(backend == "kernel")
 
 
 def timed(label: str, phase, *args):
@@ -683,15 +714,17 @@ def run_session(name, m, d, rounds, tau, dev, *, seed=0, backend="auto", data=No
     import torch
     from repro_torch.core.fedexp import make_algorithm
     from repro_torch.data.synthetic import distance_to_opt, linreg_loss, make_synthetic_linreg
-    from repro_torch.fedsim import CohortSpec, FederatedSession, TrainSpec
+    from repro_torch.fedsim import CohortSpec, FederatedSession, LocalSpec, TrainSpec
 
     if data is None:
         data = make_synthetic_linreg(torch.Generator(device=dev).manual_seed(0), m, d)
-    eta_l, base_kw = algo_kwargs(name, m, d)
+    eta_l, base_kw = algo_kwargs(name, m, d, tau)
     kw = {**base_kw, **(kw or {})}
     session = FederatedSession(
-        make_algorithm(name, backend=backend, **kw), linreg_loss, torch.zeros(d, device=dev),
-        data.client_batches(), train=TrainSpec(rounds=rounds, tau=tau, eta_l=eta_l),
+        make_algorithm(registry_name(name), backend=backend, **kw), linreg_loss,
+        torch.zeros(d, device=dev), data.client_batches(),
+        train=TrainSpec(rounds=rounds, tau=tau, eta_l=eta_l),
+        local=LocalSpec(control_variates=True) if name in SCAFFOLD else None,
         cohort=None if cohort is None else CohortSpec(**cohort),
         eval_fn=distance_to_opt(data.w_star), device=dev)
     return session, session.run(seed), data
@@ -714,7 +747,8 @@ def paper_run(name, d, dev, backend="auto", cohort=None):
     result and the final distance to w*."""
     from repro_torch.kernels.dp_aggregate import ops
     m, tau, rounds = PAPER
-    label = "full" if cohort is None else next(k for k, v in SAMPLED.items() if v == cohort)
+    label = "full" if cohort is None else next(k for k, v in {**SAMPLED, **REPLACE}.items()
+                                               if v == cohort)
     before = (ops.dp_aggregate_sums.launches, ops.generate_ldp_noise.launches)
     t0 = time.perf_counter()
     _, r, data = run_session(name, m, d, rounds, tau, dev, backend=backend, cohort=cohort)
@@ -735,8 +769,8 @@ def paper_run(name, d, dev, backend="auto", cohort=None):
 
 def phase_paper(dev):
     """Phase 3: the paper workload for every ported name, under full
-    participation and the SAMPLED cohorts, with launch counts; gathered and
-    dense runs of one seed must agree."""
+    participation and the SAMPLED cohorts (and REPLACE for dp-scaffold), with
+    launch counts; gathered and dense runs of one seed must agree."""
     finals = {}
     for name in NAMES:
         d = 100 if "ldp" in name or "privunit" in name else 500
@@ -744,10 +778,12 @@ def phase_paper(dev):
         for backend in ("auto", "kernel") if gauss_ldp else ("auto",):
             r, dist = paper_run(name, d, dev, backend)
             finals[(name, backend)] = (r.final_w, dist)
-        runs = {label: paper_run(name, d, dev, cohort=spec)[0] for label, spec in SAMPLED.items()}
+        cohorts = {**SAMPLED, **(REPLACE if name in SCAFFOLD else {})}
+        runs = {label: paper_run(name, d, dev, cohort=spec)[0] for label, spec in cohorts.items()}
         gathered_rounds(name, d, dev, runs["q=0.1"], runs["q=0.1 gathered"])
     # the materialized-noise backend of a gathered round: the noise-only kernel with row ids
     paper_run("ldp-fedexp-gauss", 100, dev, "kernel", SAMPLED["q=0.1 gathered"])
+    paper_run("dp-scaffold-ldp", 100, dev, "kernel", SAMPLED["q=0.1 gathered"])
     local_training_bits(dev)
     for name, backend in finals:
         if backend == "kernel":
@@ -774,7 +810,8 @@ def gathered_rounds(name, d, dev, dense, gathered):
     row keys, mask) and not the batched products' rounding.  The iterate is
     held; eta_g's largest relative gap is printed, as the FedEXP ratio
     subtracts the noise's expected square (Eq. 6) and so amplifies a sum's
-    last bits (2.3e-5 at a round of ldp-fedexp-schedule)."""
+    last bits (2.3e-5 at a round of ldp-fedexp-schedule).  dp-scaffold's
+    variate carry (c and the (M, d) table) is held too."""
     from repro_torch.core.algorithm import round_generator
     from repro_torch.fedsim import CohortSpec, gather_slots
     from repro_torch.fedsim.server import round_step, sampled_round
@@ -799,7 +836,10 @@ def gathered_rounds(name, d, dev, dense, gathered):
             out_d, out_g = (aux_d.eta_g,), (aux_g.eta_g,)
         else:
             w_d, s_d, out_d = steps[0](w, state, round_generator(0, t), t, batches, eta_l)
-            w_g, _, out_g = steps[1](w, state, round_generator(0, t), t, batches, eta_l)
+            w_g, s_g, out_g = steps[1](w, state, round_generator(0, t), t, batches, eta_l)
+            if name in SCAFFOLD:
+                close(s_g.c, s_d.c, f"{name}: gathered vs dense c, round {t}")
+                close(s_g.c_is, s_d.c_is, f"{name}: gathered vs dense c_i table, round {t}")
         worst = max(worst, close(w_g, w_d, f"{name}: gathered vs dense w, round {t}"))
         eta_gap = max(eta_gap, float((out_g[0] - out_d[0]).abs() / out_d[0].abs()))
         w, state = w_d, s_d
@@ -836,6 +876,95 @@ def local_training_bits(dev):
           f"cohort: max abs diff {diff:.3e} (bits equal: {diff == 0.0})")
 
 
+# the e1 comparison (benchmarks/e1_synthetic.py:26-55): (eta_l, C) per setting
+# and algorithm, sigma = 5C/sqrt(M) for CDP and 0.7C for LDP, PrivUnit at
+# eps0 = eps1 = eps2 = 2; M = 1000, tau = 20, 50 rounds; seeds 1000 + s as
+# e1's PRNGKey(1000 + s)
+E1_HP = {
+    "ldp-gauss": {"fedexp": (0.3, 0.3), "fedavg": (0.3, 1.0), "scaffold": (0.3, 0.3)},
+    "ldp-privunit": {"fedexp": (0.1, 1.0), "fedavg": (0.3, 3.0), "scaffold": (0.3, 0.3)},
+    "cdp": {"fedexp": (0.1, 0.3), "fedavg": (0.3, 3.0), "scaffold": (0.3, 0.3)},
+}
+E1_SETTINGS = (("cdp", 500), ("ldp-gauss", 100), ("ldp-privunit", 100))
+E1_SEEDS = tuple(1000 + s for s in range(5))
+E1_HELD = "ldp-gauss"    # its sweeps are held seed by seed against run()
+
+
+def e1_algorithm(setting: str, alg: str, m: int, d: int, tau: int):
+    """e1's algorithm for (setting, alg), as benchmarks/common.py's
+    make_dp_algorithm builds it, and dp-scaffold as e1 configures it."""
+    from repro_torch.core.fedexp import make_algorithm
+    eta_l, c = E1_HP[setting][alg]
+    if alg == "scaffold":
+        central = setting == "cdp"
+        sigma = 5 * c / math.sqrt(m) if central else 0.7 * c
+        return make_algorithm("dp-scaffold", clip_norm=c, sigma=sigma, central=central,
+                              num_clients=m, tau=tau, eta_l=eta_l)
+    if setting == "cdp":
+        return make_algorithm("cdp-fedexp" if alg == "fedexp" else "dp-fedavg-cdp",
+                              clip_norm=c, sigma=5 * c / math.sqrt(m), num_clients=m)
+    if setting == "ldp-gauss":
+        return make_algorithm("ldp-fedexp-gauss" if alg == "fedexp" else "dp-fedavg-ldp-gauss",
+                              clip_norm=c, sigma=0.7 * c)
+    return make_algorithm("ldp-fedexp-privunit" if alg == "fedexp" else "dp-fedavg-privunit",
+                          clip_norm=c, dim=d, **PRIVUNIT)
+
+
+def same_bits(a, b) -> bool:
+    """Equal tensors, NaN where both are NaN."""
+    import torch
+    return a.shape == b.shape and bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def phase_e1(dev):
+    """The paper's e1 comparison through ``run_batched`` over E1_SEEDS: for
+    each setting DP-FedAvg, DP-FedEXP and DP-SCAFFOLD, the final ||w - w*||
+    as mean +/- std over the seeds; OK/WARN for DP-FedEXP < DP-FedAvg,
+    printed as e1 prints it (not held).  Held: finite results of shape
+    (S, ...), and in E1_HELD each seed's slice equal to its own run()."""
+    import torch
+    from repro_torch.data.synthetic import distance_to_opt, linreg_loss, make_synthetic_linreg
+    from repro_torch.fedsim import FederatedSession, LocalSpec, TrainSpec
+    m, tau, rounds = PAPER
+    means = {}
+    for setting, d in E1_SETTINGS:
+        data = make_synthetic_linreg(torch.Generator(device=dev).manual_seed(0), m, d)
+        for alg in ("fedavg", "fedexp", "scaffold"):
+            session = FederatedSession(
+                e1_algorithm(setting, alg, m, d, tau), linreg_loss, torch.zeros(d, device=dev),
+                data.client_batches(),
+                train=TrainSpec(rounds=rounds, tau=tau, eta_l=E1_HP[setting][alg][0]),
+                local=LocalSpec(control_variates=True) if alg == "scaffold" else None,
+                eval_fn=distance_to_opt(data.w_star), device=dev)
+            t0 = time.perf_counter()
+            r = session.run_batched(E1_SEEDS)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n = len(E1_SEEDS)
+            if r.final_w.shape != (n, d) or r.eta_history.shape != (n, rounds) \
+                    or not torch.isfinite(r.final_w).all():
+                fail(f"e1 {setting} {alg}: non-finite or misshapen run_batched results")
+            dists = torch.linalg.vector_norm(r.final_w - data.w_star, dim=1).double().cpu()
+            means[(setting, alg)] = mean = float(dists.mean())
+            held = ""
+            if setting == E1_HELD:
+                for i, seed in enumerate(E1_SEEDS):
+                    one = session.run(seed)
+                    for f in ("final_w", "last_w", "eta_history", "metric_history",
+                              "eta_naive_history", "eta_target_history"):
+                        if not same_bits(getattr(r, f)[i], getattr(one, f)):
+                            fail(f"e1 {setting} {alg}: run_batched seed {seed} {f} differs "
+                                 "from run()")
+                held = "; each seed = its run() in bits"
+            print(f"[e1] {setting:12s} {alg:8s} d={d}: final ||w - w*|| over {n} seeds "
+                  f"{mean:.4f} +/- {float(dists.std(unbiased=False)):.4f}  "
+                  f"({secs:.2f} s{held})")
+    for setting, _ in E1_SETTINGS:
+        exp, avg = means[(setting, "fedexp")], means[(setting, "fedavg")]
+        print(f"[e1] {'OK ' if exp < avg else 'WARN'} {setting}: DP-FedEXP {exp:.4f} vs "
+              f"DP-FedAvg {avg:.4f} (DP-SCAFFOLD {means[(setting, 'scaffold')]:.4f})")
+
+
 def syncs_of(fn) -> list[str]:
     """The synchronizing CUDA operations ``fn`` makes, as PyTorch's sync
     debug mode reports them: the file and line of each."""
@@ -861,11 +990,16 @@ FULL = (("ldp-fedexp-gauss", "fused", None), ("cdp-fedexp", "none", None),
         ("ldp-fedexp-privunit", None, None), ("cdp-fedexp-adaptive-clip", "none", None),
         ("ldp-fedexp-gauss", "fused", SAMPLED["q=0.1 gathered"]),
         ("cdp-fedexp", "none", SAMPLED["size=100"]),
-        ("ldp-fedexp-perclient", None, None))
-# a sampled round may sync no more than its name's full round
+        ("ldp-fedexp-perclient", None, None),
+        ("dp-scaffold-ldp", "fused", None), ("dp-scaffold-cdp", "none", None),
+        ("dp-scaffold-ldp", "fused", SAMPLED["q=0.1 gathered"]))
+# a sampled round may sync no more than its name's full round; a dp-scaffold
+# round (two releases, the variate table) no more than ldp-fedexp-gauss's
 SYNC_BASE = {"ldp-fedexp-gauss q=0.1 gathered": "ldp-fedexp-gauss",
              "cdp-fedexp size=100": "cdp-fedexp",
-             "cdp-fedexp-adaptive-clip": "cdp-fedexp"}
+             "cdp-fedexp-adaptive-clip": "cdp-fedexp",
+             "dp-scaffold-ldp": "ldp-fedexp-gauss", "dp-scaffold-cdp": "ldp-fedexp-gauss",
+             "dp-scaffold-ldp q=0.1 gathered": "ldp-fedexp-gauss"}
 
 
 def split_round(session, w, state, t, cohort):
@@ -874,17 +1008,16 @@ def split_round(session, w, state, t, cohort):
     cohort) and the rest of the round: (local ms, server ms)."""
     import torch
     from repro_torch.core.algorithm import round_generator
-    from repro_torch.data.synthetic import linreg_loss
-    from repro_torch.fedsim import CohortSpec, cohort_updates, gather_rows, gather_slots
-    from repro_torch.fedsim.server import sampled_round
-    alg, batches, eta_l, tau = (session.algorithm, session.client_batches,
-                                session.train.eta_l, session.train.tau)
+    from repro_torch.fedsim import CohortSpec, gather_rows, gather_slots
+    from repro_torch.fedsim.server import local_caller, sampled_round
+    alg, batches, eta_l = session.algorithm, session.client_batches, session.train.eta_l
+    local = local_caller(session._local_fn, alg)
     m, d = session.num_clients, session.dim
     gen = round_generator(1, t)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     if cohort is None:
         ev[0].record()
-        deltas = cohort_updates(linreg_loss, w, batches, tau, eta_l)
+        deltas = local(w, batches, eta_l, 0, state)
         ev[1].record()
         alg.apply_round_stateful(gen, w, deltas, state, t=t)
         ev[2].record()
@@ -892,12 +1025,12 @@ def split_round(session, w, state, t, cohort):
         spec = CohortSpec(**cohort)
         mask = spec.round_mask(gen, m)
         noise = alg.draw_noise(gen, m, d, w.device, t)
-        block = batches
+        block, start = batches, 0
         if spec.gather:
-            slots = gather_slots(mask, spec.resolved_cap(m))[0]
-            block = gather_rows(batches, slots.to(w.device))
+            start = gather_slots(mask, spec.resolved_cap(m))[0]
+            block = gather_rows(batches, start.to(w.device))
         ev[0].record()
-        deltas = cohort_updates(linreg_loss, w, block, tau, eta_l)
+        deltas = local(w, block, eta_l, start, state)
         ev[1].record()
         sampled_round(alg, lambda *_: deltas, w, state, noise, mask, spec, t, batches, eta_l)
         ev[2].record()
@@ -947,7 +1080,8 @@ def phase_full(dev, cases) -> dict:
         syncs = syncs_of(lambda: step(w, state, round_generator(2, 0), 0,
                                       session.client_batches, session.train.eta_l))
         row["syncs"], row["sync_at"] = len(syncs), syncs
-        kern = (f"dp_aggregate {mode} kernel {kernel_ms[mode]:.4f} ms/launch ungated" if mode
+        kern = (f"{launches_per_round(name)[0]} dp_aggregate {mode} launch(es) a round, kernel "
+                f"{kernel_ms[mode]:.4f} ms/launch ungated" if mode
                 else "no dp_aggregate launch (plain PyTorch"
                 + (", the noise-only kernel)" if "perclient" in name else ")"))
         print(f"[4 full] {label} M={m} d={d} tau={tau}: {per_round:.3f} ms/round "
@@ -992,7 +1126,8 @@ def phase_reference(dev):
             ("ldp-gauss-fedadam", None, None), ("ldp-fedexp-schedule", None, None),
             ("cdp-fedexp-adaptive-clip", dict(z_mult=0.0, sigma_b=0.0), None),
             ("ldp-fedexp-gauss", None, dict(q=0.25, gather=True)),
-            ("ldp-fedexp-gauss", None, dict(q=0.25)), ("ldp-fedexp-perclient", None, None)):
+            ("ldp-fedexp-gauss", None, dict(q=0.25)), ("ldp-fedexp-perclient", None, None),
+            ("dp-scaffold-ldp", None, None), ("dp-scaffold-ldp", None, dict(q=0.25, gather=True))):
         _, g, data = run_session(name, m, d, rounds, tau, dev, seed=7, kw=kw, cohort=cohort)
         cpu_data = type(data)(x=data.x.cpu(), y=data.y.cpu(), w_star=data.w_star.cpu())
         _, c, _ = run_session(name, m, d, rounds, tau, "cpu", seed=7, data=cpu_data, kw=kw,
@@ -2024,6 +2159,7 @@ def main() -> int:
     ops.dp_aggregate_sums.launches = 0
     ops.generate_ldp_noise.launches = 0
     timed("3 paper", phase_paper, dev)
+    timed("3b e1", phase_e1, dev)
     full = timed("4 full", phase_full, dev, cases)
     launches = {"dp_aggregate": ops.dp_aggregate_sums.launches,
                 "ldp_noise": ops.generate_ldp_noise.launches}

@@ -82,6 +82,11 @@ class RoundNoise:
     seed: int | None = None                 # 32-bit seed of the per-client LDP noise
     ldp: torch.Tensor | None = None         # (M, d) materialized per-client noise
     central: torch.Tensor | None = None     # (d,) N(0, 1) of the CDP mean
+    # DP-SCAFFOLD's second release (the variate update), drawn after the
+    # first: its LDP seed or (M, d) matrix, or its CDP (d,) N(0, 1)
+    seed_dc: int | None = None
+    ldp_dc: torch.Tensor | None = None
+    central_dc: torch.Tensor | None = None
     xi: torch.Tensor | None = None          # N(0, 1) of the CDP FedEXP numerator
     # PrivUnit: (M,) host uniforms of the cap and its quantile, (M, d) N(0, 1)
     # on the device, and ScalarDP's (M,) rounding and keep uniforms and

@@ -3,9 +3,9 @@
 Every name is a (mechanism, step) composition under the uniform
 ``MeanAggregation``, but ``ldp-fedexp-perclient``: a sigma per client from
 its own epsilon (``PerClientGaussian``) under the inverse-variance
-``WeightedAggregation``.  The port builds 16 of the JAX registry's 17 names;
-``dp-scaffold`` (client control variates) raises ``NotImplementedError``
-naming the slice that brings it (ROADMAP.md, queue 1).
+``WeightedAggregation``, and ``dp-scaffold``: the control-variate server
+``DPScaffoldServer``, run with ``LocalSpec(control_variates=True)``.  The
+port builds all 17 of the JAX registry's names.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Callable
 
 from repro_torch.core import compose as _compose
 from repro_torch.core.algorithm import ServerAlgorithm
+from repro_torch.core.variance_reduction import DPScaffoldServer
 
 __all__ = ["make_algorithm", "list_algorithms"]
 
@@ -71,6 +72,12 @@ def _perclient_weighted(kw) -> _compose.ComposedAlgorithm:
         name="ldp-fedexp-perclient")
 
 
+def _scaffold(kw) -> DPScaffoldServer:
+    return DPScaffoldServer(clip_norm=kw["clip_norm"], sigma=kw["sigma"], central=kw["central"],
+                            num_clients=kw["num_clients"], tau=kw["tau"], eta_l=kw["eta_l"],
+                            backend=_backend(kw))
+
+
 _FACTORIES: dict[str, Callable[..., ServerAlgorithm]] = {
     "fedavg": lambda **kw: _composed(
         "fedavg", _compose.NoPrivacy(), _compose.FixedEta()),
@@ -107,11 +114,7 @@ _FACTORIES: dict[str, Callable[..., ServerAlgorithm]] = {
     "cdp-fedexp-schedule": lambda **kw: _composed(
         "cdp-fedexp-schedule", _schedule(_cdp(kw), kw), _compose.FedEXPStep()),
     "ldp-fedexp-perclient": lambda **kw: _perclient_weighted(kw),
-}
-
-# the JAX package's other registry names, with the slice that ports each
-_LATER: dict[str, str] = {
-    "dp-scaffold": "the variance-reduction slice (queue 1, item 11)",
+    "dp-scaffold": lambda **kw: _scaffold(kw),
 }
 
 
@@ -133,12 +136,12 @@ def make_algorithm(name: str, **kwargs) -> ServerAlgorithm:
         adaptive clipping; ``server_lr`` (and ``server_beta`` for momentum)
         for the server optimizers; ``decay``/``boundaries``/``scales`` for
         the schedules; ``epsilons`` (one per client) and ``delta`` with
-        ``clip_norm`` for ``ldp-fedexp-perclient``; ``backend`` ("auto" |
-        "kernel" | "kernel-fused" | "torch") for the Gaussian names.
+        ``clip_norm`` for ``ldp-fedexp-perclient``; ``clip_norm``,
+        ``sigma``, ``central``, ``num_clients``, ``tau`` and ``eta_l`` for
+        ``dp-scaffold`` (the server mirrors the local phase); ``backend``
+        ("auto" | "kernel" | "kernel-fused" | "torch") for the Gaussian names
+        and ``dp-scaffold``.
     """
-    if name in _LATER:
-        raise NotImplementedError(f"{name!r} is not ported yet; it comes with {_LATER[name]} "
-                                  "of ROADMAP.md")
     if name not in _FACTORIES:
         raise KeyError(f"unknown algorithm {name!r}; valid names: "
                        f"{', '.join(list_algorithms())}")

@@ -3,15 +3,17 @@
 from repro_torch.fedsim.flat import flatten_model
 from repro_torch.fedsim.local import (
     cohort_updates,
+    cohort_updates_scaffold,
     gather_rows,
     gather_slots,
     local_update,
+    local_update_scaffold,
     mask_rows,
 )
 from repro_torch.fedsim.server import RunResult
 from repro_torch.fedsim.session import FederatedSession
-from repro_torch.fedsim.specs import CohortSpec, EngineSpec, TrainSpec
+from repro_torch.fedsim.specs import CohortSpec, EngineSpec, LocalSpec, TrainSpec
 
-__all__ = ["flatten_model", "local_update", "cohort_updates", "mask_rows", "gather_slots",
-           "gather_rows", "RunResult", "FederatedSession", "TrainSpec", "EngineSpec",
-           "CohortSpec"]
+__all__ = ["flatten_model", "local_update", "cohort_updates", "local_update_scaffold",
+           "cohort_updates_scaffold", "mask_rows", "gather_slots", "gather_rows", "RunResult",
+           "FederatedSession", "TrainSpec", "LocalSpec", "EngineSpec", "CohortSpec"]

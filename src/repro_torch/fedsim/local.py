@@ -7,6 +7,10 @@ its own data from the broadcast model and returns the raw local update
 ``torch.func.grad`` of the plain loss, and ``torch.func.vmap`` runs the whole
 cohort as one batched program.
 
+SCAFFOLD's trainer (``LocalSpec(control_variates=True)``) steps by the
+drift-corrected direction ``g - c_i + c`` instead (``local_update_scaffold``),
+each client with its own variate row ``c_i``, all with the global ``c``.
+
 A sampled round (``CohortSpec``) zeroes the updates of the clients left out
 (``mask_rows``) or trains only the sampled ones: ``gather_slots`` packs the
 host mask into a static slot table, on the host, and ``gather_rows`` takes
@@ -20,7 +24,8 @@ import torch
 
 from repro_torch.tree import tree_map
 
-__all__ = ["local_update", "cohort_updates", "mask_rows", "gather_slots", "gather_rows"]
+__all__ = ["local_update", "cohort_updates", "local_update_scaffold", "cohort_updates_scaffold",
+           "mask_rows", "gather_slots", "gather_rows"]
 
 
 def local_update(loss_fn: Callable, w0: torch.Tensor, client_batch, tau: int,
@@ -42,6 +47,33 @@ def cohort_updates(loss_fn: Callable, w: torch.Tensor, client_batches, tau: int,
     """
     return torch.func.vmap(
         lambda batch: local_update(loss_fn, w, batch, tau, eta_l))(client_batches)
+
+
+def local_update_scaffold(loss_fn: Callable, w0: torch.Tensor, client_batch,
+                          c_i: torch.Tensor, c: torch.Tensor, tau: int,
+                          eta_l: float) -> torch.Tensor:
+    """tau SCAFFOLD control-variate steps on one client; returns the update.
+
+    Each step is ``y - eta_l * (g - c_i + c)``, in that op order (the JAX
+    package's, whose dense round is pinned to its legacy loop's bits)."""
+    grad_fn = torch.func.grad(loss_fn)
+    y = w0
+    for _ in range(tau):
+        y = y - eta_l * (grad_fn(y, client_batch) - c_i + c)
+    return y - w0
+
+
+def cohort_updates_scaffold(loss_fn: Callable, w: torch.Tensor, client_batches, tau: int,
+                            eta_l: float, ctx) -> torch.Tensor:
+    """(m, d) control-variate updates of a block of clients.
+
+    ``ctx`` is the algorithm's local context ``(c_i rows, c)`` for the block
+    (``DPScaffoldServer.local_context``): the rows are vmapped beside the
+    batches, ``c`` is shared."""
+    c_is, c = ctx
+    return torch.func.vmap(
+        lambda batch, c_i: local_update_scaffold(loss_fn, w, batch, c_i, c, tau, eta_l))(
+            client_batches, c_is)
 
 
 def mask_rows(deltas: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -9,9 +9,15 @@ masked-moment protocol: the cohort mask, drawn first from the round's
 generator on the host, then the algorithm's noise for all M clients; local
 training on every client, or with ``gather`` on the sampled ones only;
 ``mask_rows``; ``local_moments``; the count resolved; ``apply_from_moments``.
-Nothing in the loop waits for the device: host values reach it by pinned
-non-blocking copies, histories stay tensors until the run ends, and state
-such as an adaptive clip threshold stays on the device.  Faults, streaming
+An algorithm that declares ``uses_local_context`` (DP-SCAFFOLD) has
+``local_context(state, start, m)`` appended to the trainer call in both
+rounds (``local_caller``): each block of clients trains on its own rows of
+the server's carry; its ``local_moments`` also gets the block's host mask
+(``host_mask=``), by which it expands a with-replacement multiplicity
+without reading the device.  Nothing in the loop waits for the device: host values
+reach it by pinned non-blocking copies, histories stay tensors until the
+run ends, and state such as an adaptive clip threshold or DP-SCAFFOLD's
+variate table stays on the device.  Faults, streaming
 and sharding come in later slices (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
@@ -33,7 +39,7 @@ from repro_torch.fedsim.local import gather_rows, gather_slots, mask_rows
 from repro_torch.fedsim.specs import CohortSpec
 from repro_torch.tree import tree_leaves
 
-__all__ = ["RunResult", "run_eager", "round_step", "sampled_round"]
+__all__ = ["RunResult", "run_eager", "round_step", "sampled_round", "local_caller"]
 
 
 @dataclasses.dataclass
@@ -61,6 +67,23 @@ def _eval_metric(eval_fn, eval_every: int, w_next, t: int, device) -> torch.Tens
     return torch.as_tensor(eval_fn(w_next), dtype=torch.float32)
 
 
+def local_caller(local_fn: Callable, algorithm: ServerAlgorithm) -> Callable:
+    """The trainer as ``call(w, batches, eta_l, start, state)``.
+
+    It is ``local_fn(w, batches, eta_l)``; when the algorithm declares
+    ``uses_local_context``, ``algorithm.local_context(state, start, m)`` of
+    the block's m clients at ``start`` (0, or a gathered block's host slot
+    tensor) is appended as a fourth argument."""
+    if not getattr(algorithm, "uses_local_context", False):
+        return lambda w, batches, eta_l, start, state: local_fn(w, batches, eta_l)
+
+    def call(w, batches, eta_l, start, state):
+        m = tree_leaves(batches)[0].shape[0]
+        return local_fn(w, batches, eta_l, algorithm.local_context(state, start, m))
+
+    return call
+
+
 def _resolve_sampled_count(moments, cohort: CohortSpec, algorithm):
     """The client count of a sampled round's moments: a fixed cohort's size
     (static), else the count clamped to >= 1, so an empty Bernoulli round is
@@ -84,10 +107,12 @@ def sampled_round(algorithm: ServerAlgorithm, local_fn: Callable, w, state, nois
         mask, start = slot_mask, slots
     else:
         start = 0
-    mask = host_to_device(mask, w.device)
-    deltas = mask_rows(local_fn(w, client_batches, eta_l), mask)
+    host_mask, mask = mask, host_to_device(mask, w.device)
+    deltas = mask_rows(local_caller(local_fn, algorithm)(w, client_batches, eta_l, start, state),
+                       mask)
+    extra = {"host_mask": host_mask} if getattr(algorithm, "uses_local_context", False) else {}
     moments = algorithm.local_moments(noise, w, deltas, mask, start, state, t,
-                                      binary_mask=not cohort.replace)
+                                      binary_mask=not cohort.replace, **extra)
     moments = _resolve_sampled_count(moments, cohort, algorithm)
     return algorithm.apply_from_moments(noise, w, moments, state, t)
 
@@ -97,10 +122,11 @@ def round_step(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn, eval_eve
     """One server round as ``step(w, state, gen, t, batches, eta_l)``: the
     dense round, or with a sampling ``cohort`` the masked-moment round."""
     sampled = cohort is not None and cohort.is_sampled
+    local = local_caller(local_fn, algorithm)
 
     def step(w, state, gen, t, client_batches, eta_l):
         if not sampled:
-            deltas = local_fn(w, client_batches, eta_l)
+            deltas = local(w, client_batches, eta_l, 0, state)
             w_next, aux, state = algorithm.apply_round_stateful(gen, w, deltas, state, t=t)
         else:
             m = tree_leaves(client_batches)[0].shape[0]

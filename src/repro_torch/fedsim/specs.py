@@ -1,9 +1,10 @@
 """Declarative run specs (counterpart of repro/fedsim/specs.py).
 
-The port runs full-batch local GD and the eager round loop, with full
-participation or a sampled cohort (``CohortSpec``); ``LocalSpec``,
-``ShardSpec``, ``StreamSpec`` and ``FaultSpec`` come with later slices
-(ROADMAP.md, queue 1).
+The port runs full-batch local GD, or SCAFFOLD's control-variate steps
+(``LocalSpec(control_variates=True)``), and the eager round loop, with full
+participation or a sampled cohort (``CohortSpec``); the other local trainers
+(minibatch, proximal, momentum), ``ShardSpec``, ``StreamSpec`` and
+``FaultSpec`` come with later slices (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import math
 
 import torch
 
-__all__ = ["TrainSpec", "EngineSpec", "CohortSpec"]
+__all__ = ["TrainSpec", "LocalSpec", "EngineSpec", "CohortSpec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +35,55 @@ class TrainSpec:
             raise ValueError(f"avg_last must be >= 1, got {self.avg_last}")
         if self.eval_every < 1:
             raise ValueError(f"eval_every must be >= 1, got {self.eval_every}")
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalSpec:
+    """How each client trains locally.
+
+    The default (all fields at rest) is the full-batch GD of Algorithm 3:
+    ``tau`` steps on the whole client batch.  ``control_variates=True`` is
+    SCAFFOLD's trainer: ``tau`` full-batch steps of ``g - c_i + c``, the
+    per-client and global control variates coming from the algorithm
+    (``make_algorithm("dp-scaffold", ...)``).  ``batch_size`` (minibatch SGD
+    over ``epochs``), ``prox_mu`` (FedProx) and ``momentum`` (client
+    momentum) are validated here as in the JAX package; the session refuses
+    them until their slice comes (ROADMAP.md, queue 1, item 19).
+    """
+
+    batch_size: int | None = None   # None = full batch
+    epochs: int = 1                 # local epochs when batch_size is set
+    prox_mu: float = 0.0            # FedProx proximal coefficient
+    momentum: float = 0.0           # client momentum over the local steps
+    control_variates: bool = False  # SCAFFOLD steps g - c_i + c
+
+    def __post_init__(self):
+        if self.batch_size is not None and self.batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {self.batch_size}")
+        if self.epochs < 1:
+            raise ValueError(f"epochs must be >= 1, got {self.epochs}")
+        if self.epochs > 1 and self.batch_size is None:
+            raise ValueError("epochs > 1 requires batch_size (full-batch GD "
+                             "counts steps with TrainSpec.tau)")
+        if self.prox_mu < 0.0:
+            raise ValueError(f"prox_mu must be >= 0, got {self.prox_mu}")
+        if not 0.0 <= self.momentum < 1.0:
+            raise ValueError(f"momentum must be in [0, 1), got {self.momentum}")
+        if self.control_variates and not (
+                self.batch_size is None and self.epochs == 1
+                and self.prox_mu == 0.0 and self.momentum == 0.0):
+            raise ValueError(
+                "control_variates is the full-batch SCAFFOLD trainer "
+                "(tau steps of g - c_i + c, matching the option-II variate "
+                "refresh scale 1/(tau*eta_l)); it does not compose with "
+                "minibatch/prox/momentum fields")
+
+    @property
+    def is_default(self) -> bool:
+        """True when this spec is exactly the full-batch GD of Algorithm 3."""
+        return (self.batch_size is None and self.epochs == 1
+                and self.prox_mu == 0.0 and self.momentum == 0.0
+                and not self.control_variates)
 
 
 @dataclasses.dataclass(frozen=True)

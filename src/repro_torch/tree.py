@@ -8,7 +8,9 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-__all__ = ["tree_leaves", "tree_map"]
+import torch
+
+__all__ = ["tree_leaves", "tree_map", "tree_stack"]
 
 
 def tree_leaves(tree) -> list:
@@ -27,3 +29,13 @@ def tree_map(fn: Callable[[Any], Any], tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, x) for x in tree)
     return fn(tree)
+
+
+def tree_stack(trees: list):
+    """One tree whose leaves are ``torch.stack`` of the trees' leaves (same structure)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_stack([t[k] for t in trees]) for k in sorted(first)}
+    if isinstance(first, (list, tuple)):
+        return type(first)(tree_stack(list(xs)) for xs in zip(*trees))
+    return torch.stack(trees)

@@ -26,7 +26,7 @@ from repro.fedsim import local as jlocal  # noqa: E402
 from repro.fedsim.server import _round_step  # noqa: E402
 from repro.fedsim.specs import CohortSpec as JaxCohort  # noqa: E402
 from repro_torch.core.algorithm import round_generator  # noqa: E402
-from repro_torch.core.fedexp import list_algorithms, make_algorithm  # noqa: E402
+from repro_torch.core.fedexp import make_algorithm  # noqa: E402
 from repro_torch.data.synthetic import distance_to_opt, linreg_loss  # noqa: E402
 from repro_torch.fedsim import (  # noqa: E402
     CohortSpec,
@@ -38,7 +38,13 @@ from repro_torch.fedsim import (  # noqa: E402
     mask_rows,
 )
 from repro_torch.fedsim.server import sampled_round  # noqa: E402
-from test_torch_moments import algo_kwargs, close, close_vec, round_noise_of  # noqa: E402
+from test_torch_moments import (  # noqa: E402
+    COMPOSED,
+    algo_kwargs,
+    close,
+    close_vec,
+    round_noise_of,
+)
 
 M, D, TAU, ETA_L, ROUNDS = 40, 24, 3, 0.1, 5
 
@@ -150,7 +156,7 @@ def test_gather_rows_and_mask_rows_equal_jax():
 COHORTS = {"bernoulli": dict(q=0.3), "gathered": dict(q=0.3, gather=True),
            "fixed": dict(size=12), "replace": dict(size=12, replace=True)}
 # every name under the first three; with replacement one name per mechanism
-ROUND_CASES = ([(n, c) for n in list_algorithms() for c in ("bernoulli", "gathered", "fixed")]
+ROUND_CASES = ([(n, c) for n in COMPOSED for c in ("bernoulli", "gathered", "fixed")]
                + [(n, "replace") for n in ("fedexp", "ldp-fedexp-gauss", "cdp-fedexp",
                                            "ldp-fedexp-privunit", "ldp-fedexp-perclient")])
 
@@ -220,7 +226,7 @@ def _session(name, data, cohort, rounds=ROUNDS):
 
 
 @pytest.mark.parametrize("kind", ["bernoulli", "fixed"])
-@pytest.mark.parametrize("name", list_algorithms())
+@pytest.mark.parametrize("name", COMPOSED)
 def test_gathered_sessions_equal_dense_ones(name, kind, data):
     spec = dict(q=0.3) if kind == "bernoulli" else dict(size=12)
     dense = _session(name, data, CohortSpec(**spec)).run(3)
@@ -230,7 +236,7 @@ def test_gathered_sessions_equal_dense_ones(name, kind, data):
     assert torch.isfinite(dense.final_w).all()
 
 
-@pytest.mark.parametrize("name", list_algorithms())
+@pytest.mark.parametrize("name", COMPOSED)
 def test_unsampled_cohorts_are_full_participation_bit_for_bit(name, data):
     full = _session(name, data, None).run(5)
     for spec in (CohortSpec(), CohortSpec(q=1.0)):
@@ -249,7 +255,7 @@ def test_session_refuses_a_cohort_larger_than_m(data):
 # The privacy report under sampling
 # ---------------------------------------------------------------------------
 
-PRIVATE = [n for n in list_algorithms() if n not in ("fedavg", "fedexp")]
+PRIVATE = [n for n in COMPOSED if n not in ("fedavg", "fedexp")]
 
 
 @pytest.mark.parametrize("spec", [dict(q=0.1), dict(size=7), dict(q=0.25, gather=True), {}])

@@ -44,7 +44,7 @@ NAMES = ["fedavg", "fedexp", "dp-fedavg-ldp-gauss", "ldp-fedexp-gauss",
 PORTED = NAMES + ["dp-fedavg-privunit", "ldp-fedexp-privunit", "privunit-fedexp-adaptive-clip",
                   "cdp-fedexp-adaptive-clip", "dp-fedadam-cdp", "ldp-gauss-fedadam",
                   "cdp-fedmom", "ldp-fedexp-schedule", "cdp-fedexp-schedule",
-                  "ldp-fedexp-perclient"]
+                  "ldp-fedexp-perclient", "dp-scaffold"]
 
 
 def _close_vec(got, want, rtol=1e-5):
@@ -246,12 +246,12 @@ class TestRegistry:
         assert set(PORTED) <= set(jax_list())
 
     def test_later_names_raise_not_implemented(self):
-        later = sorted(set(jax_list()) - set(PORTED))
-        assert later == ["dp-scaffold"]
-        for name in later:
-            # the message points at ROADMAP queue 1, item 11
-            with pytest.raises(NotImplementedError, match=r"not ported yet.*item 11\)"):
-                make_algorithm(name, clip_norm=1.0, sigma=1.0, num_clients=10)
+        # nothing is left to port: the registry is the JAX registry's 17 names,
+        # and dp-scaffold, the last of them, builds
+        assert list_algorithms() == sorted(jax_list()) and len(list_algorithms()) == 17
+        alg = make_algorithm("dp-scaffold", clip_norm=1.0, sigma=1.0, central=True,
+                             num_clients=10, tau=5, eta_l=0.3)
+        assert alg.name == "dp-scaffold" and alg.uses_local_context
         with pytest.raises(KeyError, match="unknown algorithm"):
             make_algorithm("no-such-name")
 

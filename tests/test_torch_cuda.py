@@ -285,6 +285,51 @@ def test_masked_moments_are_one_launch_on_the_card(dev):
         _close(getattr(got, f), torch.as_tensor(getattr(want, f)))
 
 
+@pytest.mark.parametrize("kind", ["dense", "gathered", "replace"])
+@pytest.mark.parametrize("central", [False, True], ids=["ldp", "cdp"])
+def test_a_dp_scaffold_round_is_two_launches_and_equals_the_cpu(dev, central, kind):
+    """One dp-scaffold round on the card, dense, over a gathered slot table
+    (sampled_round: the hook hands the block its variate rows) or over a
+    cohort drawn with replacement (each draw a row of its own), against the
+    same round on the CPU fed the same noise: its two releases are two
+    dp_aggregate launches and no plain sum."""
+    from repro_torch.core.algorithm import RoundNoise
+    from repro_torch.core.fedexp import make_algorithm
+    from repro_torch.core.variance_reduction import ScaffoldState
+    from repro_torch.fedsim import CohortSpec
+    from repro_torch.fedsim.server import sampled_round
+    m, d = 64, 300
+    alg = make_algorithm("dp-scaffold", clip_norm=0.3, sigma=0.2, central=central,
+                         num_clients=m, tau=5, eta_l=0.3)
+    u, _ = _dp_inputs(m, d, dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    c, c_is = (0.1 * torch.randn(d, generator=g, device=dev),
+               0.1 * torch.randn(m, d, generator=g, device=dev))
+    z = (torch.randn(d, generator=g, device=dev), torch.randn(d, generator=g, device=dev))
+    mask = torch.zeros(m)
+    mask[[0, 9, 20, 41]] = torch.tensor([2.0, 1.0, 3.0, 1.0]) if kind == "replace" else 1.0
+    cohort = (CohortSpec(size=7, replace=True) if kind == "replace"
+              else CohortSpec(q=0.1, gather=True, gather_cap=6))
+
+    def round_on(dv):
+        noise = (RoundNoise(central=z[0].to(dv), central_dc=z[1].to(dv)) if central
+                 else RoundNoise(seed=11, seed_dc=12))
+        state = ScaffoldState(c=c.to(dv), c_is=c_is.to(dv))
+        w = torch.zeros(d, device=dv)
+        if kind == "dense":
+            return alg.apply_round_stateful(None, w, u.to(dv), state, noise)
+        return sampled_round(alg, lambda w_, b, eta, ctx: b["u"], w, state, noise, mask,
+                             cohort, 0, {"u": u.to(dv)}, 0.3)
+
+    before = ops.dp_aggregate_sums.launches
+    got = round_on(dev)
+    assert ops.dp_aggregate_sums.launches == before + 2
+    want = round_on(torch.device("cpu"))
+    _close(got[0], want[0])
+    _close(got[2].c, want[2].c)
+    _close(got[2].c_is, want[2].c_is)
+
+
 def test_cuda_tensors_never_reach_the_plain_version_silently(dev):
     with pytest.raises(ValueError, match="shape"):
         ops.dp_aggregate_sums(torch.zeros(4, 8, device=dev), 1.0, torch.zeros(4, 9, device=dev))

@@ -44,3 +44,12 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                           env={**os.environ, "PYTHONPATH": f"{ROOT / 'src'}:{ROOT}"},
                           cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_scaffold_modules_stand_alone():
+    """The control-variate slice's modules are among the files checked above
+    and import neither jax nor the JAX package."""
+    for rel in ("fedsim/scaffold.py", "core/variance_reduction.py"):
+        path = ROOT / "src" / "repro_torch" / rel
+        assert path in PORT_FILES
+        assert not set(_imported_roots(path)) & (BANNED | {"."})

@@ -30,6 +30,8 @@ from repro_torch.core.fedexp import list_algorithms, make_algorithm  # noqa: E40
 
 M, D = 40, 24
 EPS = dict(eps0=2.0, eps1=2.0, eps2=2.0)
+# the composed names; dp-scaffold's rounds are held in test_torch_scaffold.py
+COMPOSED = [n for n in list_algorithms() if n != "dp-scaffold"]
 MARGIN = 1e-4   # relative distance of every row norm from the adaptive clip's C
 
 
@@ -288,11 +290,11 @@ def test_mechanism_moments_and_finalize_match_jax(name, weighted, block):
 # ---------------------------------------------------------------------------
 
 def test_every_port_name_is_covered():
-    assert len(list_algorithms()) == 16
+    assert len(COMPOSED) == 16 and sorted(COMPOSED + ["dp-scaffold"]) == list_algorithms()
 
 
 @pytest.mark.parametrize("block", ["contiguous", "gathered"])
-@pytest.mark.parametrize("name", list_algorithms())
+@pytest.mark.parametrize("name", COMPOSED)
 def test_local_moments_and_apply_from_moments_match_jax(name, block):
     kw = algo_kwargs(name)
     jalg, talg = jax_make(name, **kw), make_algorithm(name, **kw)
