@@ -706,15 +706,16 @@ def phase_kernels(dev):
     return cases, noise_cases, gathered
 
 
-def run_session(name, m, d, rounds, tau, dev, *, seed=0, backend="auto", data=None, kw=None,
-                cohort=None):
-    """One FederatedSession run of ``name`` on the synthetic linear regression
-    (``kw`` updates the protocol's make_algorithm kwargs; ``cohort`` is a dict
-    of CohortSpec kwargs, None for full participation)."""
+def make_session(name, m, d, rounds, tau, dev, *, backend="auto", data=None, kw=None,
+                 cohort=None, fault=None):
+    """A FederatedSession of ``name`` on the synthetic linear regression
+    (``kw`` updates the protocol's make_algorithm kwargs; ``cohort`` and
+    ``fault`` are dicts of CohortSpec and FaultSpec kwargs, None for full
+    participation and a fault-free run): ``(session, data)``."""
     import torch
     from repro_torch.core.fedexp import make_algorithm
     from repro_torch.data.synthetic import distance_to_opt, linreg_loss, make_synthetic_linreg
-    from repro_torch.fedsim import CohortSpec, FederatedSession, LocalSpec, TrainSpec
+    from repro_torch.fedsim import CohortSpec, FaultSpec, FederatedSession, LocalSpec, TrainSpec
 
     if data is None:
         data = make_synthetic_linreg(torch.Generator(device=dev).manual_seed(0), m, d)
@@ -726,7 +727,14 @@ def run_session(name, m, d, rounds, tau, dev, *, seed=0, backend="auto", data=No
         train=TrainSpec(rounds=rounds, tau=tau, eta_l=eta_l),
         local=LocalSpec(control_variates=True) if name in SCAFFOLD else None,
         cohort=None if cohort is None else CohortSpec(**cohort),
+        fault=None if fault is None else FaultSpec(**fault),
         eval_fn=distance_to_opt(data.w_star), device=dev)
+    return session, data
+
+
+def run_session(name, m, d, rounds, tau, dev, *, seed=0, **kw):
+    """One run of ``make_session(...)``: ``(session, result, data)``."""
+    session, data = make_session(name, m, d, rounds, tau, dev, **kw)
     return session, session.run(seed), data
 
 
@@ -965,6 +973,137 @@ def phase_e1(dev):
               f"DP-FedAvg {avg:.4f} (DP-SCAFFOLD {means[(setting, 'scaffold')]:.4f})")
 
 
+# the JAX tests' acceptance fault model (tests/test_faults.py:96): 30%
+# dropout, stragglers cut to 1 of tau local steps, 2% corrupted (NaN) updates
+FAULT = dict(dropout=0.3, straggler=0.2, straggler_steps=1, corrupt=0.02)
+# phase 3c's runs on the paper workload: (label, d, cohort)
+FAULTED = (("ldp-fedexp-gauss", 100, None), ("cdp-fedexp", 500, None),
+           ("dp-scaffold-ldp", 100, None), ("ldp-fedexp-gauss", 100, SAMPLED["q=0.1 gathered"]))
+RESULT_FIELDS = ("final_w", "last_w", "eta_history", "metric_history", "eta_naive_history",
+                 "eta_target_history")
+
+
+def same_run(a, b) -> bool:
+    """Two RunResults equal in bits (NaN where both are NaN), fault round too."""
+    return a.fault_round == b.fault_round and all(
+        same_bits(getattr(a, f), getattr(b, f)) for f in RESULT_FIELDS)
+
+
+def phase_faults(dev):
+    """Phase 3c: the paper workload under FAULT for FAULTED.  Held: finite
+    results and eta_g >= 1 for FedEXP (``check_run``), the name's
+    dp_aggregate launches a round, every one gated, two runs of one seed
+    equal in bits, a faulted run that differs from the clean one, and
+    dropout 0.99 finite.  Printed: ||w - w*|| beside the clean run's."""
+    import torch
+    from repro_torch.kernels.dp_aggregate import ops
+    m, tau, rounds = PAPER
+    count = ops.dp_aggregate_sums
+    for name, d, cohort in FAULTED:
+        label = name + ("" if cohort is None else " q=0.1 gathered")
+        before = (count.launches, count.gated_launches)
+        t0 = time.perf_counter()
+        _, r, data = run_session(name, m, d, rounds, tau, dev, cohort=cohort, fault=FAULT)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched, gated = count.launches - before[0], count.gated_launches - before[1]
+        check_run(label, r, rounds)
+        want = rounds * launches_per_round(name)[0]
+        if launched != want or gated != want:
+            fail(f"{label} under faults: {launched} dp_aggregate launches, {gated} gated, in "
+                 f"{rounds} rounds (want {want} and {want})")
+        _, again, _ = run_session(name, m, d, rounds, tau, dev, data=data, cohort=cohort,
+                                  fault=FAULT)
+        if not same_run(again, r):
+            fail(f"{label} under faults: two runs of seed 0 differ")
+        _, clean, _ = run_session(name, m, d, rounds, tau, dev, data=data, cohort=cohort)
+        if same_bits(clean.final_w, r.final_w):
+            fail(f"{label}: the faulted run equals the clean one")
+        _, empty, _ = run_session(name, m, d, rounds, tau, dev, data=data, cohort=cohort,
+                                  fault=dict(dropout=0.99))
+        check_run(f"{label} dropout 0.99", empty, rounds)
+        dist, dist_clean = (float(data.w_star.sub(x.final_w).norm()) for x in (r, clean))
+        print(f"[3c faults] {label:32s} d={d}: final ||w - w*|| = {dist:.4f} under faults, "
+              f"{dist_clean:.4f} clean; eta_g in [{r.eta_history.min().item():.3f}, "
+              f"{r.eta_history.max().item():.3f}]; {launched} dp_aggregate launches, all "
+              f"gated; two runs equal in bits; dropout 0.99 finite; {secs:.2f} s")
+
+
+def _poison(carry, attempt):
+    """Attempt 0 runs from a model with an Inf coordinate, later ones clean."""
+    if attempt > 0:
+        return carry
+    w = carry[0].clone()
+    w[0] = float("inf")
+    return (w,) + tuple(carry[1:])
+
+
+def phase_checkpoints(dev):
+    """Phase 3d: checkpoints on the card, in a temp dir, for
+    ldp-fedexp-gauss under FAULT on the paper workload.  Held: a run saved
+    every 10 rounds and resumed from round 20 equals the uninterrupted run
+    in bits, and so does one resumed past a truncated newest checkpoint;
+    with the watchdog armed, a divergence planted in attempt 0 and rolled
+    back by RecoveryPolicy equals the unkilled run in bits; a divergence
+    planted in every attempt exhausts the retries and surfaces fault_round."""
+    import os
+    import tempfile
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.fedsim import RecoveryPolicy
+    m, tau, rounds = PAPER
+    name, d = "ldp-fedexp-gauss", 100
+    with tempfile.TemporaryDirectory() as tmp:
+        session, data = make_session(name, m, d, rounds, tau, dev, fault=FAULT)
+        want = session.run(0)
+        every = os.path.join(tmp, "every")
+        t0 = time.perf_counter()
+        if not same_run(session.run(0, checkpoint_dir=every, checkpoint_every=10), want):
+            fail("a run that saves checkpoints differs from the run that does not")
+        secs = time.perf_counter() - t0
+        if ckpt.checkpoint_steps(every) != [10, 20, 30, 40, 50]:
+            fail(f"checkpoints at {ckpt.checkpoint_steps(every)}, want every 10 rounds")
+        trunc = os.path.join(tmp, "trunc")
+        os.makedirs(trunc)
+        for step in (10, 20, 30, 40, 50):
+            for ext in (".npz", ".json"):
+                f = f"ckpt_{step:08d}{ext}"
+                shutil.copyfile(os.path.join(every, f), os.path.join(trunc, f))
+                if step > 20:
+                    os.remove(os.path.join(every, f))
+        if not same_run(make_session(name, m, d, rounds, tau, dev, data=data,
+                                     fault=FAULT)[0].resume(every), want):
+            fail("the run resumed from round 20 differs from the uninterrupted run")
+        with open(os.path.join(trunc, "ckpt_00000050.npz"), "r+b") as f:
+            f.truncate(64)
+        if not same_run(make_session(name, m, d, rounds, tau, dev, data=data,
+                                     fault=FAULT)[0].resume(trunc), want):
+            fail("the run resumed past a truncated newest checkpoint differs")
+        watch = {**FAULT, "watchdog": True}
+        unkilled = make_session(name, m, d, rounds, tau, dev, data=data, fault=watch)[0].run(0)
+        if not same_run(unkilled, want):
+            fail("the watchdog changed a healthy run")
+        rec, _ = make_session(name, m, d, rounds, tau, dev, data=data, fault=watch)
+        rec._inject_divergence = _poison
+        got = rec.run(0, checkpoint_dir=os.path.join(tmp, "rec"), checkpoint_every=10,
+                      on_divergence=RecoveryPolicy(max_retries=2))
+        if not same_run(got, unkilled) or rec._rounds_retried != 1:
+            fail(f"the recovered run differs from the unkilled one (retried "
+                 f"{rec._rounds_retried} rounds, fault_round {got.fault_round})")
+        dead, _ = make_session(name, m, d, rounds, tau, dev, data=data, fault=watch)
+        dead._inject_divergence = lambda carry, attempt: _poison(carry, 0)
+        out = dead.run(0, checkpoint_dir=os.path.join(tmp, "dead"), checkpoint_every=10,
+                       on_divergence=RecoveryPolicy(max_retries=2))
+        if out.fault_round != 0 or dead._rounds_retried != 2:
+            fail(f"retry exhaustion: fault_round {out.fault_round}, retried "
+                 f"{dead._rounds_retried} rounds (want 0 and 2)")
+    print(f"[3d checkpoints] {name} under faults, d={d}: saved every 10 rounds ({secs:.2f} s "
+          "for the 50 rounds), resumed from round 20 and past a truncated newest checkpoint: "
+          "equal to the uninterrupted run in bits; a divergence planted in attempt 0 rolled "
+          "back to round 0: equal to the unkilled run in bits (1 round retried); planted in "
+          "every attempt: fault_round 0 after 2 retries")
+
+
 def syncs_of(fn) -> list[str]:
     """The synchronizing CUDA operations ``fn`` makes, as PyTorch's sync
     debug mode reports them: the file and line of each."""
@@ -986,56 +1125,90 @@ def syncs_of(fn) -> list[str]:
 
 PAPER = (1000, 20, 50)                 # M, tau, rounds; d 500 or 100 by name
 FULL_SIZE = (1000, 131072, 20, 5)      # M, d, tau, rounds
-FULL = (("ldp-fedexp-gauss", "fused", None), ("cdp-fedexp", "none", None),
-        ("ldp-fedexp-privunit", None, None), ("cdp-fedexp-adaptive-clip", "none", None),
-        ("ldp-fedexp-gauss", "fused", SAMPLED["q=0.1 gathered"]),
-        ("cdp-fedexp", "none", SAMPLED["size=100"]),
-        ("ldp-fedexp-perclient", None, None),
-        ("dp-scaffold-ldp", "fused", None), ("dp-scaffold-cdp", "none", None),
-        ("dp-scaffold-ldp", "fused", SAMPLED["q=0.1 gathered"]))
+FULL = (("ldp-fedexp-gauss", "fused", None, None), ("cdp-fedexp", "none", None, None),
+        ("ldp-fedexp-privunit", None, None, None), ("cdp-fedexp-adaptive-clip", "none", None, None),
+        ("ldp-fedexp-gauss", "fused", SAMPLED["q=0.1 gathered"], None),
+        ("cdp-fedexp", "none", SAMPLED["size=100"], None),
+        ("ldp-fedexp-perclient", None, None, None),
+        ("dp-scaffold-ldp", "fused", None, None), ("dp-scaffold-cdp", "none", None, None),
+        ("dp-scaffold-ldp", "fused", SAMPLED["q=0.1 gathered"], None),
+        ("ldp-fedexp-gauss", "fused", None, FAULT))
 # a sampled round may sync no more than its name's full round; a dp-scaffold
-# round (two releases, the variate table) no more than ldp-fedexp-gauss's
+# round (two releases, the variate table) no more than ldp-fedexp-gauss's; a
+# faulted round (no watchdog) no more than its clean one
 SYNC_BASE = {"ldp-fedexp-gauss q=0.1 gathered": "ldp-fedexp-gauss",
              "cdp-fedexp size=100": "cdp-fedexp",
              "cdp-fedexp-adaptive-clip": "cdp-fedexp",
              "dp-scaffold-ldp": "ldp-fedexp-gauss", "dp-scaffold-cdp": "ldp-fedexp-gauss",
-             "dp-scaffold-ldp q=0.1 gathered": "ldp-fedexp-gauss"}
+             "dp-scaffold-ldp q=0.1 gathered": "ldp-fedexp-gauss",
+             "ldp-fedexp-gauss faults": "ldp-fedexp-gauss"}
 
 
-def split_round(session, w, state, t, cohort):
+def split_round(session, w, state, t, cohort, fault=None):
     """One more round of ``session``'s algorithm at ``w``, split by CUDA
     events into local training (of the gathered block, under a gathering
-    cohort) and the rest of the round: (local ms, server ms)."""
+    cohort; with the stragglers' cutoffs under ``fault``) and the rest of the
+    round: (local ms, server ms)."""
     import torch
     from repro_torch.core.algorithm import round_generator
-    from repro_torch.fedsim import CohortSpec, gather_rows, gather_slots
+    from repro_torch.fedsim import CohortSpec, FaultSpec, gather_rows, gather_slots
+    from repro_torch.fedsim.faults import fault_masks, gather_fault_rows
     from repro_torch.fedsim.server import local_caller, sampled_round
     alg, batches, eta_l = session.algorithm, session.client_batches, session.train.eta_l
-    local = local_caller(session._local_fn, alg)
+    tau = session.train.tau
+    fspec = None if fault is None else FaultSpec(**fault)
+    local = local_caller(session._local_fn, alg, fspec, tau)
     m, d = session.num_clients, session.dim
     gen = round_generator(1, t)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    if cohort is None:
+    if cohort is None and fault is None:
         ev[0].record()
         deltas = local(w, batches, eta_l, 0, state)
         ev[1].record()
         alg.apply_round_stateful(gen, w, deltas, state, t=t)
         ev[2].record()
     else:
-        spec = CohortSpec(**cohort)
-        mask = spec.round_mask(gen, m)
+        spec = None if cohort is None else CohortSpec(**cohort)
+        mask = torch.ones(m) if spec is None else spec.round_mask(gen, m)
         noise = alg.draw_noise(gen, m, d, w.device, t)
+        faults = None if fspec is None else fault_masks(fspec, gen.initial_seed(), m)
+        straggler = None if faults is None else faults[1]
         block, start = batches, 0
-        if spec.gather:
+        if spec is not None and spec.gather:
             start = gather_slots(mask, spec.resolved_cap(m))[0]
             block = gather_rows(batches, start.to(w.device))
+            straggler = gather_fault_rows(start, straggler)[0]
         ev[0].record()
-        deltas = local(w, block, eta_l, start, state)
+        deltas = local(w, block, eta_l, start, state, straggler)
         ev[1].record()
-        sampled_round(alg, lambda *_: deltas, w, state, noise, mask, spec, t, batches, eta_l)
+        sampled_round(alg, lambda *_, **__: deltas, w, state, noise, mask, spec, t, batches,
+                      eta_l, fault=fspec, faults=faults, tau=tau)
         ev[2].record()
     torch.cuda.synchronize()
     return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+
+
+def checkpoint_ms(session, result, rounds) -> tuple[float, float]:
+    """Host ms of one save and one load of the checkpoint of ``result`` (its
+    last model, the server state, a two-iterate tail and the histories), in
+    a temp dir; the loaded model must equal the saved one in bits."""
+    import tempfile
+
+    import torch
+    w = result.last_w
+    carry = (w, session.algorithm.init_state(w), [w, result.final_w])
+    hist = tuple(getattr(result, f) for f in RESULT_FIELDS[2:])
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session._save(tmp, rounds, 0, carry, hist)
+        t1 = time.perf_counter()
+        step, _, back, _ = session._load(tmp)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    if step != rounds or not same_bits(back[0], w) or back[0].device != w.device:
+        fail("the full-size checkpoint did not load back to the card in bits")
+    return 1e3 * (t1 - t0), 1e3 * (t2 - t1)
 
 
 def phase_full(dev, cases) -> dict:
@@ -1047,20 +1220,22 @@ def phase_full(dev, cases) -> dict:
     from repro_torch.core import mechanisms
     from repro_torch.core.algorithm import round_generator
     from repro_torch.data.synthetic import linreg_loss
-    from repro_torch.fedsim import CohortSpec, cohort_updates
+    from repro_torch.fedsim import CohortSpec, FaultSpec, cohort_updates
     from repro_torch.fedsim.server import round_step
     m, d, tau, rounds = FULL_SIZE
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     kernel_ms = {c["mode"]: c["ms"] for c in cases if c["shape"] == [m, d]}
     data, out = None, {}
-    for name, mode, cohort in FULL:
+    for name, mode, cohort, fault in FULL:
         label = name if cohort is None else name + " " + next(
             k for k, v in SAMPLED.items() if v == cohort)
-        run_session(name, m, d, 1, tau, dev, data=data, cohort=cohort)      # warm-up
+        label += "" if fault is None else " faults"
+        run_session(name, m, d, 1, tau, dev, data=data, cohort=cohort, fault=fault)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        session, r, data = run_session(name, m, d, rounds, tau, dev, data=data, cohort=cohort)
+        session, r, data = run_session(name, m, d, rounds, tau, dev, data=data, cohort=cohort,
+                                       fault=fault)
         torch.cuda.synchronize()
         per_round = 1e3 * (time.perf_counter() - t0) / rounds
         check_run(name, r, rounds)
@@ -1071,16 +1246,18 @@ def phase_full(dev, cases) -> dict:
         alg, w = session.algorithm, r.last_w
         state = alg.init_state(w)
         torch.cuda.reset_peak_memory_stats()
-        local_ms, server_ms = split_round(session, w, state, rounds, cohort)
+        local_ms, server_ms = split_round(session, w, state, rounds, cohort, fault)
         row = dict(ms_per_round=per_round, run_ms_per_round=run_only, local_ms=local_ms,
                    server_ms=server_ms,
                    peak_gb=torch.cuda.max_memory_allocated() / 1e9, cohort=cohort)
         step = round_step(alg, session._local_fn, session.eval_fn, cohort=None if cohort is None
-                          else CohortSpec(**cohort))
+                          else CohortSpec(**cohort),
+                          fault=None if fault is None else FaultSpec(**fault), tau=tau)
         syncs = syncs_of(lambda: step(w, state, round_generator(2, 0), 0,
                                       session.client_batches, session.train.eta_l))
         row["syncs"], row["sync_at"] = len(syncs), syncs
-        kern = (f"{launches_per_round(name)[0]} dp_aggregate {mode} launch(es) a round, kernel "
+        kern = (f"{launches_per_round(name)[0]} dp_aggregate {mode} launch(es) a round"
+                f"{', gated' if cohort or fault else ''}, kernel "
                 f"{kernel_ms[mode]:.4f} ms/launch ungated" if mode
                 else "no dp_aggregate launch (plain PyTorch"
                 + (", the noise-only kernel)" if "perclient" in name else ")"))
@@ -1090,6 +1267,11 @@ def phase_full(dev, cases) -> dict:
               f"{kern} (CUDA events); peak "
               f"{row['peak_gb']:.2f} GB; {row['syncs']} synchronizing CUDA operations in a "
               f"round (sync debug mode){' at ' + ', '.join(syncs) if syncs else ''}  [{smi}]")
+        if fault is not None:
+            row["save_ms"], row["load_ms"] = checkpoint_ms(session, r, rounds)
+            print(f"[4 full] {label}: under FaultSpec({FAULT}); one checkpoint of the run "
+                  f"(model, tail, histories) saved in {row['save_ms']:.3f} ms and loaded to "
+                  f"the card in {row['load_ms']:.3f} ms (host clock)  [{smi}]")
         if "privunit" in name:
             deltas = cohort_updates(linreg_loss, w, session.client_batches, tau,
                                     session.train.eta_l)
@@ -1121,21 +1303,26 @@ def phase_reference(dev):
     sigma_b 0) is deterministic.  Tolerance 1e-4: float32 sums in other
     orders, amplified by the FedEXP ratio over five rounds."""
     m, d, tau, rounds = 40, 32, 5, 5
-    for name, kw, cohort in (
-            ("fedexp", None, None), ("ldp-fedexp-gauss", None, None),
-            ("ldp-gauss-fedadam", None, None), ("ldp-fedexp-schedule", None, None),
-            ("cdp-fedexp-adaptive-clip", dict(z_mult=0.0, sigma_b=0.0), None),
-            ("ldp-fedexp-gauss", None, dict(q=0.25, gather=True)),
-            ("ldp-fedexp-gauss", None, dict(q=0.25)), ("ldp-fedexp-perclient", None, None),
-            ("dp-scaffold-ldp", None, None), ("dp-scaffold-ldp", None, dict(q=0.25, gather=True))):
-        _, g, data = run_session(name, m, d, rounds, tau, dev, seed=7, kw=kw, cohort=cohort)
+    for name, kw, cohort, fault in (
+            ("fedexp", None, None, None), ("ldp-fedexp-gauss", None, None, None),
+            ("ldp-gauss-fedadam", None, None, None), ("ldp-fedexp-schedule", None, None, None),
+            ("cdp-fedexp-adaptive-clip", dict(z_mult=0.0, sigma_b=0.0), None, None),
+            ("ldp-fedexp-gauss", None, dict(q=0.25, gather=True), None),
+            ("ldp-fedexp-gauss", None, dict(q=0.25), None),
+            ("ldp-fedexp-perclient", None, None, None),
+            ("dp-scaffold-ldp", None, None, None),
+            ("dp-scaffold-ldp", None, dict(q=0.25, gather=True), None),
+            ("ldp-fedexp-gauss", None, None, FAULT), ("dp-scaffold-ldp", None, None, FAULT)):
+        _, g, data = run_session(name, m, d, rounds, tau, dev, seed=7, kw=kw, cohort=cohort,
+                                 fault=fault)
         cpu_data = type(data)(x=data.x.cpu(), y=data.y.cpu(), w_star=data.w_star.cpu())
         _, c, _ = run_session(name, m, d, rounds, tau, "cpu", seed=7, data=cpu_data, kw=kw,
-                              cohort=cohort)
+                              cohort=cohort, fault=fault)
         err = close(g.final_w.cpu(), c.final_w, f"{name}: card vs CPU final w", 1e-4)
         close(g.eta_history.cpu(), c.eta_history, f"{name}: card vs CPU eta history", 1e-4)
         print(f"[5 reference] {name}{'' if kw is None else ' ' + str(kw)}"
-              f"{'' if cohort is None else ' CohortSpec' + str(cohort)}: card vs CPU max abs "
+              f"{'' if cohort is None else ' CohortSpec' + str(cohort)}"
+              f"{'' if fault is None else ' FaultSpec' + str(fault)}: card vs CPU max abs "
               f"err of final w {err:.3e}")
 
 
@@ -2157,12 +2344,16 @@ def main() -> int:
     ssd = timed("2 kernels: ssd_scan", phase_ssd, dev)
 
     ops.dp_aggregate_sums.launches = 0
+    ops.dp_aggregate_sums.gated_launches = 0
     ops.generate_ldp_noise.launches = 0
     timed("3 paper", phase_paper, dev)
     timed("3b e1", phase_e1, dev)
+    timed("3c faults", phase_faults, dev)
+    timed("3d checkpoints", phase_checkpoints, dev)
     full = timed("4 full", phase_full, dev, cases)
     launches = {"dp_aggregate": ops.dp_aggregate_sums.launches,
-                "ldp_noise": ops.generate_ldp_noise.launches}
+                "ldp_noise": ops.generate_ldp_noise.launches,
+                "dp_aggregate gated": ops.dp_aggregate_sums.gated_launches}
     for k, n in launches.items():
         if n < 1:
             fail(f"kernel {k} was never launched on the main path")
@@ -2187,7 +2378,8 @@ def main() -> int:
     kernels = [
         dict(name="dp_aggregate", route="cuda", source=src,
              replaces="src/repro/kernels/dp_aggregate/kernel.py:99",
-             launches=launches["dp_aggregate"], max_abs_err=max(c["max_abs_err"] for c in cases),
+             launches=launches["dp_aggregate"], gated_launches=launches["dp_aggregate gated"],
+             max_abs_err=max(c["max_abs_err"] for c in cases),
              ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
              bound_by=head["bound_by"], library_ms=None, headline="fused (1000, 131072)",
              cases=cases, gated=gathered["modes"], gated_rows_on=gathered["rows_on"],

@@ -217,7 +217,9 @@ class DPScaffoldServer(ServerAlgorithm):
         multiplicity mask is expanded on the host (``host_mask``, the same
         mask on the host; a CPU ``mask`` serves as its own): row i enters
         ``mask[i]`` times as rows of its own, keyed by its client, so each
-        release is one gate-free launch over the drawn rows."""
+        release is one launch over the drawn rows.  The drawn rows are gated
+        by ``mask`` on the device: a row the host drew but the device turned
+        off (a faulted round's finite screen) adds no noise and no count."""
         m_local, d = deltas.shape
         vs = self.variate_scale
         dev = deltas.device
@@ -232,7 +234,7 @@ class DPScaffoldServer(ServerAlgorithm):
             draws = self._draws(mask, host_mask)
             sel = host_to_device(draws, dev)
             rows_dy, rows_dc = deltas.index_select(0, sel), dc_clip.index_select(0, sel)
-            keys, gate = gidx[draws], None
+            keys, gate = gidx[draws], (mask.index_select(0, sel) > 0).to(mask.dtype)
         ldp = not self.central
         std = self.sigma * math.sqrt(2.0)
         mom = self._moments(rows_dy, self.clip_norm, noise.ldp if ldp else None,

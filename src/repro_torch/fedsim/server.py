@@ -1,24 +1,35 @@
 """The round loop (counterpart of repro/fedsim/server.py).
 
 Ported so far: ``RunResult`` with ``avg_last`` iterate averaging, the
-unfaulted branches of ``_round_step`` and the eager round loop of
-``_run_eager``, as a plain Python loop that threads the round index t into
-every round (noise schedules read it).  A full-participation round is one
-dense ``apply_round_stateful``.  A sampled round (``CohortSpec``) is the
-masked-moment protocol: the cohort mask, drawn first from the round's
-generator on the host, then the algorithm's noise for all M clients; local
-training on every client, or with ``gather`` on the sampled ones only;
-``mask_rows``; ``local_moments``; the count resolved; ``apply_from_moments``.
-An algorithm that declares ``uses_local_context`` (DP-SCAFFOLD) has
-``local_context(state, start, m)`` appended to the trainer call in both
-rounds (``local_caller``): each block of clients trains on its own rows of
-the server's carry; its ``local_moments`` also gets the block's host mask
-(``host_mask=``), by which it expands a with-replacement multiplicity
-without reading the device.  Nothing in the loop waits for the device: host values
-reach it by pinned non-blocking copies, histories stay tensors until the
-run ends, and state such as an adaptive clip threshold or DP-SCAFFOLD's
-variate table stays on the device.  Faults, streaming
-and sharding come in later slices (ROADMAP.md, queue 1).
+branches of ``_round_step`` that run on one device, and the eager round
+loop of ``_run_eager`` with its divergence watchdog, as a plain Python loop
+that threads the round index t into every round (noise schedules read it).
+A full-participation round is one dense ``apply_round_stateful``.  A sampled
+round (``CohortSpec``) is the masked-moment protocol: the cohort mask, drawn
+first from the round's generator on the host, then the algorithm's noise
+for all M clients; local training on every client, or with ``gather`` on
+the sampled ones only; ``mask_rows``; ``local_moments``; the count
+resolved; ``apply_from_moments``.  An algorithm that declares
+``uses_local_context`` (DP-SCAFFOLD) has ``local_context(state, start, m)``
+appended to the trainer call in both rounds (``local_caller``): each block
+of clients trains on its own rows of the server's carry; its
+``local_moments`` also gets the block's host mask (``host_mask=``), by which
+it expands a with-replacement multiplicity without reading the device.
+
+An injecting ``FaultSpec`` takes the masked-moment protocol even under full
+participation (a mask of ones): the round's fault draws (``fault_masks``,
+gathered by slot with the batches), local training with the stragglers'
+step counts, ``apply_faults``, ``local_moments`` (the failed rows gated out
+in ``dp_aggregate``), ``sanitize_moments``, the realized count clamped,
+``apply_from_moments``.  With ``watchdog`` the loop reads the device once a
+round (``run_rounds``): a round with a non-finite model or a step size that
+is NaN or above ``eta_max`` is not committed, and the run stops there.
+
+Nothing else in the loop waits for the device: host values reach it by
+pinned non-blocking copies, histories stay tensors until the run ends, and
+state such as an adaptive clip threshold or DP-SCAFFOLD's variate table
+stays on the device.  Streaming and sharding come in later slices
+(ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -35,11 +46,19 @@ from repro_torch.core.algorithm import (
     round_generator,
     set_moment_count,
 )
+from repro_torch.fedsim.faults import (
+    apply_faults,
+    fault_masks,
+    gather_fault_rows,
+    resolve_steps,
+    sanitize_moments,
+)
 from repro_torch.fedsim.local import gather_rows, gather_slots, mask_rows
-from repro_torch.fedsim.specs import CohortSpec
+from repro_torch.fedsim.specs import CohortSpec, FaultSpec
 from repro_torch.tree import tree_leaves
 
-__all__ = ["RunResult", "run_eager", "round_step", "sampled_round", "local_caller"]
+__all__ = ["RunResult", "run_rounds", "assemble_result", "round_step",
+           "sampled_round", "local_caller"]
 
 
 @dataclasses.dataclass
@@ -53,9 +72,11 @@ class RunResult:
     #                               eval_fn or the round is off cadence)
     eta_naive_history: torch.Tensor | None = None
     eta_target_history: torch.Tensor | None = None
+    fault_round: int | None = None  # watchdog: the round that diverged
 
     def eval_rounds(self) -> list[tuple[int, float]]:
-        """(round, metric) pairs for the rounds the eval cadence evaluated."""
+        """(round, metric) pairs for the rounds the eval cadence evaluated (the
+    NaN of rounds off the cadence or after a watchdog trip dropped)."""
         return [(t, v) for t, v in enumerate(self.metric_history.tolist())
                 if math.isfinite(v)]
 
@@ -67,97 +88,170 @@ def _eval_metric(eval_fn, eval_every: int, w_next, t: int, device) -> torch.Tens
     return torch.as_tensor(eval_fn(w_next), dtype=torch.float32)
 
 
-def local_caller(local_fn: Callable, algorithm: ServerAlgorithm) -> Callable:
-    """The trainer as ``call(w, batches, eta_l, start, state)``.
+def local_caller(local_fn: Callable, algorithm: ServerAlgorithm,
+                 fault: FaultSpec | None = None, tau: int = 1) -> Callable:
+    """The trainer as ``call(w, batches, eta_l, start, state, straggler=None)``.
 
     It is ``local_fn(w, batches, eta_l)``; when the algorithm declares
     ``uses_local_context``, ``algorithm.local_context(state, start, m)`` of
     the block's m clients at ``start`` (0, or a gathered block's host slot
-    tensor) is appended as a fourth argument."""
-    if not getattr(algorithm, "uses_local_context", False):
-        return lambda w, batches, eta_l, start, state: local_fn(w, batches, eta_l)
+    tensor) is appended as a fourth argument.  When ``fault`` cuts
+    stragglers short, the block's per-client step counts
+    (``resolve_steps`` of its host ``straggler`` rows, copied to the device)
+    go in as ``steps=``."""
+    with_ctx = getattr(algorithm, "uses_local_context", False)
+    straggling = fault is not None and fault.straggler > 0.0
 
-    def call(w, batches, eta_l, start, state):
-        m = tree_leaves(batches)[0].shape[0]
-        return local_fn(w, batches, eta_l, algorithm.local_context(state, start, m))
+    def call(w, batches, eta_l, start, state, straggler=None):
+        args = (w, batches, eta_l)
+        if with_ctx:
+            m = tree_leaves(batches)[0].shape[0]
+            args += (algorithm.local_context(state, start, m),)
+        if straggling:
+            steps = host_to_device(resolve_steps(fault, straggler, tau), w.device)
+            return local_fn(*args, steps=steps)
+        return local_fn(*args)
 
     return call
 
 
-def _resolve_sampled_count(moments, cohort: CohortSpec, algorithm):
-    """The client count of a sampled round's moments: a fixed cohort's size
-    (static), else the count clamped to >= 1, so an empty Bernoulli round is
-    a zero update and not NaN.  A weighted count is a weight sum: only the
-    empty round is guarded (floor 1e-12)."""
+def _resolve_sampled_count(moments, cohort: CohortSpec | None, algorithm):
+    """The client count of a masked round's moments: a fixed cohort's size
+    (static), else the count clamped to >= 1, so an empty Bernoulli round or
+    an all-failed faulted round is a zero update and not NaN.  A weighted
+    count is a weight sum: only the empty round is guarded (floor 1e-12).
+    A faulted round passes ``cohort`` None: its realized count, below the
+    nominal one, is known only on the device."""
     if getattr(algorithm, "supports_static_count", True):
-        if cohort.size is not None:
+        if cohort is not None and cohort.size is not None:
             return set_moment_count(moments, cohort.size)
         return clamp_moment_counts(moments)
     return clamp_moment_counts(moments, floor=1e-12)
 
 
 def sampled_round(algorithm: ServerAlgorithm, local_fn: Callable, w, state, noise, mask,
-                  cohort: CohortSpec, t, client_batches, eta_l):
+                  cohort: CohortSpec | None, t, client_batches, eta_l, *,
+                  fault: FaultSpec | None = None, faults=None, tau: int = 1):
     """One masked-moment round for the host participation ``mask`` (M,) and
-    the round's ``noise`` (drawn for all M clients): ``-> (w_next, aux, state)``."""
+    the round's ``noise`` (drawn for all M clients): ``-> (w_next, aux, state)``.
+
+    ``cohort`` None is full participation (a faulted round's mask of ones).
+    With an injecting ``fault``, ``faults`` is the round's ``(alive,
+    straggler, corrupt)`` host draws for all M clients (``fault_masks``)
+    and ``tau`` the local step count a straggler is cut from."""
     m = mask.shape[0]
-    if cohort.gather:
+    injecting = fault is not None and fault.injects
+    alive, straggler, corrupt = faults if injecting else (None, None, None)
+    if cohort is not None and cohort.gather:
         slots, slot_mask, _ = gather_slots(mask, cohort.resolved_cap(m))
         client_batches = gather_rows(client_batches, host_to_device(slots, w.device))
         mask, start = slot_mask, slots
+        alive, straggler, corrupt = gather_fault_rows(slots, alive, straggler, corrupt)
     else:
         start = 0
     host_mask, mask = mask, host_to_device(mask, w.device)
-    deltas = mask_rows(local_caller(local_fn, algorithm)(w, client_batches, eta_l, start, state),
-                       mask)
+    deltas = local_caller(local_fn, algorithm, fault, tau)(w, client_batches, eta_l, start,
+                                                           state, straggler)
+    if injecting:
+        deltas, mask = apply_faults(deltas, mask, *(
+            None if v is None else host_to_device(v, w.device) for v in (alive, corrupt)))
+        # the host's view of the realized rows (the finite screen of a client
+        # that diverged by itself is known only on the device)
+        if alive is not None:
+            host_mask = host_mask * alive
+        if corrupt is not None:
+            host_mask = host_mask * (1.0 - corrupt)
+    else:
+        deltas = mask_rows(deltas, mask)
     extra = {"host_mask": host_mask} if getattr(algorithm, "uses_local_context", False) else {}
+    binary = cohort is None or not cohort.replace
     moments = algorithm.local_moments(noise, w, deltas, mask, start, state, t,
-                                      binary_mask=not cohort.replace, **extra)
-    moments = _resolve_sampled_count(moments, cohort, algorithm)
+                                      binary_mask=binary, **extra)
+    if injecting:
+        moments = _resolve_sampled_count(sanitize_moments(moments), None, algorithm)
+    else:
+        moments = _resolve_sampled_count(moments, cohort, algorithm)
     return algorithm.apply_from_moments(noise, w, moments, state, t)
 
 
 def round_step(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn, eval_every: int = 1,
-               cohort: CohortSpec | None = None):
+               cohort: CohortSpec | None = None, fault: FaultSpec | None = None, tau: int = 1):
     """One server round as ``step(w, state, gen, t, batches, eta_l)``: the
-    dense round, or with a sampling ``cohort`` the masked-moment round."""
+    dense round, or with a sampling ``cohort`` or an injecting ``fault``
+    the masked-moment round.  The faulted round draws its cohort mask and
+    noise from ``gen`` as the sampled round does, and its faults from
+    generators of their own keyed by ``gen``'s seed (``fault_masks``)."""
     sampled = cohort is not None and cohort.is_sampled
+    injecting = fault is not None and fault.injects
     local = local_caller(local_fn, algorithm)
 
     def step(w, state, gen, t, client_batches, eta_l):
-        if not sampled:
+        if not sampled and not injecting:
             deltas = local(w, client_batches, eta_l, 0, state)
             w_next, aux, state = algorithm.apply_round_stateful(gen, w, deltas, state, t=t)
         else:
             m = tree_leaves(client_batches)[0].shape[0]
-            mask = cohort.round_mask(gen, m)
+            mask = cohort.round_mask(gen, m) if sampled else torch.ones(m)
             noise = algorithm.draw_noise(gen, m, w.shape[-1], w.device, t)
+            faults = fault_masks(fault, gen.initial_seed(), m) if injecting else None
             w_next, aux, state = sampled_round(algorithm, local_fn, w, state, noise, mask,
-                                               cohort, t, client_batches, eta_l)
+                                               cohort if sampled else None, t, client_batches,
+                                               eta_l, fault=fault, faults=faults, tau=tau)
         metric = _eval_metric(eval_fn, eval_every, w_next, t, w.device)
         return w_next, state, (aux.eta_g, metric, aux.eta_naive, aux.eta_target)
 
     return step
 
 
-def run_eager(algorithm: ServerAlgorithm, local_fn: Callable, w0: torch.Tensor,
-              client_batches, *, rounds: int, eta_l: float, seed: int, eval_fn,
-              avg_last: int, eval_every: int = 1, cohort: CohortSpec | None = None
-              ) -> RunResult:
-    """``rounds`` rounds from ``w0``; round t draws from ``round_generator(seed, t)``."""
-    step = round_step(algorithm, local_fn, eval_fn, eval_every, cohort)
-    w = w0
-    state = algorithm.init_state(w0)
-    tail: list[torch.Tensor] = []
+def _healthy(w_next, eta, eta_max: float) -> bool:
+    """The watchdog's one read of the device a round: a finite model and a
+    step size that is neither NaN nor above ``eta_max``."""
+    ok = torch.isfinite(w_next).all() & (eta.to(w_next.device) <= eta_max)
+    return bool(ok)
+
+
+def run_rounds(step, carry, seed: int, start: int, end: int, client_batches, eta_l, *,
+               avg_last: int, fault: FaultSpec | None = None):
+    """Rounds ``[start, end)`` of ``step`` from ``carry = (w, state, tail)``
+    (``tail`` the list of up to ``avg_last`` trailing iterates); round t
+    draws from ``round_generator(seed, t)``.
+
+    Returns ``(carry, outs, fault_round)``: ``outs`` one history tuple a
+    round run.  With ``fault.watchdog`` a round that trips the watchdog is
+    run (its history is kept) but not committed, the loop stops, and
+    ``fault_round`` is that round; else it is None."""
+    w, state, tail = carry
+    tail = list(tail)
+    watchdog = fault is not None and fault.watchdog
     outs = []
-    for t in range(rounds):
-        w, state, out = step(w, state, round_generator(seed, t), t, client_batches, eta_l)
+    for t in range(start, end):
+        w_next, state_next, out = step(w, state, round_generator(seed, t), t, client_batches,
+                                       eta_l)
         outs.append(out)
+        if watchdog and not _healthy(w_next, out[0], fault.eta_max):
+            return (w, state, tail), outs, t
+        w, state = w_next, state_next
         tail.append(w)
         if len(tail) > avg_last:
             tail.pop(0)
-    etas, metrics, naives, targets = (torch.stack([o[i].to(w.device) for o in outs])
-                                      for i in range(4))
-    return RunResult(final_w=torch.stack(tail).mean(dim=0), last_w=w, eta_history=etas,
-                     metric_history=metrics, eta_naive_history=naives,
-                     eta_target_history=targets)
+    return (w, state, tail), outs, None
+
+
+def stack_outs(outs, device) -> tuple:
+    """The four (n,) history tensors of n rounds' history tuples."""
+    if not outs:
+        return tuple(torch.zeros(0, device=device) for _ in range(4))
+    return tuple(torch.stack([o[i].to(device) for o in outs]) for i in range(4))
+
+
+def assemble_result(carry, hist, rounds: int, fault_round: int | None = None) -> RunResult:
+    """The ``RunResult`` of a run whose histories ``hist`` (four tensors)
+    cover the rounds run: after a watchdog trip the rounds skipped record
+    NaN, and a run tripped before any round committed averages ``w0``."""
+    w, _, tail = carry
+    hist = tuple(torch.cat([h, torch.full((rounds - h.shape[0],), float("nan"),
+                                          device=h.device)]) for h in hist)
+    tail = tail or [w]
+    return RunResult(final_w=torch.stack(tail).mean(dim=0), last_w=w, eta_history=hist[0],
+                     metric_history=hist[1], eta_naive_history=hist[2],
+                     eta_target_history=hist[3], fault_round=fault_round)

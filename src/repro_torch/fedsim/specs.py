@@ -2,9 +2,10 @@
 
 The port runs full-batch local GD, or SCAFFOLD's control-variate steps
 (``LocalSpec(control_variates=True)``), and the eager round loop, with full
-participation or a sampled cohort (``CohortSpec``); the other local trainers
-(minibatch, proximal, momentum), ``ShardSpec``, ``StreamSpec`` and
-``FaultSpec`` come with later slices (ROADMAP.md, queue 1).
+participation or a sampled cohort (``CohortSpec``), under an optional fault
+model and divergence watchdog (``FaultSpec``); the other local trainers
+(minibatch, proximal, momentum), ``ShardSpec`` and ``StreamSpec`` come with
+later slices (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -13,7 +14,15 @@ import math
 
 import torch
 
-__all__ = ["TrainSpec", "LocalSpec", "EngineSpec", "CohortSpec"]
+__all__ = ["TrainSpec", "LocalSpec", "EngineSpec", "CohortSpec", "FaultSpec", "FAULT_TAG"]
+
+# the tag of a round's fault draws (dropouts, straggler cutoffs, corrupted
+# updates): each fault class draws from a generator of its own keyed by the
+# round's seed, this tag and the class (``fedsim.faults.fault_masks``), so
+# fault draws never shift the cohort mask or the noise of the round.  The
+# JAX package's value: 2**31 - 1 and 2**31 - 2 tag sampling and local
+# training there, and no client index reaches them.
+FAULT_TAG = 2**31 - 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,3 +192,63 @@ class CohortSpec:
             perm = torch.randperm(num_clients, generator=gen)
             return (perm < self.size).to(torch.float32)
         return (torch.rand(num_clients, generator=gen) < self.q).to(torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultSpec:
+    """What goes wrong each round: fault injection and the divergence watchdog.
+
+    The default (all fields at rest) is a fault-free run; the session
+    normalizes it to None, so a ``FaultSpec()`` session runs the unfaulted
+    round loop bit for bit.  Any nonzero rate routes every round through
+    the masked-moment protocol with that round's fault draws, keyed by the
+    round's seed and global client index (``fedsim.faults.fault_masks``).
+
+    Injection (per round, per client, independent):
+
+    * ``dropout``: the client drops out; its update becomes a zero-weight
+      row, and the realized count shrinks.
+    * ``straggler`` and ``straggler_steps``: the client misses the deadline
+      after ``straggler_steps`` of the ``tau`` local steps; its partial
+      update still aggregates.
+    * ``corrupt``: the client returns a non-finite update (NaN rows); the
+      server's finite screen zero-weights it.
+
+    Detection:
+
+    * ``watchdog``: after each round, a non-finite global model or a step
+      size that is NaN or above ``eta_max`` trips it: the round is not
+      committed, the remaining rounds are skipped with NaN histories, and
+      ``RunResult.fault_round`` records the round.  It reads the device once
+      a round.  ``session.run(on_divergence=RecoveryPolicy(...))`` turns a
+      trip into rollback and retry.
+    """
+
+    dropout: float = 0.0        # P(client drops out of a round)
+    straggler: float = 0.0      # P(client misses the deadline)
+    straggler_steps: int = 1    # local steps a straggler completes (< tau)
+    corrupt: float = 0.0        # P(surviving client returns non-finite rows)
+    watchdog: bool = False      # arm the divergence watchdog
+    eta_max: float = 1e6        # watchdog: eta_g above this = divergence
+
+    def __post_init__(self):
+        for field in ("dropout", "straggler", "corrupt"):
+            v = getattr(self, field)
+            if not 0.0 <= v < 1.0:
+                raise ValueError(f"{field} must be in [0, 1), got {v}")
+        if self.straggler_steps < 1:
+            raise ValueError(
+                f"straggler_steps must be >= 1, got {self.straggler_steps}")
+        if not self.eta_max > 0.0:
+            raise ValueError(f"eta_max must be > 0, got {self.eta_max}")
+
+    @property
+    def injects(self) -> bool:
+        """True when this spec perturbs rounds (any nonzero rate)."""
+        return self.dropout > 0.0 or self.straggler > 0.0 or self.corrupt > 0.0
+
+    @property
+    def is_active(self) -> bool:
+        """True when the round loop must differ from the unfaulted one
+        (injection or the watchdog); ``FaultSpec()`` normalizes to None."""
+        return self.injects or self.watchdog

@@ -5,7 +5,8 @@ version in ``ref.py``; a CUDA tensor launches the hand-written kernel
 (``csrc/dp_aggregate.cu``) or raises.  Each wrapper counts its kernel
 launches in a plain integer attribute (``dp_aggregate_sums.launches``,
 ``generate_ldp_noise.launches``), which ``chip_smoke.py`` zeroes before it
-drives the main path and reads after.
+drives the main path and reads after; ``dp_aggregate_sums.gated_launches``
+counts the launches of the gated instance among them.
 
 Unlike the JAX wrapper, nothing is padded: the kernel masks ragged M and d
 itself.  Noise is keyed by (seed, global row, column pair), so ``row_start``
@@ -293,10 +294,12 @@ def dp_aggregate_sums(updates: torch.Tensor, clip_norm, noise: torch.Tensor | No
         raise RuntimeError(f"dp_aggregate kernel launch failed for {plan}: "
                            f"{lib.dp_aggregate_error_name(err).decode()} ({err})")
     dp_aggregate_sums.launches += 1
+    dp_aggregate_sums.gated_launches += int(row_gate is not None)
     return out[:d], out[d], out[d + 1]
 
 
 dp_aggregate_sums.launches = 0
+dp_aggregate_sums.gated_launches = 0
 
 
 def dp_aggregate(updates: torch.Tensor, clip_norm, noise: torch.Tensor | None = None,

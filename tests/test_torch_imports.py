@@ -53,3 +53,17 @@ def test_the_scaffold_modules_stand_alone():
         path = ROOT / "src" / "repro_torch" / rel
         assert path in PORT_FILES
         assert not set(_imported_roots(path)) & (BANNED | {"."})
+
+
+@pytest.mark.parametrize("rel", ["fedsim/faults.py", "checkpoint/__init__.py", "fedsim/specs.py",
+                                 "fedsim/session.py"])
+def test_the_fault_and_checkpoint_modules_stand_alone(rel):
+    """The fault slice's modules are among the files checked above and import
+    torch, numpy and the standard library only (hashlib for the checkpoint's
+    sha256), besides the port itself."""
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path in PORT_FILES
+    roots = set(_imported_roots(path))
+    assert not roots & (BANNED | {"."})
+    assert roots <= {"__future__", "dataclasses", "hashlib", "json", "math", "os", "re", "time",
+                     "typing", "numpy", "torch", "repro_torch"}, roots
