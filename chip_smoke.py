@@ -15,8 +15,8 @@ Phases, each of which exits non-zero on failure:
                the main paths' shapes and ragged ones; fused-mode noise
                against the noise-only kernel; bitwise determinism; times.
                dp_aggregate in every mode at (1000, 500), (1000, 100),
-               (1000, 131072), (37, 129), (1, 1), (300, 4099) and (8, 300001)
-               (the L2 path), the noise-only kernel at the same shapes, both
+               (1000, 131072), (37, 129), (1, 1), (300, 4099), (8, 300001)
+               (the L2 path) and the CNNs' widths (1000, 237) and (1000, 5046), the noise-only kernel at the same shapes, both
                with their float32-rate bound and the pair generator's integer
                bound at the SM clock nvidia-smi reads under load;
                torch.randn at the full shape as a yardstick.
@@ -88,6 +88,26 @@ Phases, each of which exits non-zero on failure:
                ||w - w*|| as mean +/- std, and OK/WARN for DP-FedEXP <
                DP-FedAvg, printed as e1 prints it; in ldp-gauss each seed's
                slice must equal its own run() in bits.
+  3e. e2      the paper's image workload (benchmarks/e2_mnist.py, Fig. 1 right
+               and Table 4): the CDP CNN (d = 5046) for cdp, the LDP CNN
+               (d = 237) for ldp-gauss and ldp-privunit, M = 1000, tau = 10,
+               50 rounds on the 12000/2000 generated image set under a
+               Dirichlet(0.3) split; DP-FedAvg, DP-FedEXP and DP-SCAFFOLD at
+               e2's (eta_l, C), each through run_batched(batched_w0=True,
+               batched_data=True) over seeds 0-2 (each seed its own split and
+               CNN init): test accuracy of the last 5 rounds, mean +/- std,
+               e2's OK/WARN/n/a, printed; held: finite, one dp_aggregate
+               launch a round (two for DP-SCAFFOLD, none for PrivUnit's), and
+               one seed's slice equal to its run() in bits.  e2's --quick leg
+               (the CNN as a parameter tree, LocalSpec(batch_size=8,
+               momentum=0.9), M = 16).  cdp-fedexp under LocalSpec(batch_size=4,
+               epochs=2, prox_mu=0.01, momentum=0.9): saved every 20 rounds
+               and resumed from round 20 (= the uninterrupted run in bits),
+               under CohortSpec(q=0.1, gather=True) and under the fault model
+               (every launch gated), and each round of the dense q = 0.1 run
+               retaken gathered (the block's shuffles = the dense rows' in
+               bits; the round = dense at rtol 1e-5 on the dense local
+               updates).
   4. full      ldp-fedexp-gauss (fused mode), cdp-fedexp (none mode),
                ldp-fedexp-privunit (no kernel), cdp-fedexp-adaptive-clip
                (none mode, C on the card), ldp-fedexp-gauss under
@@ -101,7 +121,10 @@ Phases, each of which exits non-zero on failure:
                operations of one round (an adaptive-clip round may make no
                more than cdp-fedexp's, a sampled round no more than its
                name's full round, a dp-scaffold round no more than
-               ldp-fedexp-gauss's); PrivUnit's release time.
+               ldp-fedexp-gauss's); PrivUnit's release time.  And e2's CNN
+               rounds (cdp-fedexp at d = 5046, ldp-fedexp-gauss at d = 237,
+               full batch and the minibatch spec) at M = 1000, tau = 10: ms
+               per round, the split, peak memory, syncs of a round.
   5. reference the port on the card against the port on the CPU (plain
                versions, same seeds, same noise) on a small problem: fedexp,
                ldp-fedexp-gauss (also under CohortSpec(q=0.25), dense and
@@ -146,7 +169,7 @@ Phases, each of which exits non-zero on failure:
                bounds (SERVE_F32_MAX_ERR, SERVE_F32_MEAN_ERR), the window
                dropped on the plain path outside them; one prefill timed with
                the SIMT kernel in place of the dispatch (the route before).
-Phases 3, 3b and 4 are the round loop's main path, phase 6's bf16 generate the
+Phases 3, 3b, 3e and 4 are the round loop's main path, phase 6's bf16 generate the
 dense serve path's (the tensor-core flash kernel), its f32 generate and phase
 9's the float32 serve path's (the float32 tensor-core flash kernel), phase 7's
 generate the Mamba2 serve path's, phase 8's bf16 generate the Dh-256 serve
@@ -405,7 +428,7 @@ def int_bound_ms(m: int, d: int, mhz: float) -> float:
 
 
 DP_SHAPES = ((1000, 500), (1000, 100), (1000, 131072), (37, 129), (1, 1), (300, 4099),
-             (8, 300001))
+             (8, 300001), (1000, 237), (1000, 5046))
 
 
 def excess(got, want) -> float:
@@ -898,11 +921,12 @@ E1_SEEDS = tuple(1000 + s for s in range(5))
 E1_HELD = "ldp-gauss"    # its sweeps are held seed by seed against run()
 
 
-def e1_algorithm(setting: str, alg: str, m: int, d: int, tau: int):
-    """e1's algorithm for (setting, alg), as benchmarks/common.py's
-    make_dp_algorithm builds it, and dp-scaffold as e1 configures it."""
+def e1_algorithm(setting: str, alg: str, m: int, d: int, tau: int, hp=E1_HP):
+    """e1's algorithm for (setting, alg) at the (eta_l, C) of ``hp`` (e1's or
+    e2's table), as benchmarks/common.py's make_dp_algorithm builds it, and
+    dp-scaffold as e1 and e2 configure it."""
     from repro_torch.core.fedexp import make_algorithm
-    eta_l, c = E1_HP[setting][alg]
+    eta_l, c = hp[setting][alg]
     if alg == "scaffold":
         central = setting == "cdp"
         sigma = 5 * c / math.sqrt(m) if central else 0.7 * c
@@ -971,6 +995,284 @@ def phase_e1(dev):
         exp, avg = means[(setting, "fedexp")], means[(setting, "fedavg")]
         print(f"[e1] {'OK ' if exp < avg else 'WARN'} {setting}: DP-FedEXP {exp:.4f} vs "
               f"DP-FedAvg {avg:.4f} (DP-SCAFFOLD {means[(setting, 'scaffold')]:.4f})")
+
+
+# the e2 comparison (benchmarks/e2_mnist.py:29-33): (eta_l, C) per setting and
+# algorithm on the generated image set (the CDP row re-selected there for it),
+# sigma = 5C/sqrt(M) for CDP and 0.7C for LDP, PrivUnit at eps0 = eps1 = eps2 = 2
+E2_HP = {
+    "ldp-gauss": {"fedexp": (0.03, 0.1), "fedavg": (0.03, 0.3), "scaffold": (0.1, 0.1)},
+    "ldp-privunit": {"fedexp": (0.03, 0.3), "fedavg": (0.03, 0.3), "scaffold": (0.03, 0.1)},
+    "cdp": {"fedexp": (0.1, 1.0), "fedavg": (0.1, 1.0), "scaffold": (0.1, 0.3)},
+}
+# the paper's regime: M = 1000 clients, tau = 10, 50 rounds; the 12000/2000
+# generated set (12 images a client), Dirichlet(0.3); seed s splits by s and
+# initialises the CNN from 100 + s, as e2's _make_problem
+E2 = (1000, 10, 50)
+E2_IMAGES = (12000, 2000)
+E2_SEEDS = (0, 1, 2)
+E2_SETTINGS = ("cdp", "ldp-gauss", "ldp-privunit")
+E2_HELD = ("cdp", "fedexp")     # its sweep's seed 0 is held against run()
+# the spec trainer's four ways (dense, gathered, faulted, resumed), on cdp-fedexp;
+# the resumed run is saved every E2_SAVE rounds and resumed from the first
+E2_LOCAL = dict(batch_size=4, epochs=2, prox_mu=0.01, momentum=0.9)
+E2_SAVE = 20
+
+
+def e2_problem(setting: str, seed: int, images, dev):
+    """(model, client batches) of e2's seed ``seed``: its Dirichlet(0.3)
+    split of the shared image set and its CNN (the CDP one for cdp, the LDP
+    one otherwise)."""
+    import torch
+    from repro_torch.data import client_image_batches, dirichlet_partition
+    from repro_torch.models.cnn import make_cnn
+    part = dirichlet_partition(seed, images.train_y, E2[0], alpha=0.3)
+    model = make_cnn(torch.Generator(device=dev).manual_seed(100 + seed),
+                     "cdp" if setting == "cdp" else "ldp")
+    return model, client_image_batches(images, part)
+
+
+def e2_session(setting, alg, model, batches, images, dev, *, local=None, rounds=None,
+               params=None, **kw):
+    """A FederatedSession of e2's (setting, alg) on the CNN ``model`` from
+    ``params`` (None: its init; a (S, d) stack for run_batched): ``local`` a
+    dict of LocalSpec kwargs (None: full-batch GD; SCAFFOLD's trainer for
+    alg scaffold); ``kw`` cohort/fault specs, num_clients."""
+    from repro_torch.fedsim import FederatedSession, LocalSpec, TrainSpec
+    from repro_torch.models.cnn import accuracy_fn, masked_xent_loss
+    m, tau, t = E2
+    local = LocalSpec(control_variates=True) if alg == "scaffold" else (
+        None if local is None else LocalSpec(**local))
+    return FederatedSession(
+        e1_algorithm(setting, alg, m, model.dim, tau, E2_HP), masked_xent_loss(model),
+        model.init_flat if params is None else params, batches,
+        train=TrainSpec(rounds=rounds or t, tau=tau, eta_l=E2_HP[setting][alg][0]),
+        local=local, eval_fn=accuracy_fn(model, images.test_x, images.test_y), device=dev,
+        **kw)
+
+
+def e2_images(dev):
+    import torch
+    from repro_torch.data import make_image_dataset
+    return make_image_dataset(torch.Generator(device=dev).manual_seed(7), *E2_IMAGES)
+
+
+def e2_launches(setting: str, alg: str) -> int:
+    """dp_aggregate launches a round of e2's (setting, alg)."""
+    return 2 if alg == "scaffold" else 0 if setting == "ldp-privunit" else 1
+
+
+def last5(metric) -> float:
+    """e2's Table 4 metric: test accuracy in %, the mean of the last 5 rounds."""
+    return 100.0 * float(metric[-5:].double().mean())
+
+
+def phase_e2(dev):
+    """Phase 3e: the paper's image workload (e2, Fig. 1 right and Table 4).
+
+    For cdp (the CDP CNN, d = 5046), ldp-gauss and ldp-privunit (the LDP
+    CNN, d = 237): DP-FedAvg, DP-FedEXP and DP-SCAFFOLD at e2's (eta_l, C),
+    each one ``run_batched(E2_SEEDS, batched_w0=True, batched_data=True)``
+    sweep (each seed its own split and CNN init): the test accuracy of the
+    last 5 rounds, mean +/- std, with e2's OK/WARN/n/a, printed, not held.
+    Held: finite results, ``e2_launches`` dp_aggregate launches a round,
+    and seed 0's slice of the E2_HELD sweep equal to its own run() in bits.  Then e2's --quick leg and the spec trainer's four ways
+    (``e2_local``)."""
+    import torch
+    from repro_torch.kernels.dp_aggregate import ops
+    m, tau, rounds = E2
+    t0 = time.perf_counter()
+    images = e2_images(dev)
+    torch.cuda.synchronize()
+    print(f"[3e e2] generated set {E2_IMAGES[0]}/{E2_IMAGES[1]} on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    acc, s = {}, len(E2_SEEDS)
+    for setting in E2_SETTINGS:
+        problems = [e2_problem(setting, seed, images, dev) for seed in E2_SEEDS]
+        model = problems[0][0]
+        w0s = torch.stack([p[0].init_flat for p in problems])
+        batches = {k: torch.stack([p[1][k] for p in problems]) for k in problems[0][1]}
+        for alg in ("fedavg", "fedexp", "scaffold"):
+            session = e2_session(setting, alg, model, batches, images, dev, params=w0s,
+                                 num_clients=m)
+            before = ops.dp_aggregate_sums.launches
+            t0 = time.perf_counter()
+            r = session.run_batched(E2_SEEDS, batched_w0=True, batched_data=True)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launched = ops.dp_aggregate_sums.launches - before
+            if r.final_w.shape != (s, model.dim) or r.metric_history.shape != (s, rounds) \
+                    or not all(torch.isfinite(x).all() for x in (r.final_w, r.eta_history,
+                                                                  r.metric_history)):
+                fail(f"e2 {setting} {alg}: non-finite or misshapen run_batched results")
+            if launched != s * rounds * e2_launches(setting, alg):
+                fail(f"e2 {setting} {alg}: {launched} dp_aggregate launches in {s} x {rounds} "
+                     f"rounds (want {s * rounds * e2_launches(setting, alg)})")
+            held = ""
+            if (setting, alg) == E2_HELD:
+                one = e2_session(setting, alg, *problems[0], images, dev).run(E2_SEEDS[0])
+                for f in RESULT_FIELDS:
+                    if not same_bits(getattr(r, f)[0], getattr(one, f)):
+                        fail(f"e2 {setting} {alg}: run_batched seed {E2_SEEDS[0]} {f} differs "
+                             "from run()")
+                held = f"; seed {E2_SEEDS[0]} = its run() in bits"
+            accs = torch.tensor([last5(r.metric_history[i]) for i in range(s)],
+                                dtype=torch.float64)
+            acc[(setting, alg)] = mean = float(accs.mean())
+            print(f"[3e e2] {setting:12s} {alg:8s} d={model.dim}: test acc (last 5 rounds) "
+                  f"over {s} seeds {mean:.2f} +/- {float(accs.std(unbiased=False)):.2f} %; "
+                  f"{launched} dp_aggregate launches  ({secs:.2f} s, "
+                  f"{1e3 * secs / (s * rounds):.2f} ms a round{held})")
+        del problems, batches
+    for setting in E2_SETTINGS:
+        exp, avg = acc[(setting, "fedexp")], acc[(setting, "fedavg")]
+        if max(exp, avg) < 15.0:
+            print(f"[3e e2] n/a {setting}: at chance (FedEXP {exp:.2f}% / FedAvg {avg:.2f}%)")
+            continue
+        print(f"[3e e2] {'OK ' if exp >= avg - 0.3 else 'WARN'} {setting}: DP-FedEXP "
+              f"{exp:.2f}% vs DP-FedAvg {avg:.2f}% (DP-SCAFFOLD "
+              f"{acc[(setting, 'scaffold')]:.2f}%)")
+    e2_quick(dev)
+    e2_local(dev, images)
+
+
+def e2_quick(dev):
+    """e2's --quick leg (benchmarks/e2_mnist.py:81-115): the CDP CNN as its
+    parameter tree through the session, LocalSpec(batch_size=8, epochs=1,
+    momentum=0.9), M = 16, 3 rounds on a 1600/400 set.  Held: a tree comes
+    back, finite accuracies."""
+    import torch
+    from repro_torch.core.fedexp import make_algorithm
+    from repro_torch.data import client_image_batches, dirichlet_partition, make_image_dataset
+    from repro_torch.fedsim import FederatedSession, LocalSpec, TrainSpec
+    from repro_torch.models.cnn import make_cnn_params, pytree_accuracy_fn, pytree_xent_loss
+    m = 16
+    images = make_image_dataset(torch.Generator(device=dev).manual_seed(7), 1600, 400)
+    batches = client_image_batches(images, dirichlet_partition(0, images.train_y, m, 0.3))
+    params = make_cnn_params(torch.Generator(device=dev).manual_seed(100), "cdp")
+    session = FederatedSession(
+        make_algorithm("cdp-fedexp", clip_norm=1.0, sigma=5.0 / math.sqrt(m), num_clients=m),
+        pytree_xent_loss(), params, batches, train=TrainSpec(rounds=3, tau=1, eta_l=0.1),
+        local=LocalSpec(batch_size=8, epochs=1, momentum=0.9),
+        eval_fn=pytree_accuracy_fn(images.test_x, images.test_y), device=dev)
+    r = session.run(0)
+    if not isinstance(r.final_w, dict) or r.final_w["c1_w"].shape != (4, 4, 1, 4) \
+            or not torch.isfinite(r.metric_history).all():
+        fail("e2 --quick: no finite parameter tree back from the pytree CNN session")
+    print(f"[3e e2] --quick: pytree CNN, LocalSpec(batch_size=8, momentum=0.9), M={m}: acc "
+          f"{[round(float(a), 3) for a in r.metric_history]}; {session.privacy_report(1e-5)}")
+
+
+def e2_local(dev, images):
+    """The spec trainer at M = 1000: cdp-fedexp under LocalSpec(E2_LOCAL),
+    dense, saving every E2_SAVE rounds, then resumed from the first
+    checkpoint (held: the uninterrupted run in bits); under
+    CohortSpec(q=0.1, gather=True) (held: finite, every launch gated), and
+    every round of the dense q = 0.1 run retaken gathered
+    (``e2_gathered_rounds``); under FAULT (held: finite, every launch gated,
+    differs from the clean run)."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.fedsim import CohortSpec, FaultSpec
+    from repro_torch.kernels.dp_aggregate import ops
+    _, _, rounds = E2
+    model, batches = e2_problem("cdp", 0, images, dev)
+
+    def run(label, run_kw=None, **kw):
+        before = (ops.dp_aggregate_sums.launches, ops.dp_aggregate_sums.gated_launches)
+        t0 = time.perf_counter()
+        session = e2_session("cdp", "fedexp", model, batches, images, dev, local=E2_LOCAL, **kw)
+        r = session.run(0, **(run_kw or {}))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check_run("cdp-fedexp", r, rounds)
+        launched = (ops.dp_aggregate_sums.launches - before[0],
+                    ops.dp_aggregate_sums.gated_launches - before[1])
+        if launched != (rounds, rounds if kw else 0):   # a cohort or faults gate every launch
+            fail(f"e2 spec trainer {label}: {launched[0]} dp_aggregate launches, {launched[1]} "
+                 f"gated, in {rounds} rounds")
+        print(f"[3e e2] cdp-fedexp LocalSpec({E2_LOCAL}) {label:22s}: test acc (last 5) "
+              f"{last5(r.metric_history):.2f} %, eta_g in [{r.eta_history.min().item():.3f}, "
+              f"{r.eta_history.max().item():.3f}]; {launched[1]} of {launched[0]} launches "
+              f"gated ({secs:.2f} s)")
+        return session, r
+
+    with tempfile.TemporaryDirectory() as tmp:
+        session, dense = run(f"dense, saved every {E2_SAVE}",
+                             dict(checkpoint_dir=tmp, checkpoint_every=E2_SAVE))
+        for step in ckpt.checkpoint_steps(tmp)[1:]:
+            for ext in (".npz", ".json"):
+                os.remove(os.path.join(tmp, f"ckpt_{step:08d}{ext}"))
+        resumed = e2_session("cdp", "fedexp", model, batches, images, dev,
+                             local=E2_LOCAL).resume(tmp)
+        if not same_run(resumed, dense):
+            fail(f"e2 spec trainer: the run resumed from round {E2_SAVE} differs from the "
+                 "uninterrupted run")
+    run("q=0.1 gathered", cohort=CohortSpec(q=0.1, gather=True))
+    _, faulted = run("faults", fault=FaultSpec(**FAULT))
+    if same_bits(faulted.final_w, dense.final_w):
+        fail("e2 spec trainer: the faulted run equals the clean one")
+    print(f"[3e e2] spec trainer: resumed from round {E2_SAVE} = the uninterrupted run in "
+          "bits; gathered and faulted: every launch gated; faulted differs from clean")
+    e2_gathered_rounds(session)
+
+
+def e2_gathered_rounds(session):
+    """Every round of the dense q = 0.1 run of ``session`` (the spec trainer
+    on the CDP CNN) retaken gathered from the same iterate.  Held: the
+    gathered block's shuffles equal the dense cohort's rows in bits (a
+    client's shuffle is keyed by its global index), and the gathered round
+    on the dense round's local updates of the sampled clients equals the
+    dense round at rtol 1e-5 (gather, row keys, mask, moments).  Printed:
+    the gathered block's own local updates against the dense rows.  The two
+    are batched products over 176 and 1000 clients, equal up to float32
+    rounding, and a rounding difference can flip a ReLU at its kink: that
+    client's update then moves by a step, and through the FedEXP step the
+    round's iterate (3.0e-5 at round 17 of a run on an "NVIDIA H100 80GB
+    HBM3, 700.00 W"), as PrivUnit's discrete decisions do in
+    ``gathered_rounds``."""
+    import torch
+    from repro_torch.core.algorithm import round_generator
+    from repro_torch.fedsim import CohortSpec, gather_rows, gather_slots
+    from repro_torch.fedsim.local import local_shuffles
+    from repro_torch.fedsim.server import sampled_round
+    m, _, rounds = E2
+    alg, batches, eta_l = session.algorithm, session.client_batches, session.train.eta_l
+    n, dev = batches["y"].shape[1], session.device
+    specs = [CohortSpec(q=0.1), CohortSpec(q=0.1, gather=True)]
+    w, state = session._w0, alg.init_state(session._w0)
+    worst, gap, off, rows = 0.0, 0.0, 0, 0
+    for t in range(rounds):
+        gen = round_generator(0, t)
+        mask = specs[0].round_mask(gen, m)
+        noise = alg.draw_noise(gen, m, session.dim, dev, t)
+        seed = gen.initial_seed()
+        slots = gather_slots(mask, specs[1].resolved_cap(m))[0]
+        on, dslots = int((mask > 0).sum()), slots.to(dev)
+        if not torch.equal(local_shuffles(seed, dslots, E2_LOCAL["epochs"], n),
+                           local_shuffles(seed, torch.arange(m, device=dev),
+                                          E2_LOCAL["epochs"], n)[dslots]):
+            fail(f"e2 spec trainer: the gathered block's shuffles differ, round {t}")
+        deltas = session._local_fn(w, batches, eta_l, seed=seed, start=0)
+        block = session._local_fn(w, gather_rows(batches, dslots), eta_l, seed=seed, start=slots)
+        row_gap = (block[:on] - deltas[dslots[:on]]).abs().amax(dim=1)
+        gap = max([gap] + row_gap.tolist())
+        off += int((row_gap > RTOL * deltas.abs().max()).sum())
+        rows += on
+        w_d, _, s_d = sampled_round(alg, lambda *_, **__: deltas, w, state, noise, mask,
+                                    specs[0], t, batches, eta_l)
+        w_g, _, _ = sampled_round(alg, lambda *_, **__: deltas[dslots], w, state, noise, mask,
+                                  specs[1], t, batches, eta_l)
+        worst = max(worst, close(w_g, w_d, f"e2 spec trainer: gathered vs dense w, round {t}"))
+        w, state = w_d, s_d
+    print(f"[3e e2] spec trainer, q=0.1, each of {rounds} rounds from the dense iterate: the "
+          f"gathered block's shuffles = the dense rows' in bits; the round on the dense local "
+          f"updates: max abs err of w {worst:.3e} (held: rtol 1e-5); the block's own local "
+          f"updates vs the dense rows: max abs diff {gap:.3e}, {off} of {rows} client rows "
+          f"beyond 1e-5 of max|u| (printed)")
 
 
 # the JAX tests' acceptance fault model (tests/test_faults.py:96): 30%
@@ -1163,7 +1465,7 @@ def split_round(session, w, state, t, cohort, fault=None):
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     if cohort is None and fault is None:
         ev[0].record()
-        deltas = local(w, batches, eta_l, 0, state)
+        deltas = local(w, batches, eta_l, 0, state, seed=gen.initial_seed())
         ev[1].record()
         alg.apply_round_stateful(gen, w, deltas, state, t=t)
         ev[2].record()
@@ -1179,7 +1481,7 @@ def split_round(session, w, state, t, cohort, fault=None):
             block = gather_rows(batches, start.to(w.device))
             straggler = gather_fault_rows(start, straggler)[0]
         ev[0].record()
-        deltas = local(w, block, eta_l, start, state, straggler)
+        deltas = local(w, block, eta_l, start, state, straggler, gen.initial_seed())
         ev[1].record()
         sampled_round(alg, lambda *_, **__: deltas, w, state, noise, mask, spec, t, batches,
                       eta_l, fault=fspec, faults=faults, tau=tau)
@@ -1294,6 +1596,55 @@ def phase_full(dev, cases) -> dict:
             fail(f"a {label} round syncs {out[label]['syncs']} times, {base}'s "
                  f"{out[base]['syncs']}")
     torch.cuda.empty_cache()
+    return out
+
+
+# phase 4's e2 rounds: (label, setting, LocalSpec kwargs or None for full-batch GD)
+E2_FULL = (("e2 cdp-fedexp", "cdp", None), ("e2 ldp-fedexp-gauss", "ldp-gauss", None),
+           ("e2 cdp-fedexp minibatch", "cdp", E2_LOCAL),
+           ("e2 ldp-fedexp-gauss minibatch", "ldp-gauss", E2_LOCAL))
+
+
+def phase_e2_rounds(dev, smi: str) -> dict:
+    """Phase 4's e2 rounds: DP-FedEXP on the CDP CNN (d = 5046, none mode)
+    and the LDP CNN (d = 237, fused mode) at M = 1000, tau = 10, full-batch
+    GD and LocalSpec(E2_LOCAL), 5 rounds: ms a round, its split (local
+    training against release + step, CUDA events), peak memory and the
+    synchronizing CUDA operations of a round."""
+    import torch
+    from repro_torch.core.algorithm import round_generator
+    from repro_torch.fedsim.server import round_step
+    m, tau, _ = E2
+    rounds = 5
+    images, out = e2_images(dev), {}
+    for label, setting, local in E2_FULL:
+        model, batches = e2_problem(setting, 0, images, dev)
+        e2_session(setting, "fedexp", model, batches, images, dev, local=local,
+                   rounds=1).run(0)   # warm-up
+        session = e2_session(setting, "fedexp", model, batches, images, dev, local=local,
+                             rounds=rounds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = session.run(0)
+        torch.cuda.synchronize()
+        per_round = 1e3 * (time.perf_counter() - t0) / rounds
+        check_run("cdp-fedexp", r, rounds)
+        alg, w = session.algorithm, r.last_w
+        state = alg.init_state(w)
+        torch.cuda.reset_peak_memory_stats()
+        local_ms, server_ms = split_round(session, w, state, rounds, None)
+        step = round_step(alg, session._local_fn, session.eval_fn)
+        syncs = syncs_of(lambda: step(w, state, round_generator(2, 0), 0,
+                                      session.client_batches, session.train.eta_l))
+        out[label] = dict(ms_per_round=per_round, local_ms=local_ms, server_ms=server_ms,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9, syncs=len(syncs),
+                          sync_at=syncs, d=model.dim, local=local)
+        print(f"[4 full] {label} M={m} d={model.dim} tau={tau}"
+              f"{'' if local is None else ' LocalSpec' + str(local)}: {per_round:.3f} ms/round "
+              f"(local training {local_ms:.3f} ms, server release+step {server_ms:.3f} ms, "
+              f"CUDA events; the round's eval besides); peak "
+              f"{out[label]['peak_gb']:.2f} GB; {len(syncs)} synchronizing CUDA operations in a "
+              f"round (sync debug mode){' at ' + ', '.join(syncs) if syncs else ''}  [{smi}]")
     return out
 
 
@@ -2350,7 +2701,9 @@ def main() -> int:
     timed("3b e1", phase_e1, dev)
     timed("3c faults", phase_faults, dev)
     timed("3d checkpoints", phase_checkpoints, dev)
+    timed("3e e2", phase_e2, dev)
     full = timed("4 full", phase_full, dev, cases)
+    full.update(timed("4 full e2", phase_e2_rounds, dev, smi))
     launches = {"dp_aggregate": ops.dp_aggregate_sums.launches,
                 "ldp_noise": ops.generate_ldp_noise.launches,
                 "dp_aggregate gated": ops.dp_aggregate_sums.gated_launches}

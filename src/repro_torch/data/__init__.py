@@ -1,5 +1,8 @@
-"""Data of the port: the paper's synthetic linear regression."""
+"""Data of the port: the paper's synthetic linear regression, the generated
+image set and the label-Dirichlet partitioner."""
 
+from repro_torch.data.dirichlet import client_image_batches, dirichlet_partition
+from repro_torch.data.images import ImageDataset, make_image_dataset
 from repro_torch.data.synthetic import (
     SyntheticLinReg,
     distance_to_opt,
@@ -7,4 +10,5 @@ from repro_torch.data.synthetic import (
     make_synthetic_linreg,
 )
 
-__all__ = ["SyntheticLinReg", "make_synthetic_linreg", "linreg_loss", "distance_to_opt"]
+__all__ = ["SyntheticLinReg", "make_synthetic_linreg", "linreg_loss", "distance_to_opt",
+           "ImageDataset", "make_image_dataset", "dirichlet_partition", "client_image_batches"]

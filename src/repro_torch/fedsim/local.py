@@ -11,7 +11,18 @@ SCAFFOLD's trainer (``LocalSpec(control_variates=True)``) steps by the
 drift-corrected direction ``g - c_i + c`` instead (``local_update_scaffold``),
 each client with its own variate row ``c_i``, all with the global ``c``.
 
-A straggler (``FaultSpec``) commits only its first ``steps`` of the tau
+The other ``LocalSpec`` trainers (``local_update_spec``): minibatch SGD over
+local epochs, a FedProx proximal term and client momentum, written with
+tree maps so that any parameter tree trains.  A minibatch client draws a
+fresh shuffle of its samples each epoch (``local_shuffles``): Threefry-2x32
+(the LDP noise's counter hash) keyed by the round's seed and
+``LOCAL_TRAIN_TAG`` over (global client index, epoch, sample), sorted.  No
+generator is read, so the shuffles never move the round's cohort, noise or
+fault draws; a gathered block shuffles its clients as the dense round does,
+and a resumed run redraws the same shuffles.  ``build_cohort_local_fn`` binds
+a spec to the trainer the round calls.
+
+A straggler (``FaultSpec``) commits only its first ``steps`` of the local
 steps (``steps=``).
 
 A sampled round (``CohortSpec``) zeroes the updates of the clients left out
@@ -23,11 +34,17 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.core.aggregation import global_client_indices
+from repro_torch.core.algorithm import host_to_device
+from repro_torch.fedsim.specs import LOCAL_TRAIN_TAG, LocalSpec
+from repro_torch.kernels.dp_aggregate.ref import threefry2x32
+from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["local_update", "cohort_updates", "local_update_scaffold", "cohort_updates_scaffold",
+           "local_update_spec", "cohort_updates_spec", "local_shuffles", "build_cohort_local_fn",
            "mask_rows", "gather_slots", "gather_rows"]
 
 
@@ -95,6 +112,131 @@ def cohort_updates_scaffold(loss_fn: Callable, w: torch.Tensor, client_batches, 
     return torch.func.vmap(
         lambda batch, c_i, s: local_update_scaffold(loss_fn, w, batch, c_i, c, tau, eta_l,
                                                     steps=s))(client_batches, c_is, steps)
+
+
+def local_update_spec(loss_fn: Callable, w0, client_batch, perms: torch.Tensor | None,
+                      spec: LocalSpec, tau: int, eta_l: float,
+                      steps: torch.Tensor | None = None):
+    """Spec-driven local training of one client; returns the update tree.
+
+    ``w0`` is any parameter tree (a flat (d,) vector is the one-leaf case);
+    every update is a ``tree_map``.  With ``spec.batch_size`` set, step s of
+    epoch e trains on samples ``perms[e, s*b:(s+1)*b]`` of the client's n
+    (``perms`` an (epochs, n) int64 tensor of permutations, b =
+    min(batch_size, n)), ``epochs x max(1, n // b)`` steps in all; leaves
+    without the per-sample axis ride along whole.  Otherwise ``tau``
+    full-batch steps, and ``perms`` is not read.  FedProx adds ``prox_mu *
+    (w - w0)`` to each gradient; client momentum steps by ``v = momentum * v
+    + g``, v zero at the start.  ``steps`` is the straggler cutoff: step i
+    commits the (w, v) carry only while i < steps, as ``local_update``'s.
+    """
+    grad_fn = torch.func.grad(loss_fn)
+
+    def step(w, v, batch):
+        g = grad_fn(w, batch)
+        if spec.prox_mu:
+            g = tree_map(lambda gg, ww, w0l: gg + spec.prox_mu * (ww - w0l), g, w, w0)
+        if spec.momentum:
+            v = tree_map(lambda vv, gg: spec.momentum * vv + gg, v, g)
+            g = v
+        return tree_map(lambda ww, dd: ww - eta_l * dd, w, g), v
+
+    if spec.batch_size is None:
+        batches = [client_batch] * tau
+    else:
+        leaves = tree_leaves(client_batch)
+        if not leaves or leaves[0].dim() < 1:
+            raise ValueError("LocalSpec(batch_size=...) needs client batches with a leading "
+                             "per-sample axis")
+        n = leaves[0].shape[0]
+        b = min(spec.batch_size, n)
+        idxs = perms[:, :max(1, n // b) * b].reshape(-1, b)
+        batches = [tree_map(lambda x, i=i: x[i] if x.dim() >= 1 and x.shape[0] == n else x,
+                            client_batch) for i in idxs.unbind(0)]
+    w, v = w0, tree_map(torch.zeros_like, w0) if spec.momentum else None
+    for i, batch in enumerate(batches):
+        w_new, v_new = step(w, v, batch)
+        if steps is None:
+            w, v = w_new, v_new
+        else:
+            w = tree_map(lambda a, c: torch.where(i < steps, a, c), w_new, w)
+            if v is not None:
+                v = tree_map(lambda a, c: torch.where(i < steps, a, c), v_new, v)
+    return tree_map(lambda a, c: a - c, w, w0)
+
+
+def local_shuffles(round_seed: int, clients: torch.Tensor, epochs: int, n: int) -> torch.Tensor:
+    """(m, epochs, n) int64: client ``clients[j]``'s shuffle of its n samples
+    in each epoch of a round, on ``clients``' device.
+
+    Sample s of epoch e takes the 63-bit sort key ``(b0 >> 1) << 32 | b1`` of
+    ``(b0, b1) = threefry2x32(key, (client, e * n + s))``, the key two words
+    of ``SeedSequence([round_seed, LOCAL_TRAIN_TAG])``; a stable sort of each
+    (client, epoch) row's keys gives its permutation.  A client's shuffle
+    depends on nothing but the round's seed and its global index, and only
+    integer arithmetic on the device produces it: no host read, no generator.
+    """
+    k0, k1 = (int(k) for k in np.random.SeedSequence(
+        [int(round_seed), LOCAL_TRAIN_TAG]).generate_state(2, np.uint32))
+    m = clients.shape[0]
+    counters = torch.arange(epochs * n, dtype=torch.int64, device=clients.device)
+    b0, b1 = threefry2x32(k0, k1, clients.to(torch.int64)[:, None].expand(m, epochs * n),
+                          counters[None, :].expand(m, epochs * n))
+    keys = ((b0 >> 1) << 32) | b1
+    return torch.sort(keys.reshape(m, epochs, n), dim=-1, stable=True).indices
+
+
+def cohort_updates_spec(loss_fn: Callable, w, client_batches, spec: LocalSpec, tau: int,
+                        eta_l: float, round_seed: int | None = None, start=0,
+                        steps: torch.Tensor | None = None, perms: torch.Tensor | None = None):
+    """Spec-driven updates of a block of m clients, vmapped: a tree whose
+    leaves lead with the block's axis.
+
+    A minibatch spec shuffles client j of the block by ``local_shuffles`` of
+    the round's seed ``round_seed`` and its global index (``start + j``, or
+    ``start[j]`` for a gathered block's host slot tensor), so a gathered
+    block trains its clients as the dense round does.  ``perms`` (m, epochs,
+    n) replaces those shuffles (a test feeds the JAX package's through it).
+    ``steps``: per-client straggler cutoffs (``local_update_spec``)."""
+    if spec.batch_size is not None and perms is None:
+        if round_seed is None:
+            raise ValueError("a minibatch LocalSpec draws its shuffles from the round's seed: "
+                             "pass round_seed= (or perms=)")
+        leaf = tree_leaves(client_batches)[0]
+        clients = host_to_device(global_client_indices(start, leaf.shape[0]), leaf.device)
+        perms = local_shuffles(round_seed, clients, spec.epochs, leaf.shape[1])
+    return torch.func.vmap(
+        lambda batch, p, s: local_update_spec(loss_fn, w, batch, p, spec, tau, eta_l, steps=s),
+        in_dims=(0, None if perms is None else 0, None if steps is None else 0))(
+            client_batches, perms, steps)
+
+
+def build_cohort_local_fn(loss_fn: Callable, spec: LocalSpec | None, tau: int) -> Callable:
+    """The trainer that the round calls for ``spec`` (None or the default:
+    full-batch GD):
+
+        local_fn(w, client_batches, eta_l, *ctx, steps=None)  -> (m, d) updates
+
+    ``cohort_updates`` for the default spec, bit for bit; SCAFFOLD's trainer
+    for ``control_variates`` (``ctx`` the algorithm's ``(c_i rows, c)``);
+    otherwise ``cohort_updates_spec``, whose trainer also takes ``seed=``
+    (the round's seed) and ``start=`` (the block's global indices) and says
+    so by ``uses_round_seed`` (``fedsim.server.local_caller`` reads it)."""
+    if spec is not None and spec.control_variates:
+        def local_fn(w, client_batches, eta_l, ctx, steps=None):
+            return cohort_updates_scaffold(loss_fn, w, client_batches, tau, eta_l, ctx,
+                                           steps=steps)
+        return local_fn
+    if spec is None or spec.is_default:
+        def local_fn(w, client_batches, eta_l, steps=None):
+            return cohort_updates(loss_fn, w, client_batches, tau, eta_l, steps=steps)
+        return local_fn
+
+    def local_fn(w, client_batches, eta_l, steps=None, *, seed=None, start=0):
+        return cohort_updates_spec(loss_fn, w, client_batches, spec, tau, eta_l, seed, start,
+                                   steps=steps)
+    local_fn.uses_round_seed = True
+    return local_fn
 
 
 def mask_rows(deltas: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

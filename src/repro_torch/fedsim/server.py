@@ -14,7 +14,9 @@ resolved; ``apply_from_moments``.  An algorithm that declares
 appended to the trainer call in both rounds (``local_caller``): each block
 of clients trains on its own rows of the server's carry; its
 ``local_moments`` also gets the block's host mask (``host_mask=``), by which
-it expands a with-replacement multiplicity without reading the device.
+it expands a with-replacement multiplicity without reading the device.  A
+``LocalSpec`` trainer gets the round generator's seed and the block's global
+indices, which key its minibatch shuffles.
 
 An injecting ``FaultSpec`` takes the masked-moment protocol even under full
 participation (a mask of ones): the round's fault draws (``fault_masks``,
@@ -90,7 +92,8 @@ def _eval_metric(eval_fn, eval_every: int, w_next, t: int, device) -> torch.Tens
 
 def local_caller(local_fn: Callable, algorithm: ServerAlgorithm,
                  fault: FaultSpec | None = None, tau: int = 1) -> Callable:
-    """The trainer as ``call(w, batches, eta_l, start, state, straggler=None)``.
+    """The trainer as ``call(w, batches, eta_l, start, state, straggler=None,
+    seed=None)``.
 
     It is ``local_fn(w, batches, eta_l)``; when the algorithm declares
     ``uses_local_context``, ``algorithm.local_context(state, start, m)`` of
@@ -98,19 +101,26 @@ def local_caller(local_fn: Callable, algorithm: ServerAlgorithm,
     tensor) is appended as a fourth argument.  When ``fault`` cuts
     stragglers short, the block's per-client step counts
     (``resolve_steps`` of its host ``straggler`` rows, copied to the device)
-    go in as ``steps=``."""
+    go in as ``steps=``: a straggler's ``straggler_steps`` and every other
+    client's ``tau``, for every trainer, as in the JAX package (a minibatch
+    client with more than tau steps stops at tau under a fault model).  A
+    trainer that declares ``uses_round_seed`` (a non-default ``LocalSpec``'s)
+    also gets the round's ``seed=`` and the block's ``start=``, which key a
+    minibatch client's shuffles."""
     with_ctx = getattr(algorithm, "uses_local_context", False)
     straggling = fault is not None and fault.straggler > 0.0
+    keyed = getattr(local_fn, "uses_round_seed", False)
 
-    def call(w, batches, eta_l, start, state, straggler=None):
-        args = (w, batches, eta_l)
+    def call(w, batches, eta_l, start, state, straggler=None, seed=None):
+        args, kw = (w, batches, eta_l), {}
         if with_ctx:
             m = tree_leaves(batches)[0].shape[0]
             args += (algorithm.local_context(state, start, m),)
         if straggling:
-            steps = host_to_device(resolve_steps(fault, straggler, tau), w.device)
-            return local_fn(*args, steps=steps)
-        return local_fn(*args)
+            kw["steps"] = host_to_device(resolve_steps(fault, straggler, tau), w.device)
+        if keyed:
+            kw.update(seed=seed, start=start)
+        return local_fn(*args, **kw)
 
     return call
 
@@ -131,14 +141,17 @@ def _resolve_sampled_count(moments, cohort: CohortSpec | None, algorithm):
 
 def sampled_round(algorithm: ServerAlgorithm, local_fn: Callable, w, state, noise, mask,
                   cohort: CohortSpec | None, t, client_batches, eta_l, *,
-                  fault: FaultSpec | None = None, faults=None, tau: int = 1):
+                  fault: FaultSpec | None = None, faults=None, tau: int = 1,
+                  round_seed: int | None = None):
     """One masked-moment round for the host participation ``mask`` (M,) and
     the round's ``noise`` (drawn for all M clients): ``-> (w_next, aux, state)``.
 
     ``cohort`` None is full participation (a faulted round's mask of ones).
     With an injecting ``fault``, ``faults`` is the round's ``(alive,
     straggler, corrupt)`` host draws for all M clients (``fault_masks``)
-    and ``tau`` the local step count a straggler is cut from."""
+    and ``tau`` the local step count a straggler is cut from.
+    ``round_seed`` (the round generator's seed) keys a minibatch trainer's
+    shuffles (``local_caller``)."""
     m = mask.shape[0]
     injecting = fault is not None and fault.injects
     alive, straggler, corrupt = faults if injecting else (None, None, None)
@@ -151,7 +164,7 @@ def sampled_round(algorithm: ServerAlgorithm, local_fn: Callable, w, state, nois
         start = 0
     host_mask, mask = mask, host_to_device(mask, w.device)
     deltas = local_caller(local_fn, algorithm, fault, tau)(w, client_batches, eta_l, start,
-                                                           state, straggler)
+                                                           state, straggler, round_seed)
     if injecting:
         deltas, mask = apply_faults(deltas, mask, *(
             None if v is None else host_to_device(v, w.device) for v in (alive, corrupt)))
@@ -180,14 +193,15 @@ def round_step(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn, eval_eve
     dense round, or with a sampling ``cohort`` or an injecting ``fault``
     the masked-moment round.  The faulted round draws its cohort mask and
     noise from ``gen`` as the sampled round does, and its faults from
-    generators of their own keyed by ``gen``'s seed (``fault_masks``)."""
+    generators of their own keyed by ``gen``'s seed (``fault_masks``); a
+    minibatch trainer's shuffles are keyed by that seed too."""
     sampled = cohort is not None and cohort.is_sampled
     injecting = fault is not None and fault.injects
     local = local_caller(local_fn, algorithm)
 
     def step(w, state, gen, t, client_batches, eta_l):
         if not sampled and not injecting:
-            deltas = local(w, client_batches, eta_l, 0, state)
+            deltas = local(w, client_batches, eta_l, 0, state, seed=gen.initial_seed())
             w_next, aux, state = algorithm.apply_round_stateful(gen, w, deltas, state, t=t)
         else:
             m = tree_leaves(client_batches)[0].shape[0]
@@ -196,7 +210,8 @@ def round_step(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn, eval_eve
             faults = fault_masks(fault, gen.initial_seed(), m) if injecting else None
             w_next, aux, state = sampled_round(algorithm, local_fn, w, state, noise, mask,
                                                cohort if sampled else None, t, client_batches,
-                                               eta_l, fault=fault, faults=faults, tau=tau)
+                                               eta_l, fault=fault, faults=faults, tau=tau,
+                                               round_seed=gen.initial_seed())
         metric = _eval_metric(eval_fn, eval_every, w_next, t, w.device)
         return w_next, state, (aux.eta_g, metric, aux.eta_naive, aux.eta_target)
 

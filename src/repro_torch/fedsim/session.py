@@ -21,6 +21,10 @@ bit the uninterrupted run.
 
 DP-SCAFFOLD trains with control variates: ``FederatedSession(
 make_algorithm("dp-scaffold", ...), ..., local=LocalSpec(control_variates=True))``.
+Clients train by minibatch SGD, FedProx or client momentum with
+``local=LocalSpec(batch_size=8, epochs=2, prox_mu=0.01, momentum=0.9)``
+(client data with a per-sample axis after the client axis); every round
+kind (dense, sampled, gathered, faulted, ``run_batched``, ``resume``) takes it.
 
 ``params`` may be a flat (d,) vector or a tree of tensors (dicts, lists);
 the session flattens a tree once (``flatten_model``), wraps the loss and eval
@@ -43,7 +47,7 @@ from repro_torch.core.algorithm import ServerAlgorithm
 from repro_torch.device import resolve_device
 from repro_torch.fedsim import server as _srv
 from repro_torch.fedsim.flat import flatten_model
-from repro_torch.fedsim.local import cohort_updates, cohort_updates_scaffold
+from repro_torch.fedsim.local import build_cohort_local_fn
 from repro_torch.fedsim.server import RunResult
 from repro_torch.fedsim.specs import CohortSpec, EngineSpec, FaultSpec, LocalSpec, TrainSpec
 from repro_torch.tree import tree_leaves, tree_map, tree_stack
@@ -105,9 +109,10 @@ class FederatedSession:
             a seed axis for ``run_batched(batched_data=True)``).
           train: rounds, tau, eta_l, iterate averaging, eval cadence.
           local: how clients train (``LocalSpec``): None or the default is
-            full-batch GD; ``control_variates=True`` SCAFFOLD's steps, which
-            a control-variate algorithm (``dp-scaffold``) needs and only it
-            takes.
+            full-batch GD; ``batch_size``/``epochs``, ``prox_mu`` and
+            ``momentum`` the spec trainer; ``control_variates=True``
+            SCAFFOLD's steps, which a control-variate algorithm
+            (``dp-scaffold``) needs and only it takes.
           engine: how the round loop runs (``EngineSpec``: eager only).
           cohort: who participates each round (``CohortSpec``); None or
             ``CohortSpec()`` is full participation.
@@ -148,16 +153,15 @@ class FederatedSession:
             unravel = self._unravel
             self.loss_fn = lambda wf, batch: loss_fn(unravel(wf), batch)
             self.eval_fn = None if eval_fn is None else (lambda wf: eval_fn(unravel(wf)))
+        # the trainer: full-batch GD, the spec trainer, or SCAFFOLD's steps on
+        # the context ``(c_i rows, c)`` that the round appends; ``steps=`` the
+        # stragglers' per-client cutoffs
+        self._local_fn = build_cohort_local_fn(self.loss_fn, local, train.tau)
 
     def _check_local(self) -> None:
-        """Refuse a LocalSpec the port has no trainer for, and a control-variate
-        algorithm without the control-variate trainer, or the other way round."""
+        """Refuse a control-variate algorithm without the control-variate
+        trainer, and the other way round."""
         local = self.local
-        if local is not None and not local.is_default and not local.control_variates:
-            raise NotImplementedError(
-                f"{local!r} is not ported yet: the minibatch, proximal and momentum "
-                "trainers come with ROADMAP.md queue 1, item 19; the port trains full-batch "
-                "GD or LocalSpec(control_variates=True)")
         wants_ctx = bool(getattr(self.algorithm, "uses_local_context", False))
         has_cv = local is not None and local.control_variates
         if wants_ctx and not has_cv:
@@ -198,15 +202,6 @@ class FederatedSession:
     def dim(self) -> int:
         """Flat model dimension d (after any tree flatten)."""
         return self._w0.shape[-1]
-
-    def _local_fn(self, w, batches, eta_l, *ctx, steps=None):
-        """The trainer: full-batch GD, or SCAFFOLD's steps on the context
-        ``(c_i rows, c)`` that the round appends for a control-variate
-        algorithm; ``steps`` the stragglers' per-client cutoffs."""
-        if ctx:
-            return cohort_updates_scaffold(self.loss_fn, w, batches, self.train.tau, eta_l,
-                                           *ctx, steps=steps)
-        return cohort_updates(self.loss_fn, w, batches, self.train.tau, eta_l, steps=steps)
 
     def _restore(self, w):
         return w if self._unravel is None else self._unravel(w)

@@ -1,11 +1,11 @@
 """Declarative run specs (counterpart of repro/fedsim/specs.py).
 
-The port runs full-batch local GD, or SCAFFOLD's control-variate steps
-(``LocalSpec(control_variates=True)``), and the eager round loop, with full
-participation or a sampled cohort (``CohortSpec``), under an optional fault
-model and divergence watchdog (``FaultSpec``); the other local trainers
-(minibatch, proximal, momentum), ``ShardSpec`` and ``StreamSpec`` come with
-later slices (ROADMAP.md, queue 1).
+The port runs the local trainers of ``LocalSpec`` (full-batch GD, minibatch
+SGD over local epochs, FedProx, client momentum, and SCAFFOLD's
+control-variate steps) and the eager round loop, with full participation
+or a sampled cohort (``CohortSpec``), under an optional fault model and
+divergence watchdog (``FaultSpec``); ``ShardSpec`` and ``StreamSpec`` come
+with later slices (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -14,7 +14,8 @@ import math
 
 import torch
 
-__all__ = ["TrainSpec", "LocalSpec", "EngineSpec", "CohortSpec", "FaultSpec", "FAULT_TAG"]
+__all__ = ["TrainSpec", "LocalSpec", "EngineSpec", "CohortSpec", "FaultSpec", "FAULT_TAG",
+           "LOCAL_TRAIN_TAG"]
 
 # the tag of a round's fault draws (dropouts, straggler cutoffs, corrupted
 # updates): each fault class draws from a generator of its own keyed by the
@@ -23,6 +24,11 @@ __all__ = ["TrainSpec", "LocalSpec", "EngineSpec", "CohortSpec", "FaultSpec", "F
 # JAX package's value: 2**31 - 1 and 2**31 - 2 tag sampling and local
 # training there, and no client index reaches them.
 FAULT_TAG = 2**31 - 3
+# the tag of a round's local-training shuffles (minibatch ``LocalSpec``):
+# client i's epoch-e shuffle is keyed by the round's seed, this tag, i (its
+# global index) and e (``fedsim.local.local_shuffles``).  The JAX package's
+# value.
+LOCAL_TRAIN_TAG = 2**31 - 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,10 +60,13 @@ class LocalSpec:
     ``tau`` steps on the whole client batch.  ``control_variates=True`` is
     SCAFFOLD's trainer: ``tau`` full-batch steps of ``g - c_i + c``, the
     per-client and global control variates coming from the algorithm
-    (``make_algorithm("dp-scaffold", ...)``).  ``batch_size`` (minibatch SGD
-    over ``epochs``), ``prox_mu`` (FedProx) and ``momentum`` (client
-    momentum) are validated here as in the JAX package; the session refuses
-    them until their slice comes (ROADMAP.md, queue 1, item 19).
+    (``make_algorithm("dp-scaffold", ...)``).  Otherwise
+    (``fedsim.local.local_update_spec``): with ``batch_size`` set, each
+    client runs ``epochs x (n // batch_size)`` minibatch steps over a fresh
+    shuffle of its n samples each epoch (the remainder is dropped), else
+    ``tau`` full-batch steps; ``prox_mu`` adds FedProx's
+    ``prox_mu * (w - w0)`` to each gradient; ``momentum`` steps by a
+    velocity that starts at zero every round.
     """
 
     batch_size: int | None = None   # None = full batch

@@ -22,13 +22,14 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def tree_map(fn: Callable[[Any], Any], tree):
-    """``tree`` with every leaf replaced by ``fn(leaf)``; containers keep their type."""
+def tree_map(fn: Callable[..., Any], tree, *rest):
+    """``tree`` with every leaf replaced by ``fn(leaf, *leaves of rest)``; the
+    trees in ``rest`` have ``tree``'s structure, and containers keep their type."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, x) for x in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
 
 
 def tree_stack(trees: list):

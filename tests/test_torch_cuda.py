@@ -62,7 +62,10 @@ def _close(got, want):
     assert torch.allclose(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
 
 
-DP_SHAPES = [(1, 1), (37, 129), (1000, 500), (300, 4099), (1000, 131072), (8, 300001)]
+# the last two widths are the paper's CNNs' (d = 237 LDP, fused mode; d = 5046 CDP, none
+# mode) at the e2 workload's M = 1000
+DP_SHAPES = [(1, 1), (37, 129), (1000, 500), (300, 4099), (1000, 131072), (8, 300001),
+             (1000, 237), (1000, 5046)]
 
 
 def _dp_inputs(m, d, dev):
@@ -328,6 +331,65 @@ def test_a_dp_scaffold_round_is_two_launches_and_equals_the_cpu(dev, central, ki
     _close(got[0], want[0])
     _close(got[2].c, want[2].c)
     _close(got[2].c_is, want[2].c_is)
+
+
+@pytest.fixture
+def f32_convs():
+    """cuDNN convolutions in float32, not TF32 (its default), as chip_smoke.py
+    sets them; restored after the test."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = before
+
+
+def _cnn_cohort(variant, m, n):
+    """The CNN, a cohort of m clients with n generated images each (labels
+    skewed by a Dirichlet split), and per-client weights near the init."""
+    from repro_torch.data import client_image_batches, dirichlet_partition, make_image_dataset
+    from repro_torch.models.cnn import make_cnn
+    ds = make_image_dataset(torch.Generator().manual_seed(7), num_train=400, num_test=100)
+    batches = client_image_batches(ds, dirichlet_partition(0, ds.train_y, m,
+                                                           samples_per_client=n))
+    model = make_cnn(torch.Generator().manual_seed(100), variant)
+    ws = model.init_flat + 0.05 * torch.randn(m, model.dim, generator=torch.Generator()
+                                              .manual_seed(1))
+    return model, batches, ws
+
+
+@pytest.mark.parametrize("variant", ["cdp", "ldp"])
+def test_cnn_grads_on_the_card_equal_the_cpus(dev, f32_convs, variant):
+    """vmap(grad) of the CNN loss with per-client weights (batched patch
+    gathers and products) on the card against the CPU: float32 sums in other
+    orders."""
+    from repro_torch.models.cnn import masked_xent_loss
+    model, batches, ws = _cnn_cohort(variant, 16, 12)
+    grad = torch.func.vmap(torch.func.grad(masked_xent_loss(model)))
+    want = grad(ws, batches)
+    got = grad(ws.to(dev), {k: v.to(dev) for k, v in batches.items()})
+    _close(got, want)
+
+
+@pytest.mark.parametrize("spec_kw", [dict(batch_size=4, epochs=2, prox_mu=0.01, momentum=0.9),
+                                     dict(momentum=0.5)], ids=["minibatch", "full-batch"])
+def test_the_spec_trainer_on_the_card_equals_the_cpu(dev, f32_convs, spec_kw):
+    """The card draws the CPU's shuffles in bits (integer Threefry and a
+    stable sort), and trains the CNN cohort on them to the CPU's updates at
+    the sum tolerance; a gathered block's shuffles are its dense rows'."""
+    from repro_torch.fedsim import LocalSpec, cohort_updates_spec
+    from repro_torch.fedsim.local import local_shuffles
+    from repro_torch.models.cnn import masked_xent_loss
+    model, batches, _ = _cnn_cohort("cdp", 16, 12)
+    assert torch.equal(local_shuffles(77, torch.arange(16, device=dev), 2, 12).cpu(),
+                       local_shuffles(77, torch.arange(16), 2, 12))
+    slots = torch.tensor([3, 5, 11, 0])
+    assert torch.equal(local_shuffles(77, slots.to(dev), 2, 12),
+                       local_shuffles(77, torch.arange(16, device=dev), 2, 12)[slots.to(dev)])
+    spec, loss = LocalSpec(**spec_kw), masked_xent_loss(model)
+    want = cohort_updates_spec(loss, model.init_flat, batches, spec, 3, 0.1, 77)
+    got = cohort_updates_spec(loss, model.init_flat.to(dev),
+                              {k: v.to(dev) for k, v in batches.items()}, spec, 3, 0.1, 77)
+    _close(got, want)
 
 
 def test_cuda_tensors_never_reach_the_plain_version_silently(dev):

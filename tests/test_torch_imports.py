@@ -56,14 +56,16 @@ def test_the_scaffold_modules_stand_alone():
 
 
 @pytest.mark.parametrize("rel", ["fedsim/faults.py", "checkpoint/__init__.py", "fedsim/specs.py",
-                                 "fedsim/session.py"])
+                                 "fedsim/session.py", "fedsim/local.py", "models/cnn.py",
+                                 "data/images.py", "data/dirichlet.py"])
 def test_the_fault_and_checkpoint_modules_stand_alone(rel):
-    """The fault slice's modules are among the files checked above and import
-    torch, numpy and the standard library only (hashlib for the checkpoint's
-    sha256), besides the port itself."""
+    """The fault slice's and the image slice's modules are among the files
+    checked above and import torch, numpy and the standard library only
+    (hashlib for the checkpoint's sha256, functools for the CNN's cached
+    patch index), besides the port itself."""
     path = ROOT / "src" / "repro_torch" / rel
     assert path in PORT_FILES
     roots = set(_imported_roots(path))
     assert not roots & (BANNED | {"."})
-    assert roots <= {"__future__", "dataclasses", "hashlib", "json", "math", "os", "re", "time",
-                     "typing", "numpy", "torch", "repro_torch"}, roots
+    assert roots <= {"__future__", "dataclasses", "functools", "hashlib", "json", "math", "os",
+                     "re", "time", "typing", "numpy", "torch", "repro_torch"}, roots

@@ -35,7 +35,7 @@ from repro.fedsim import local as jlocal  # noqa: E402
 from repro.fedsim.server import _round_step  # noqa: E402
 from repro.fedsim.specs import CohortSpec as JaxCohort  # noqa: E402
 from repro.fedsim.specs import LocalSpec as JaxLocal  # noqa: E402
-from repro_torch.core.algorithm import RoundNoise  # noqa: E402
+from repro_torch.core.algorithm import RoundNoise, round_generator  # noqa: E402
 from repro_torch.core.fedexp import list_algorithms, make_algorithm  # noqa: E402
 from repro_torch.core.variance_reduction import DPScaffoldServer, ScaffoldState  # noqa: E402
 from repro_torch.data.synthetic import distance_to_opt, linreg_loss  # noqa: E402
@@ -45,6 +45,7 @@ from repro_torch.fedsim import (  # noqa: E402
     LocalSpec,
     TrainSpec,
     cohort_updates_scaffold,
+    cohort_updates_spec,
     local_update_scaffold,
 )
 from repro_torch.fedsim import scaffold as tscaffold  # noqa: E402
@@ -564,10 +565,25 @@ def test_the_session_refuses_unpaired_trainers_and_tables(data):
         FederatedSession(make_algorithm("dp-scaffold", **{**kwargs("ldp"), "num_clients": 39}),
                          linreg_loss, np.zeros(D, np.float32), batches, train=train,
                          local=LocalSpec(control_variates=True), device="cpu")
+    # the spec trainers run: a session with each equals the same rounds taken
+    # by hand through cohort_updates_spec, keyed by each round's seed
+    samples = {"x": torch.tensor(data["x"])[:, None, :] * torch.linspace(0.5, 1.5, 8)[:, None]}
+    samples["y"] = samples["x"] @ torch.tensor(data["w_star"])
+
+    def mean_loss(w, b):
+        return torch.mean(torch.square(b["x"] @ w - b["y"]))
+
     for spec in (LocalSpec(batch_size=4), LocalSpec(prox_mu=0.1), LocalSpec(momentum=0.5)):
-        with pytest.raises(NotImplementedError, match="item 19"):
-            FederatedSession(make_algorithm("fedavg"), linreg_loss, np.zeros(D, np.float32),
-                             batches, train=train, local=spec, device="cpu")
+        got = FederatedSession(make_algorithm("fedavg"), mean_loss, np.zeros(D, np.float32),
+                               samples, train=train, local=spec, device="cpu").run(0)
+        alg, w = make_algorithm("fedavg"), torch.zeros(D)
+        state = alg.init_state(w)
+        for t in range(train.rounds):
+            gen = round_generator(0, t)
+            deltas = cohort_updates_spec(mean_loss, w, samples, spec, TAU, ETA_L,
+                                         gen.initial_seed())
+            w, _, state = alg.apply_round_stateful(gen, w, deltas, state, t=t)
+        assert torch.isfinite(got.last_w).all() and torch.equal(got.last_w, w), spec
     # the default spec is full-batch GD, bit for bit
     plain = FederatedSession(make_algorithm("fedexp"), linreg_loss, np.zeros(D, np.float32),
                              batches, train=train, device="cpu").run(0)
