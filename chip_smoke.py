@@ -108,6 +108,32 @@ Phases, each of which exits non-zero on failure:
                retaken gathered (the block's shuffles = the dense rows' in
                bits; the round = dense at rtol 1e-5 on the dense local
                updates).
+  3f. stream  the streaming engine: ldp-fedexp-gauss and cdp-fedexp at
+               phase 4's full width streamed at 128 clients a chunk (8
+               gated launches a round, the last chunk padded) and at "auto"
+               (one chunk), each round taken from the dense eager round's
+               iterate and held to its output at RTOL, with ms, peak memory
+               and a profiled round; ldp-fedexp-gauss's chunk-128 round
+               again from a HostArraySource of the same rows (8 chunks of
+               67 MB through pinned memory) at prefetch 1 and 3, equal in
+               bits to each other and at RTOL to the device-resident round;
+               e8 (benchmarks/e8_million_clients.py, nothing cut: M = 10^6,
+               d = 32, q = 1e-3, 20 rounds): its SyntheticSource gathered at
+               the "auto" chunk, prefetch 2: rounds/s, peak device memory
+               and RSS, a HostArraySource of the same rows and prefetch 1
+               equal in bits, 3 rounds equal at RTOL to the device-resident
+               gathered stream; the same at 128 clients a chunk (10 chunks a
+               round) at prefetch 1 and 3, equal in bits, rounds/s and a
+               profiled idle share, 3 rounds at RTOL to auto; device-resident,
+               the dense sampled stream against the gathered one (rounds/s
+               and their ratio beside e8's 5x floor, printed) and at chunk
+               65536 held to "auto"; the chunked dp_aggregate wrapper at
+               (1000, 131072), 8 chunks and a gathered slot table, against
+               one launch and its plain version, timed, and dp_aggregate
+               gated at the streamed shapes held to its plain version and
+               timed, with the bound of the rows on; ldp-fedexp-gauss on the paper workload under phase 3c's
+               fault model streamed at chunk 128, every round retaken from
+               the faulted eager run's iterate and held at RTOL.
   4. full      ldp-fedexp-gauss (fused mode), cdp-fedexp (none mode),
                ldp-fedexp-privunit (no kernel), cdp-fedexp-adaptive-clip
                (none mode, C on the card), ldp-fedexp-gauss under
@@ -169,7 +195,7 @@ Phases, each of which exits non-zero on failure:
                bounds (SERVE_F32_MAX_ERR, SERVE_F32_MEAN_ERR), the window
                dropped on the plain path outside them; one prefill timed with
                the SIMT kernel in place of the dispatch (the route before).
-Phases 3, 3b, 3e and 4 are the round loop's main path, phase 6's bf16 generate the
+Phases 3, 3b, 3e, 3f and 4 are the round loop's main path, phase 6's bf16 generate the
 dense serve path's (the tensor-core flash kernel), its f32 generate and phase
 9's the float32 serve path's (the float32 tensor-core flash kernel), phase 7's
 generate the Mamba2 serve path's, phase 8's bf16 generate the Dh-256 serve
@@ -730,11 +756,14 @@ def phase_kernels(dev):
 
 
 def make_session(name, m, d, rounds, tau, dev, *, backend="auto", data=None, kw=None,
-                 cohort=None, fault=None):
+                 cohort=None, fault=None, source=None, **specs):
     """A FederatedSession of ``name`` on the synthetic linear regression
     (``kw`` updates the protocol's make_algorithm kwargs; ``cohort`` and
     ``fault`` are dicts of CohortSpec and FaultSpec kwargs, None for full
-    participation and a fault-free run): ``(session, data)``."""
+    participation and a fault-free run; ``source`` a ClientDataSource of
+    ``data``'s client rows in place of its device tensors; ``specs`` the
+    session's other specs, engine, stream and ``data_spec``, its DataSpec):
+    ``(session, data)``."""
     import torch
     from repro_torch.core.fedexp import make_algorithm
     from repro_torch.data.synthetic import distance_to_opt, linreg_loss, make_synthetic_linreg
@@ -744,14 +773,16 @@ def make_session(name, m, d, rounds, tau, dev, *, backend="auto", data=None, kw=
         data = make_synthetic_linreg(torch.Generator(device=dev).manual_seed(0), m, d)
     eta_l, base_kw = algo_kwargs(name, m, d, tau)
     kw = {**base_kw, **(kw or {})}
+    if "data_spec" in specs:
+        specs["data"] = specs.pop("data_spec")
     session = FederatedSession(
         make_algorithm(registry_name(name), backend=backend, **kw), linreg_loss,
-        torch.zeros(d, device=dev), data.client_batches(),
+        torch.zeros(d, device=dev), data.client_batches() if source is None else source,
         train=TrainSpec(rounds=rounds, tau=tau, eta_l=eta_l),
         local=LocalSpec(control_variates=True) if name in SCAFFOLD else None,
         cohort=None if cohort is None else CohortSpec(**cohort),
         fault=None if fault is None else FaultSpec(**fault),
-        eval_fn=distance_to_opt(data.w_star), device=dev)
+        eval_fn=distance_to_opt(data.w_star), device=dev, **specs)
     return session, data
 
 
@@ -1277,6 +1308,448 @@ def e2_gathered_rounds(session):
 
 # the JAX tests' acceptance fault model (tests/test_faults.py:96): 30%
 # dropout, stragglers cut to 1 of tau local steps, 2% corrupted (NaN) updates
+# phase 3f: the streamed rounds at the full width of phase 4 (M, d, tau), their
+# chunks; e8 (benchmarks/e8_million_clients.py): M = 10^6, d = 32, q = 1e-3,
+# 20 rounds, tau 1, eta_l 0.5, ldp-fedexp-gauss at (C, sigma) = (0.3, 0.21)
+STREAM_CHUNKS = (128, "auto")
+E8 = dict(m=1_000_000, d=32, q=1e-3, rounds=20, clip=0.3, sigma=0.21, eta_l=0.5)
+E8_FLOOR = 5.0           # e8's gate: gathered rounds/s >= 5x the dense sampled stream's
+E8_DENSE_ROUNDS = 3
+E8_SPARSE_CHUNK = 65536  # 16 chunks of 10^6 clients, the last ragged
+E8_HOST_CHUNK = 128      # 10 chunks of the 1206-slot table (rounded up to 1280)
+
+
+class uncounted:
+    """Launches inside it (kernel against plain version, timing) leave the
+    main path's launch counters as they were."""
+
+    def __enter__(self):
+        from repro_torch.kernels.dp_aggregate import ops
+        self.ops = ops
+        self.saved = (ops.dp_aggregate_sums.launches, ops.dp_aggregate_sums.gated_launches,
+                      ops.generate_ldp_noise.launches)
+
+    def __exit__(self, *exc):
+        ops = self.ops
+        (ops.dp_aggregate_sums.launches, ops.dp_aggregate_sums.gated_launches,
+         ops.generate_ldp_noise.launches) = self.saved
+
+
+def e8_rows(idx):
+    """e8's generated client rows (its SyntheticSource's closed form): a pure
+    function of the global client index, no M-sized array."""
+    import numpy as np
+    mix = (np.arange(1, E8["d"] + 1, dtype=np.int64) * 2654435761) % (2**31)
+    g = (np.asarray(idx, np.int64)[:, None] + 1) * mix[None, :]
+    return {"t": ((g % 2039) / 1019.5 - 1.0).astype(np.float32)}
+
+
+def e8_loss(w, b):
+    import torch
+    return 0.5 * torch.sum(torch.square(w - b["t"]))
+
+
+def e8_session(dev, data, cohort: dict, chunk, *, rounds=None, prefetch=2):
+    """e8's ldp-fedexp-gauss session on ``data`` (a source or device tensors),
+    streamed at ``chunk`` under CohortSpec(**cohort)."""
+    import torch
+    from repro_torch.core.fedexp import make_algorithm
+    from repro_torch.fedsim import (CohortSpec, DataSpec, EngineSpec, FederatedSession,
+                                    StreamSpec, TrainSpec)
+    kind = getattr(data, "kind", "device")
+    return FederatedSession(
+        make_algorithm("ldp-fedexp-gauss", clip_norm=E8["clip"], sigma=E8["sigma"]), e8_loss,
+        torch.zeros(E8["d"], device=dev), data,
+        train=TrainSpec(rounds=rounds or E8["rounds"], tau=1, eta_l=E8["eta_l"]),
+        engine=EngineSpec(engine="stream"), stream=StreamSpec(chunk_clients=chunk),
+        cohort=CohortSpec(**cohort), data=DataSpec(kind=kind, prefetch=prefetch), device=dev)
+
+
+def timed_run(session, seed=0):
+    """``session.run(seed)`` on the host clock with the card synchronised:
+    (result, seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = session.run(seed)
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+def rss_gb() -> tuple[float, float]:
+    """(the process's peak RSS since it started, getrusage; its RSS now, from
+    /proc/self/status), in GB."""
+    import resource
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+    now = next(int(line.split()[1]) for line in Path("/proc/self/status").read_text().splitlines()
+               if line.startswith("VmRSS:")) * 1024 / 1e9
+    return peak, now
+
+
+def profiled_run(session, label: str) -> dict:
+    """``device_window`` of a second run of ``session`` (the first warms it)."""
+    session.run(0)
+    return device_window(lambda: session.run(0), f"{label}, {session.train.rounds} rounds",
+                         "3f stream")
+
+
+def stream_full(dev, smi) -> dict:
+    """Streamed rounds at phase 4's full width for ldp-fedexp-gauss and
+    cdp-fedexp, at 128 clients a chunk and at "auto": each retaken from the
+    dense eager round's iterate (round 1, from round 0's) and held to its
+    output at RTOL; dp_aggregate launches, host ms with the card
+    synchronised, and peak memory beside the dense round's.  For
+    ldp-fedexp-gauss the chunk-128 round again from a HostArraySource of the
+    same rows (8 chunks of 67 MB staged through pinned memory) at prefetch
+    1 and 3: equal to each other in bits and to the device-resident round
+    at RTOL, ms and peak memory, and a profiled round's idle share."""
+    import torch
+    from repro_torch.core.algorithm import round_generator
+    from repro_torch.fedsim import EngineSpec, StreamSpec
+    from repro_torch.kernels.dp_aggregate import ops
+    m, d, tau, _ = FULL_SIZE
+    data, out = None, {}
+    for name in ("ldp-fedexp-gauss", "cdp-fedexp"):
+        session, data = make_session(name, m, d, 2, tau, dev, data=data)
+        eta_l, batches = session.train.eta_l, session.client_batches
+        w0 = torch.zeros(d, device=dev)
+        w1, s1, _ = session._step()(w0, session.algorithm.init_state(w0),
+                                    round_generator(0, 0), 0, batches, eta_l)
+
+        def one_round(sess):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            n0 = ops.dp_aggregate_sums.launches
+            t0 = time.perf_counter()
+            w2, _, _ = sess._step()(w1, s1, round_generator(0, 1), 1, sess.client_batches,
+                                    eta_l)
+            torch.cuda.synchronize()
+            return (w2, 1e3 * (time.perf_counter() - t0), torch.cuda.max_memory_allocated() / 1e9,
+                    ops.dp_aggregate_sums.launches - n0)
+
+        want, dense_ms, dense_gb, dense_n = one_round(session)
+        row = {"dense": dict(ms=dense_ms, peak_gb=dense_gb, launches=dense_n)}
+        streamed = {}
+        for chunk in STREAM_CHUNKS:
+            sess, _ = make_session(name, m, d, 2, tau, dev, data=data,
+                                   engine=EngineSpec(engine="stream"),
+                                   stream=StreamSpec(chunk_clients=chunk))
+            c = min(sess.stream.chunk_clients, m)
+            one_round(sess)   # warm-up: the chunk's launch plan
+            got, ms, gb, n = one_round(sess)
+            if n != -(-m // c):
+                fail(f"{name} streamed at chunk {chunk}: {n} dp_aggregate launches in a round, "
+                     f"want {-(-m // c)}")
+            err = close(got, want, f"{name} streamed at chunk {chunk} vs the dense round")
+            streamed[chunk] = (got, ms)
+            row[str(chunk)] = dict(chunk=c, resolved=sess.stream.chunk_clients, ms=ms,
+                                   peak_gb=gb, launches=n, max_abs_err=err,
+                                   top=device_window(lambda: one_round(sess),
+                                                     f"{name} streamed at chunk {chunk}, a round",
+                                                     "3f stream"))
+            print(f"[3f stream] {name} M={m} d={d} tau={tau} chunk {chunk} ({c} clients a "
+                  f"chunk): {n} dp_aggregate launches, {ms:.3f} ms a round (host clock, "
+                  f"card synchronised), peak {gb:.3f} GB; the dense eager round {dense_ms:.3f} "
+                  f"ms, peak {dense_gb:.3f} GB, {dense_n} launch; max abs err {err:.3e}  [{smi}]")
+        if name == "ldp-fedexp-gauss":
+            row["host"] = full_width_host(name, data, batches, streamed[128], one_round, smi)
+        out[name] = row
+    del data
+    torch.cuda.empty_cache()
+    return out
+
+
+def full_width_host(name, data, batches, device_round, one_round, smi) -> dict:
+    """``stream_full``'s chunk-128 round of ``name`` from a HostArraySource
+    of ``batches`` at prefetch 1 and 3 (``one_round`` retakes round 1):
+    held in bits to each other and at RTOL to ``device_round`` (the
+    device-resident streamed round's (w, ms)); ms, peak memory and a
+    profiled round."""
+    from repro_torch.fedsim import DataSpec, EngineSpec, HostArraySource, StreamSpec
+    m, d, tau, _ = FULL_SIZE
+    source = HostArraySource({k: v.cpu().numpy() for k, v in batches.items()})
+    out, first = {}, None
+    for depth in (1, 3):
+        sess, _ = make_session(name, m, d, 2, tau, data.x.device, data=data, source=source,
+                               data_spec=DataSpec(kind="host", prefetch=depth),
+                               engine=EngineSpec(engine="stream"),
+                               stream=StreamSpec(chunk_clients=128))
+        one_round(sess)   # warm-up: the pinned blocks
+        got, ms, gb, n = one_round(sess)
+        if first is not None and not same_bits(got, first):
+            fail(f"{name} from the host at chunk 128: prefetch {depth} differs from prefetch 1 "
+                 "in bits")
+        first = got if first is None else first
+        err = close(got, device_round[0], f"{name} from the host at chunk 128, prefetch {depth}, "
+                                          "vs the device-resident streamed round")
+        out[f"prefetch {depth}"] = dict(ms=ms, peak_gb=gb, launches=n, max_abs_err=err,
+                                        bits_equal_device=same_bits(got, device_round[0]))
+        if depth == 3:
+            out["top"] = device_window(lambda: one_round(sess), f"{name} from the host at chunk "
+                                       "128, prefetch 3, a round", "3f stream")
+        print(f"[3f stream] {name} M={m} d={d} tau={tau} from a HostArraySource at chunk 128 "
+              f"({-(-m // 128)} chunks of {128 * (d + 1) * 4 / 1e6:.1f} MB), prefetch {depth}: "
+              f"{n} dp_aggregate launches, {ms:.3f} ms a round (host clock, card synchronised; "
+              f"device-resident {device_round[1]:.3f} ms), peak {gb:.3f} GB; vs the "
+              f"device-resident round max abs err {err:.3e} (equal in bits: "
+              f"{out[f'prefetch {depth}']['bits_equal_device']})  [{smi}]")
+    return out
+
+
+def e8_host(dev, smi) -> dict:
+    """e8's host workload, nothing cut: a SyntheticSource of 10^6 clients,
+    gathered q = 1e-3 cohorts, "auto" chunk, prefetch 2, 20 rounds.  Held:
+    finite; a HostArraySource of the same rows and prefetch 1 equal in bits;
+    3 rounds equal at RTOL to the device-resident gathered stream."""
+    import numpy as np
+    import torch
+    from repro_torch.fedsim import HostArraySource, SyntheticSource
+    m = E8["m"]
+    gathered = dict(q=E8["q"], gather=True)
+    source = SyntheticSource(e8_rows, m)
+    e8_session(dev, source, gathered, "auto").run(1)   # warm-up
+    rss0 = rss_gb()
+    torch.cuda.reset_peak_memory_stats()
+    session = e8_session(dev, source, gathered, "auto")
+    r, secs = timed_run(session)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rss1 = rss_gb()
+    check_run("e8 host", r, E8["rounds"])
+    cap = session.cohort.resolved_cap(m)
+    chunk = min(session.stream.chunk_clients, cap)
+    rows = e8_rows(np.arange(m))
+    for label, other in (("HostArraySource", e8_session(dev, HostArraySource(rows), gathered,
+                                                          "auto")),
+                         ("prefetch 1", e8_session(dev, source, gathered, "auto", prefetch=1))):
+        if not same_run(other.run(0), r):
+            fail(f"e8 host: the run on {label} differs from the SyntheticSource run in bits")
+    out_top = profiled_run(e8_session(dev, source, gathered, "auto", rounds=3), "e8 host")
+    device_rows = {"t": torch.from_numpy(rows["t"]).to(dev)}
+    short = e8_session(dev, source, gathered, "auto", rounds=3).run(0)
+    resident = e8_session(dev, device_rows, gathered, "auto", rounds=3).run(0)
+    err = close(short.final_w, resident.final_w, "e8 host vs the device-resident gathered stream")
+    del device_rows, rows   # off the card before the chunked run's peak
+    out = dict(rounds_per_s=E8["rounds"] / secs, resolved_chunk=session.stream.chunk_clients,
+               chunk=chunk, cap=cap, peak_gb=peak_gb, peak_rss_gb=rss1[0],
+               rss_before_gb=rss0[1], rss_after_gb=rss1[1], max_abs_err=err, top=out_top,
+               chunked=e8_host_chunked(dev, source, short, smi))
+    print(f"[3f stream] e8 host M={m} d={E8['d']} q={E8['q']} SyntheticSource, gathered, chunk "
+          f"auto = {session.stream.chunk_clients} (capped at the {cap}-slot table: {chunk}), "
+          f"prefetch 2: {out['rounds_per_s']:.2f} rounds/s over {E8['rounds']} rounds (host "
+          f"clock, card synchronised); peak device memory {peak_gb:.4f} GB; peak RSS "
+          f"{rss1[0]:.2f} GB since the script started (RSS {rss0[1]:.2f} -> {rss1[1]:.2f} GB "
+          f"over the run); HostArraySource and prefetch 1 equal in bits; 3 rounds vs "
+          f"device-resident max abs err {err:.3e}  [{smi}]")
+    return out
+
+
+def e8_host_chunked(dev, source, auto3, smi) -> dict:
+    """e8's host workload with several chunks a round: the gathered slot
+    table at E8_HOST_CHUNK clients a chunk, 20 rounds at prefetch 1 and 3
+    (equal in bits), rounds/s and peak device memory of each, a profiled
+    3-round run's idle share, and 3 rounds held at RTOL to ``auto3`` (the
+    auto chunk's 3 rounds)."""
+    import torch
+    from repro_torch.fedsim import CohortSpec
+    gathered = dict(q=E8["q"], gather=True)
+    e8_session(dev, source, gathered, E8_HOST_CHUNK, rounds=1).run(1)   # warm-up
+    out, first = {}, None
+    for depth in (1, 3):
+        torch.cuda.reset_peak_memory_stats()
+        r, secs = timed_run(e8_session(dev, source, gathered, E8_HOST_CHUNK, prefetch=depth))
+        check_run(f"e8 host at chunk {E8_HOST_CHUNK}", r, E8["rounds"])
+        if first is not None and not same_run(r, first):
+            fail(f"e8 host at chunk {E8_HOST_CHUNK}: prefetch {depth} differs from prefetch 1 "
+                 "in bits")
+        first = r if first is None else first
+        out[f"prefetch {depth}"] = dict(rounds_per_s=E8["rounds"] / secs,
+                                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    out["top"] = profiled_run(e8_session(dev, source, gathered, E8_HOST_CHUNK, prefetch=3,
+                                         rounds=3), f"e8 host at chunk {E8_HOST_CHUNK}")
+    r3 = e8_session(dev, source, gathered, E8_HOST_CHUNK, rounds=3).run(0)
+    out["max_abs_err"] = close(r3.final_w, auto3.final_w,
+                               f"e8 host at chunk {E8_HOST_CHUNK} vs auto, 3 rounds")
+    cap = -(-CohortSpec(**gathered).resolved_cap(E8["m"]) // E8_HOST_CHUNK) * E8_HOST_CHUNK
+    print(f"[3f stream] e8 host at chunk {E8_HOST_CHUNK} ({cap // E8_HOST_CHUNK} chunks a round "
+          f"from the SyntheticSource): prefetch 1 {out['prefetch 1']['rounds_per_s']:.2f}, "
+          f"prefetch 3 {out['prefetch 3']['rounds_per_s']:.2f} rounds/s over {E8['rounds']} "
+          f"rounds (host clock, card synchronised), equal in bits; peak device memory "
+          f"{out['prefetch 1']['peak_gb']:.4f} and {out['prefetch 3']['peak_gb']:.4f} GB; 3 "
+          f"rounds vs auto max abs err {out['max_abs_err']:.3e}  [{smi}]")
+    return out
+
+
+def e8_sparse(dev, smi) -> dict:
+    """e8's sparse workload on device-resident rows: the dense sampled stream
+    (every client trained, one gated launch a chunk) for E8_DENSE_ROUNDS and
+    the gathered stream for 20 rounds, rounds/s and their ratio beside e8's
+    floor; the dense stream again at E8_SPARSE_CHUNK, held at RTOL to auto."""
+    import numpy as np
+    import torch
+    m = E8["m"]
+    rows = {"t": torch.from_numpy(e8_rows(np.arange(m))["t"]).to(dev)}
+    dense_cohort, gathered = dict(q=E8["q"]), dict(q=E8["q"], gather=True)
+    e8_session(dev, rows, dense_cohort, "auto", rounds=1).run(1)   # warm-up
+    dense = e8_session(dev, rows, dense_cohort, "auto", rounds=E8_DENSE_ROUNDS)
+    d_r, d_secs = timed_run(dense)
+    g_r, g_secs = timed_run(e8_session(dev, rows, gathered, "auto"))
+    check_run("e8 sparse dense", d_r, E8_DENSE_ROUNDS)
+    check_run("e8 sparse gathered", g_r, E8["rounds"])
+    chunked = e8_session(dev, rows, dense_cohort, E8_SPARSE_CHUNK, rounds=E8_DENSE_ROUNDS)
+    c_r, c_secs = timed_run(chunked)
+    err = close(c_r.final_w, d_r.final_w, f"e8 dense stream at chunk {E8_SPARSE_CHUNK} vs auto")
+    dense_rps, gathered_rps = E8_DENSE_ROUNDS / d_secs, E8["rounds"] / g_secs
+    tops = {label: profiled_run(e8_session(dev, rows, c, "auto", rounds=3), f"e8 sparse {label}")
+            for label, c in (("dense sampled", dense_cohort), ("gathered", gathered))}
+    out = dict(top=tops, dense_rounds_per_s=dense_rps, gathered_rounds_per_s=gathered_rps,
+               ratio=gathered_rps / dense_rps, floor=E8_FLOOR,
+               dense_chunk=min(dense.stream.chunk_clients, m),
+               chunked_rounds_per_s=E8_DENSE_ROUNDS / c_secs, max_abs_err=err)
+    print(f"[3f stream] e8 sparse M={m} d={E8['d']} q={E8['q']} device-resident: dense "
+          f"sampled stream (chunk {out['dense_chunk']}) {dense_rps:.3f} rounds/s over "
+          f"{E8_DENSE_ROUNDS}, gathered stream {gathered_rps:.2f} rounds/s over {E8['rounds']}: "
+          f"{out['ratio']:.1f}x (e8's floor {E8_FLOOR}x: "
+          f"{'OK' if out['ratio'] >= E8_FLOOR else 'BELOW'}); the dense stream at chunk "
+          f"{E8_SPARSE_CHUNK} ({-(-m // E8_SPARSE_CHUNK)} chunks) "
+          f"{out['chunked_rounds_per_s']:.3f} rounds/s, vs auto max abs err {err:.3e}  [{smi}]")
+    del rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def stream_kernel(dev, smi) -> dict:
+    """The chunked wrapper at (1000, 131072) in fused mode, chunk_m = 125 (8
+    launches), and over a gathered slot table (CohortSpec(q=0.1)'s cap, 2
+    chunks): held to one-launch dp_aggregate_sums and to its plain version
+    at RTOL, timed with CUDA events.  And dp_aggregate at the shapes the
+    streamed rounds give it, timed gated, with the bound of the rows on:
+    e8's dense sampled launch (10^6, 32) with its ~1000 rows on, e8's
+    gathered chunk keyed by its slots, e8's last 65536 chunk (keyed past M),
+    and the full-width chunk of 128; each launch held to its plain version
+    (``ref.plain_sums``) on the same rows, gate and keys at RTOL."""
+    import torch
+    from repro_torch.core.algorithm import round_generator
+    from repro_torch.fedsim import CohortSpec, gather_slots
+    from repro_torch.kernels.dp_aggregate import ops, ref
+    m, d, _, _ = FULL_SIZE
+    seed, sigma = 77, 0.2
+    out = {}
+    with uncounted():
+        g = torch.Generator(device=dev).manual_seed(5)
+        u = torch.randn(m, d, generator=g, device=dev) * (2 / math.sqrt(d))
+        kw = dict(noise_seed=seed, noise_sigma=sigma)
+        cohort = CohortSpec(q=0.1, gather=True)
+        mask = cohort.round_mask(round_generator(0, 0), m)
+        cap = -(-cohort.resolved_cap(m) // 88) * 88
+        slots, slot_mask, _ = gather_slots(mask, cap)
+        slots, slot_mask, gate = slots.to(dev), slot_mask.to(dev), mask.to(dev)
+        for label, ckw, one in (
+                (f"chunk_m {m // 8}", dict(chunk_m=m // 8),
+                 lambda: ops.dp_aggregate_sums(u, 1.0, **kw)),
+                (f"slots ({cap},) chunk_m 88", dict(chunk_m=88, slots=slots,
+                                                     slot_mask=slot_mask),
+                 lambda: ops.dp_aggregate_sums(u, 1.0, row_gate=gate, **kw))):
+            got = ops.dp_aggregate_sums_chunked(u, 1.0, **ckw, **kw)
+            plain = ref.dp_aggregate_sums_chunked_ref(u, 1.0, **ckw, **kw)
+            want = one()
+            err = max(max(close(a, b, f"chunked wrapper {label} vs its plain version"),
+                          close(a, c, f"chunked wrapper {label} vs one launch"))
+                      for a, b, c in zip(got, plain, want))
+            ms = cuda_ms(lambda: ops.dp_aggregate_sums_chunked(u, 1.0, **ckw, **kw), 5)
+            one_ms = cuda_ms(one, 5)
+            out[label] = dict(ms=ms, one_launch_ms=one_ms, max_abs_err=err)
+            print(f"[3f stream] dp_aggregate_sums_chunked ({m},{d}) fused {label}: {ms:.4f} ms "
+                  f"(CUDA events), one launch {one_ms:.4f} ms; vs plain and one launch max abs "
+                  f"err {err:.3e}  [{smi}]")
+        del u
+        torch.cuda.empty_cache()
+        shapes = {}
+        e8m = E8["m"]
+        e8_mask = CohortSpec(q=E8["q"]).round_mask(round_generator(0, 0), e8m)
+        e8_cap = CohortSpec(q=E8["q"], gather=True).resolved_cap(e8m)
+        e8_slots, e8_slot_mask, _ = gather_slots(e8_mask, e8_cap)
+        # e8's dense stream at E8_SPARSE_CHUNK: its last chunk, padded past M
+        j0, idx, valid = list(ref.chunk_grid(e8m, E8_SPARSE_CHUNK))[-1]
+        # label: (rows, cols, host gate, mode, noise keys)
+        for label, (rows, cols, gate_of_rows, mode, keys) in {
+                f"e8 dense sampled ({e8m}, {E8['d']})": (e8m, E8["d"], e8_mask, "fused", {}),
+                f"e8 gathered chunk ({e8_cap}, {E8['d']}), keyed by slots": (
+                    e8_cap, E8["d"], e8_slot_mask, "fused", dict(row_ids=e8_slots.to(dev))),
+                f"e8 last chunk ({E8_SPARSE_CHUNK}, {E8['d']}) from row {j0}": (
+                    E8_SPARSE_CHUNK, E8["d"], e8_mask[idx] * valid, "fused",
+                    dict(row_start=j0)),
+                f"full-width chunk (128, {d}) fused": (128, d, torch.ones(128), "fused", {}),
+                f"full-width chunk (128, {d}) none": (128, d, torch.ones(128), "none", {})}.items():
+            x = torch.randn(rows, cols, generator=g, device=dev) * 0.1
+            gate = gate_of_rows.to(dev)
+            mkw = {**kw, **keys} if mode == "fused" else {}
+            on = int((gate > 0).sum())
+            got = ops.dp_aggregate_sums(x, 1.0, row_gate=gate, **mkw)
+            plain = ref.plain_sums(x, 1.0, row_gate=gate, **mkw)
+            err = max(close(a, b, f"dp_aggregate {mode} gated {label} vs its plain version")
+                      for a, b in zip(got, plain))
+            ms = cuda_ms(lambda: ops.dp_aggregate_sums(x, 1.0, row_gate=gate, **mkw), 10)
+            b_ms, b_by = bound(on * cols * 4 + rows * 4 + cols * 4, on * cols * OPS_PER_ELEM[mode])
+            shapes[label] = dict(shape=[rows, cols], rows_on=on, mode=mode, ms=ms, bound_ms=b_ms,
+                                 bound_by=b_by, max_abs_err=err)
+            print(f"[3f stream] dp_aggregate {mode} gated {label}, {on} rows on: {ms:.4f} ms "
+                  f"(CUDA events), bound of the rows on {b_ms:.5f} ms ({b_by}): "
+                  f"{ms / b_ms:.0f}x; vs its plain version max abs err {err:.3e}  [{smi}]")
+            del x
+        out["shapes"] = shapes
+    return out
+
+
+def stream_faults(dev, smi) -> dict:
+    """ldp-fedexp-gauss on the paper workload under FAULT, streamed at 128
+    clients a chunk: the run's launches (8 gated a round), finite; each round
+    retaken streamed from the faulted eager run's iterate and carry and held
+    to it at RTOL; the two whole runs' gap printed."""
+    import torch
+    from repro_torch.core.algorithm import round_generator
+    from repro_torch.fedsim import EngineSpec, StreamSpec
+    from repro_torch.kernels.dp_aggregate import ops
+    m, tau, rounds = PAPER
+    name, d, chunk = "ldp-fedexp-gauss", 100, 128
+    stream = dict(engine=EngineSpec(engine="stream"), stream=StreamSpec(chunk_clients=chunk))
+    before = (ops.dp_aggregate_sums.launches, ops.dp_aggregate_sums.gated_launches)
+    ss, got, data = run_session(name, m, d, rounds, tau, dev, fault=FAULT, **stream)
+    launched = ops.dp_aggregate_sums.launches - before[0]
+    gated = ops.dp_aggregate_sums.gated_launches - before[1]
+    check_run(f"{name} streamed under faults", got, rounds)
+    want_n = rounds * -(-m // chunk)
+    if launched != want_n or gated != want_n:
+        fail(f"{name} streamed under faults: {launched} launches, {gated} gated (want {want_n})")
+    es, want, _ = run_session(name, m, d, rounds, tau, dev, data=data, fault=FAULT)
+    eager, streamed = es._step(), ss._step()
+    w = torch.zeros(d, device=dev)
+    state = es.algorithm.init_state(w)
+    worst = 0.0
+    with uncounted():
+        for t in range(rounds):
+            w_next, s_next, _ = eager(w, state, round_generator(0, t), t, es.client_batches,
+                                      es.train.eta_l)
+            w_s, _, _ = streamed(w, state, round_generator(0, t), t, ss.client_batches,
+                                 ss.train.eta_l)
+            worst = max(worst, close(w_s, w_next, f"{name} under faults, round {t} streamed "
+                                                  "vs eager"))
+            w, state = w_next, s_next
+    gap = float((got.final_w - want.final_w).abs().max())
+    print(f"[3f stream] {name} paper workload d={d} under FaultSpec({FAULT}), chunk {chunk}: "
+          f"{launched} dp_aggregate launches, all gated; each round retaken streamed from the "
+          f"eager iterate, max abs err {worst:.3e}; the whole runs' final w {gap:.3e} apart  "
+          f"[{smi}]")
+    return dict(launches=launched, max_abs_err=worst, whole_run_gap=gap)
+
+
+def phase_stream(dev, smi) -> dict:
+    """Phase 3f: the streaming engine and host-resident data (``stream_full``,
+    ``e8_host``, ``e8_sparse``, ``stream_kernel``, ``stream_faults``)."""
+    return dict(full=stream_full(dev, smi), e8_host=e8_host(dev, smi),
+                e8_sparse=e8_sparse(dev, smi), kernel=stream_kernel(dev, smi),
+                faults=stream_faults(dev, smi))
+
+
 FAULT = dict(dropout=0.3, straggler=0.2, straggler_steps=1, corrupt=0.02)
 # phase 3c's runs on the paper workload: (label, d, cohort)
 FAULTED = (("ldp-fedexp-gauss", 100, None), ("cdp-fedexp", 500, None),
@@ -2702,6 +3175,7 @@ def main() -> int:
     timed("3c faults", phase_faults, dev)
     timed("3d checkpoints", phase_checkpoints, dev)
     timed("3e e2", phase_e2, dev)
+    stream = timed("3f stream", phase_stream, dev, smi)
     full = timed("4 full", phase_full, dev, cases)
     full.update(timed("4 full e2", phase_e2_rounds, dev, smi))
     launches = {"dp_aggregate": ops.dp_aggregate_sums.launches,
@@ -2736,7 +3210,7 @@ def main() -> int:
              ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
              bound_by=head["bound_by"], library_ms=None, headline="fused (1000, 131072)",
              cases=cases, gated=gathered["modes"], gated_rows_on=gathered["rows_on"],
-             gathered_shape=gathered["gathered_shape"], full_rounds=full),
+             gathered_shape=gathered["gathered_shape"], full_rounds=full, stream=stream),
         dict(name="ldp_noise", route="cuda", source=src,
              replaces="src/repro/kernels/dp_aggregate/kernel.py:222",
              launches=launches["ldp_noise"],

@@ -32,7 +32,9 @@ the global index of row 0, or a (m,) host tensor of global indices (a
 gathered cohort, ``global_client_indices``).  On the card the unweighted
 masked release is one launch of the kernel, whose ``row_gate`` does what
 JAX's ``where`` does outside its kernel and whose ``row_ids`` key a gathered
-block's noise by client.
+block's noise by client.  Moments of disjoint blocks add
+(``add_moments``): ``streamed_clip_moments`` reduces an (M, d) matrix a
+chunk of rows at a time, as the streaming engine reduces its chunks.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ import torch
 __all__ = [
     "RoundStats",
     "RoundMoments",
+    "add_moments",
     "aggregate_stats",
     "fused_clip_aggregate",
     "global_client_indices",
@@ -51,6 +54,7 @@ __all__ = [
     "raw_moments",
     "resolve_backend",
     "row_keys",
+    "streamed_clip_moments",
 ]
 
 _BACKENDS = ("kernel", "kernel-fused", "torch")
@@ -81,6 +85,20 @@ class RoundMoments:
         return RoundStats(cbar=cbar, mean_sq=self.sum_sq / self.count,
                           agg_sq=torch.sum(cbar * cbar),
                           mean_sq_clipped=self.sum_sq_clipped / self.count)
+
+
+def add_moments(a, b):
+    """The sum of two blocks' moments: ``RoundMoments``, dicts, tuples and
+    lists of them, tensors and floats, added leaf by leaf (every field of a
+    round's moments is a sum over its clients)."""
+    if isinstance(a, RoundMoments):
+        return RoundMoments(*(add_moments(getattr(a, f.name), getattr(b, f.name))
+                              for f in dataclasses.fields(RoundMoments)))
+    if isinstance(a, dict):
+        return {k: add_moments(a[k], b[k]) for k in a}
+    if isinstance(a, (tuple, list)):
+        return type(a)(add_moments(x, y) for x, y in zip(a, b))
+    return a + b
 
 
 def global_client_indices(start, m: int) -> torch.Tensor:
@@ -308,3 +326,41 @@ def raw_moments(deltas: torch.Tensor, mask: torch.Tensor | None,
         return RoundMoments(deltas.sum(dim=0), sum_sq, sum_sq, count)
     sum_sq = v @ sq
     return RoundMoments(v @ deltas, sum_sq, sum_sq, count)
+
+
+def streamed_clip_moments(raw_updates: torch.Tensor, clip_norm, noise: torch.Tensor | None = None,
+                          *, chunk_clients: int, noise_seed: int | None = None,
+                          noise_sigma=None, weight_mask: torch.Tensor | None = None,
+                          row_weights: torch.Tensor | None = None,
+                          backend: str = "auto") -> RoundMoments:
+    """``partial_clip_moments`` over chunks of ``chunk_clients`` rows, the
+    moments added chunk by chunk (``add_moments``).
+
+    The reference of the streaming engine's reduction for a caller that
+    holds the whole (M, d) matrix: the chunks are those of
+    ``kernels.dp_aggregate.ref.chunk_grid``, chunk j rows ``[j c, (j + 1)
+    c)`` keyed from ``j c`` (``noise_seed``), a padded last chunk's padding
+    at mask 0; a materialized ``noise``, the mask and the weights are cut
+    the same way.  Only the association of the sums changes at chunk
+    boundaries; one chunk (``chunk_clients >= M``) is
+    ``partial_clip_moments`` itself.  ``count`` is the un-chunked entry's:
+    the mask's (or mask times weights') sum, or the float M without either.
+    """
+    from repro_torch.kernels.dp_aggregate.ref import chunk_grid, grid_rows
+    if chunk_clients < 1:
+        raise ValueError(f"chunk_clients must be >= 1, got {chunk_clients}")
+    m = raw_updates.shape[0]
+    c = min(chunk_clients, m)
+    if weight_mask is None and m % c:
+        weight_mask = raw_updates.new_ones(m)
+    total = None
+    for j0, idx, valid in chunk_grid(m, c):
+        u, noise_j, mask, weights = (None if x is None else grid_rows(x, j0, idx)
+                                     for x in (raw_updates, noise, weight_mask, row_weights))
+        if j0 + c > m:
+            mask = mask * valid.to(mask.device)
+        mom = partial_clip_moments(u, clip_norm, noise_j, noise_seed=noise_seed,
+                                   noise_sigma=noise_sigma, start=j0, weight_mask=mask,
+                                   row_weights=weights, backend=backend)
+        total = mom if total is None else add_moments(total, mom)
+    return total

@@ -69,9 +69,16 @@ def host_to_device(x: torch.Tensor, device) -> torch.Tensor:
 def rows_at(x: torch.Tensor, start, m: int) -> torch.Tensor:
     """The rows of a per-client (M, ...) tensor that a block of m clients at
     ``start`` owns (``global_client_indices``): a slice for a contiguous
-    block, a gather for a gathered one (indices copied to ``x``'s device)."""
+    block, a gather for a gathered one (indices copied to ``x``'s device).
+    A contiguous block that runs past M (a streamed round's last chunk,
+    padded to the grid) gets zero rows there."""
     if not isinstance(start, torch.Tensor):
-        return x if start == 0 and x.shape[0] == m else x[start:start + m]
+        if start == 0 and x.shape[0] == m:
+            return x
+        rows = x[start:start + m]
+        if rows.shape[0] < m:
+            rows = torch.cat([rows, rows.new_zeros((m - rows.shape[0],) + tuple(x.shape[1:]))])
+        return rows
     return x.index_select(0, host_to_device(global_client_indices(start, m), x.device))
 
 

@@ -383,7 +383,10 @@ class PrivUnitLDP(PrivacyMechanism):
     def draw(self, gen, m, d, device):
         """Per client: the cap and quantile uniforms and ScalarDP's rounding
         uniform, keep uniform and integer in [0, k), on the host; the (M, d)
-        normal on the device."""
+        normal on the device.  The normal is drawn for the whole cohort on
+        the streaming engine too, which slices it a chunk at a time
+        (``rows_at``): its memory is M-sized, and ``auto_chunk_clients``
+        does not count it (ROADMAP.md, queue 1, item 20)."""
         fields = {f: torch.rand(m, generator=gen) for f in ("cap_u", "u01", "round_u", "keep_u")}
         fields["u_int"] = torch.randint(0, self.sc.k, (m,), generator=gen, dtype=torch.int32)
         fields["g"] = device_normal(gen, (m, d), device)
@@ -429,7 +432,9 @@ class PrivUnitLDP(PrivacyMechanism):
         each other row weighted by its mask value (and weight)."""
         m = deltas.shape[0]
         if not (isinstance(start, int) and start == 0 and noise.g.shape[0] == m):
-            idx = global_client_indices(start, m)
+            # a streamed chunk's padding rows past M (mask 0) read client
+            # M - 1's draws; their release is zeroed below
+            idx = torch.clamp(global_client_indices(start, m), max=noise.g.shape[0] - 1)
             host = {f: getattr(noise, f)[idx] for f in ("cap_u", "u01", "round_u", "keep_u",
                                                          "u_int")}
             noise = dataclasses.replace(noise, g=rows_at(noise.g, start, m), **host)

@@ -144,10 +144,7 @@ class DPScaffoldServer(ServerAlgorithm):
         c_is = state.c_is
         if isinstance(start, torch.Tensor):
             start = torch.clamp(start, max=c_is.shape[0] - 1)
-        rows = rows_at(c_is, start, m_local)
-        if rows.shape[0] < m_local:
-            rows = torch.cat([rows, c_is.new_zeros((m_local - rows.shape[0], c_is.shape[1]))])
-        return rows, state.c
+        return rows_at(c_is, start, m_local), state.c
 
     def _dc(self, deltas, c_i, c):
         """Variate updates from the raw dy rows, in the reference's op order
@@ -227,8 +224,10 @@ class DPScaffoldServer(ServerAlgorithm):
         dc = torch.where((mask > 0)[:, None], self._dc(deltas, c_i, state.c), 0.0)
         dc_clip = clip_batch(dc, self.clip_norm * vs)
         gidx = global_client_indices(start, m_local)
+        # a streamed chunk's padding rows past M (mask 0) have no table row
+        inside = int((gidx < self.num_clients).sum())
         cis_add = torch.zeros((self.num_clients, d), dtype=dc_clip.dtype, device=dev) \
-            .index_add_(0, host_to_device(gidx, dev), dc_clip * mask[:, None])
+            .index_add_(0, host_to_device(gidx[:inside], dev), (dc_clip * mask[:, None])[:inside])
         rows_dy, rows_dc, keys, gate = deltas, dc_clip, start, mask
         if not binary_mask:
             draws = self._draws(mask, host_mask)

@@ -29,6 +29,13 @@ A sampled round (``CohortSpec``) zeroes the updates of the clients left out
 (``mask_rows``) or trains only the sampled ones: ``gather_slots`` packs the
 host mask into a static slot table, on the host, and ``gather_rows`` takes
 those clients' data on the device.
+
+The streaming engine walks the cohort in chunks of the grid of
+``kernels.dp_aggregate.ref.chunk_grid``: M is padded to a multiple of the
+chunk with rows that repeat client 0 and carry mask 0, and chunk j holds
+global clients ``[j c, (j + 1) c)``.  Its round takes each chunk's rows as
+it trains it (``fedsim.server.chunk_plan``); ``pad_cohort`` and
+``chunk_cohort`` lay the whole cohort on that grid at once.
 """
 from __future__ import annotations
 
@@ -40,12 +47,12 @@ import torch
 from repro_torch.core.aggregation import global_client_indices
 from repro_torch.core.algorithm import host_to_device
 from repro_torch.fedsim.specs import LOCAL_TRAIN_TAG, LocalSpec
-from repro_torch.kernels.dp_aggregate.ref import threefry2x32
+from repro_torch.kernels.dp_aggregate.ref import chunk_grid, threefry2x32
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["local_update", "cohort_updates", "local_update_scaffold", "cohort_updates_scaffold",
            "local_update_spec", "cohort_updates_spec", "local_shuffles", "build_cohort_local_fn",
-           "mask_rows", "gather_slots", "gather_rows"]
+           "mask_rows", "gather_slots", "gather_rows", "pad_cohort", "chunk_cohort"]
 
 
 def local_update(loss_fn: Callable, w0: torch.Tensor, client_batch, tau: int,
@@ -273,3 +280,39 @@ def gather_rows(tree, slots: torch.Tensor):
     """The slot rows of every leaf of a per-client tree (client axis leading);
     ``slots`` lies on the leaves' device."""
     return tree_map(lambda x: x.index_select(0, slots), tree)
+
+
+def pad_cohort(client_batches, multiple: int):
+    """Every leaf padded to a multiple of ``multiple`` clients: ``(batches,
+    mask)``, the rows of ``chunk_grid(M, multiple)``.
+
+    The padding rows repeat client 0 (real data, so a loss sees nothing
+    degenerate and the padded local training stays finite), and the (m_pad,)
+    float32 host ``mask`` is 1 on the M real clients and 0 on the padding,
+    which keeps the padding out of every sum and count."""
+    leaves = tree_leaves(client_batches)
+    if not leaves:
+        raise ValueError("client_batches has no tensor leaves")
+    m = leaves[0].shape[0]
+    grid = list(chunk_grid(m, multiple))
+    idx, mask = (torch.cat([g[i] for g in grid]) for i in (1, 2))
+    if idx.shape[0] == m:
+        return client_batches, mask
+    return tree_map(lambda x: x.index_select(0, idx.to(x.device)), client_batches), mask
+
+
+def chunk_cohort(client_batches, chunk_clients: int):
+    """The cohort on the streaming engine's chunk grid: ``(grid, mask)``.
+
+    M is padded to a multiple of ``chunk_clients`` (``pad_cohort``) and every
+    leaf reshaped from (m_pad, ...) to (n_chunks, chunk_clients, ...); the
+    host mask comes back as (n_chunks, chunk_clients).  Chunk j holds the
+    global clients ``[j c, (j + 1) c)``: the rows the engine's round takes
+    for its chunk j, laid out all at once."""
+    if chunk_clients < 1:
+        raise ValueError(f"chunk_clients must be >= 1, got {chunk_clients}")
+    batches, mask = pad_cohort(client_batches, chunk_clients)
+    n_chunks = mask.shape[0] // chunk_clients
+    return (tree_map(lambda x: x.reshape((n_chunks, chunk_clients) + tuple(x.shape[1:])),
+                     batches),
+            mask.reshape(n_chunks, chunk_clients))

@@ -1,9 +1,11 @@
 """The round loop (counterpart of repro/fedsim/server.py).
 
 Ported so far: ``RunResult`` with ``avg_last`` iterate averaging, the
-branches of ``_round_step`` that run on one device, and the eager round
-loop of ``_run_eager`` with its divergence watchdog, as a plain Python loop
-that threads the round index t into every round (noise schedules read it).
+branches of ``_round_step`` that run on one device, the eager round loop of
+``_run_eager`` with its divergence watchdog, as a plain Python loop that
+threads the round index t into every round (noise schedules read it), and
+the streamed round of ``_stream_round_step`` and ``_gather_stream_round_step``
+with the staging of host-resident client data.
 A full-participation round is one dense ``apply_round_stateful``.  A sampled
 round (``CohortSpec``) is the masked-moment protocol: the cohort mask, drawn
 first from the round's generator on the host, then the algorithm's noise
@@ -27,20 +29,35 @@ in ``dp_aggregate``), ``sanitize_moments``, the realized count clamped,
 round (``run_rounds``): a round with a non-finite model or a step size that
 is NaN or above ``eta_max`` is not committed, and the run stops there.
 
+The streamed round (``stream_round_step``, ``EngineSpec(engine="stream")``)
+is the masked-moment round walked in chunks of clients: the same host draws
+in the same order (the cohort mask when sampled, the noise for all M, the
+faults), then a plan of chunks on the host (``chunk_plan``: chunk j of the
+padded grid, or of a gathered round's slot table), and per chunk local
+training, the faults, ``local_moments`` at the chunk's global indices, and
+the moments added into a running sum (``add_moments``).  One (chunk, d)
+block of updates is live at a time.  The chunk's rows come from the
+device-resident cohort (a view, or a gather by slot) or, for a
+``ClientDataSource``, from ``host_chunks``: fetched on the host, copied to
+the card from pinned memory on a side stream, ``prefetch`` chunks ahead.
+
 Nothing else in the loop waits for the device: host values reach it by
 pinned non-blocking copies, histories stay tensors until the run ends, and
 state such as an adaptive clip threshold or DP-SCAFFOLD's variate table
-stays on the device.  Streaming and sharding come in later slices
-(ROADMAP.md, queue 1).
+stays on the device.  Sharding comes in a later slice (ROADMAP.md, queue 1,
+item 16).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
+from repro_torch.core.aggregation import add_moments
 from repro_torch.core.algorithm import (
     ServerAlgorithm,
     clamp_moment_counts,
@@ -55,12 +72,14 @@ from repro_torch.fedsim.faults import (
     resolve_steps,
     sanitize_moments,
 )
+from repro_torch.fedsim.data import ClientDataSource
 from repro_torch.fedsim.local import gather_rows, gather_slots, mask_rows
 from repro_torch.fedsim.specs import CohortSpec, FaultSpec
-from repro_torch.tree import tree_leaves
+from repro_torch.kernels.dp_aggregate.ref import chunk_grid, grid_rows
+from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["RunResult", "run_rounds", "assemble_result", "round_step",
-           "sampled_round", "local_caller"]
+__all__ = ["RunResult", "run_rounds", "assemble_result", "round_step", "sampled_round",
+           "local_caller", "block_moments", "stream_round_step", "chunk_plan", "host_chunks"]
 
 
 @dataclasses.dataclass
@@ -139,6 +158,39 @@ def _resolve_sampled_count(moments, cohort: CohortSpec | None, algorithm):
     return clamp_moment_counts(moments, floor=1e-12)
 
 
+def block_moments(algorithm: ServerAlgorithm, local: Callable, w, state, noise, batches, mask,
+                  start, t, eta_l, *, cohort: CohortSpec | None = None,
+                  fault: FaultSpec | None = None, faults=None, round_seed: int | None = None):
+    """Local training and the release's moments of one block of clients.
+
+    ``local`` is the trainer as ``local_caller`` builds it; ``batches`` the
+    block's data on the device; ``mask`` its (m,) host participation mask;
+    ``start`` its global indices (an int, or a (m,) host tensor of slots).
+    With an injecting ``fault``, ``faults`` holds the block's rows of the
+    round's ``(alive, straggler, corrupt)`` draws: the stragglers train
+    fewer steps, the failed rows are gated out (``apply_faults``), and the
+    host's view of the mask follows.  Returns ``local_moments``' sums."""
+    injecting = fault is not None and fault.injects
+    alive, straggler, corrupt = faults if injecting else (None, None, None)
+    host_mask, mask = mask, host_to_device(mask, w.device)
+    deltas = local(w, batches, eta_l, start, state, straggler, round_seed)
+    if injecting:
+        deltas, mask = apply_faults(deltas, mask, *(
+            None if v is None else host_to_device(v, w.device) for v in (alive, corrupt)))
+        # the host's view of the realized rows (the finite screen of a client
+        # that diverged by itself is known only on the device)
+        if alive is not None:
+            host_mask = host_mask * alive
+        if corrupt is not None:
+            host_mask = host_mask * (1.0 - corrupt)
+    else:
+        deltas = mask_rows(deltas, mask)
+    extra = {"host_mask": host_mask} if getattr(algorithm, "uses_local_context", False) else {}
+    binary = cohort is None or not cohort.replace
+    return algorithm.local_moments(noise, w, deltas, mask, start, state, t,
+                                   binary_mask=binary, **extra)
+
+
 def sampled_round(algorithm: ServerAlgorithm, local_fn: Callable, w, state, noise, mask,
                   cohort: CohortSpec | None, t, client_batches, eta_l, *,
                   fault: FaultSpec | None = None, faults=None, tau: int = 1,
@@ -154,37 +206,169 @@ def sampled_round(algorithm: ServerAlgorithm, local_fn: Callable, w, state, nois
     shuffles (``local_caller``)."""
     m = mask.shape[0]
     injecting = fault is not None and fault.injects
-    alive, straggler, corrupt = faults if injecting else (None, None, None)
     if cohort is not None and cohort.gather:
         slots, slot_mask, _ = gather_slots(mask, cohort.resolved_cap(m))
         client_batches = gather_rows(client_batches, host_to_device(slots, w.device))
         mask, start = slot_mask, slots
-        alive, straggler, corrupt = gather_fault_rows(slots, alive, straggler, corrupt)
+        if injecting:
+            faults = gather_fault_rows(slots, *faults)
     else:
         start = 0
-    host_mask, mask = mask, host_to_device(mask, w.device)
-    deltas = local_caller(local_fn, algorithm, fault, tau)(w, client_batches, eta_l, start,
-                                                           state, straggler, round_seed)
-    if injecting:
-        deltas, mask = apply_faults(deltas, mask, *(
-            None if v is None else host_to_device(v, w.device) for v in (alive, corrupt)))
-        # the host's view of the realized rows (the finite screen of a client
-        # that diverged by itself is known only on the device)
-        if alive is not None:
-            host_mask = host_mask * alive
-        if corrupt is not None:
-            host_mask = host_mask * (1.0 - corrupt)
-    else:
-        deltas = mask_rows(deltas, mask)
-    extra = {"host_mask": host_mask} if getattr(algorithm, "uses_local_context", False) else {}
-    binary = cohort is None or not cohort.replace
-    moments = algorithm.local_moments(noise, w, deltas, mask, start, state, t,
-                                      binary_mask=binary, **extra)
+    moments = block_moments(algorithm, local_caller(local_fn, algorithm, fault, tau), w, state,
+                            noise, client_batches, mask, start, t, eta_l, cohort=cohort,
+                            fault=fault, faults=faults, round_seed=round_seed)
     if injecting:
         moments = _resolve_sampled_count(sanitize_moments(moments), None, algorithm)
     else:
         moments = _resolve_sampled_count(moments, cohort, algorithm)
     return algorithm.apply_from_moments(noise, w, moments, state, t)
+
+
+def chunk_plan(mask: torch.Tensor, cohort: CohortSpec | None, chunk_clients: int):
+    """The chunks of a streamed round, on the host: ``(idx, mask_j, start_j)``
+    for each chunk in order.
+
+    ``idx`` (c,) int64 are the clients whose data the chunk trains, ``mask_j``
+    their participation, ``start_j`` their global indices as the moments key
+    them.  Dense: chunk j of ``chunk_grid(M, c)``, global clients ``[j c,
+    (j + 1) c)`` of the padded grid: ``start_j = j c``, and a row past M
+    reads client 0 with mask 0 (it keeps its padded-grid index as its key;
+    gated off, it draws no noise).  Gathered (``cohort.gather``): the mask
+    packed by ``gather_slots`` at ``resolved_cap(M)`` rounded up to the
+    chunk, chunk j of ``chunk_grid`` over that slot table, ``start_j`` its
+    slots."""
+    m = mask.shape[0]
+    if cohort is not None and cohort.gather:
+        cap = cohort.resolved_cap(m)
+        c = min(chunk_clients, cap)
+        slots, slot_mask, _ = gather_slots(mask, -(-cap // c) * c)
+        for _, idx, _ in chunk_grid(slots.shape[0], c):
+            yield slots[idx], slot_mask[idx], slots[idx]
+        return
+    for j0, idx, valid in chunk_grid(m, min(chunk_clients, m)):
+        yield idx, mask[idx] * valid, j0
+
+
+def _device_chunks(batches, plan):
+    """The chunks of ``plan`` from device-resident data: a view of the rows
+    when the chunk is a run of real clients (``grid_rows``), else a gather
+    (padding, slots)."""
+    device = tree_leaves(batches)[0].device
+    for idx, mask_j, start in plan:
+        if isinstance(start, int):
+            rows = tree_map(lambda x: grid_rows(x, start, idx), batches)
+        else:
+            rows = gather_rows(batches, host_to_device(idx, device))
+        yield rows, (idx, mask_j, start)
+
+
+def _host_tensor(x) -> torch.Tensor:
+    """A fetched numpy leaf as a host tensor; floating data as float32."""
+    a = np.asarray(x)
+    if not a.flags.writeable:
+        a = a.copy()
+    t = torch.from_numpy(a)
+    return t.to(torch.float32) if t.is_floating_point() else t
+
+
+def host_chunks(source: ClientDataSource, plan, device, prefetch: int = 2):
+    """The chunks of ``plan`` fetched from ``source``: ``(rows, plan entry)``
+    in order, ``prefetch`` chunks staged ahead.
+
+    Each chunk's ``source.fetch(idx)`` lands in pinned host memory, which a
+    side CUDA stream copies to the card without blocking; the compute stream
+    waits for the copy's event before the chunk is yielded, and the rows are
+    recorded on it, so the allocator does not hand their memory to the side
+    stream while the chunk's work may still read it.  The pinned buffers
+    stay referenced until the consumer asks for the next chunk, that is
+    until this chunk's work is queued; the next fetch is issued then.
+    Nothing here waits for the device.  On the CPU the staged chunks are the
+    fetched tensors, and the rows are the same at every depth."""
+    device = torch.device(device)
+    plan = iter(plan)
+    cuda = device.type == "cuda"
+    side = torch.cuda.Stream(device) if cuda else None
+    staged = collections.deque()
+
+    def stage():
+        entry = next(plan, None)
+        if entry is None:
+            return
+        rows = tree_map(_host_tensor, source.fetch(entry[0].numpy()))
+        if not cuda:
+            staged.append((rows, None, None, entry))
+            return
+        pinned = tree_map(lambda x: x.pin_memory(), rows)
+        with torch.cuda.stream(side):
+            rows = tree_map(lambda x: x.to(device, non_blocking=True), pinned)
+            copied = torch.cuda.Event()
+            copied.record(side)
+        staged.append((rows, pinned, copied, entry))
+
+    for _ in range(prefetch):
+        stage()
+    while staged:
+        rows, pinned, copied, entry = staged.popleft()
+        if copied is not None:
+            compute = torch.cuda.current_stream(device)
+            compute.wait_event(copied)
+            for x in tree_leaves(rows):
+                x.record_stream(compute)
+        yield rows, entry
+        del pinned
+        stage()
+
+
+def stream_round_step(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn,
+                      eval_every: int = 1, cohort: CohortSpec | None = None,
+                      fault: FaultSpec | None = None, tau: int = 1, *, chunk_clients: int,
+                      num_clients: int, prefetch: int = 2):
+    """One streamed server round as ``step(w, state, gen, t, data, eta_l)``
+    (``round_step``'s signature); ``data`` is the device-resident cohort or
+    a ``ClientDataSource``.
+
+    The round draws from ``gen`` what the eager round draws, in its order:
+    the cohort mask when sampled (a full-participation round draws none),
+    then ``draw_noise`` for all M clients, then the faults from their own
+    generators; so a streamed round consumes the eager round's
+    ``RoundNoise``.  Then per chunk of ``chunk_plan`` (``chunk_clients`` a
+    chunk, or of the gathered slot table) ``block_moments``, added into a
+    running sum, and the count resolved as the JAX package's stream step
+    resolves it: the realized count under faults (sanitized first), the
+    sampled count of a cohort, the static M under full participation, and a
+    weighted round's weight sum floored at 1e-12.  Last
+    ``apply_from_moments``."""
+    sampled = cohort is not None and cohort.is_sampled
+    injecting = fault is not None and fault.injects
+    local = local_caller(local_fn, algorithm, fault, tau)
+    m = num_clients
+
+    def step(w, state, gen, t, data, eta_l):
+        mask = cohort.round_mask(gen, m) if sampled else torch.ones(m)
+        noise = algorithm.draw_noise(gen, m, w.shape[-1], w.device, t)
+        seed = gen.initial_seed()
+        faults = fault_masks(fault, seed, m) if injecting else None
+        plan = chunk_plan(mask, cohort if sampled else None, chunk_clients)
+        chunks = (host_chunks(data, plan, w.device, prefetch)
+                  if isinstance(data, ClientDataSource) else _device_chunks(data, plan))
+        moments = None
+        for rows, (idx, mask_j, start) in chunks:
+            mom = block_moments(algorithm, local, w, state, noise, rows, mask_j, start, t, eta_l,
+                                cohort=cohort if sampled else None, fault=fault,
+                                faults=gather_fault_rows(idx, *faults) if injecting else None,
+                                round_seed=seed)
+            moments = mom if moments is None else add_moments(moments, mom)
+        if injecting:
+            moments = _resolve_sampled_count(sanitize_moments(moments), None, algorithm)
+        elif sampled or not getattr(algorithm, "supports_static_count", True):
+            moments = _resolve_sampled_count(moments, cohort if sampled else None, algorithm)
+        else:
+            moments = set_moment_count(moments, m)
+        w_next, aux, state = algorithm.apply_from_moments(noise, w, moments, state, t)
+        metric = _eval_metric(eval_fn, eval_every, w_next, t, w.device)
+        return w_next, state, (aux.eta_g, metric, aux.eta_naive, aux.eta_target)
+
+    return step
 
 
 def round_step(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn, eval_every: int = 1,

@@ -26,11 +26,22 @@ Clients train by minibatch SGD, FedProx or client momentum with
 (client data with a per-sample axis after the client axis); every round
 kind (dense, sampled, gathered, faulted, ``run_batched``, ``resume``) takes it.
 
+Streaming: ``FederatedSession(..., engine=EngineSpec(engine="stream"),
+stream=StreamSpec(chunk_clients=128))`` walks each round's cohort in chunks
+of 128 clients (``"auto"``: the largest chunk a quarter of the card's
+memory holds, resolved when the session is built and recorded on
+``session.stream``), one (chunk, d) block of updates live at a time.  Client
+data may then be a ``ClientDataSource`` (``fedsim.data``: ``HostArraySource``,
+``NpzSource``, ``SyntheticSource``), which stays on the host: each chunk's
+rows are fetched and copied to the card ``DataSpec.prefetch`` chunks ahead
+(``data=DataSpec(prefetch=2)``), so M is bounded by host storage.
+
 ``params`` may be a flat (d,) vector or a tree of tensors (dicts, lists);
 the session flattens a tree once (``flatten_model``), wraps the loss and eval
 closures, and unravels ``RunResult.final_w`` / ``last_w`` back to the
 caller's structure.  ``params`` and ``client_batches`` may be numpy arrays or
-tensors; the session moves them to ``device``, floating data as float32.
+tensors; the session moves them to ``device``, floating data as float32
+(a host-resident source's data never moves whole).
 """
 from __future__ import annotations
 
@@ -46,10 +57,20 @@ from repro_torch.core import accounting
 from repro_torch.core.algorithm import ServerAlgorithm
 from repro_torch.device import resolve_device
 from repro_torch.fedsim import server as _srv
+from repro_torch.fedsim.data import as_data_source
 from repro_torch.fedsim.flat import flatten_model
 from repro_torch.fedsim.local import build_cohort_local_fn
 from repro_torch.fedsim.server import RunResult
-from repro_torch.fedsim.specs import CohortSpec, EngineSpec, FaultSpec, LocalSpec, TrainSpec
+from repro_torch.fedsim.specs import (
+    CohortSpec,
+    DataSpec,
+    EngineSpec,
+    FaultSpec,
+    LocalSpec,
+    StreamSpec,
+    TrainSpec,
+)
+from repro_torch.launch.mesh import auto_chunk_clients
 from repro_torch.tree import tree_leaves, tree_map, tree_stack
 
 __all__ = ["FederatedSession", "RecoveryPolicy"]
@@ -94,7 +115,8 @@ class FederatedSession:
     def __init__(self, algorithm: ServerAlgorithm, loss_fn: Callable, params: Any,
                  client_batches, *, train: TrainSpec, local: LocalSpec | None = None,
                  engine: EngineSpec = EngineSpec(), cohort: CohortSpec | None = None,
-                 fault: FaultSpec | None = None, eval_fn: Callable | None = None,
+                 fault: FaultSpec | None = None, stream: StreamSpec = StreamSpec(),
+                 data: DataSpec | None = None, eval_fn: Callable | None = None,
                  num_clients: int | None = None, device="cuda"):
         """Bind (algorithm, loss, model, client data) to the specs.
 
@@ -106,16 +128,28 @@ class FederatedSession:
           params: initial model — a flat (d,) vector, or a tree of tensors;
             a (S, d) stack of flat vectors for ``run_batched(batched_w0=True)``.
           client_batches: tree of per-client data, client axis leading (after
-            a seed axis for ``run_batched(batched_data=True)``).
+            a seed axis for ``run_batched(batched_data=True)``), or a
+            ``ClientDataSource``: an ``ArraySource`` is its data on the device,
+            bit for bit; the host, npz and synthetic sources stay on the host
+            and need ``engine="stream"``.
           train: rounds, tau, eta_l, iterate averaging, eval cadence.
           local: how clients train (``LocalSpec``): None or the default is
             full-batch GD; ``batch_size``/``epochs``, ``prox_mu`` and
             ``momentum`` the spec trainer; ``control_variates=True``
             SCAFFOLD's steps, which a control-variate algorithm
             (``dp-scaffold``) needs and only it takes.
-          engine: how the round loop runs (``EngineSpec``: eager only).
+          engine: how the round loop runs (``EngineSpec``: "eager", or
+            "stream" for rounds walked in client chunks).
           cohort: who participates each round (``CohortSpec``); None or
             ``CohortSpec()`` is full participation.
+          fault: faults injected each round and the divergence watchdog
+            (``FaultSpec``); None or ``FaultSpec()`` is a fault-free run.
+          stream: the streamed round's client chunk (``StreamSpec``); a
+            non-default spec needs ``engine="stream"``.
+          data: where the client data lives and the prefetch depth of a
+            host-resident source (``DataSpec``); derived from
+            ``client_batches`` when omitted, and refused when its kind
+            contradicts them.
           eval_fn: optional metric closure ``eval_fn(params) -> scalar``.
           num_clients: the cohort size M, needed only when the client axis
             is not leaf axis 0 (``run_batched(batched_data=True)``).
@@ -139,9 +173,40 @@ class FederatedSession:
         # unkilled one
         self._inject_divergence = None
         self.device = resolve_device(device)
-        self.client_batches = tree_map(lambda x: _to_device(x, self.device), client_batches)
-        self.num_clients = (num_clients if num_clients is not None
-                            else tree_leaves(self.client_batches)[0].shape[0])
+        if engine.engine != "stream" and stream != StreamSpec():
+            raise ValueError(
+                "a non-default StreamSpec requires engine='stream' (EngineSpec(engine='stream')); "
+                f"it would be silently ignored under engine={engine.engine!r}")
+        self.stream = stream
+        source = as_data_source(client_batches)
+        if source is not None and source.kind == "device":
+            client_batches, source = source.batches, None
+        kind = "device" if source is None else source.kind
+        if data is None:
+            data = DataSpec(kind=kind)
+        elif data.kind != kind:
+            raise ValueError(
+                f"DataSpec(kind={data.kind!r}) contradicts the client data actually passed "
+                f"({kind!r}); drop data= (the kind is derived) or pass the matching "
+                "ClientDataSource")
+        self.data = data
+        if source is not None:
+            if engine.engine != "stream":
+                raise ValueError(
+                    f"a {kind!r} ClientDataSource requires engine='stream' (the eager engine "
+                    "trains on device-resident batches); pass EngineSpec(engine='stream') or "
+                    "stage the data yourself and pass tensors")
+            if self.fault is not None and self.fault.injects:
+                raise ValueError(
+                    "fault injection requires device-resident batches; drop FaultSpec or pass "
+                    "tensors")
+            # the source is the round's data: its rows reach the card a chunk at a time
+            self.client_batches = source
+            self.num_clients = source.num_clients
+        else:
+            self.client_batches = tree_map(lambda x: _to_device(x, self.device), client_batches)
+            self.num_clients = (num_clients if num_clients is not None
+                                else tree_leaves(self.client_batches)[0].shape[0])
         self._validate_cohort(self.num_clients)
         params = tree_map(lambda x: _to_device(x, self.device), params)
         if isinstance(params, torch.Tensor):
@@ -157,6 +222,10 @@ class FederatedSession:
         # the context ``(c_i rows, c)`` that the round appends; ``steps=`` the
         # stragglers' per-client cutoffs
         self._local_fn = build_cohort_local_fn(self.loss_fn, local, train.tau)
+        if engine.engine == "stream" and self.stream.is_auto:
+            # the largest chunk the card's budget holds, recorded for the caller
+            self.stream = StreamSpec(chunk_clients=auto_chunk_clients(
+                self.dim, self._client_bytes(), device=self.device))
 
     def _check_local(self) -> None:
         """Refuse a control-variate algorithm without the control-variate
@@ -202,6 +271,15 @@ class FederatedSession:
     def dim(self) -> int:
         """Flat model dimension d (after any tree flatten)."""
         return self._w0.shape[-1]
+
+    def _client_bytes(self) -> int:
+        """Bytes of one client's data (the auto chunk's sizing term): one
+        fetched row of a source, else the device data's bytes over M."""
+        if self.data.kind != "device":
+            rows = self.client_batches.fetch(np.zeros((1,), np.int64))
+            return int(sum(np.asarray(x).nbytes for x in tree_leaves(rows)))
+        total = sum(x.numel() * x.element_size() for x in tree_leaves(self.client_batches))
+        return int(total // max(1, self.num_clients))
 
     def _restore(self, w):
         return w if self._unravel is None else self._unravel(w)
@@ -250,6 +328,13 @@ class FederatedSession:
 
     def _step(self):
         t = self.train
+        if self.engine.engine == "stream":
+            # a chunk past M is the one-chunk grid either way
+            chunk = min(self.stream.chunk_clients, max(1, self.num_clients))
+            return _srv.stream_round_step(self.algorithm, self._local_fn, self.eval_fn,
+                                          t.eval_every, self.cohort, self.fault, t.tau,
+                                          chunk_clients=chunk, num_clients=self.num_clients,
+                                          prefetch=self.data.prefetch)
         return _srv.round_step(self.algorithm, self._local_fn, self.eval_fn, t.eval_every,
                                self.cohort, self.fault, t.tau)
 
@@ -371,6 +456,11 @@ class FederatedSession:
                 "when a FaultSpec is active (a silently fault-free sweep would misreport the "
                 "fault model)")
         seeds = [int(s) for s in seeds]
+        if self.engine.engine == "stream" and (batched_w0 or batched_data):
+            raise ValueError(
+                "run_batched(engine='stream') sweeps the seeds one after another through the "
+                "streamed round; per-seed w0/data axes are not supported — loop run() with "
+                "per-seed sessions instead")
         if batched_w0 and self._unravel is not None:
             raise ValueError(
                 "batched_w0 with a tree model is ambiguous (the seed axis would be raveled "
@@ -379,11 +469,14 @@ class FederatedSession:
         if batched_w0 and (self._w0.dim() != 2 or self._w0.shape[0] != len(seeds)):
             raise ValueError(f"batched_w0 needs a ({len(seeds)}, d) stack of initial models, "
                              f"got shape {tuple(self._w0.shape)}")
-        leaf = tree_leaves(self.client_batches)[0]
-        if batched_data and leaf.shape[0] != len(seeds):
-            raise ValueError(f"batched_data needs a leading axis of {len(seeds)} seeds on "
-                             f"every leaf, got shape {tuple(leaf.shape)}")
-        self._validate_cohort(leaf.shape[1 if batched_data else 0])
+        if batched_data:
+            leaf = tree_leaves(self.client_batches)[0]
+            if leaf.shape[0] != len(seeds):
+                raise ValueError(f"batched_data needs a leading axis of {len(seeds)} seeds on "
+                                 f"every leaf, got shape {tuple(leaf.shape)}")
+            self._validate_cohort(leaf.shape[1])
+        else:
+            self._validate_cohort(self.num_clients)
         results = [self._run_loop(seed, w0=self._w0[i] if batched_w0 else None,
                                   client_batches=tree_map(lambda x, i=i: x[i],
                                                           self.client_batches)

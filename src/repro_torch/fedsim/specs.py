@@ -2,10 +2,12 @@
 
 The port runs the local trainers of ``LocalSpec`` (full-batch GD, minibatch
 SGD over local epochs, FedProx, client momentum, and SCAFFOLD's
-control-variate steps) and the eager round loop, with full participation
-or a sampled cohort (``CohortSpec``), under an optional fault model and
-divergence watchdog (``FaultSpec``); ``ShardSpec`` and ``StreamSpec`` come
-with later slices (ROADMAP.md, queue 1).
+control-variate steps) and two round loops, eager and streamed
+(``EngineSpec``; ``StreamSpec`` sets the stream's client chunk), with full
+participation or a sampled cohort (``CohortSpec``), under an optional fault
+model and divergence watchdog (``FaultSpec``), on client data on the device
+or behind a host, disk or generated source (``DataSpec``); ``ShardSpec``
+comes with a later slice (ROADMAP.md, queue 1, item 16).
 """
 from __future__ import annotations
 
@@ -14,8 +16,8 @@ import math
 
 import torch
 
-__all__ = ["TrainSpec", "LocalSpec", "EngineSpec", "CohortSpec", "FaultSpec", "FAULT_TAG",
-           "LOCAL_TRAIN_TAG"]
+__all__ = ["TrainSpec", "LocalSpec", "EngineSpec", "StreamSpec", "CohortSpec", "FaultSpec",
+           "DataSpec", "FAULT_TAG", "LOCAL_TRAIN_TAG"]
 
 # the tag of a round's fault draws (dropouts, straggler cutoffs, corrupted
 # updates): each fault class draws from a generator of its own keyed by the
@@ -106,19 +108,59 @@ class LocalSpec:
 
 @dataclasses.dataclass(frozen=True)
 class EngineSpec:
-    """How the round loop runs.  The port has one engine so far: ``"eager"``,
-    a plain Python loop of rounds.  The JAX package's ``"scan"`` and
-    ``"stream"`` engines (their counterpart is CUDA graphs and chunked
-    cohorts) come in later slices."""
+    """How the round loop runs: ``"eager"``, a plain Python loop of rounds
+    that trains the whole cohort (or its gathered block) at once, or
+    ``"stream"``, the same loop with each round walking the cohort in
+    chunks of ``StreamSpec.chunk_clients`` clients, so that one (chunk, d)
+    block of updates is live at a time and the client data may stay on the
+    host (``fedsim/server.py::stream_round_step``).  The JAX package's
+    ``"scan"`` engine (its counterpart is CUDA graphs) comes in a later
+    slice (ROADMAP.md, queue 1, item 20)."""
 
     engine: str = "eager"
 
     def __post_init__(self):
-        if self.engine in ("scan", "stream"):
+        if self.engine == "scan":
             raise NotImplementedError(
-                f"engine={self.engine!r} is not ported yet; the port runs 'eager'")
-        if self.engine != "eager":
-            raise ValueError(f"unknown engine {self.engine!r}; the port runs 'eager'")
+                "engine='scan' is not ported yet; the port runs 'eager' and 'stream'")
+        if self.engine not in ("eager", "stream"):
+            raise ValueError(f"unknown engine {self.engine!r}; the port runs 'eager' and "
+                             "'stream'")
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamSpec:
+    """The client chunk of the streaming engine (``EngineSpec(engine="stream")``).
+
+    Each round walks the cohort in chunks of ``chunk_clients`` clients:
+    local training and the release see one (chunk_clients, d) block at a
+    time, and only the O(d) moments (sums) carry across chunks, so the peak
+    update memory is chunk-sized, not cohort-sized.  Chunk j holds the
+    global clients ``[j c, (j + 1) c)``; the rows that pad M up to the grid
+    repeat client 0 and carry mask 0.  Every per-client draw is keyed by
+    global client index, so a streamed round releases what the eager round
+    releases, re-associated at chunk boundaries (rtol 1e-5).
+
+    ``chunk_clients`` is an int >= 1, or ``"auto"``: the largest chunk that
+    fits a quarter of the card's memory, resolved when the session is built
+    (``launch.mesh.auto_chunk_clients``) and recorded on
+    ``session.stream``.
+    """
+
+    chunk_clients: int | str = 1024
+
+    def __post_init__(self):
+        if isinstance(self.chunk_clients, str):
+            if self.chunk_clients != "auto":
+                raise ValueError(f"chunk_clients must be an int >= 1 or 'auto', "
+                                 f"got {self.chunk_clients!r}")
+        elif self.chunk_clients < 1:
+            raise ValueError(f"chunk_clients must be >= 1, got {self.chunk_clients}")
+
+    @property
+    def is_auto(self) -> bool:
+        """True when the chunk is derived from the card's memory budget."""
+        return self.chunk_clients == "auto"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,3 +303,35 @@ class FaultSpec:
         """True when the round loop must differ from the unfaulted one
         (injection or the watchdog); ``FaultSpec()`` normalizes to None."""
         return self.injects or self.watchdog
+
+
+@dataclasses.dataclass(frozen=True)
+class DataSpec:
+    """Where the client data lives and how it reaches the card.
+
+    The session derives it from what it is given: tensors or arrays (or an
+    ``ArraySource``) are ``kind="device"``, moved to the card whole; a
+    ``ClientDataSource`` (``fedsim.data``) reports its own kind.  Data that
+    is not device-resident streams (``EngineSpec(engine="stream")``): each
+    chunk's rows are fetched on the host and copied to the card, with
+    ``prefetch`` chunks staged ahead of the chunk being trained.
+
+    Attributes:
+      kind: ``"device"``, ``"host"`` (numpy arrays in host memory),
+        ``"npz"`` (an archive on disk) or ``"synthetic"`` (generated per
+        fetch).  Validated only: the session derives the kind from the
+        data and refuses a ``kind`` that contradicts it, as the JAX
+        package does; setting it changes nothing else.
+      prefetch: chunks in flight ahead of the one being trained (>= 1; 2 is
+        double buffering).  Device-resident data ignores it.
+    """
+
+    kind: str = "device"
+    prefetch: int = 2
+
+    def __post_init__(self):
+        if self.kind not in ("device", "host", "npz", "synthetic"):
+            raise ValueError(f"unknown data kind {self.kind!r}; use 'device', "
+                             "'host', 'npz', or 'synthetic'")
+        if self.prefetch < 1:
+            raise ValueError(f"prefetch must be >= 1, got {self.prefetch}")

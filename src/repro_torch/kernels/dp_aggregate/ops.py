@@ -32,8 +32,9 @@ from repro_torch.core.aggregation import RoundMoments, RoundStats
 from repro_torch.kernels import _build
 from repro_torch.kernels.dp_aggregate import ref
 
-__all__ = ["LaunchPlan", "dp_aggregate", "dp_aggregate_sums", "generate_ldp_noise",
-           "kernel_attributes", "launch_plan", "load_library", "max_active_clusters"]
+__all__ = ["LaunchPlan", "dp_aggregate", "dp_aggregate_sums", "dp_aggregate_sums_chunked",
+           "generate_ldp_noise", "kernel_attributes", "launch_plan", "load_library",
+           "max_active_clusters"]
 
 _SOURCES = (Path(__file__).resolve().parent / "csrc" / "dp_aggregate.cu",)
 
@@ -300,6 +301,37 @@ def dp_aggregate_sums(updates: torch.Tensor, clip_norm, noise: torch.Tensor | No
 
 dp_aggregate_sums.launches = 0
 dp_aggregate_sums.gated_launches = 0
+
+
+def dp_aggregate_sums_chunked(updates: torch.Tensor, clip_norm,
+                              noise: torch.Tensor | None = None, *, chunk_m: int,
+                              slots: torch.Tensor | None = None,
+                              slot_mask: torch.Tensor | None = None,
+                              row_gate: torch.Tensor | None = None, noise_seed: int | None = None,
+                              noise_sigma=None, compress_fn=None):
+    """``dp_aggregate_sums`` over row chunks of ``chunk_m``: one launch a
+    chunk of ``ref.chunk_grid`` (the last padded, its padding gated off),
+    the sums added on the device.
+
+    A launch's rows are bounded by ``chunk_m``, whatever the cohort.  With
+    ``slots`` and ``slot_mask`` (a gathered cohort's slot table, on the
+    updates' device) each chunk gathers its slots' rows right before its
+    launch, and the launch is the gated instance: ``slot_mask`` is its row
+    gate and the slots its noise keys (``row_ids``), so a fused-noise chunk
+    draws its clients' rows of the cohort's noise.  Without slots, chunk j's
+    rows are keyed from ``j chunk_m`` and gated by their rows of
+    ``row_gate``, if given.  The sums are the one-launch sums re-associated
+    at chunk boundaries; ``ref.dp_aggregate_sums_chunked_ref`` is the plain
+    version (``ref.chunked_sums`` is the loop of both).
+
+    ``compress_fn`` (a compressed aggregation layer) is not ported yet.
+    """
+    if compress_fn is not None:
+        raise NotImplementedError("compress_fn: compressed aggregation is not ported yet "
+                                  "(ROADMAP.md, queue 1, item 14)")
+    return ref.chunked_sums(dp_aggregate_sums, updates, clip_norm, noise, chunk_m=chunk_m,
+                            slots=slots, slot_mask=slot_mask, row_gate=row_gate,
+                            noise_seed=noise_seed, noise_sigma=noise_sigma)
 
 
 def dp_aggregate(updates: torch.Tensor, clip_norm, noise: torch.Tensor | None = None,

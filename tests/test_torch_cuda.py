@@ -26,7 +26,12 @@ the P-rounding bounds chip_smoke.py derives (P_MAX, P_MEAN).  The SSD scan in fl
 against the recurrence, the chunked SSD and the plain function in the
 kernels' order at rtol 1e-5 with an atol of 1e-5 times the largest entry (the
 chunked dual form against products of per-step decays, its products as
-3xTF32 on the tensor cores: float32 sums in other orders).
+3xTF32 on the tensor cores: float32 sums in other orders).  The chunked
+dp_aggregate wrapper against one launch and its plain version at the sum
+tolerance; a streamed run on the card against the CPU at rtol 1e-4 (float32
+sums in other orders, amplified by the FedEXP ratio over four rounds); a
+host source staged through pinned memory at prefetch 1 and 3 against the
+device-resident stream in bits.
 """
 import importlib.util
 from pathlib import Path
@@ -402,6 +407,115 @@ def test_cuda_tensors_never_reach_the_plain_version_silently(dev):
     with pytest.raises(ValueError, match=r"row_ids must be a \(4,\) tensor"):
         ops.dp_aggregate_sums(torch.zeros(4, 8, device=dev), 1.0,
                               row_ids=torch.arange(5, device=dev))
+
+
+CHUNKED = [(1000, 500, 125), (1000, 4099, 300), (37, 129, 8), (1000, 237, 1000)]
+
+
+@pytest.mark.parametrize("m,d,chunk", CHUNKED)
+@pytest.mark.parametrize("mode", ["none", "operand", "fused"])
+def test_chunked_wrapper_matches_one_launch_and_its_plain_version(dev, m, d, chunk, mode):
+    """One launch a chunk (the last ragged), gated by the row gate; with slots
+    one gated launch a chunk of the slot table, keyed by the slots."""
+    u, noise = _dp_inputs(m, d, dev)
+    gate = _gate(m, dev, 0.3)
+    kw = {"operand": dict(noise=noise), "fused": dict(noise_seed=42, noise_sigma=0.3)}.get(mode, {})
+    before = (ops.dp_aggregate_sums.launches, ops.dp_aggregate_sums.gated_launches)
+    got = ops.dp_aggregate_sums_chunked(u, 0.5, chunk_m=chunk, row_gate=gate, **kw)
+    n = -(-m // chunk)
+    assert (ops.dp_aggregate_sums.launches, ops.dp_aggregate_sums.gated_launches) == (
+        before[0] + n, before[1] + n)
+    one = ops.dp_aggregate_sums(u, 0.5, row_gate=gate, **kw)
+    plain = ref.dp_aggregate_sums_chunked_ref(u, 0.5, chunk_m=chunk, row_gate=gate, **kw)
+    for a, b, c in zip(got, one, plain):
+        _close(a, b)
+        _close(a, c)
+    on = torch.nonzero(gate.cpu() > 0).flatten()
+    cap = -(-(on.numel() + 3) // chunk) * chunk
+    slots = torch.zeros(cap, dtype=torch.int64)
+    slots[:on.numel()] = on
+    slot_mask = torch.zeros(cap)
+    slot_mask[:on.numel()] = 1.0
+    slots, slot_mask = slots.to(dev), slot_mask.to(dev)
+    skw = {"operand": dict(noise=noise.index_select(0, slots))}.get(mode, kw)
+    got = ops.dp_aggregate_sums_chunked(u, 0.5, chunk_m=chunk, slots=slots, slot_mask=slot_mask,
+                                        **skw)
+    plain = ref.dp_aggregate_sums_chunked_ref(u, 0.5, chunk_m=chunk, slots=slots,
+                                              slot_mask=slot_mask, **skw)
+    for a, b, c in zip(got, one, plain):
+        _close(a, b)
+        _close(a, c)
+
+
+@pytest.mark.parametrize("m,d,chunk", [(37, 129, 8), (1000, 4099, 300)])
+@pytest.mark.parametrize("mode", ["none", "fused"])
+def test_chunked_wrapper_gates_the_padding_of_an_ungated_call(dev, m, d, chunk, mode):
+    """Without a row gate only the padded last chunk is a gated launch, its
+    padding off: the sums are the ungated launch's."""
+    u, _ = _dp_inputs(m, d, dev)
+    kw = dict(noise_seed=42, noise_sigma=0.3) if mode == "fused" else {}
+    before = (ops.dp_aggregate_sums.launches, ops.dp_aggregate_sums.gated_launches)
+    got = ops.dp_aggregate_sums_chunked(u, 0.5, chunk_m=chunk, **kw)
+    assert (ops.dp_aggregate_sums.launches, ops.dp_aggregate_sums.gated_launches) == (
+        before[0] + -(-m // chunk), before[1] + 1)
+    one = ops.dp_aggregate_sums(u, 0.5, **kw)
+    plain = ref.dp_aggregate_sums_chunked_ref(u, 0.5, chunk_m=chunk, **kw)
+    for a, b, c in zip(got, one, plain):
+        _close(a, b)
+        _close(a, c)
+
+
+def _stream_session(dev, name, batches, **kw):
+    from repro_torch.core.fedexp import make_algorithm
+    from repro_torch.fedsim import EngineSpec, FederatedSession, StreamSpec, TrainSpec
+    m, d = 44, 24
+    alg = {"ldp-fedexp-gauss": dict(clip_norm=0.3, sigma=0.21), "fedexp": {}}[name]
+
+    def loss(w, b):
+        return 0.5 * torch.sum(torch.square(w - b["t"]))
+
+    return FederatedSession(make_algorithm(name, **alg), loss, torch.zeros(d), batches,
+                            train=TrainSpec(rounds=4, tau=2, eta_l=0.5),
+                            engine=EngineSpec(engine="stream"), stream=StreamSpec(16),
+                            device=dev, **kw)
+
+
+def _stream_rows():
+    g = torch.Generator().manual_seed(8)
+    return {"t": torch.randn(44, 24, generator=g)}
+
+
+@pytest.mark.parametrize("name", ["ldp-fedexp-gauss", "fedexp"])
+@pytest.mark.parametrize("gather", [False, True])
+def test_a_streamed_run_on_the_card_equals_the_cpu(dev, name, gather):
+    """The LDP noise is keyed by (seed, client) on both; a CDP name's (d,)
+    normal is drawn by the card's generator on the card, so it is left out,
+    as phase 5 leaves it out."""
+    from repro_torch.fedsim import CohortSpec
+    cohort = CohortSpec(q=0.4, gather=True) if gather else None
+    rows = _stream_rows()
+    before = ops.dp_aggregate_sums.launches
+    got = _stream_session(dev, name, {"t": rows["t"].to(dev)}, cohort=cohort).run(3)
+    want = _stream_session("cpu", name, rows, cohort=cohort).run(3)
+    chunks = -(-44 // 16) if not gather else -(-cohort.resolved_cap(44) // 16)
+    assert ops.dp_aggregate_sums.launches == before + 4 * chunks
+    for f in ("final_w", "eta_history"):
+        a, b = getattr(got, f).double().cpu(), getattr(want, f).double()
+        assert torch.allclose(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("gather", [False, True])
+def test_pinned_prefetch_gives_the_device_resident_bits(dev, gather):
+    from repro_torch.fedsim import CohortSpec, DataSpec, HostArraySource
+    cohort = CohortSpec(q=0.4, gather=True) if gather else None
+    rows = _stream_rows()
+    want = _stream_session(dev, "ldp-fedexp-gauss", {"t": rows["t"].to(dev)},
+                           cohort=cohort).run(3)
+    for prefetch in (1, 3):
+        got = _stream_session(dev, "ldp-fedexp-gauss", HostArraySource(rows), cohort=cohort,
+                              data=DataSpec(kind="host", prefetch=prefetch)).run(3)
+        assert torch.equal(got.final_w, want.final_w)
+        assert torch.equal(got.eta_history, want.eta_history)
 
 
 FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
