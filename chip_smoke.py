@@ -134,6 +134,22 @@ Phases, each of which exits non-zero on failure:
                timed, with the bound of the rows on; ldp-fedexp-gauss on the paper workload under phase 3c's
                fault model streamed at chunk 128, every round retaken from
                the faulted eager run's iterate and held at RTOL.
+  3g. e9      compressed communication (benchmarks/e9_compression.py at its
+               own geometry, nothing cut: cdp-fedexp at C = 1, sigma = 5e-4
+               on e9's quadratic, M = 256, d = 2^20, tau = 1, eta_l = 0.5,
+               10 rounds): dense, rand-k (k = d/64), count-sketch (width
+               d/256, depth 3), the sketch with top-k d/64 and error
+               feedback, lossless rand-k (k = d); rounds/s, modeled bytes a
+               round (4 comm_floats(d)) and their reduction, dp_aggregate
+               launches a round (1 dense, 0 compressed: held), peak memory,
+               the loss decrease over 4 rounds against dense
+               (informational), e9's rand-k >= 2x dense as OK/WARN.  Held:
+               finite; noiseless fedexp lossless rand-k = dense at RTOL;
+               three runs of the sketch and of the EF sketch equal in bits;
+               each round of rand-k and both sketches streamed at chunk 64
+               = eager, and gathered at q = 0.1 = dense sampled, at RTOL;
+               the EF sketch saved at round 5 and resumed = uninterrupted
+               in bits.
   4. full      ldp-fedexp-gauss (fused mode), cdp-fedexp (none mode),
                ldp-fedexp-privunit (no kernel), cdp-fedexp-adaptive-clip
                (none mode, C on the card), ldp-fedexp-gauss under
@@ -195,7 +211,7 @@ Phases, each of which exits non-zero on failure:
                bounds (SERVE_F32_MAX_ERR, SERVE_F32_MEAN_ERR), the window
                dropped on the plain path outside them; one prefill timed with
                the SIMT kernel in place of the dispatch (the route before).
-Phases 3, 3b, 3e, 3f and 4 are the round loop's main path, phase 6's bf16 generate the
+Phases 3, 3b, 3e, 3f, 3g and 4 are the round loop's main path, phase 6's bf16 generate the
 dense serve path's (the tensor-core flash kernel), its f32 generate and phase
 9's the float32 serve path's (the float32 tensor-core flash kernel), phase 7's
 generate the Mamba2 serve path's, phase 8's bf16 generate the Dh-256 serve
@@ -1750,6 +1766,224 @@ def phase_stream(dev, smi) -> dict:
                 faults=stream_faults(dev, smi))
 
 
+# e9 (benchmarks/e9_compression.py) at its own geometry, nothing cut: cdp-fedexp at
+# C = 1, sigma = 5e-4 on the quadratic 0.5 ||w - t_i||^2, M = 256, d = 2^20, tau = 1,
+# eta_l = 0.5, 10 rounds; rand-k keeps d/64, the sketch is d/256 wide and 3 deep
+E9 = dict(m=256, d=1 << 20, rounds=10, clip=1.0, sigma=5e-4, eta_l=0.5, k_div=64, w_div=256,
+          depth=3, parity_rounds=4, stream_chunk=64)
+
+
+def e9_targets(dev):
+    """e9's (M, d) client targets (its ``_targets``, numpy seed 0): a shared
+    signal plus 30% heterogeneity, both at O(1) norm, on the card."""
+    import numpy as np
+    import torch
+    m, d = E9["m"], E9["d"]
+    rng = np.random.default_rng(0)
+    shared = (rng.standard_normal(d) * d**-0.5).astype(np.float32)
+    het = (rng.standard_normal((m, d)) * d**-0.5).astype(np.float32)
+    return torch.from_numpy(shared[None, :] + 0.3 * het).to(dev)
+
+
+def e9_loss(w, b):
+    return 0.5 * (w - b["t"]).square().sum()
+
+
+def e9_variants() -> dict:
+    """e9's aggregation layers by label: None is the dense round."""
+    from repro_torch.core.compose import CountSketchAggregation, RandKAggregation
+    d, depth = E9["d"], E9["depth"]
+    k, width = d // E9["k_div"], d // E9["w_div"]
+    return {"dense": None, "rand-k": RandKAggregation(k=k),
+            "sketch": CountSketchAggregation(width=width, depth=depth),
+            "sketch top-k ef": CountSketchAggregation(width=width, depth=depth, top_k=k,
+                                                      error_feedback=True),
+            "lossless rand-k": RandKAggregation(k=d)}
+
+
+def e9_session(dev, targets, aggregation, *, name="cdp-fedexp", rounds=None, **specs):
+    """e9's session of ``name`` (cdp-fedexp, or noiseless fedexp), compressed
+    by ``aggregation`` unless it is None."""
+    import torch
+    from repro_torch.core.compose import with_compression
+    from repro_torch.core.fedexp import make_algorithm
+    from repro_torch.fedsim import CohortSpec, FederatedSession, TrainSpec
+    kw = {} if name == "fedexp" else dict(clip_norm=E9["clip"], sigma=E9["sigma"],
+                                          num_clients=E9["m"])
+    alg = make_algorithm(name, **kw)
+    if aggregation is not None:
+        alg = with_compression(alg, aggregation)
+    if "cohort" in specs:
+        specs["cohort"] = CohortSpec(**specs["cohort"])
+    return FederatedSession(alg, e9_loss, torch.zeros(E9["d"], device=dev), {"t": targets},
+                            train=TrainSpec(rounds=rounds or E9["rounds"], tau=1,
+                                            eta_l=E9["eta_l"]), device=dev, **specs)
+
+
+def e9_mean_loss(w, targets) -> float:
+    """e9's ``_mean_loss``: the clients' mean of 0.5 ||w - t_i||^2."""
+    return float(0.5 * (w[None, :] - targets).square().sum(dim=1).mean())
+
+
+def e9_retaken(label, dev, targets, aggregation, want_spec: dict, got_spec: dict) -> float:
+    """Each round of the ``want_spec`` run taken again under ``got_spec``
+    from the same iterate and carry, held at RTOL: the worst max abs error."""
+    from repro_torch.core.algorithm import round_generator
+    want_s = e9_session(dev, targets, aggregation, **want_spec)
+    got_s = e9_session(dev, targets, aggregation, **got_spec)
+    steps = (want_s._step(), got_s._step())
+    alg = want_s.algorithm
+    w, state, worst = want_s._w0, alg.init_state(want_s._w0), 0.0
+    for t in range(E9["rounds"]):
+        w_d, s_d, out_d = steps[0](w, state, round_generator(0, t), t, {"t": targets},
+                                   E9["eta_l"])
+        w_g, s_g, out_g = steps[1](w, state, round_generator(0, t), t, {"t": targets},
+                                   E9["eta_l"])
+        worst = max(worst, close(w_g, w_d, f"e9 {label}: w, round {t}"))
+        close(out_g[0], out_d[0], f"e9 {label}: eta_g, round {t}")
+        if hasattr(s_d, "ef"):
+            close(s_g.ef, s_d.ef, f"e9 {label}: the EF residual, round {t}")
+        w, state = w_d, s_d
+    return worst
+
+
+def e9_sums(dev, targets, smi) -> dict:
+    """The round's reductions at e9's shape, timed with CUDA events outside
+    the main path's counts: dp_aggregate (none mode, the dense cdp-fedexp
+    release) held to its plain version at RTOL, with its bound, beside the
+    compressed moments in plain PyTorch (rand-k's and the sketch's
+    ``partial_clip_moments`` on a round's plan, its slot table built)."""
+    import torch
+    from repro_torch.core.aggregation import partial_clip_moments
+    from repro_torch.core.compression import plan_generator
+    from repro_torch.kernels.dp_aggregate import ops, ref
+    m, d = targets.shape
+    u = 0.5 * targets            # round 0's updates: -eta_l (w0 - t_i)
+    variants = e9_variants()
+    fns = {label: variants[label].compress_fn(variants[label].plan(plan_generator(0), d, dev))
+           for label in ("rand-k", "sketch")}
+    with uncounted():
+        got, want = ops.dp_aggregate_sums(u, E9["clip"]), ref.plain_sums(u, E9["clip"])
+        err = max(close(g.reshape(-1), w.reshape(-1), f"e9 dp_aggregate at ({m}, {d})")
+                  for g, w in zip(got, want))
+        row = dict(shape=[m, d], ms=cuda_ms(lambda: ops.dp_aggregate_sums(u, E9["clip"]), 20),
+                   plain_ms=cuda_ms(lambda: ref.plain_sums(u, E9["clip"]), 5), max_abs_err=err)
+    row["bound_ms"], row["bound_by"] = bound(4.0 * (m * d + d + 2), OPS_PER_ELEM["none"] * m * d)
+    for label, fn in fns.items():
+        row[f"{label} moments ms"] = cuda_ms(
+            lambda fn=fn: partial_clip_moments(u, E9["clip"], compress_fn=fn), 10)
+    print(f"[3g e9] the release's sums at ({m}, {d}), CUDA events: dp_aggregate none "
+          f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, {row['bound_by']}; plain "
+          f"{row['plain_ms']:.4f}; max abs err {err:.3e}); compressed moments, plain PyTorch: "
+          f"rand-k {row['rand-k moments ms']:.4f} ms, sketch {row['sketch moments ms']:.4f} ms"
+          f"  [{smi}]")
+    return row
+
+
+def phase_e9(dev, smi) -> dict:
+    """Phase 3g: e9 at its own geometry (``E9``), nothing cut.  For each of
+    e9's variants (dense, rand-k d/64, the sketch d/256 x 3, the same sketch
+    with top-k d/64 and error feedback, lossless rand-k): rounds/s (host
+    clock, card synchronised, the better of two runs after a warm one), the
+    modeled bytes a round (4 comm_floats(d)) and their reduction against
+    dense, dp_aggregate launches a round, the peak memory, and the loss
+    decrease over 4 rounds relative to dense (informational, as in e9);
+    e9's rand-k >= 2x dense rounds/s printed as OK or WARN.  Held: every
+    output finite; one dp_aggregate launch a dense round and none a
+    compressed one; noiseless fedexp under lossless rand-k = dense at RTOL
+    (w and eta); two runs of the sketch and of the EF sketch equal in bits;
+    rand-k, the sketch and the EF sketch streamed at chunk 64 and gathered
+    at q = 0.1, each round retaken from the eager (dense sampled) iterate
+    and carry at RTOL; an EF-sketch run saved at round 5 and resumed = the
+    uninterrupted run in bits.  A profiled 10-round run of dense and of the
+    sketch, and the release's sums at e9's shape (``e9_sums``)."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.fedsim import EngineSpec, StreamSpec
+    from repro_torch.kernels.dp_aggregate import ops
+    m, d, rounds = E9["m"], E9["d"], E9["rounds"]
+    targets = e9_targets(dev)
+    w0 = torch.zeros(d, device=dev)
+    l0 = e9_mean_loss(w0, targets)
+    out, dense_bytes = {}, 4 * (d + 3)
+    for label, agg in e9_variants().items():
+        session = e9_session(dev, targets, agg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = ops.dp_aggregate_sums.launches
+        first, _ = timed_run(session)
+        launches = (ops.dp_aggregate_sums.launches - n0) / rounds
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        (a, ta), (b, tb) = timed_run(session), timed_run(session)
+        check_run(f"e9 {label}", a, rounds)
+        if launches != (0 if agg is not None else 1):
+            fail(f"e9 {label}: {launches} dp_aggregate launches a round, want "
+                 f"{0 if agg is not None else 1}")
+        if agg is not None and label.startswith("sketch") and not (
+                same_run(a, b) and same_run(a, first)):
+            fail(f"e9 {label}: three runs of one seed differ in bits")
+        if label in ("dense", "sketch"):
+            out[f"{label} profile"] = device_window(lambda: session.run(0),
+                                                    f"e9 {label}, {rounds} rounds", "3g e9")
+        short = e9_session(dev, targets, agg, rounds=E9["parity_rounds"]).run(0)
+        nbytes = 4 * session.algorithm.comm_floats(d)
+        out[label] = dict(rounds_per_s=rounds / min(ta, tb), bytes_per_round=nbytes,
+                          bytes_reduction=dense_bytes / nbytes, launches_per_round=launches,
+                          peak_gb=peak, loss_4=e9_mean_loss(short.last_w, targets))
+    profiles = {k: out.pop(k) for k in ("dense profile", "sketch profile")}
+    dense_dec = l0 - out["dense"]["loss_4"]
+    for label, row in out.items():
+        row["decrease_vs_dense"] = (l0 - row["loss_4"]) / dense_dec
+        print(f"[3g e9] {label}: {row['rounds_per_s']:.2f} rounds/s (host clock, card "
+              f"synchronised; M={m} d={d}, {rounds} rounds), {row['bytes_per_round']} modeled "
+              f"bytes a round ({row['bytes_reduction']:.2f}x fewer than dense), "
+              f"{row['launches_per_round']:g} dp_aggregate launches a round, peak "
+              f"{row['peak_gb']:.3f} GB, loss decrease over {E9['parity_rounds']} rounds "
+              f"{row['decrease_vs_dense']:+.4f}x dense (informational)  [{smi}]")
+    ratio = out["rand-k"]["rounds_per_s"] / out["dense"]["rounds_per_s"]
+    print(f"[3g e9] {'OK ' if ratio >= 2.0 else 'WARN'} rand-k k=d/{E9['k_div']}: {ratio:.2f}x "
+          f"dense rounds/s (e9's floor 2x, not held here), "
+          f"{out['rand-k']['bytes_reduction']:.1f}x fewer bytes (floor 10x)")
+
+    variants = e9_variants()
+    dense = e9_session(dev, targets, None, name="fedexp").run(0)
+    lossless = e9_session(dev, targets, variants["lossless rand-k"], name="fedexp").run(0)
+    check_run("e9 fedexp lossless rand-k", lossless, rounds)
+    lossless_err = close(lossless.final_w, dense.final_w, "e9 fedexp: lossless rand-k vs dense w")
+    close(lossless.eta_history, dense.eta_history, "e9 fedexp: lossless rand-k vs dense eta_g")
+    stream = dict(engine=EngineSpec(engine="stream"), stream=StreamSpec(E9["stream_chunk"]))
+    sampled = dict(cohort=dict(q=0.1))
+    gathered = dict(cohort=dict(q=0.1, gather=True))
+    retaken = {}
+    for label in ("rand-k", "sketch", "sketch top-k ef"):
+        retaken[label] = dict(
+            stream=e9_retaken(f"{label} streamed at chunk {E9['stream_chunk']}", dev, targets,
+                              variants[label], {}, stream),
+            gathered=e9_retaken(f"{label} gathered at q=0.1", dev, targets, variants[label],
+                                sampled, gathered))
+    ef = variants["sketch top-k ef"]
+    want = e9_session(dev, targets, ef).run(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        e9_session(dev, targets, ef, rounds=5).run(0, checkpoint_dir=os.path.join(tmp, "ef"))
+        if not same_run(e9_session(dev, targets, ef).resume(os.path.join(tmp, "ef")), want):
+            fail("e9 sketch top-k ef: the run resumed from round 5 differs from the "
+                 "uninterrupted run")
+    print(f"[3g e9] held: fedexp lossless rand-k = dense (max abs err of w {lossless_err:.3e}); "
+          "the sketch and the EF sketch three runs equal in bits; each round of rand-k, the "
+          f"sketch and the EF sketch streamed at chunk {E9['stream_chunk']} = eager, and "
+          "gathered at q=0.1 = dense sampled, at RTOL (max abs err of w: "
+          + ", ".join(f"{k} {v['stream']:.2e} / {v['gathered']:.2e}" for k, v in retaken.items())
+          + "); the EF sketch resumed from round 5 = uninterrupted in bits; 0 dp_aggregate "
+          "launches a compressed round")
+    sums = e9_sums(dev, targets, smi)
+    del targets
+    torch.cuda.empty_cache()
+    return dict(variants=out, randk_vs_dense=ratio, lossless_max_abs_err=lossless_err,
+                retaken=retaken, profiles=profiles, sums=sums)
+
+
 FAULT = dict(dropout=0.3, straggler=0.2, straggler_steps=1, corrupt=0.02)
 # phase 3c's runs on the paper workload: (label, d, cohort)
 FAULTED = (("ldp-fedexp-gauss", 100, None), ("cdp-fedexp", 500, None),
@@ -3176,6 +3410,7 @@ def main() -> int:
     timed("3d checkpoints", phase_checkpoints, dev)
     timed("3e e2", phase_e2, dev)
     stream = timed("3f stream", phase_stream, dev, smi)
+    e9 = timed("3g e9", phase_e9, dev, smi)
     full = timed("4 full", phase_full, dev, cases)
     full.update(timed("4 full e2", phase_e2_rounds, dev, smi))
     launches = {"dp_aggregate": ops.dp_aggregate_sums.launches,
@@ -3210,7 +3445,8 @@ def main() -> int:
              ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
              bound_by=head["bound_by"], library_ms=None, headline="fused (1000, 131072)",
              cases=cases, gated=gathered["modes"], gated_rows_on=gathered["rows_on"],
-             gathered_shape=gathered["gathered_shape"], full_rounds=full, stream=stream),
+             gathered_shape=gathered["gathered_shape"], full_rounds=full, stream=stream,
+             e9=e9),
         dict(name="ldp_noise", route="cuda", source=src,
              replaces="src/repro/kernels/dp_aggregate/kernel.py:222",
              launches=launches["ldp_noise"],

@@ -6,6 +6,7 @@ from repro_torch.core import (
     aggregation,
     clipping,
     compose,
+    compression,
     mechanisms,
     stepsize,
 )
@@ -23,6 +24,8 @@ from repro_torch.core.compose import (
     AdaptiveClipStep,
     CentralGaussian,
     ComposedAlgorithm,
+    CompressionCarry,
+    CountSketchAggregation,
     FedEXPStep,
     FixedEta,
     GaussianLDP,
@@ -31,15 +34,18 @@ from repro_torch.core.compose import (
     NoPrivacy,
     PerClientGaussian,
     PrivUnitLDP,
+    RandKAggregation,
     ServerOpt,
     WeightedAggregation,
     compose_algorithm,
+    with_compression,
 )
+from repro_torch.core.compression import COMPRESS_TAG
 from repro_torch.core.fedexp import list_algorithms, make_algorithm
 
 __all__ = [
-    "accounting", "adaptive_clip", "aggregation", "clipping", "compose", "mechanisms",
-    "stepsize",
+    "accounting", "adaptive_clip", "aggregation", "clipping", "compose", "compression",
+    "mechanisms", "stepsize",
     "RoundStats", "RoundMoments", "aggregate_stats", "fused_clip_aggregate",
     "partial_clip_moments", "raw_moments",
     "clip_batch", "clip_by_l2", "global_l2_norm_tree",
@@ -48,4 +54,6 @@ __all__ = [
     "NoPrivacy", "GaussianLDP", "PerClientGaussian", "PrivUnitLDP", "CentralGaussian",
     "NoiseSchedule", "MeanAggregation", "WeightedAggregation", "FixedEta", "FedEXPStep",
     "ServerOpt", "AdaptiveClipStep",
+    "RandKAggregation", "CountSketchAggregation", "CompressionCarry", "with_compression",
+    "COMPRESS_TAG",
 ]

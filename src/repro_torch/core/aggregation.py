@@ -35,6 +35,15 @@ JAX's ``where`` does outside its kernel and whose ``row_ids`` key a gathered
 block's noise by client.  Moments of disjoint blocks add
 (``add_moments``): ``streamed_clip_moments`` reduces an (M, d) matrix a
 chunk of rows at a time, as the streaming engine reduces its chunks.
+
+Compression (``compress_fn``, ``core.compression``): a linear per-row map
+(..., d) -> (..., kc) applied to the released rows, so ``sum_c`` is the (kc,)
+compressed sum while the scalar sums stay the dense clipped values.  The
+raw rows are compressed once and scaled by their clip scales (the clipped
+(M, d) matrix is never built), ``compress_row_bound`` re-clips each
+compressed row, and the sums are plain PyTorch on every device: the
+kernel's sums are dense, as the JAX package bypasses its kernel under
+compression.  Per-row noise with ``compress_fn`` raises.
 """
 from __future__ import annotations
 
@@ -58,6 +67,10 @@ __all__ = [
 ]
 
 _BACKENDS = ("kernel", "kernel-fused", "torch")
+_COMPRESS_NOISE = (
+    "compress_fn cannot combine with per-row (LDP) noise: each client's release is a full "
+    "R^d vector, so there is nothing sound to compress.  Use central noise (added to the "
+    "compressed aggregate) or drop the compression layer.")
 
 
 @dataclasses.dataclass
@@ -152,6 +165,8 @@ def fused_clip_aggregate(
     noise_sigma=None,
     backend: str = "auto",
     row_start: int = 0,
+    compress_fn=None,
+    compress_row_bound=None,
 ) -> RoundStats:
     """Clip rows to L2 <= C, optionally add per-client noise, and reduce.
 
@@ -169,10 +184,19 @@ def fused_clip_aggregate(
       noise_sigma: noise std, with ``noise_seed``.
       backend: "auto" | "kernel" | "kernel-fused" | "torch" (module doc).
       row_start: global client index of row 0 (the noise's row key).
+      compress_fn / compress_row_bound: a linear per-row compressor and the
+        bound its rows are re-clipped to (module doc): ``cbar`` is then the
+        (kc,) compressed mean, the scalar statistics the dense ones, reduced
+        by ``partial_clip_moments`` in plain PyTorch.
 
     Returns RoundStats where ``mean_sq`` is computed on the released c_i and
     ``mean_sq_clipped`` on the clipped deltas (pre-noise).
     """
+    if compress_fn is not None:
+        if noise_seed is not None:
+            raise ValueError(_COMPRESS_NOISE)
+        return partial_clip_moments(raw_updates, clip_norm, noise, compress_fn=compress_fn,
+                                    compress_row_bound=compress_row_bound).stats()
     if noise is not None and noise_seed is not None:
         raise ValueError("pass either a materialized `noise` or `noise_seed`, not both")
     if noise_seed is not None and noise_sigma is None:
@@ -210,11 +234,13 @@ def partial_clip_moments(
     weight_mask: torch.Tensor | None = None,
     row_weights: torch.Tensor | None = None,
     backend: str = "auto",
+    compress_fn=None,
+    compress_row_bound=None,
 ) -> RoundMoments:
     """Clip -> (optional noise) -> the release's PARTIAL SUMS over the rows.
 
     The moment half of ``fused_clip_aggregate`` (JAX's
-    ``partial_clip_moments`` without ``compress_fn``).  Noise is a
+    ``partial_clip_moments``).  Noise is a
     materialized (m, d) ``noise`` or drawn from ``noise_seed`` with std
     ``noise_sigma`` for the block's clients: ``start`` (module doc) keys row
     i by its global client index, so any block draws its rows of the whole
@@ -237,17 +263,24 @@ def partial_clip_moments(
     release is one ``dp_aggregate`` launch with the mask as its ``row_gate``
     (and a gathered block's ids as its ``row_ids``): no pass over the matrix
     besides the kernel's.
+
+    ``compress_fn`` / ``compress_row_bound`` (module doc): the gated raw
+    rows are compressed once, the (m, kc) block scaled by the clip scales
+    and re-clipped to the bound; ``sum_c`` is its (kc,) sum, the scalar sums
+    the dense clipped ones.  It takes the plain path on every device.
     """
     if noise is not None and noise_seed is not None:
         raise ValueError("pass either a materialized `noise` or `noise_seed`, not both")
     if noise_seed is not None and noise_sigma is None:
         raise ValueError("`noise_seed` requires `noise_sigma`")
+    if compress_fn is not None and (noise is not None or noise_seed is not None):
+        raise ValueError(_COMPRESS_NOISE)
     from repro_torch.kernels.dp_aggregate import ops, ref
 
     m, d = raw_updates.shape
     dev = raw_updates.device
     backend = resolve_backend(backend, dev, wants_noise_gen=noise_seed is not None)
-    if row_weights is not None:
+    if row_weights is not None or compress_fn is not None:
         backend = "torch"
     if weight_mask is None and row_weights is None:
         count = float(m)
@@ -276,10 +309,23 @@ def partial_clip_moments(
             noise = torch.where(keep, noise, 0.0)
     sq_norms = torch.sum(u * u, dim=-1)
     scale = ref.clip_scale(sq_norms, clip_norm)
+    sq_clipped = sq_norms * (scale * scale)
+    if compress_fn is not None:
+        # the clip scale commutes with the linear map: compress the raw rows,
+        # then scale the (m, kc) block, never the (m, d) clipped matrix
+        comp = compress_fn(u) * scale[:, None]
+        if compress_row_bound is not None:
+            comp = comp * ref.clip_scale(torch.sum(comp * comp, dim=-1),
+                                         compress_row_bound)[:, None]
+        if row_weights is not None:
+            v = row_weights if weight_mask is None else weight_mask * row_weights
+            sum_sq_clipped = v @ sq_clipped
+            return RoundMoments(v @ comp, sum_sq_clipped, sum_sq_clipped, count)
+        sum_sq_clipped = torch.sum(sq_clipped)
+        return RoundMoments(comp.sum(dim=0), sum_sq_clipped, sum_sq_clipped, count)
     released = u * scale[:, None]
     if noise is not None:
         released = released + noise
-    sq_clipped = sq_norms * (scale * scale)
     if row_weights is not None:
         v = row_weights if weight_mask is None else weight_mask * row_weights
         sum_sq_clipped = v @ sq_clipped
@@ -293,7 +339,7 @@ def partial_clip_moments(
 
 def raw_moments(deltas: torch.Tensor, mask: torch.Tensor | None,
                 row_weights: torch.Tensor | None = None, *,
-                binary_mask: bool = False) -> RoundMoments:
+                binary_mask: bool = False, compress_fn=None) -> RoundMoments:
     """Unclipped partial sums (the noiseless names), weighted by the mask.
 
     Rows whose mask is not > 0 are zeroed with ``where`` first; each other
@@ -307,9 +353,13 @@ def raw_moments(deltas: torch.Tensor, mask: torch.Tensor | None,
     without row weights, a CUDA tensor reduces in one ``dp_aggregate``
     launch (none mode, C = inf, the mask as its gate), as the dense noiseless
     release does; otherwise the sums are plain PyTorch, as in the reference.
+
+    ``compress_fn``: the rows feeding ``sum_c`` are compressed (module doc);
+    the scalar sums stay the dense ones, in plain PyTorch on every device.
     """
     m = deltas.shape[0]
-    if deltas.device.type == "cuda" and row_weights is None and (mask is None or binary_mask):
+    if (deltas.device.type == "cuda" and row_weights is None and compress_fn is None
+            and (mask is None or binary_mask)):
         from repro_torch.kernels.dp_aggregate import ops
         sums = ops.dp_aggregate_sums(deltas, math.inf, row_gate=mask)
         return RoundMoments(*sums, count=float(m) if mask is None else torch.sum(mask))
@@ -321,18 +371,20 @@ def raw_moments(deltas: torch.Tensor, mask: torch.Tensor | None,
         v = mask if row_weights is None else mask * row_weights
         count = torch.sum(v)
     sq = torch.sum(deltas * deltas, dim=-1)
+    rows = deltas if compress_fn is None else compress_fn(deltas)
     if v is None:
         sum_sq = torch.sum(sq)
-        return RoundMoments(deltas.sum(dim=0), sum_sq, sum_sq, count)
+        return RoundMoments(rows.sum(dim=0), sum_sq, sum_sq, count)
     sum_sq = v @ sq
-    return RoundMoments(v @ deltas, sum_sq, sum_sq, count)
+    return RoundMoments(v @ rows, sum_sq, sum_sq, count)
 
 
 def streamed_clip_moments(raw_updates: torch.Tensor, clip_norm, noise: torch.Tensor | None = None,
                           *, chunk_clients: int, noise_seed: int | None = None,
                           noise_sigma=None, weight_mask: torch.Tensor | None = None,
                           row_weights: torch.Tensor | None = None,
-                          backend: str = "auto") -> RoundMoments:
+                          backend: str = "auto", compress_fn=None,
+                          compress_row_bound=None) -> RoundMoments:
     """``partial_clip_moments`` over chunks of ``chunk_clients`` rows, the
     moments added chunk by chunk (``add_moments``).
 
@@ -345,6 +397,8 @@ def streamed_clip_moments(raw_updates: torch.Tensor, clip_norm, noise: torch.Ten
     boundaries; one chunk (``chunk_clients >= M``) is
     ``partial_clip_moments`` itself.  ``count`` is the un-chunked entry's:
     the mask's (or mask times weights') sum, or the float M without either.
+    ``compress_fn`` / ``compress_row_bound`` go to every chunk, whose (kc,)
+    compressed sums add like dense ones.
     """
     from repro_torch.kernels.dp_aggregate.ref import chunk_grid, grid_rows
     if chunk_clients < 1:
@@ -361,6 +415,8 @@ def streamed_clip_moments(raw_updates: torch.Tensor, clip_norm, noise: torch.Ten
             mask = mask * valid.to(mask.device)
         mom = partial_clip_moments(u, clip_norm, noise_j, noise_seed=noise_seed,
                                    noise_sigma=noise_sigma, start=j0, weight_mask=mask,
-                                   row_weights=weights, backend=backend)
+                                   row_weights=weights, backend=backend,
+                                   compress_fn=compress_fn,
+                                   compress_row_bound=compress_row_bound)
         total = mom if total is None else add_moments(total, mom)
     return total

@@ -26,6 +26,7 @@ __all__ = [
     "RoundNoise",
     "ServerAlgorithm",
     "round_generator",
+    "device_generator",
     "device_normal",
     "draw_seed32",
     "host_to_device",
@@ -46,15 +47,21 @@ def draw_seed32(gen: torch.Generator) -> int:
     return int(torch.randint(0, 2**32, (), generator=gen, dtype=torch.int64))
 
 
+def device_generator(gen: torch.Generator, device) -> torch.Generator:
+    """The generator that draws on ``device``: ``gen`` itself on the CPU, else
+    a generator there seeded by one draw from ``gen``."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return gen
+    dev_gen = torch.Generator(device=device)
+    dev_gen.manual_seed(int(torch.randint(0, 2**63 - 1, (), generator=gen)))
+    return dev_gen
+
+
 def device_normal(gen: torch.Generator, shape, device) -> torch.Tensor:
     """float32 N(0, 1) of ``shape`` on ``device``, drawn there from a
     generator seeded by ``gen`` (the CPU draws directly from ``gen``)."""
-    device = torch.device(device)
-    if device.type == "cpu":
-        return torch.randn(shape, generator=gen)
-    dev_gen = torch.Generator(device=device)
-    dev_gen.manual_seed(int(torch.randint(0, 2**63 - 1, (), generator=gen)))
-    return torch.randn(shape, generator=dev_gen, device=device)
+    return torch.randn(shape, generator=device_generator(gen, device), device=device)
 
 
 def host_to_device(x: torch.Tensor, device) -> torch.Tensor:
@@ -88,7 +95,7 @@ class RoundNoise:
 
     seed: int | None = None                 # 32-bit seed of the per-client LDP noise
     ldp: torch.Tensor | None = None         # (M, d) materialized per-client noise
-    central: torch.Tensor | None = None     # (d,) N(0, 1) of the CDP mean
+    central: torch.Tensor | None = None     # (d,) N(0, 1) of the CDP mean ((kc,) compressed)
     # DP-SCAFFOLD's second release (the variate update), drawn after the
     # first: its LDP seed or (M, d) matrix, or its CDP (d,) N(0, 1)
     seed_dc: int | None = None
@@ -105,6 +112,9 @@ class RoundNoise:
     keep_u: torch.Tensor | None = None
     u_int: torch.Tensor | None = None
     bit: torch.Tensor | None = None         # N(0, 1) of the adaptive clip's bit sum
+    # a compressed aggregation's plan on the device: rand-k's (k,) indices, or
+    # the sketch's (h, s) tables (a ``compression.SketchPlan``)
+    plan: object = None
 
 
 def _map_moments(moments, fix):
@@ -179,6 +189,12 @@ class ServerAlgorithm:
     # a sampled round may replace it with the fixed cohort size; weighted
     # aggregation (count = a weight sum) sets this False
     supports_static_count: bool = True
+
+    def comm_floats(self, d: int) -> int:
+        """Floats one client uploads and the round reduces (the communication
+        model): ``sum_c`` and the three scalar moments by default; a
+        compressed composition's payload is O(k) or O(width * depth)."""
+        return d + 3
 
     def init_state(self, w: torch.Tensor):
         """Initial server carry for a run starting from ``w``."""

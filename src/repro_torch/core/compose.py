@@ -12,9 +12,11 @@ the masked-moment round of a sampled cohort:
                        ``CentralGaussian`` (fixed sigma or the adaptive-clip
                        noise multiplier ``z_mult``), ``NoiseSchedule``
                        (sigma(t) over a fixed-sigma Gaussian).
-    Aggregation        ``MeanAggregation``, the paper's uniform mean, and
+    Aggregation        ``MeanAggregation``, the paper's uniform mean,
                        ``WeightedAggregation`` (public per-client weights
-                       applied after each release).
+                       applied after each release), and the compressed
+                       layers ``RandKAggregation`` and
+                       ``CountSketchAggregation`` (``with_compression``).
     GlobalStep         ``FixedEta`` (DP-FedAvg), ``FedEXPStep`` (the paper's
                        adaptive extrapolation, Eqs. 2/6/7/8), ``ServerOpt``
                        (server Adam / momentum) and ``AdaptiveClipStep``
@@ -38,8 +40,15 @@ read the resulting ``RoundNoise``, a block of clients its rows at their
 global indices.  ``release`` and ``extrapolation`` take ``clip``: None for
 the mechanism's own static ``clip_norm``, or the step's per-round override.
 
-Compressed aggregation and SCAFFOLD come in later slices (ROADMAP.md,
-queue 1).
+Compression (``core.compression``): a compressed layer reduces each round
+to a (kc,) sum of linearly compressed rows under the round's plan
+(``RoundNoise.plan``, drawn from its own generator), then the server adds
+central noise in the compressed domain, decompresses, applies error
+feedback and the top-k selection, and steps.  Only mechanisms whose noise
+comes after the reduction (``NoPrivacy``, ``CentralGaussian`` and its
+schedule) compose with it.  The compressed sums are plain PyTorch: no
+``dp_aggregate`` launch, as the JAX package bypasses its kernel there.
+DP-SCAFFOLD is ``core.variance_reduction``.
 """
 from __future__ import annotations
 
@@ -49,7 +58,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.core import accounting, stepsize
+from repro_torch.core import accounting, compression, stepsize
 from repro_torch.core import adaptive_clip as ac
 from repro_torch.core import mechanisms as mech
 from repro_torch.core.aggregation import (
@@ -83,6 +92,10 @@ __all__ = [
     "Aggregation",
     "MeanAggregation",
     "WeightedAggregation",
+    "RandKAggregation",
+    "CountSketchAggregation",
+    "CompressionCarry",
+    "with_compression",
     "GlobalStep",
     "FixedEta",
     "FedEXPStep",
@@ -101,6 +114,8 @@ class PrivacyMechanism:
     """One client randomizer + its clipping regime + its accounting.
 
         draw(gen, m, d, device)                 -> RoundNoise fields it consumes
+                                                (d: the released vector's width,
+                                                kc under compression)
         release(noise, deltas, clip)            dense (M, d) -> (RoundStats, extras)
         moments(noise, deltas, mask, start, clip, row_weights)
                                                 -> (RoundMoments, extras) partial SUMS
@@ -108,12 +123,19 @@ class PrivacyMechanism:
                                                 cohort moments -> (RoundStats, extras')
         extrapolation(noise, stats, extras, dim, clip, m_eff)
                                                 -> (eta_g, eta_naive, eta_target)
+        compressed_noise(noise, shape, clip, m_eff, sens_factor)
+                                                -> noise of a compressed mean, or None
         budget(delta, rounds, dim, sampling_q, with_numerator) -> PrivacyReport
     """
 
     is_private = True
     needs_xi_key = False            # CDP-style post-aggregation numerator noise
     is_round_indexed = False        # NoiseSchedule: resolved per round by at_round(t)
+    # only a release whose noise comes after the reduction (central noise, or
+    # none) can ride a compressed sum; an LDP release is a full R^d vector a
+    # client, so ComposedAlgorithm refuses to compress it
+    supports_compression = False
+    n_scalar_extras = 0             # scalar sums beside the moments (communication model)
 
     def at_round(self, t):
         """The mechanism governing round ``t`` (self unless round-indexed)."""
@@ -147,6 +169,12 @@ class PrivacyMechanism:
         """The cohort's moments -> the ``RoundStats`` the step reads."""
         return mom.stats(), {}
 
+    def compressed_noise(self, noise: RoundNoise, shape, clip, m_eff, sens_factor):
+        """The noise of a compressed mean of ``shape``, or None when the release
+        adds none; ``sens_factor`` is the compressor's bound on a row's growth."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support compressed aggregation")
+
     def extrapolation(self, noise: RoundNoise, stats: RoundStats, extras: dict, dim: int,
                       clip, m_eff):
         """This mechanism's debiased step size: ``(eta_g, eta_naive, eta_target)``."""
@@ -166,6 +194,7 @@ class NoPrivacy(PrivacyMechanism):
     """
 
     is_private = False
+    supports_compression = True     # nothing to privatize
 
     def release(self, noise, deltas, clip=None):
         """Dense release: the three reductions of the unclipped rows."""
@@ -173,9 +202,14 @@ class NoPrivacy(PrivacyMechanism):
         return RoundStats(cbar=s.cbar, mean_sq=s.mean_sq, agg_sq=s.agg_sq), {}
 
     def moments(self, noise, deltas, mask, start, clip=None, row_weights=None, *,
-                binary_mask=False):
+                binary_mask=False, compress_fn=None, compress_row_bound=None):
         """The unclipped rows' sums, weighted by the mask (``raw_moments``)."""
-        return raw_moments(deltas, mask, row_weights, binary_mask=binary_mask), {}
+        return raw_moments(deltas, mask, row_weights, binary_mask=binary_mask,
+                           compress_fn=compress_fn), {}
+
+    def compressed_noise(self, noise, shape, clip, m_eff, sens_factor):
+        """No release noise."""
+        return None
 
     def extrapolation(self, noise, stats, extras, dim, clip, m_eff):
         """Eq. (2) on the unprivatized statistics."""
@@ -270,6 +304,11 @@ class PerClientGaussian(PrivacyMechanism):
         object.__setattr__(self, "sigmas", sigmas)
         object.__setattr__(self, "_uniform", len(set(sigmas)) == 1)
         object.__setattr__(self, "_sigma_host", torch.tensor(sigmas, dtype=torch.float32))
+
+    @property
+    def n_scalar_extras(self):
+        """The cohort's sum of sigma_i^2 rides beside the moments when sigmas differ."""
+        return 0 if self._uniform else 1
 
     def inverse_variance_weights(self) -> tuple[float, ...]:
         """Public 1/sigma_i^2 aggregation weights (for ``WeightedAggregation``)."""
@@ -370,6 +409,8 @@ class PrivUnitLDP(PrivacyMechanism):
     eps1: float
     eps2: float
     dim: int
+
+    n_scalar_extras = 1             # the sum of s_hat rides beside the moments
 
     def __post_init__(self):
         object.__setattr__(self, "pu", mech.make_privunit_params(self.dim, self.eps0, self.eps1))
@@ -486,6 +527,7 @@ class CentralGaussian(PrivacyMechanism):
     backend: str = "auto"
 
     needs_xi_key = True
+    supports_compression = True     # the noise comes after the reduction
 
     def __post_init__(self):
         if (self.sigma is None) == (self.z_mult is None):
@@ -519,7 +561,7 @@ class CentralGaussian(PrivacyMechanism):
         return cbar + (self._sigma(clip) / root) * noise.central
 
     def draw(self, gen, m, d, device):
-        """N(0, 1) of the (d,) mean, drawn on the device."""
+        """N(0, 1) of the (d,) mean ((kc,) compressed), drawn on the device."""
         return {"central": device_normal(gen, (d,), device)}
 
     def release(self, noise, deltas, clip=None):
@@ -530,10 +572,25 @@ class CentralGaussian(PrivacyMechanism):
                           mean_sq_clipped=stats.mean_sq_clipped), {}
 
     def moments(self, noise, deltas, mask, start, clip=None, row_weights=None, *,
-                binary_mask=False):
+                binary_mask=False, compress_fn=None, compress_row_bound=None):
         """The clipped rows' sums (none mode); the noise comes in ``finalize``."""
         return partial_clip_moments(deltas, self._clip(clip), None, weight_mask=mask,
-                                    row_weights=row_weights, backend=self.backend), {}
+                                    row_weights=row_weights, backend=self.backend,
+                                    compress_fn=compress_fn,
+                                    compress_row_bound=compress_row_bound), {}
+
+    def compressed_noise(self, noise, shape, clip, m_eff, sens_factor):
+        """Noise of a compressed mean: a compressed row's sensitivity is
+        ``sens_factor`` C, so each cell's std is the dense release's
+        ``sigma / sqrt(m)`` times ``sens_factor`` (the C / sigma ratio, hence
+        the budget, is the dense release's).  ``RoundNoise.central`` was
+        drawn ``shape`` wide."""
+        if tuple(noise.central.shape) != tuple(shape):
+            raise ValueError(f"central noise of shape {tuple(noise.central.shape)} for a "
+                             f"compressed mean of shape {tuple(shape)}")
+        m = self._m_noise(m_eff)
+        root = torch.sqrt(m) if isinstance(m, torch.Tensor) else math.sqrt(m)
+        return (sens_factor * self._sigma(clip) / root) * noise.central
 
     def finalize(self, noise, mom, extras, clip, m_eff):
         """Normalize, then noise the mean for the realized cohort ``m_eff``."""
@@ -631,6 +688,20 @@ class NoiseSchedule(PrivacyMechanism):
         """The inner mechanism's numerator noise."""
         return self.inner.needs_xi_key
 
+    @property
+    def supports_compression(self):
+        """Compression composes when the inner release does."""
+        return self.inner.supports_compression
+
+    @property
+    def n_scalar_extras(self):
+        """The inner release's scalar sums (none for the Gaussians)."""
+        return self.inner.n_scalar_extras
+
+    def compressed_noise(self, noise, shape, clip, m_eff, sens_factor):
+        """The inner mechanism's (a round resolves the schedule first)."""
+        return self.inner.compressed_noise(noise, shape, clip, m_eff, sens_factor)
+
     def at_round(self, t):
         """The inner mechanism at round ``t``; the inner object itself for a
         constant schedule."""
@@ -685,14 +756,50 @@ class NoiseSchedule(PrivacyMechanism):
 # ---------------------------------------------------------------------------
 
 class Aggregation:
-    """How released client updates combine into the round's moments."""
+    """How released client updates combine into the round's moments.
+
+    Two capabilities ride this layer: public per-client weights
+    (``is_weighted``) and per-round compression (``is_compressed``, a
+    linear per-row map to kc floats under the round's plan).  The
+    compression methods are identities here."""
 
     is_weighted = False
     is_compressed = False
+    # a compressed row's L2 growth over its dense norm at worst: the moment
+    # path re-clips compressed rows to sens_factor C and the central noise
+    # scales by it
+    sens_factor = 1.0
+    uses_error_feedback = False
 
     def row_weights(self, start, m_local: int, device):
         """Per-client weights of a block of clients at ``start``; None = uniform."""
         return None
+
+    def comm_floats(self, d: int) -> int:
+        """Floats of one client's released vector, and of the round's vector sum."""
+        return d
+
+    def plan(self, gen: torch.Generator, d: int, device):
+        """The round's compression plan drawn from ``gen``; None = dense."""
+        return None
+
+    def compress_fn(self, plan):
+        """The linear per-row compressor (..., d) -> (..., kc) of ``plan``."""
+        return None
+
+    def decompress(self, comp, plan, d: int):
+        """The (kc,) compressed mean -> its (d,) estimate."""
+        return comp
+
+    def select(self, g):
+        """The support kept after decompression (top-k); all of it here."""
+        return g
+
+
+def _as_int(name: str, v) -> int:
+    if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+        raise ValueError(f"{name} must be a positive int, got {v!r}")
+    return v
 
 
 @dataclasses.dataclass(frozen=True)
@@ -723,6 +830,106 @@ class WeightedAggregation(Aggregation):
         """(m_local,) float32 weights of the block's clients on ``device``;
         padding rows past M weigh 0."""
         return host_to_device(_rows_of(self._host, start, m_local), device)
+
+
+@dataclasses.dataclass(frozen=True)
+class RandKAggregation(Aggregation):
+    """Unbiased random-k coordinate aggregation.
+
+    Each round keeps k coordinates (the plan, shared by every client), the
+    round reduces a (k,) sum, and the server's d/k-scaled scatter is an
+    unbiased estimate of the dense mean.  A coordinate projection is an L2
+    contraction, so sensitivity stays C (``sens_factor`` 1) and the central
+    noise is the dense std per kept coordinate.  k >= d is lossless."""
+
+    k: int
+
+    is_compressed = True
+
+    def __post_init__(self):
+        _as_int("k", self.k)
+
+    def comm_floats(self, d: int) -> int:
+        """k floats (d when k >= d)."""
+        return min(self.k, d)
+
+    def plan(self, gen, d, device):
+        """The round's (k,) coordinate indices (``compression.randk_plan``)."""
+        return compression.randk_plan(gen, d, min(self.k, d), device)
+
+    def compress_fn(self, plan):
+        """The plan's coordinates of each row."""
+        return lambda u: compression.randk_compress(u, plan)
+
+    def decompress(self, comp, plan, d):
+        """Scatter the (k,) mean back, scaled by d/k."""
+        return compression.randk_decompress(comp, plan, d)
+
+
+@dataclasses.dataclass(frozen=True)
+class CountSketchAggregation(Aggregation):
+    """Count-sketch aggregation with heavy-hitter recovery.
+
+    Clients sketch their clipped update into depth tables of ``width``
+    buckets (the round's shared bucket and sign tables), the round reduces
+    the (depth * width,) sketch, and the server unsketches by the median
+    over the depth, keeping only the ``top_k`` largest-|.| coordinates when
+    set.  The truncation biases the estimate, so ``error_feedback=True``
+    carries its residual in the server state (``CompressionCarry``) into the
+    next round.  A sketched row's L2 may grow up to sqrt(depth) times a
+    clipped one's, so the moment path re-clips compressed rows to
+    ``sqrt(depth) C`` (``sens_factor``) and the central noise scales by the
+    same factor: the C / sigma ratio the budget reads is unchanged."""
+
+    width: int
+    depth: int = 3
+    top_k: int | None = None
+    error_feedback: bool = False
+
+    is_compressed = True
+
+    def __post_init__(self):
+        _as_int("width", self.width)
+        _as_int("depth", self.depth)
+        if self.top_k is not None:
+            _as_int("top_k", self.top_k)
+        if self.error_feedback and self.top_k is None:
+            raise ValueError(
+                "error_feedback without top_k has nothing to feed back: the un-truncated "
+                "median unsketch is already the best estimate this sketch offers.  Set "
+                "top_k=<support size> (the biased variant EF exists to correct) or drop "
+                "error_feedback.")
+
+    @property
+    def sens_factor(self):
+        """sqrt(depth): the depth sign-hash tables' bound on a row's growth."""
+        return math.sqrt(self.depth)
+
+    @property
+    def uses_error_feedback(self):
+        """Whether the server carries the truncation residual."""
+        return self.error_feedback
+
+    def comm_floats(self, d: int) -> int:
+        """width * depth floats."""
+        return self.width * self.depth
+
+    def plan(self, gen, d, device):
+        """The round's (depth, d) bucket ids and signs (``compression.sketch_plan``)."""
+        return compression.sketch_plan(gen, d, self.width, self.depth, device)
+
+    def compress_fn(self, plan):
+        """Each row's sketch, (..., d) -> (..., depth * width)."""
+        return lambda u: compression.sketch_compress(u, plan, self.width)
+
+    def decompress(self, comp, plan, d):
+        """The median-of-depth (d,) estimate, untruncated: ``select`` truncates
+        after error feedback, so the residual sees the whole estimate."""
+        return compression.sketch_decompress(comp, plan, d)
+
+    def select(self, g):
+        """The top_k largest-|.| coordinates (all of them when top_k is unset)."""
+        return g if self.top_k is None else compression.topk_select(g, self.top_k)
 
 
 # ---------------------------------------------------------------------------
@@ -874,6 +1081,16 @@ class AdaptiveClipStep(GlobalStep):
 # Composition
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass
+class CompressionCarry:
+    """The server carry of an error-feedback compressed composition: the (d,)
+    residual ``ef`` beside the step's own state ``inner``.  Checkpoints key
+    them ``ef`` and ``inner/...``, as the JAX package's pytree."""
+
+    ef: torch.Tensor
+    inner: object
+
+
 @dataclasses.dataclass(frozen=True)
 class ComposedAlgorithm(ServerAlgorithm):
     """mechanism x aggregation x step as one ``ServerAlgorithm``.
@@ -888,11 +1105,13 @@ class ComposedAlgorithm(ServerAlgorithm):
     name: str = "composed"
 
     def __post_init__(self):
-        if self.aggregation.is_compressed or not isinstance(
-                self.aggregation, (MeanAggregation, WeightedAggregation)):
-            raise NotImplementedError(
-                f"{type(self.aggregation).__name__} is not ported yet: compressed "
-                "aggregation comes in a later slice (ROADMAP.md, queue 1, item 14)")
+        if self.aggregation.is_compressed and not self.mechanism.supports_compression:
+            raise ValueError(
+                f"{self.name!r} composes {type(self.mechanism).__name__} with "
+                f"{type(self.aggregation).__name__}, but an LDP mechanism releases a full "
+                "R^d vector per client: its noise is drawn before aggregation, so there is "
+                "no sound compressed release.  Use CentralGaussian (noise is added to the "
+                "compressed aggregate) or NoPrivacy, or drop the compression layer.")
 
     @property
     def supports_static_count(self):
@@ -928,24 +1147,68 @@ class ComposedAlgorithm(ServerAlgorithm):
                              "the round index t")
         return self.mechanism.at_round(t)
 
+    def comm_floats(self, d: int) -> int:
+        """Floats one client uploads and the round reduces: the aggregation's
+        vector (d, k, or width * depth), the three scalar moments, the
+        mechanism's scalar sums, the clip-bit count of an adaptive clip and
+        a weighted round's client count."""
+        n = self.aggregation.comm_floats(d) + 3 + self.mechanism.n_scalar_extras
+        n += int(self.step.needs_clip_bits) + int(self.aggregation.is_weighted)
+        return n
+
+    # -- compression ------------------------------------------------------------
+
+    def _inner_state(self, state):
+        """The step's own carry, out of an error-feedback ``CompressionCarry``."""
+        return state.inner if isinstance(state, CompressionCarry) else state
+
+    def _plan(self, noise):
+        """The round's compression plan (``RoundNoise.plan``)."""
+        if noise.plan is None:
+            raise ValueError(f"{self.name!r} compresses each round under a plan; the "
+                             "RoundNoise holds none (draw it with draw_noise)")
+        return noise.plan
+
+    def _compress_row_bound(self, clip):
+        """The L2 bound compressed rows are re-clipped to: sens_factor C for a
+        private mechanism whose compressor can grow a row (count-sketch);
+        None when nothing binds."""
+        if not self.mechanism.is_private or self.aggregation.sens_factor <= 1.0:
+            return None
+        return self.aggregation.sens_factor * self.mechanism._clip(clip)
+
     def init_state(self, w):
-        """Initial carry for a run starting from ``w`` (the step's)."""
-        return self.step.init(w)
+        """Initial carry for a run starting from ``w``: the step's, beside a
+        zero residual under error feedback."""
+        inner = self.step.init(w)
+        if self.aggregation.uses_error_feedback:
+            return CompressionCarry(ef=torch.zeros_like(w), inner=inner)
+        return inner
 
     def draw_noise(self, gen, m, d, device, t=None) -> RoundNoise:
-        """Round ``t``'s randomness: the mechanism's draws, then the step's."""
+        """Round ``t``'s randomness: the mechanism's draws, then the step's.  A
+        compressed composition's central noise is (kc,) wide, and its plan
+        comes from a generator of its own (``compression.plan_generator`` of
+        ``gen``'s seed), which leaves ``gen``'s draws as they were."""
         mech_t = self._mech_at(t)
-        fields = mech_t.draw(gen, m, d, device)
+        fields = mech_t.draw(gen, m, self.aggregation.comm_floats(d), device)
         fields.update(self.step.draw(gen, mech_t))
+        if self.aggregation.is_compressed:
+            fields["plan"] = self.aggregation.plan(
+                compression.plan_generator(gen.initial_seed()), d, device)
         return RoundNoise(**fields)
 
     def apply_round_stateful(self, gen, w, raw_deltas, state, noise=None, t=None):
         """Dense round ``t``: release the (M, d) raw deltas at the step's clip,
         then step.  A weighted composition takes the moment route with an
-        all-ones mask, as the reference's does."""
+        all-ones mask, as the reference's does; a compressed one with no
+        mask at all (full participation gates nothing)."""
         mech_t = self._mech_at(t)
         if noise is None:
             noise = self.draw_noise(gen, *raw_deltas.shape, raw_deltas.device, t)
+        if self.aggregation.is_compressed:
+            moments = self.local_moments(noise, w, raw_deltas, None, 0, state, t)
+            return self.apply_from_moments(noise, w, moments, state, t)
         if self.aggregation.is_weighted:
             ones = torch.ones(raw_deltas.shape[0], device=raw_deltas.device)
             moments = self.local_moments(noise, w, raw_deltas, ones, 0, state, t,
@@ -964,15 +1227,20 @@ class ComposedAlgorithm(ServerAlgorithm):
         """A block's partial sums of round ``t``'s release (``ServerAlgorithm``):
         ``(RoundMoments, extras)``, extras holding the mechanism's scalar sums,
         the adaptive clip's ``count_below`` and a weighted round's
-        ``n_clients``, all sums."""
-        clip = self.step.clip_override(state)
+        ``n_clients``, all sums.  ``mask`` None is full participation; a
+        compressed composition's ``sum_c`` is (kc,), under the round's plan."""
+        clip = self.step.clip_override(self._inner_state(state))
         mech_t = self._mech_at(t)
         weights = self.aggregation.row_weights(start, deltas.shape[0], deltas.device)
+        kw = {}
+        if self.aggregation.is_compressed:
+            kw = dict(compress_fn=self.aggregation.compress_fn(self._plan(noise)),
+                      compress_row_bound=self._compress_row_bound(clip))
         mom, extras = mech_t.moments(noise, deltas, mask, start, clip, weights,
-                                     binary_mask=binary_mask)
+                                     binary_mask=binary_mask, **kw)
         if self.step.needs_clip_bits:
             below = (torch.linalg.vector_norm(deltas, dim=-1) <= clip).to(torch.float32)
-            extras = {**extras, "count_below": mask @ below}
+            extras = {**extras, "count_below": torch.sum(below) if mask is None else mask @ below}
         if self.aggregation.is_weighted:
             # mom.count is a weight sum; the clip update and the realized
             # cohort's noise read the client count
@@ -982,13 +1250,45 @@ class ComposedAlgorithm(ServerAlgorithm):
     def apply_from_moments(self, noise, w, moments, state, t=None):
         """The server update of round ``t`` from the cohort's moments."""
         mom, extras = moments
-        clip = self.step.clip_override(state)
+        clip = self.step.clip_override(self._inner_state(state))
         mech_t = self._mech_at(t)
         m_eff = extras.get("n_clients", mom.count)
+        if self.aggregation.is_compressed:
+            return self._apply_compressed(noise, w, mom, extras, clip, m_eff, state, mech_t)
         stats, more = mech_t.finalize(noise, mom, extras, clip, m_eff)
         if more:
             extras = {**extras, **more}
         return self.step.apply(noise, w, stats, extras, mech_t, clip, mom.count, state)
+
+    def _apply_compressed(self, noise, w, mom, extras, clip, m_eff, state, mech_t):
+        """The compressed server update: noise in the compressed domain,
+        decompress, error feedback, top-k, step.  The mechanism's dense
+        ``finalize`` is bypassed: the scalar moments are the dense clipped
+        values already, and ``agg_sq`` is the norm of the applied (d,)
+        estimate."""
+        d = w.shape[-1]
+        plan = self._plan(noise)
+        comp_mean = mom.sum_c / mom.count
+        extra = mech_t.compressed_noise(noise, comp_mean.shape, clip, m_eff,
+                                        self.aggregation.sens_factor)
+        if extra is not None:
+            comp_mean = comp_mean + extra
+        g = self.aggregation.decompress(comp_mean, plan, d)
+        ef_next = None
+        if self.aggregation.uses_error_feedback:
+            corrected = g + state.ef
+            applied = self.aggregation.select(corrected)
+            ef_next = corrected - applied
+        else:
+            applied = self.aggregation.select(g)
+        stats = RoundStats(cbar=applied, mean_sq=mom.sum_sq / mom.count,
+                           agg_sq=torch.sum(applied * applied),
+                           mean_sq_clipped=mom.sum_sq_clipped / mom.count)
+        w_next, aux, inner = self.step.apply(noise, w, stats, extras, mech_t, clip, mom.count,
+                                             self._inner_state(state))
+        if ef_next is not None:
+            return w_next, aux, CompressionCarry(ef=ef_next, inner=inner)
+        return w_next, aux, inner
 
     def budget(self, delta: float, *, rounds: int, dim: int,
                sampling_q: float = 1.0) -> accounting.PrivacyReport:
@@ -1005,6 +1305,35 @@ class ComposedAlgorithm(ServerAlgorithm):
         with_num = self.step.uses_extrapolation and self.mechanism.needs_xi_key
         return self.mechanism.budget(delta, rounds=rounds, dim=dim, sampling_q=sampling_q,
                                      with_numerator=with_num)
+
+
+def with_compression(alg: ComposedAlgorithm, aggregation: Aggregation) -> ComposedAlgorithm:
+    """``alg`` with its aggregation layer swapped for ``aggregation`` and named
+    ``<name>+<layer>`` (``+randk<k>``, ``+sketch<width>x<depth>[-top<k>][-ef]``).
+
+    The mechanism and step stay as they were (clip, draws, budget); the
+    composition is checked again, so an LDP mechanism is refused.  A
+    weighted composition is refused (its weights would be dropped), and any
+    algorithm that is not a ``ComposedAlgorithm`` (``dp-scaffold``) too."""
+    if not isinstance(alg, ComposedAlgorithm):
+        raise TypeError(
+            f"with_compression needs a ComposedAlgorithm, got {type(alg).__name__}")
+    if alg.aggregation.is_weighted:
+        raise ValueError(
+            f"{alg.name!r} uses weighted aggregation; replacing it with "
+            f"{type(aggregation).__name__} would silently drop the per-client weights.  "
+            "Compose a weighted-and-compressed layer explicitly if that is intended.")
+    if isinstance(aggregation, RandKAggregation):
+        tag = f"randk{aggregation.k}"
+    elif isinstance(aggregation, CountSketchAggregation):
+        tag = f"sketch{aggregation.width}x{aggregation.depth}"
+        if aggregation.top_k is not None:
+            tag += f"-top{aggregation.top_k}"
+        if aggregation.error_feedback:
+            tag += "-ef"
+    else:
+        tag = type(aggregation).__name__.lower()
+    return dataclasses.replace(alg, aggregation=aggregation, name=f"{alg.name}+{tag}")
 
 
 def compose_algorithm(mechanism: PrivacyMechanism, step: GlobalStep,

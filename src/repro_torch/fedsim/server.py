@@ -41,6 +41,15 @@ device-resident cohort (a view, or a gather by slot) or, for a
 ``ClientDataSource``, from ``host_chunks``: fetched on the host, copied to
 the card from pinned memory on a side stream, ``prefetch`` chunks ahead.
 
+A compressed composition (``core.compose.with_compression``) takes every
+round kind as it is: its plan is a field of the round's ``RoundNoise``,
+drawn once a round from a generator of its own, so the dense round, the
+sampled and gathered blocks and every streamed chunk compress with the one
+plan; the moments' ``sum_c`` is then (kc,) wide, and a streamed round's
+running sum, which starts from its first chunk's moments, takes that width.
+Its sums are plain PyTorch (no ``dp_aggregate`` launch); a count-sketch plan
+reads its bucket table's size once on the host.
+
 Nothing else in the loop waits for the device: host values reach it by
 pinned non-blocking copies, histories stay tensors until the run ends, and
 state such as an adaptive clip threshold or DP-SCAFFOLD's variate table

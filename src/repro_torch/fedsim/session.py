@@ -19,6 +19,14 @@ rounds and rolls a tripped run back to the newest intact checkpoint;
 ``session.resume("ckpt")`` continues a saved run to ``train.rounds``, bit for
 bit the uninterrupted run.
 
+Compressed communication: ``FederatedSession(with_compression(
+make_algorithm("cdp-fedexp", ...), RandKAggregation(k=16384)), ...)`` (or
+``CountSketchAggregation(width, depth, top_k=, error_feedback=True)``) runs
+on every engine; an error-feedback composition's carry is a
+``CompressionCarry`` (the residual beside the step's state), which
+checkpoints, rollback, ``resume`` and ``run_batched`` keep in bits as they
+keep any server state.
+
 DP-SCAFFOLD trains with control variates: ``FederatedSession(
 make_algorithm("dp-scaffold", ...), ..., local=LocalSpec(control_variates=True))``.
 Clients train by minibatch SGD, FedProx or client momentum with

@@ -16,8 +16,10 @@ import math
 
 import torch
 
+from repro_torch.core.compression import COMPRESS_TAG
+
 __all__ = ["TrainSpec", "LocalSpec", "EngineSpec", "StreamSpec", "CohortSpec", "FaultSpec",
-           "DataSpec", "FAULT_TAG", "LOCAL_TRAIN_TAG"]
+           "DataSpec", "FAULT_TAG", "LOCAL_TRAIN_TAG", "COMPRESS_TAG"]
 
 # the tag of a round's fault draws (dropouts, straggler cutoffs, corrupted
 # updates): each fault class draws from a generator of its own keyed by the
@@ -31,6 +33,9 @@ FAULT_TAG = 2**31 - 3
 # global index) and e (``fedsim.local.local_shuffles``).  The JAX package's
 # value.
 LOCAL_TRAIN_TAG = 2**31 - 2
+# COMPRESS_TAG, the tag of a round's compression plan (rand-k indices,
+# sketch tables), is defined beside the compressors (``core.compression``)
+# and re-exported here with the rest of the tag family.
 
 
 @dataclasses.dataclass(frozen=True)

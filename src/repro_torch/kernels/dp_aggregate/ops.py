@@ -324,11 +324,21 @@ def dp_aggregate_sums_chunked(updates: torch.Tensor, clip_norm,
     at chunk boundaries; ``ref.dp_aggregate_sums_chunked_ref`` is the plain
     version (``ref.chunked_sums`` is the loop of both).
 
-    ``compress_fn`` (a compressed aggregation layer) is not ported yet.
+    ``compress_fn`` (a linear per-row map (c, d) -> (c, kc), a compressed
+    aggregation layer's): each chunk's gated rows are compressed and scaled
+    by their clip scales in plain PyTorch, no launch, and the (kc,) sums
+    add; the scalar sums are the dense clipped ones, released = clipped.
+    Per-row noise with it raises: LDP noise is a full R^d vector a client.
     """
     if compress_fn is not None:
-        raise NotImplementedError("compress_fn: compressed aggregation is not ported yet "
-                                  "(ROADMAP.md, queue 1, item 14)")
+        if noise is not None or noise_seed is not None:
+            raise ValueError(
+                "compress_fn cannot combine with per-row noise: LDP noise is a full R^d "
+                "vector per client, drawn before aggregation; compressing it afterwards "
+                "breaks the privacy accounting")
+        return ref.chunked_sums(functools.partial(ref.compressed_sums, compress_fn=compress_fn),
+                                updates, clip_norm, chunk_m=chunk_m, slots=slots,
+                                slot_mask=slot_mask, row_gate=row_gate)
     return ref.chunked_sums(dp_aggregate_sums, updates, clip_norm, noise, chunk_m=chunk_m,
                             slots=slots, slot_mask=slot_mask, row_gate=row_gate,
                             noise_seed=noise_seed, noise_sigma=noise_sigma)

@@ -199,6 +199,20 @@ def plain_sums(updates, clip_norm, noise=None, *, noise_seed=None, noise_sigma=N
     return dp_aggregate_ref(updates, noise, clip_norm, row_gate=row_gate)
 
 
+def compressed_sums(updates, clip_norm, noise=None, *, compress_fn, row_gate=None, **keys):
+    """The chunked wrapper's sums of a block under a linear per-row
+    ``compress_fn``: the gated rows compressed, scaled by their clip scales
+    and summed to (kc,), beside the dense clipped square sum twice (no
+    noise enters, so released = clipped).  ``keys`` (noise keys) are unused."""
+    u = updates.to(torch.float32)
+    if row_gate is not None:
+        u = torch.where((row_gate > 0)[:, None], u, 0.0)
+    sq_norms = torch.sum(u * u, dim=-1)
+    scale = clip_scale(sq_norms, clip_norm)
+    sq_clipped = torch.sum(sq_norms * (scale * scale))
+    return (compress_fn(u) * scale[:, None]).sum(dim=0), sq_clipped, sq_clipped
+
+
 def dp_aggregate_sums_chunked_ref(updates: torch.Tensor, clip_norm,
                                   noise: torch.Tensor | None = None, **kw):
     """The plain version of ``ops.dp_aggregate_sums_chunked``:

@@ -119,6 +119,35 @@ def test_a_port_file_loads_through_jax_and_a_jax_file_through_the_port(tmp_path)
     assert isinstance(back["carry"][1], ScaffoldState)
 
 
+def test_a_compression_carry_is_read_by_both_packages(tmp_path):
+    """An error-feedback carry (the residual beside an optimizer's state)
+    keyed ``ef`` and ``inner/...`` in both packages' files."""
+    from repro.core.compose import CompressionCarry as JaxCarry
+    from repro_torch.core.compose import CompressionCarry
+    rng = np.random.default_rng(1)
+    w, ef, mu = (rng.standard_normal(D).astype(np.float32) for _ in range(3))
+    t_tree = {"carry": (torch.tensor(w), CompressionCarry(
+        ef=torch.tensor(ef), inner=(torch.tensor(mu), torch.tensor(2, dtype=torch.int32))))}
+    j_tree = {"carry": (jnp.asarray(w), JaxCarry(ef=jnp.asarray(ef),
+                                                 inner=(jnp.asarray(mu), jnp.int32(2))))}
+    ckpt.save_checkpoint(str(tmp_path / "port"), 1, t_tree)
+    assert sorted(np.load(tmp_path / "port" / "ckpt_00000001.npz").files) == [
+        "carry/0", "carry/1/ef", "carry/1/inner/0", "carry/1/inner/1"]
+    got, _ = jckpt.load_checkpoint(str(tmp_path / "port"),
+                                   jax.tree_util.tree_map(jnp.zeros_like, j_tree))
+    assert isinstance(got["carry"][1], JaxCarry)
+    for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(j_tree)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    jckpt.save_checkpoint(str(tmp_path / "jax"), 1, j_tree)
+    back, _ = ckpt.load_checkpoint(str(tmp_path / "jax"), _zeros_like(t_tree))
+    _equal_trees(back, t_tree)
+    assert isinstance(back["carry"][1], CompressionCarry)
+    # a carry around an empty step state holds the residual alone
+    ckpt.save_checkpoint(str(tmp_path / "bare"), 1, {"s": CompressionCarry(torch.tensor(ef), ())})
+    assert np.load(tmp_path / "bare" / "ckpt_00000001.npz").files == ["s/ef"]
+
+
 def _zeros_like(tree):
     return ckpt._rebuild(tree, iter(torch.zeros_like(x) for _, x in ckpt._leaves_with_path(tree)))
 

@@ -31,7 +31,9 @@ dp_aggregate wrapper against one launch and its plain version at the sum
 tolerance; a streamed run on the card against the CPU at rtol 1e-4 (float32
 sums in other orders, amplified by the FedEXP ratio over four rounds); a
 host source staged through pinned memory at prefetch 1 and 3 against the
-device-resident stream in bits.
+device-resident stream in bits.  Compression: the sketch twice in bits and
+against the CPU at the sum tolerance, ``topk_select`` on tied integers equal
+to the CPU's, a compressed run twice in bits with no dp_aggregate launch.
 """
 import importlib.util
 from pathlib import Path
@@ -839,3 +841,57 @@ def test_ssd_kernel_refuses_what_it_cannot_run(dev):
     xg = x.clone().requires_grad_()
     with pytest.raises(NotImplementedError, match="backward"):
         ssd_ops.ssd_scan(xg, dt, a, bm, cm)
+
+
+# ---------------------------------------------------------------------------
+# Compression: deterministic on the card
+# ---------------------------------------------------------------------------
+
+def test_the_sketch_is_the_same_in_bits_twice_and_matches_the_cpu(dev):
+    """The bucket sums take a fixed order (the plan's slots), so two sketches
+    of the same rows are equal in bits, where a scatter-add by atomics is
+    not; against the CPU at the sum tolerance."""
+    from repro_torch.core import compression as cz
+    d, width = 1 << 16, 256
+    plan = cz.sketch_plan(cz.plan_generator(3), d, width, 3, dev)
+    rows = torch.randn(64, d, generator=torch.Generator().manual_seed(0)).to(dev)
+    a, b = cz.sketch_compress(rows, plan, width), cz.sketch_compress(rows, plan, width)
+    assert torch.equal(a, b)
+    host = cz.SketchPlan(*(x.cpu() for x in plan))
+    _close(a, cz.sketch_compress(rows.cpu(), host, width))
+    dec = cz.sketch_decompress(a.sum(0), plan, d)
+    assert torch.equal(dec, cz.sketch_decompress(b.sum(0), plan, d))
+    _close(dec, cz.sketch_decompress(a.sum(0).cpu(), host, d))
+
+
+def test_topk_select_breaks_ties_toward_the_lower_index_on_the_card(dev):
+    from repro_torch.core import compression as cz
+    g = torch.Generator().manual_seed(1)
+    x = torch.randint(-3, 4, (1 << 20,), generator=g).to(torch.float32)
+    for k in (1, 1000, 16384, 300000):
+        got = cz.topk_select(x.to(dev), k)
+        want = cz.topk_select(x, k)
+        assert torch.equal(got.cpu(), want) and int((got != 0).sum()) <= k
+
+
+def test_a_compressed_run_on_the_card_is_deterministic_and_launches_nothing(dev):
+    from repro_torch.core.compose import CountSketchAggregation, with_compression
+    from repro_torch.core.fedexp import make_algorithm
+    from repro_torch.fedsim import FederatedSession, TrainSpec
+    d, m = 4096, 64
+    t = torch.randn(m, d, generator=torch.Generator().manual_seed(2)) * d ** -0.5
+    alg = with_compression(make_algorithm("cdp-fedexp", clip_norm=1.0, sigma=5e-4,
+                                          num_clients=m),
+                           CountSketchAggregation(width=64, depth=3, top_k=512,
+                                                  error_feedback=True))
+
+    def run():
+        return FederatedSession(alg, lambda w, b: 0.5 * torch.sum((w - b["t"]) ** 2),
+                                torch.zeros(d), {"t": t}, train=TrainSpec(rounds=4, tau=1,
+                                                                          eta_l=0.5),
+                                device=dev).run(0)
+    before = ops.dp_aggregate_sums.launches
+    a, b = run(), run()
+    assert ops.dp_aggregate_sums.launches == before
+    assert torch.equal(a.final_w, b.final_w) and torch.equal(a.eta_history, b.eta_history)
+    assert torch.isfinite(a.final_w).all()

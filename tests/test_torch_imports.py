@@ -69,3 +69,21 @@ def test_the_fault_and_checkpoint_modules_stand_alone(rel):
     assert not roots & (BANNED | {"."})
     assert roots <= {"__future__", "dataclasses", "functools", "hashlib", "json", "math", "os",
                      "re", "time", "typing", "numpy", "torch", "repro_torch"}, roots
+
+
+def test_the_compression_module_stands_alone():
+    """The compression slice's module is among the files checked above and
+    imports torch, numpy and the standard library only, besides the port."""
+    path = ROOT / "src" / "repro_torch" / "core" / "compression.py"
+    assert path in PORT_FILES
+    roots = set(_imported_roots(path))
+    assert not roots & (BANNED | {"."})
+    assert roots <= {"__future__", "math", "typing", "numpy", "torch", "repro_torch"}, roots
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'repro'): sys.modules[m] = None\n"
+            "import repro_torch.core.compression as c\n"
+            "assert c.COMPRESS_TAG == 2**31 - 4\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, cwd=ROOT,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr

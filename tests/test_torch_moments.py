@@ -84,10 +84,18 @@ def jax_privunit_draws(keys, d, k):
 
 def round_noise_of(jalg, key, m, d, t=None) -> RoundNoise:
     """The JAX round's randomness as the port's ``RoundNoise``, for all m clients:
-    the per-client rows keyed by global index, so any block reads its own."""
+    the per-client rows keyed by global index, so any block reads its own.  A
+    compressed composition's central noise is its (kc,) draw, and its plan
+    JAX's ``aggregation.plan(fold_in(key, COMPRESS_TAG), d)``."""
     k_mech, extra = jalg._split_keys(key)
     mech = jalg._mech_at(t)
     noise = RoundNoise()
+    agg = getattr(jalg, "aggregation", None)
+    if agg is not None and agg.is_compressed:
+        plan = jalg._round_plan(key, d)
+        noise.plan = (tuple(torch.tensor(np.asarray(x)) for x in plan)
+                      if isinstance(plan, tuple) else torch.tensor(np.asarray(plan)))
+        d = agg.comm_floats(d)   # the central noise of a (kc,) mean
     if isinstance(mech, jcomp.GaussianLDP):
         noise.ldp = torch.tensor(np.asarray(jagg.materialize_ldp_noise(k_mech, m, d,
                                                                        mech.sigma)))
@@ -357,11 +365,11 @@ def test_weighted_dense_round_takes_the_moment_route_as_jax(name):
 
 
 def test_compressed_layers_are_refused_and_weighted_names_derived():
-    class Compressed(tcomp.Aggregation):
-        is_compressed = True
-    with pytest.raises(NotImplementedError, match="compressed aggregation"):
-        tcomp.ComposedAlgorithm(mechanism=tcomp.NoPrivacy(), step=tcomp.FixedEta(),
-                                aggregation=Compressed())
+    """A compressed layer under an LDP mechanism is refused, as in JAX."""
+    for pkg in (tcomp, jcomp):
+        with pytest.raises(ValueError, match="LDP mechanism releases a full"):
+            pkg.ComposedAlgorithm(mechanism=pkg.GaussianLDP(1.0, 0.5), step=pkg.FixedEta(),
+                                  aggregation=pkg.RandKAggregation(k=4))
     alg = tcomp.compose_algorithm(tcomp.GaussianLDP(1.0, 0.5), tcomp.FedEXPStep(),
                                   tcomp.WeightedAggregation((1.0, 2.0)))
     want = jcomp.compose_algorithm(jcomp.GaussianLDP(1.0, 0.5), jcomp.FedEXPStep(),

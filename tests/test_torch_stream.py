@@ -591,8 +591,8 @@ def test_chunked_sums_over_slots_equal_the_gathered_block(rows, fused):
 
 def test_chunked_sums_refusals(rows):
     u = torch.tensor(rows[0])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ops.dp_aggregate_sums_chunked(u, 0.3, chunk_m=4, compress_fn=lambda x: x)
+    with pytest.raises(ValueError, match="LDP noise"):   # compression takes no per-row noise
+        ops.dp_aggregate_sums_chunked(u, 0.3, u, chunk_m=4, compress_fn=lambda x: x)
     with pytest.raises(ValueError, match="slots requires slot_mask"):
         ops.dp_aggregate_sums_chunked(u, 0.3, chunk_m=4, slots=torch.arange(4))
     with pytest.raises(ValueError, match="chunk_m must be >= 1"):
