@@ -79,8 +79,9 @@ Phases, each of which exits non-zero on failure:
                rounding over 50 rounds); dp_aggregate launches must rise by
                one a round, by two for dp-scaffold (its model and variate
                releases), by none for the PrivUnit names and the weighted
-               ldp-fedexp-perclient (which launches the noise-only kernel
-               once a round).
+               ldp-fedexp-perclient (which launch the noise-only kernel
+               once a round: PrivUnit's directions' normal, keyed by
+               client, and the per-client unit noise).
   3b. e1       the paper's e1 comparison (benchmarks/e1_synthetic.py): for
                cdp (d=500), ldp-gauss and ldp-privunit (d=100), DP-FedAvg,
                DP-FedEXP and DP-SCAFFOLD at e1's (eta_l, C), each through
@@ -151,7 +152,8 @@ Phases, each of which exits non-zero on failure:
                the EF sketch saved at round 5 and resumed = uninterrupted
                in bits.
   4. full      ldp-fedexp-gauss (fused mode), cdp-fedexp (none mode),
-               ldp-fedexp-privunit (no kernel), cdp-fedexp-adaptive-clip
+               ldp-fedexp-privunit (the noise-only kernel for its normal),
+               cdp-fedexp-adaptive-clip
                (none mode, C on the card), ldp-fedexp-gauss under
                CohortSpec(q=0.1, gather=True) (fused, gated, row ids),
                cdp-fedexp under CohortSpec(size=100) (none mode, gated),
@@ -211,6 +213,23 @@ Phases, each of which exits non-zero on failure:
                bounds (SERVE_F32_MAX_ERR, SERVE_F32_MEAN_ERR), the window
                dropped on the plain path outside them; one prefill timed with
                the SIMT kernel in place of the dispatch (the route before).
+  10. train  federated LM training (FederatedTrainer) at full width and
+               depth, bf16 weights seeded as phases 6 and 7 seed them, the
+               xla_flash path (Mamba2: the chunked SSD) with remat, 1 x 2048
+               tokens a local step from per-client Markov streams, clip 1,
+               sigma 0.05, eta_l 0.05: h2o-danube-3-4b cdp-fedexp (K = 4,
+               tau = 2, 3 rounds) and ldp-fedexp-gauss (1 round), mamba2-2.7b
+               cdp-fedexp (K = 2, tau = 1, 1 round); held after every round:
+               finite metrics, eta_g >= 1, every client's clipped norm <= C
+               within CLIP_SLACK, the parameters moved; ms per round (host
+               clock, the card synchronised), one local step timed five
+               times (the median) and profiled, peak memory.  Then two
+               h2o layers at full width in float32 (TF32 off), cdp-fedexp,
+               K = 2, tau = 1, 256 tokens, the same materialized noise: the
+               card's train_step against the CPU's within TRAIN_CHECK_TOL,
+               and a planted fault (eta_g forced to 1) outside it.  No
+               hand-written kernel launches: training reaches none (nor
+               does the JAX package's).
 Phases 3, 3b, 3e, 3f, 3g and 4 are the round loop's main path, phase 6's bf16 generate the
 dense serve path's (the tensor-core flash kernel), its f32 generate and phase
 9's the float32 serve path's (the float32 tensor-core flash kernel), phase 7's
@@ -359,13 +378,14 @@ def algo_kwargs(name: str, m: int, d: int, tau: int):
 
 
 def launches_per_round(name: str, backend: str = "auto") -> tuple[int, int]:
-    """(dp_aggregate, ldp_noise) launches a round of ``name``: PrivUnit reaches
-    no kernel; the weighted ldp-fedexp-perclient reduces in plain PyTorch and
-    draws its unit noise with the noise-only kernel; the Gaussian LDP names on
-    the materialized-noise backend draw theirs there too; dp-scaffold's two
-    releases make two of each."""
+    """(dp_aggregate, ldp_noise) launches a round of ``name``: PrivUnit
+    releases in plain PyTorch and draws its directions' normal with the
+    noise-only kernel, keyed by client; the weighted ldp-fedexp-perclient
+    reduces in plain PyTorch and draws its unit noise there too; the Gaussian
+    LDP names on the materialized-noise backend draw theirs there too;
+    dp-scaffold's two releases make two of each."""
     if "privunit" in name:
-        return 0, 0
+        return 0, 1
     if name == "ldp-fedexp-perclient":
         return 0, 1
     n = 2 if name in SCAFFOLD else 1
@@ -3381,6 +3401,229 @@ def phase_serve_ssm(dev, smi: str) -> int:
     return launches
 
 
+# Phase 10: federated LM training, FederatedConfig as in
+# examples/train_federated_lm.py (clip 1, sigma 0.05, eta_l 0.05), bf16
+# weights seeded as phases 6 and 7 seed them, the xla_flash path, remat on.
+# (model, algorithm, K, tau, rounds), one sequence of TRAIN_SEQ tokens a step.
+TRAIN_SEQ = 2048
+TRAIN_RUNS = ((H2O, "cdp-fedexp", 4, 2, 3), (H2O, "ldp-fedexp-gauss", 4, 2, 1),
+              (MAMBA2, "cdp-fedexp", 2, 1, 1))
+TRAIN_FED = dict(clip_norm=1.0, noise_sigma=0.05, local_lr=0.05)
+TRAIN_STEP_REPEATS = 5    # one local step timed this often (a host's hiccup shows in one)
+CLIP_SLACK = 1e-3      # a clipped update's norm may exceed C by this share (its bf16 casts)
+# The card against the CPU: two full-width h2o layers in float32, cdp-fedexp at
+# K = 2, tau = 1, 256 tokens, the same materialized noise (sigma 1e-6: the
+# noise is there but leaves FedEXP room to extrapolate, so that eta_g forced to
+# 1 shows), TF32 off.  Both sides compute in float32 and differ in the order of
+# their sums: a product over n terms is off by about sqrt(n) * 2^-24 relative
+# (n <= 10240: 6e-6), and the forward and backward chain a few dozen of them;
+# the FedEXP ratio of two sums of squares adds little.  Bound: every metric
+# and the whole update tree's largest error within 1e-4 of their scale.
+TRAIN_CHECK = dict(layers=2, k=2, tau=1, seq=256, sigma=1e-6)
+TRAIN_CHECK_TOL = 1e-4
+
+
+def train_batch(stream, seed: int, tau: int, seq: int, dev) -> dict:
+    """A round's (K, tau, 1, seq) tokens and next-token labels from ``stream``."""
+    import torch
+    toks = stream.sample(torch.Generator().manual_seed(seed), tau, 1, seq + 1).to(dev)
+    return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+
+
+def train_checks(label: str, metrics: dict, name: str, clip: float) -> None:
+    """Finite metrics, eta_g >= 1 for a FedEXP name, clipped norms <= C."""
+    import torch
+    for key, v in metrics.items():
+        if not bool(torch.isfinite(v).all()):
+            fail(f"train {label}: non-finite {key} {v.tolist()}")
+    if "fedexp" in name and float(metrics["eta_g"]) < 1.0:
+        fail(f"train {label}: eta_g {float(metrics['eta_g'])} < 1 for {name}")
+    worst = float(metrics["clipped_norms"].max())
+    if worst > clip * (1 + CLIP_SLACK):
+        fail(f"train {label}: a clipped update's norm {worst} exceeds C = {clip} by more "
+             f"than {CLIP_SLACK:g} of it")
+
+
+def train_model(name: str, dev):
+    """``name`` at full width and depth in bf16, seeded as phases 6 and 7 seed
+    it, on the xla_flash path (the chunked SSD in Mamba2) with remat."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+    cfg = get_config(name)
+    model = DecoderLM(cfg, dtype=torch.bfloat16, attn_impl="xla_flash", remat=True, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    if cfg.arch_type == "ssm":
+        mamba2_ranges_(model, torch.Generator(device=dev).manual_seed(4))
+    return cfg, model
+
+
+def train_runs(dev, smi: str, arch: str) -> dict:
+    """The TRAIN_RUNS of ``arch``: rounds timed on the host clock with the card
+    synchronised, peak memory, the checks after every round, the parameters
+    moved; one local step warmed up, timed TRAIN_STEP_REPEATS times and
+    profiled before the first run (a profiled round's 140 k launches take the
+    profiler minutes to sum)."""
+    import torch
+    from repro_torch.configs import FederatedConfig
+    from repro_torch.data import make_client_stream
+    from repro_torch.launch import FederatedTrainer, count_params
+    t0 = time.perf_counter()
+    cfg, model = train_model(arch, dev)
+    n = count_params(cfg)
+    if n != count_params(model):
+        fail(f"train {arch}: count_params of the config {n} != the model's "
+             f"{count_params(model)}")
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    print(f"[10 train] {arch}: {n / 1e9:.3f} B bf16 parameters (count_params), xla_flash, "
+          f"remat on, built in {time.perf_counter() - t0:.2f} s")
+    out = {}
+    for run_arch, name, k, tau, rounds in TRAIN_RUNS:
+        if run_arch != arch:
+            continue
+        r0 = time.perf_counter()
+        fed = FederatedConfig(algorithm=name, local_steps=tau, **TRAIN_FED)
+        trainer = FederatedTrainer(model, fed, n)
+        step = trainer.make_train_step(k)
+        stream = make_client_stream(torch.Generator().manual_seed(1), k, cfg.vocab_size)
+        batch = train_batch(stream, 100, tau, TRAIN_SEQ, dev)
+        row = {}
+        if not out:
+            one = (params, batch["tokens"][0, :1], batch["labels"][0, :1])
+            trainer._local_train(*one)                   # warm-up: cuBLAS, the allocator
+            steps = []
+            for _ in range(TRAIN_STEP_REPEATS):
+                torch.cuda.synchronize()
+                s0 = time.perf_counter()
+                trainer._local_train(*one)
+                torch.cuda.synchronize()
+                steps.append(1e3 * (time.perf_counter() - s0))
+            row["step_ms"], row["step_ms_runs"] = sorted(steps)[len(steps) // 2], steps
+            row["step_profile"] = device_window(lambda: trainer._local_train(*one),
+                                                f"one local step of {arch}", "10 train")
+            print(f"[10 train] {arch}: one local step (1 x {TRAIN_SEQ} tokens, forward, "
+                  f"backward with remat, update) median {row['step_ms']:.1f} ms of "
+                  f"{[round(x, 1) for x in steps]}  [{smi}]")
+            del one
+        torch.cuda.reset_peak_memory_stats()
+        round_ms, first = [], params
+        for t in range(rounds):
+            batch = train_batch(stream, 100 + t, tau, TRAIN_SEQ, dev)
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            new, metrics = step(params, batch, torch.Generator().manual_seed(200 + t))
+            torch.cuda.synchronize()
+            round_ms.append(1e3 * (time.perf_counter() - s0))
+            train_checks(f"{arch} {name} round {t}", metrics, name, fed.clip_norm)
+            print(f"[10 train] {arch} {name} round {t}: loss {float(metrics['loss']):.5f}, "
+                  f"eta_g {float(metrics['eta_g']):.5f}, update norms "
+                  f"{[round(x, 5) for x in metrics['client_norms'].tolist()]}, clipped "
+                  f"{[round(x, 5) for x in metrics['clipped_norms'].tolist()]}, agg_sq "
+                  f"{float(metrics['agg_sq']):.6g}, {round_ms[-1]:.1f} ms")
+            params = new
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        moved = sum(int((params[key] != first[key]).sum()) for key in params)
+        total = sum(v.numel() for v in params.values())
+        if moved == 0:
+            fail(f"train {arch} {name}: no parameter moved in {rounds} rounds")
+        row.update(round_ms=round_ms, peak_gb=peak_gb, moved=moved / total)
+        print(f"[10 train] {arch} {name}: K = {k}, tau = {tau}, 1 x {TRAIN_SEQ} tokens a step: "
+              f"ms per round {[round(x, 1) for x in round_ms]}, peak {peak_gb:.3f} GB; "
+              f"{moved / total:.4f} of the parameters moved; run {time.perf_counter() - r0:.1f} "
+              f"s  [{smi}]")
+        out[name] = row
+        del first, new
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_reference(dev) -> dict:
+    """The card against the CPU (TRAIN_CHECK), and a planted fault, eta_g
+    forced to 1 on the card, that must break the bound."""
+    import torch
+    from repro_torch.configs import FederatedConfig, get_config
+    from repro_torch.core import stepsize
+    from repro_torch.data import make_client_stream
+    from repro_torch.launch import FederatedTrainer, count_params
+    from repro_torch.models import DecoderLM
+    c = TRAIN_CHECK
+    small = dataclasses.replace(get_config(H2O), num_layers=c["layers"])
+    card = DecoderLM(small, attn_impl="xla_flash", device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+    cpu = DecoderLM(small, attn_impl="xla_flash", device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    fed = FederatedConfig(algorithm="cdp-fedexp", local_steps=c["tau"], clip_norm=1.0,
+                          noise_sigma=c["sigma"], local_lr=0.05)
+    n = count_params(small)
+    stream = make_client_stream(torch.Generator().manual_seed(1), c["k"], small.vocab_size)
+    batch = train_batch(stream, 7, c["tau"], c["seq"], "cpu")
+    p_cpu = {k: p.detach() for k, p in cpu.named_parameters()}
+    p_card = {k: p.detach() for k, p in card.named_parameters()}
+    t0 = time.perf_counter()
+    noise = FederatedTrainer(cpu, fed, n).draw_noise(p_cpu, c["k"],
+                                                     torch.Generator().manual_seed(5))
+    t1 = time.perf_counter()
+    want, wm = FederatedTrainer(cpu, fed, n).make_train_step(c["k"])(
+        p_cpu, batch, torch.Generator(), noise)
+    t2 = time.perf_counter()
+    print(f"[10 train] reference: the CPU's noise drawn in {t1 - t0:.1f} s, its train_step "
+          f"in {t2 - t1:.1f} s on {torch.get_num_threads()} threads")
+    step = FederatedTrainer(card, fed, n).make_train_step(c["k"])
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+
+    def gaps(got, gm) -> tuple[float, float]:
+        scale = max(float((want[k] - p_cpu[k]).abs().max()) for k in want)
+        upd = max(float(((got[k].cpu() - p_card[k].cpu()) - (want[k] - p_cpu[k])).abs().max())
+                  for k in want) / scale
+        met = max(abs(float(gm[k]) / float(wm[k]) - 1)
+                  for k in ("loss", "eta_g", "mean_update_norm", "agg_sq"))
+        return upd, met
+
+    got, gm = step(p_card, card_batch, torch.Generator(), noise)
+    upd, met = gaps(got, gm)
+    del got
+    plain_cdp = stepsize.cdp
+    stepsize.cdp = lambda *a: torch.ones((), device=dev)     # the planted fault
+    try:
+        bad, bm = step(p_card, card_batch, torch.Generator(), noise)
+    finally:
+        stepsize.cdp = plain_cdp
+    bad_upd, bad_met = gaps(bad, bm)
+    print(f"[10 train] reference: {c['layers']} h2o layers at full width in float32, "
+          f"cdp-fedexp, K = {c['k']}, tau = {c['tau']}, {c['seq']} tokens, the same "
+          f"materialized noise (sigma {c['sigma']:g}): card vs CPU update tree "
+          f"{upd:.3e} of its largest entry, metrics {met:.3e} relative (bound "
+          f"{TRAIN_CHECK_TOL:g}); eta_g {float(wm['eta_g']):.6f}, loss "
+          f"{float(wm['loss']):.6f}; planted fault (eta_g forced to 1): {bad_upd:.3e}, "
+          f"{bad_met:.3e}; {time.perf_counter() - t0:.1f} s in all")
+    if max(upd, met) > TRAIN_CHECK_TOL:
+        fail(f"train reference: the card's train_step differs from the CPU's by {upd:.3e} "
+             f"(update tree) and {met:.3e} (metrics), beyond {TRAIN_CHECK_TOL:g}")
+    if max(bad_upd, bad_met) <= TRAIN_CHECK_TOL:
+        fail("train reference: a planted fault (eta_g forced to 1) stays within the bound")
+    return dict(update_err=upd, metric_err=met, fault_update_err=bad_upd,
+                eta_g=float(wm["eta_g"]))
+
+
+def phase_train(dev, smi: str) -> dict:
+    """Phase 10: federated LM training on the card (TRAIN_RUNS), and the card
+    against the CPU (TRAIN_CHECK).  Launches no hand-written kernel: the
+    training path reaches none, in the JAX package neither."""
+    from repro_torch.kernels.dp_aggregate import ops as dp_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    before = (dp_ops.dp_aggregate_sums.launches, fa_ops.flash_attention.launches,
+              ssd_ops.ssd_scan.launches)
+    out = {arch: train_runs(dev, smi, arch) for arch in (H2O, MAMBA2)}
+    out["reference"] = train_reference(dev)
+    after = (dp_ops.dp_aggregate_sums.launches, fa_ops.flash_attention.launches,
+             ssd_ops.ssd_scan.launches)
+    if after != before:
+        fail(f"train: the training path launched kernels ({before} -> {after})")
+    return out
+
+
 def main() -> int:
     """Run every phase; 0 only when all of them passed on a CUDA card."""
     import torch
@@ -3425,6 +3668,7 @@ def main() -> int:
     ssd["launches"] = timed("7 serve-ssm", phase_serve_ssm, dev, smi)
     gemma = timed("8 serve-gemma", phase_serve, dev, smi, SERVE_GEMMA)
     f32 = timed("9 serve-f32", phase_serve, dev, smi, SERVE_F32)
+    timed("10 train", phase_train, dev, smi)
     flash_tc["launches"] = h2o["tc"]
     flash_wide["launches"] = gemma["tc_wide"]
     flash_wide["simt_prefill_ms"] = gemma["simt_prefill_ms"]

@@ -1,4 +1,5 @@
-"""Parameters of the JAX package -> parameters of the port."""
+"""Parameters of the JAX package -> parameters of the port, and the trainer's
+parameters back to the JAX package's layout."""
 from __future__ import annotations
 
 import numpy as np
@@ -8,7 +9,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.tree import tree_map
 
-__all__ = ["params_from_jax", "decoder_from_jax"]
+__all__ = ["params_from_jax", "decoder_from_jax", "trainer_params_from_jax",
+           "trainer_params_to_jax"]
 
 
 def _to_tensor(leaf) -> torch.Tensor:
@@ -61,3 +63,39 @@ def decoder_from_jax(cfg, params, device="cuda"):
             for i, block in enumerate(model.blocks):
                 block[name].copy_(stacked[i])
     return model
+
+
+def trainer_params_from_jax(params, device) -> dict:
+    """``FederatedTrainer``'s parameter dict, named as ``DecoderLM``'s
+    ``named_parameters()``, from the JAX package's ``DecoderLM`` params tree
+    (``jax.device_get`` of it): ``blocks[name]``, stacked on L, becomes
+    ``"blocks.<i>.<name>"``; the other leaves keep their names."""
+    p = params_from_jax(params, device)
+    out = {n: t for n, t in p.items() if n != "blocks"}
+    for name, stacked in p["blocks"].items():
+        for i in range(stacked.shape[0]):
+            out[f"blocks.{i}.{name}"] = stacked[i].contiguous()
+    return out
+
+
+def trainer_params_to_jax(params: dict) -> dict:
+    """The JAX package's ``DecoderLM`` params tree, numpy arrays with the
+    blocks stacked on L, of a parameter dict named as ``named_parameters()``
+    (the inverse of ``trainer_params_from_jax``).  bfloat16 leaves come back
+    as float32: numpy has no bfloat16 of its own, the widening is exact, and
+    the JAX package's ``load_checkpoint`` casts each leaf to its template's
+    dtype."""
+    def host(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    out, blocks = {}, {}
+    for name, t in params.items():
+        if name.startswith("blocks."):
+            _, i, leaf = name.split(".", 2)
+            blocks.setdefault(leaf, {})[int(i)] = host(t)
+        else:
+            out[name] = host(t)
+    out["blocks"] = {leaf: np.stack([layers[i] for i in range(len(layers))])
+                     for leaf, layers in blocks.items()}
+    return out

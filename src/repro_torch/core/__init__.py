@@ -19,7 +19,7 @@ from repro_torch.core.aggregation import (
     raw_moments,
 )
 from repro_torch.core.algorithm import RoundAux, RoundNoise, ServerAlgorithm
-from repro_torch.core.clipping import clip_batch, clip_by_l2, global_l2_norm_tree
+from repro_torch.core.clipping import clip_batch, clip_by_l2, clip_tree, global_l2_norm_tree
 from repro_torch.core.compose import (
     AdaptiveClipStep,
     CentralGaussian,
@@ -48,7 +48,7 @@ __all__ = [
     "mechanisms", "stepsize",
     "RoundStats", "RoundMoments", "aggregate_stats", "fused_clip_aggregate",
     "partial_clip_moments", "raw_moments",
-    "clip_batch", "clip_by_l2", "global_l2_norm_tree",
+    "clip_batch", "clip_by_l2", "clip_tree", "global_l2_norm_tree",
     "ServerAlgorithm", "RoundAux", "RoundNoise", "make_algorithm", "list_algorithms",
     "ComposedAlgorithm", "compose_algorithm",
     "NoPrivacy", "GaussianLDP", "PerClientGaussian", "PrivUnitLDP", "CentralGaussian",

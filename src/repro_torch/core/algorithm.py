@@ -94,6 +94,7 @@ class RoundNoise:
     """Everything random that one round's release consumes."""
 
     seed: int | None = None                 # 32-bit seed of the per-client LDP noise
+                                            # (Gaussian, or PrivUnit's normal)
     ldp: torch.Tensor | None = None         # (M, d) materialized per-client noise
     central: torch.Tensor | None = None     # (d,) N(0, 1) of the CDP mean ((kc,) compressed)
     # DP-SCAFFOLD's second release (the variate update), drawn after the
@@ -102,9 +103,9 @@ class RoundNoise:
     ldp_dc: torch.Tensor | None = None
     central_dc: torch.Tensor | None = None
     xi: torch.Tensor | None = None          # N(0, 1) of the CDP FedEXP numerator
-    # PrivUnit: (M,) host uniforms of the cap and its quantile, (M, d) N(0, 1)
-    # on the device, and ScalarDP's (M,) rounding and keep uniforms and
-    # integers in [0, k) on the host
+    # PrivUnit: (M,) host uniforms of the cap and its quantile, ScalarDP's (M,)
+    # rounding and keep uniforms and integers in [0, k) on the host, and a
+    # materialized (M, d) N(0, 1) in place of the normal keyed by ``seed``
     cap_u: torch.Tensor | None = None
     u01: torch.Tensor | None = None
     g: torch.Tensor | None = None

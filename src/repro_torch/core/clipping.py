@@ -11,9 +11,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["l2_norm", "clip_by_l2", "clip_batch", "global_l2_norm_tree"]
+__all__ = ["l2_norm", "clip_by_l2", "clip_batch", "global_l2_norm_tree", "clip_tree"]
 
 _EPS = 1e-12
 
@@ -39,3 +39,12 @@ def global_l2_norm_tree(tree) -> torch.Tensor:
     """Global L2 norm across all leaves of a parameter tree (dicts, lists, tensors)."""
     sq = sum(torch.sum(leaf.to(torch.float32) ** 2) for leaf in tree_leaves(tree))
     return torch.sqrt(sq)
+
+
+def clip_tree(tree, clip_norm):
+    """Clip a parameter tree by its *global* L2 norm: one scale ``min(1, C /
+    ||tree||)`` for every leaf, computed in float32, each leaf scaled in
+    float32 and cast back to its dtype.  Returns ``(clipped tree, norm)``."""
+    nrm = global_l2_norm_tree(tree)
+    scale = torch.clamp(clip_norm / torch.clamp(nrm, min=_EPS), max=1.0)
+    return tree_map(lambda leaf: (leaf.to(torch.float32) * scale).to(leaf.dtype), tree), nrm

@@ -423,19 +423,31 @@ class PrivUnitLDP(PrivacyMechanism):
 
     def draw(self, gen, m, d, device):
         """Per client: the cap and quantile uniforms and ScalarDP's rounding
-        uniform, keep uniform and integer in [0, k), on the host; the (M, d)
-        normal on the device.  The normal is drawn for the whole cohort on
-        the streaming engine too, which slices it a chunk at a time
-        (``rows_at``): its memory is M-sized, and ``auto_chunk_clients``
-        does not count it (ROADMAP.md, queue 1, item 20)."""
+        uniform, keep uniform and integer in [0, k), on the host; and the
+        32-bit seed of the direction's N(0, 1) normal.  The normal of client
+        i, column j is keyed by (seed, i, j), as the Gaussian LDP noise is
+        (the noise-only kernel on the card, ``ref.ldp_noise_ref`` on the CPU),
+        so a block of clients (a streamed chunk, a gathered block) draws only
+        its own rows: no (M, d) normal exists.  A ``RoundNoise.g`` matrix,
+        when given, replaces it."""
         fields = {f: torch.rand(m, generator=gen) for f in ("cap_u", "u01", "round_u", "keep_u")}
         fields["u_int"] = torch.randint(0, self.sc.k, (m,), generator=gen, dtype=torch.int32)
-        fields["g"] = device_normal(gen, (m, d), device)
+        fields["seed"] = draw_seed32(gen)
         return fields
 
-    def _randomize(self, noise, deltas, clip):
-        """Per-client clip + PrivUnit release: (released, clipped) rows."""
+    def _normal(self, noise, shape, start, device) -> torch.Tensor:
+        """The block's rows of the directions' N(0, 1) normal."""
+        if noise.g is not None:
+            return rows_at(noise.g, start, shape[0])
+        from repro_torch.kernels.dp_aggregate import ops
+        return ops.generate_ldp_noise(*shape, noise.seed, 1.0, device=device,
+                                      **row_keys(start, device))
+
+    def _randomize(self, noise, deltas, clip, start=0):
+        """Per-client clip + PrivUnit release of the block of clients at
+        ``start``: (released, clipped) rows."""
         dev = deltas.device
+        g = self._normal(noise, deltas.shape, start, dev)
         c = self._clip(clip)
         norms = torch.linalg.vector_norm(deltas, dim=-1)
         clipped = deltas * torch.clamp(c / torch.clamp(norms, min=1e-12), max=1.0)[:, None]
@@ -444,10 +456,10 @@ class PrivUnitLDP(PrivacyMechanism):
         draws = [host_to_device(noise.round_u, dev), host_to_device(noise.keep_u, dev),
                  host_to_device(noise.u_int, dev)]
         if clip is None:
-            released = mech.privunit_randomize(clipped, t, noise.g, *draws, self.pu, self.sc)
+            released = mech.privunit_randomize(clipped, t, g, *draws, self.pu, self.sc)
         else:  # the release on the reference scale, rescaled publicly
             to_ref = self.clip_norm / c
-            released = mech.privunit_randomize(clipped * to_ref, t, noise.g, *draws,
+            released = mech.privunit_randomize(clipped * to_ref, t, g, *draws,
                                                self.pu, self.sc) / to_ref
         return released, clipped
 
@@ -472,14 +484,14 @@ class PrivUnitLDP(PrivacyMechanism):
         masked rows where-zeroed in both the released and the clipped sets,
         each other row weighted by its mask value (and weight)."""
         m = deltas.shape[0]
-        if not (isinstance(start, int) and start == 0 and noise.g.shape[0] == m):
+        if not (isinstance(start, int) and start == 0 and noise.cap_u.shape[0] == m):
             # a streamed chunk's padding rows past M (mask 0) read client
-            # M - 1's draws; their release is zeroed below
-            idx = torch.clamp(global_client_indices(start, m), max=noise.g.shape[0] - 1)
+            # M - 1's host draws; their release is zeroed below
+            idx = torch.clamp(global_client_indices(start, m), max=noise.cap_u.shape[0] - 1)
             host = {f: getattr(noise, f)[idx] for f in ("cap_u", "u01", "round_u", "keep_u",
                                                          "u_int")}
-            noise = dataclasses.replace(noise, g=rows_at(noise.g, start, m), **host)
-        released, clipped = self._randomize(noise, deltas, clip)
+            noise = dataclasses.replace(noise, **host)
+        released, clipped = self._randomize(noise, deltas, clip, start)
         keep = (mask > 0)[:, None]
         released = torch.where(keep, released, 0.0)
         clipped = torch.where(keep, clipped, 0.0)

@@ -1,5 +1,6 @@
 """Data of the port: the paper's synthetic linear regression, the generated
-image set and the label-Dirichlet partitioner."""
+image set, the label-Dirichlet partitioner and per-client Markov token
+streams for LM training."""
 
 from repro_torch.data.dirichlet import client_image_batches, dirichlet_partition
 from repro_torch.data.images import ImageDataset, make_image_dataset
@@ -9,6 +10,8 @@ from repro_torch.data.synthetic import (
     linreg_loss,
     make_synthetic_linreg,
 )
+from repro_torch.data.tokens import MarkovStream, make_client_stream
 
 __all__ = ["SyntheticLinReg", "make_synthetic_linreg", "linreg_loss", "distance_to_opt",
-           "ImageDataset", "make_image_dataset", "dirichlet_partition", "client_image_batches"]
+           "ImageDataset", "make_image_dataset", "dirichlet_partition", "client_image_batches",
+           "MarkovStream", "make_client_stream"]

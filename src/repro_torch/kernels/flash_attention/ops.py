@@ -186,8 +186,9 @@ def _cuda_inputs(q, k, v, window, kv_len):
     if q.dtype not in _DTYPES:
         raise TypeError(f"the CUDA kernels take float32 or bfloat16, got {q.dtype}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError("the flash attention kernels have no backward yet "
-                                  "(ROADMAP queue 1, item 18); run them under torch.no_grad()")
+        raise NotImplementedError("the flash attention kernels have no backward (nor has "
+                                  "the TPU kernel); run them under torch.no_grad(), and train "
+                                  "with attn_impl='xla_flash'")
     q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
     return q, k, v, kv_len
 

@@ -39,11 +39,11 @@ def auto_chunk_clients(dim: int, client_bytes: int = 0, *, budget_bytes: int | N
 
     A chunk's peak footprint on the device is about ``chunk * (2 * 4 * dim +
     client_bytes)``: the (c, d) float32 update block, a block of the same
-    shape for the LDP noise (clip-only mechanisms leave it as headroom), and
+    shape for the LDP noise or PrivUnit's normal (both keyed by client and
+    drawn a chunk at a time; clip-only mechanisms leave it as headroom), and
     the chunk's client data.  The chunk is the budget (``budget_bytes``, or
     ``device_memory_budget(device)``) over that cost.  A heuristic with an
-    explicit knob, not a guarantee: PrivUnit's (M, d) normal, drawn for the
-    whole cohort each round, is not counted.
+    explicit knob, not a guarantee.
 
     Raises when even one client exceeds the budget: streaming cannot help
     then, and a chunk of 1 would run out of memory one client at a time."""

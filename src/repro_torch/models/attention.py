@@ -1,14 +1,18 @@
 """Attention layer: GQA/MQA/MHA, causal and sliding-window, KV cache, qk-norm
 (counterpart of repro/models/attention.py).
 
-Two execution paths for self-attention:
+Four execution paths for self-attention (``IMPLS``):
   - ``kernel``: the hand-written CUDA flash attention kernel
     (``repro_torch.kernels.flash_attention``; its plain version on the CPU).
-    The counterpart of the JAX package's ``pallas`` path, and the default.
+    The counterpart of the JAX package's ``pallas`` path, and the default for
+    serving.  It has no backward, as the Pallas kernel has none.
   - ``dense``: dense softmax in float32, query chunk by query chunk (the plain
     path).
-The JAX package's ``xla_flash`` and ``chunked`` paths, and cross-attention
-(``cross_kv``, enc-dec), are still to port (ROADMAP.md).
+  - ``xla_flash``: ``blockwise_attention``, online softmax over 512-key blocks
+    in plain PyTorch, the JAX package's default and training path.
+  - ``chunked``: ``chunked_attention``, a dense softmax per 512-query chunk.
+The last three are differentiable by autograd and train through the model.
+Cross-attention (``cross_kv``, enc-dec) is still to port (ROADMAP.md).
 
 Decode path: single-query attention against a KV cache; sliding-window
 layers keep a ring buffer of ``window`` slots.  Unlike the JAX package, the
@@ -20,6 +24,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
@@ -27,9 +32,9 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.common import Param, rms_norm, rope, softcap
 
 __all__ = ["attention_defs", "attention_apply", "init_kv_cache", "decode_attention",
-           "dense_attention", "IMPLS"]
+           "dense_attention", "blockwise_attention", "chunked_attention", "IMPLS"]
 
-IMPLS = ("kernel", "dense")
+IMPLS = ("kernel", "dense", "xla_flash", "chunked")
 _NEG_INF = -1e30
 
 
@@ -57,6 +62,78 @@ def dense_attention(q, k, v, *, causal, window, softcap_val=None):
     out = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                         causal=causal, window=window, softcap=softcap_val)
     return out.transpose(1, 2)
+
+
+def blockwise_attention(q, k, v, *, causal, window, block_k: int = 512, softcap_val=None):
+    """Online-softmax attention over key blocks of ``block_k``; the signature
+    of ``dense_attention`` (the JAX package's ``xla_flash`` path).
+
+    The JAX package's arithmetic: K and V padded to whole blocks, q scaled in
+    float32 before the products, masked scores set to -1e30 (a fully masked
+    block adds weight that the next visible key's rescale wipes, as in the
+    JAX package), and the sum of weights floored at 1e-30.  Every block is
+    computed, masked or not.  Plain PyTorch, differentiable by autograd.
+    """
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    bk = min(block_k, skv)
+    pad = (-skv) % bk
+    nk = (skv + pad) // bk
+    kb = F.pad(k, (0, 0, 0, 0, 0, pad)).reshape(b, nk, bk, hkv, dh).float()
+    vb = F.pad(v, (0, 0, 0, 0, 0, pad)).reshape(b, nk, bk, hkv, dh).float()
+    qg = (q.float() * (1.0 / math.sqrt(dh))).reshape(b, sq, hkv, group, dh)
+    q_idx = torch.arange(sq, device=q.device)[:, None]
+    m = torch.full((b, hkv, group, sq), _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hkv, group, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, group, sq, dh), dtype=torch.float32, device=q.device)
+    for ik in range(nk):
+        s = softcap(torch.einsum("bqhgd,bkhd->bhgqk", qg, kb[:, ik]), softcap_val)
+        k_idx = ik * bk + torch.arange(bk, device=q.device)[None, :]
+        mask = k_idx < skv
+        if causal:
+            mask = mask & (k_idx <= q_idx)
+        if window is not None:
+            mask = mask & (k_idx > q_idx - window)
+        s = torch.where(mask, s, _NEG_INF)
+        m_cur = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_cur[..., None])
+        alpha = torch.exp(m - m_cur)
+        l = alpha * l + p.sum(dim=-1)
+        acc = alpha[..., None] * acc + torch.einsum("bhgqk,bkhd->bhgqd", p, vb[:, ik])
+        m = m_cur
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh).to(q.dtype)
+
+
+def chunked_attention(q, k, v, *, causal, window, block_q: int = 512, softcap_val=None):
+    """Attention a chunk of ``block_q`` queries at a time, a dense float32
+    softmax over all keys in each (the JAX package's ``chunked`` path): q
+    padded to whole chunks and scaled before the products, masked scores set
+    to -1e30.  Plain PyTorch, differentiable by autograd."""
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    bq = min(block_q, sq)
+    pad = (-sq) % bq
+    qp = F.pad(q, (0, 0, 0, 0, 0, pad))
+    scale = 1.0 / math.sqrt(dh)
+    kf, vf = k.float(), v.float()
+    k_idx = torch.arange(skv, device=q.device)[None, :]
+    chunks = []
+    for i0 in range(0, sq + pad, bq):
+        qg = (qp[:, i0:i0 + bq].float() * scale).reshape(b, bq, hkv, group, dh)
+        s = softcap(torch.einsum("bqhgd,bkhd->bhgqk", qg, kf), softcap_val)
+        q_idx = i0 + torch.arange(bq, device=q.device)[:, None]
+        mask = torch.ones((bq, skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (k_idx <= q_idx)
+        if window is not None:
+            mask = mask & (k_idx > q_idx - window)
+        p = torch.softmax(torch.where(mask, s, _NEG_INF), dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+        chunks.append(o.reshape(b, bq, hq, dh).to(q.dtype))
+    return torch.cat(chunks, dim=1)[:, :sq]
 
 
 def decode_attention(q, k_cache, v_cache, cache_positions, pos: int, *, window,
@@ -150,13 +227,17 @@ def _self_attention(q, k, v, causal, window, impl, cfg: ModelConfig):
     sc = cfg.attn_logit_softcap
     if impl == "dense":
         return dense_attention(q, k, v, causal=causal, window=window, softcap_val=sc)
+    if impl == "chunked":
+        return chunked_attention(q, k, v, causal=causal, window=window, softcap_val=sc)
+    if impl == "xla_flash":
+        return blockwise_attention(q, k, v, causal=causal, window=window, softcap_val=sc)
     if impl == "kernel":
         if sc is not None:
             # the JAX package's pallas path drops the softcap; refuse rather than do that
             raise NotImplementedError("the flash attention kernel has no logit softcap "
-                                      "(ROADMAP queue 2, item 3); use attn_impl='dense'")
+                                      "(ROADMAP queue 2, item 3); use attn_impl='dense', "
+                                      "'xla_flash' or 'chunked'")
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                               causal=causal, window=window)
         return out.transpose(1, 2)
-    raise NotImplementedError(f"attention impl {impl!r} is not ported; the port has "
-                              f"{IMPLS} (xla_flash and chunked: ROADMAP queue 1, item 17)")
+    raise ValueError(f"unknown attention impl {impl!r}; the port has {IMPLS}")

@@ -7,13 +7,16 @@ Layer structure (single group, as in the JAX package):
     y = SSD(x, dt, A, B, C) + D * x          (selective state space scan)
     out = out_proj( RMSNorm(y) * silu(z) )
 
-Two execution paths for the SSD scan of a prefill, selected like attention's:
+Two execution paths for the SSD scan of a prefill or a training forward,
+selected by the attention impl of the model (``attention.IMPLS``):
   - ``kernel``: the hand-written CUDA kernel ``repro_torch.kernels.ssd_scan``
     (its plain recurrence on the CPU), which also returns the final state the
     decode cache needs.  The JAX package names its Pallas kernel as the TPU
-    target of this scan; the port runs the kernel here.
-  - ``dense``: ``ssd_chunked``, the JAX package's chunked path, with
-    ``_final_state`` for the cache (the plain path).
+    target of this scan; the port runs the kernel here, for serving: it has no
+    backward.
+  - ``dense``, ``xla_flash`` and ``chunked``: ``ssd_chunked``, the chunked
+    path that the JAX package's ``ssm_apply`` always runs, with
+    ``_final_state`` for the cache; plain PyTorch, differentiable by autograd.
 The decode step is the O(1) state update in plain torch, as in the JAX package.
 
 Types are the JAX package's: the in-projections and the conv in the model's
@@ -24,11 +27,14 @@ cache is updated in place (the returned dict is the one passed in).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.models.attention import IMPLS
 from repro_torch.models.common import Param, rms_norm
 
 __all__ = ["ssm_defs", "ssm_apply", "init_ssm_cache", "ssd_chunked"]
@@ -65,29 +71,40 @@ def _chunks(chunk: int, x, dt, bmat, *rest):
 
 
 def ssd_chunked(x, dt, a, bmat, cmat, chunk: int = 128):
-    """Chunked SSD. x: (B,S,H,P), dt: (B,S,H), a: (H,), bmat/cmat: (B,S,N)."""
+    """Chunked SSD. x: (B,S,H,P), dt: (B,S,H), a: (H,), bmat/cmat: (B,S,N).
+
+    The JAX package's chunk step, for every chunk at once: within a chunk,
+    ``((C B^T) * exp(s_i - s_j)) (dt x)`` and the chunk's own state; then the
+    states carried across the chunks in order (``h <- exp(s_last) h + S``),
+    and each chunk's output from the state entering it.  The same operations
+    as the JAX package's scan over chunks, batched over the chunks but for
+    the carry, so a training step launches a few dozen kernels a layer and
+    not a few hundred."""
     bsz, s, h, p = x.shape
     n = bmat.shape[-1]
     xc, dtc, bc, cc = _chunks(chunk, x, dt, bmat, cmat)
     nc, c = xc.shape[1], xc.shape[2]
     idx = torch.arange(c, device=x.device)
     tril = idx[None, :] <= idx[:, None]
+    sdec = torch.cumsum(a * dtc, dim=2)                            # (B,nc,c,H)
+    xbar = xc * dtc[..., None]
+    # mask before the exp: s_i - s_j may overflow it for j > i, and an inf
+    # selected away still gives NaN gradients (the JAX package's do, for dt
+    # and A); the values are the JAX package's either way
+    decay = torch.exp(torch.where(tril[:, :, None],
+                                  sdec[:, :, :, None, :] - sdec[:, :, None, :, :], -math.inf))
+    scores = torch.einsum("bkln,bkmn->bklm", cc, bc)                # (B,nc,c,c)
+    y = torch.einsum("bklmh,bkmhp->bklhp", scores[..., None] * decay, xbar)
+    s_last = sdec[:, :, -1, :]                                     # (B,nc,H)
+    wdec = torch.exp(s_last[:, :, None, :] - sdec)                 # (B,nc,c,H)
+    states = torch.einsum("bkln,bklhp->bkhnp", bc, xbar * wdec[..., None])
     hstate = torch.zeros(bsz, h, n, p, dtype=torch.float32, device=x.device)
-    y = torch.empty(bsz, nc, c, h, p, dtype=torch.float32, device=x.device)
+    entering = []
     for k in range(nc):
-        xk, dtk, bk, ck = xc[:, k], dtc[:, k], bc[:, k], cc[:, k]
-        sdec = torch.cumsum(a[None, None, :] * dtk, dim=1)        # (B,c,H)
-        xbar = xk * dtk[..., None]
-        # select, never multiply by the mask: exp(s_i - s_j) may be inf for j > i
-        decay = torch.where(tril[None, :, :, None],
-                            torch.exp(sdec[:, :, None, :] - sdec[:, None, :, :]), 0.0)
-        scores = torch.einsum("bln,bmn->blm", ck, bk)              # (B,c,c)
-        yk = torch.einsum("blmh,bmhp->blhp", scores[..., None] * decay, xbar)
-        y[:, k] = yk + torch.exp(sdec)[..., None] * torch.einsum("bln,bhnp->blhp", ck, hstate)
-        s_last = sdec[:, -1, :]                                    # (B,H)
-        wdec = torch.exp(s_last[:, None, :] - sdec)                # (B,c,H)
-        hstate = torch.exp(s_last)[:, :, None, None] * hstate + torch.einsum(
-            "bln,blhp->bhnp", bk, xbar * wdec[..., None])
+        entering.append(hstate)
+        hstate = torch.exp(s_last[:, k])[:, :, None, None] * hstate + states[:, k]
+    y = y + torch.exp(sdec)[..., None] * torch.einsum("bkln,bkhnp->bklhp", cc,
+                                                      torch.stack(entering, dim=1))
     return y.reshape(bsz, nc * c, h, p)[:, :s].to(x.dtype)
 
 
@@ -128,9 +145,8 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *, cache: dict | 
               impl: str = "kernel"):
     """x: (B, S, D) -> (y, cache). S = 1 with a cache is a decode step; a longer
     S with a cache is a prefill, which fills the cache in place."""
-    if impl not in ("kernel", "dense"):
-        raise NotImplementedError(f"SSD impl {impl!r} is not ported; the port has 'kernel' "
-                                  "and 'dense'")
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; the port has {IMPLS}")
     b, s, _ = x.shape
     di, n, heads, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     width = cfg.ssm_conv_width

@@ -3,14 +3,27 @@
 
 The JAX package stacks the blocks on a leading L axis and scans them; here
 each block is an ``nn.ParameterDict`` with the JAX package's parameter names,
-and the layers run in a plain Python loop.  MoE, hybrid, VLM and audio stacks
-are still to port (ROADMAP queue 1, item 17), as is training through the model
-(the flash and SSD kernels have no backward).
+and the layers run in a plain Python loop.
+
+Serving (``prefill``, ``decode_step``) reads the module's own parameters
+under ``torch.no_grad``.  Training goes through the functional ``loss(params,
+tokens, labels)``: ``params`` is a dict of tensors named as
+``named_parameters()`` ("embed", "final_norm", "blocks.<i>.<name>", "head"),
+which autograd differentiates; the module's own parameters never require
+grad.  ``remat`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``), as the JAX package's ``jax.checkpoint`` does,
+and the LM head runs in chunks of ``loss_chunk`` positions, each recomputed
+too, so the (tokens, vocab) logits never exist at once.  MoE, hybrid, VLM
+and audio stacks are still to port (ROADMAP queue 1, item 17).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -22,9 +35,18 @@ from repro_torch.models.common import Param, init_params, rms_norm, sinusoidal_p
 __all__ = ["DecoderLM"]
 
 ARCHS = ("dense", "ssm")
+REMAT_POLICIES = (None, "dots")
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
-def _block_defs(cfg: ModelConfig) -> dict[str, Param]:
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the outputs of the weight products (x @ W
+    folds to ``mm``; attention's products carry batch dims and are ``bmm``),
+    recompute the rest, as ``dots_with_no_batch_dims_saveable`` does."""
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def block_defs(cfg: ModelConfig) -> dict[str, Param]:
     """Parameter defs for ONE block."""
     if cfg.arch_type == "ssm":
         return {"ln1": Param((cfg.d_model,), (None,)), **ssm_mod.ssm_defs(cfg)}
@@ -43,16 +65,21 @@ class DecoderLM(nn.Module):
     weights as the JAX package's ``DecoderLM.init`` does (the same
     distributions, not the same values); with ``generator=None`` they are left
     uninitialised, to be filled by ``repro_torch.convert.decoder_from_jax``.
-    ``attn_impl`` is ``"kernel"`` (the CUDA kernels on the card: flash
-    attention in a dense stack, the SSD scan in an SSM stack; the JAX
-    package's ``"pallas"``) or ``"dense"`` (the plain paths: dense attention,
-    and the chunked SSD ``ssd_chunked``).  The model runs on the card unless
-    ``device`` says otherwise.
+    ``attn_impl`` is one of ``attention.IMPLS``: ``"kernel"`` (the CUDA
+    kernels on the card: flash attention in a dense stack, the SSD scan in an
+    SSM stack; the JAX package's ``"pallas"``), the serving default; or a plain
+    path: ``"dense"``, ``"xla_flash"`` (the JAX package's default) or
+    ``"chunked"`` attention, each with the chunked SSD ``ssd_chunked`` in an
+    SSM stack.  Only the plain paths train: the kernels have no backward.
+    ``remat``, ``remat_policy`` (None: recompute everything; ``"dots"``: keep
+    the weight products) and ``loss_chunk`` are the JAX package's training
+    knobs.  The model runs on the card unless ``device`` says otherwise.
     """
 
     max_positions = 32_768   # sinusoidal table rows (non-RoPE archs), as in the JAX package
 
     def __init__(self, cfg: ModelConfig, *, dtype=torch.float32, attn_impl: str = "kernel",
+                 remat: bool = True, remat_policy: str | None = None, loss_chunk: int = 512,
                  device="cuda", generator: torch.Generator | None = None):
         super().__init__()
         if cfg.arch_type not in ARCHS:
@@ -60,14 +87,20 @@ class DecoderLM(nn.Module):
                 f"{cfg.name}: the port's DecoderLM runs {' and '.join(ARCHS)} stacks; "
                 f"{cfg.arch_type} stacks are still to port (ROADMAP queue 1, item 17)")
         if attn_impl not in attn_mod.IMPLS:
-            raise NotImplementedError(f"attention impl {attn_impl!r} is not ported; the port "
-                                      f"has {attn_mod.IMPLS} (ROADMAP queue 1, item 17)")
+            raise ValueError(f"unknown attention impl {attn_impl!r}; the port has "
+                             f"{attn_mod.IMPLS}")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got "
+                             f"{remat_policy!r}")
+        if loss_chunk < 1:
+            raise ValueError(f"loss_chunk must be >= 1, got {loss_chunk}")
         self.cfg, self.dtype, self.attn_impl = cfg, dtype, attn_impl
+        self.remat, self.remat_policy, self.loss_chunk = remat, remat_policy, loss_chunk
         self.device = resolve_device(device)
         if generator is not None and generator.device != self.device:
             raise ValueError(f"the generator lies on {generator.device}, the model on "
                              f"{self.device}")
-        defs = _block_defs(cfg)
+        defs = block_defs(cfg)
 
         def empty(shape):
             return torch.empty(shape, dtype=dtype, device=self.device)
@@ -109,9 +142,20 @@ class DecoderLM(nn.Module):
         m = rms_norm(x, bp["ln2"], cfg.norm_eps)
         return x + mlp_mod.mlp_apply(bp, m, cfg), cache
 
-    def _stack(self, x, *, positions, caches=None, decode_pos=None):
-        """Run all blocks.  caches: None, or {"blocks": [one cache per layer]}."""
-        for i, bp in enumerate(self.blocks):
+    def _stack(self, x, *, positions, caches=None, decode_pos=None, blocks=None):
+        """Run all blocks (``blocks``: per-layer weight dicts, default the
+        module's).  caches: None, or {"blocks": [one cache per layer]}.  With
+        ``remat``, no cache and autograd on, each block is recomputed in the
+        backward pass."""
+        blocks = self.blocks if blocks is None else blocks
+        if self.remat and caches is None and torch.is_grad_enabled():
+            context = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
+                       if self.remat_policy == "dots" else noop_context_fn)
+            for bp in blocks:
+                x, _ = checkpoint(self._apply_block, bp, x, positions=positions,
+                                  use_reentrant=False, context_fn=context)
+            return x
+        for i, bp in enumerate(blocks):
             x, _ = self._apply_block(bp, x, positions=positions,
                                      cache=None if caches is None else caches["blocks"][i],
                                      decode_pos=decode_pos)
@@ -119,25 +163,81 @@ class DecoderLM(nn.Module):
 
     # -------------------------------------------------------------- forward
 
-    def _embed(self, tokens, positions):
-        x = self.embed[tokens].to(self.dtype)
+    def _embed(self, embed, tokens, positions):
+        x = embed[tokens].to(self.dtype)
         if not self.cfg.use_rope:
             pe = sinusoidal_positions(self.max_positions, self.cfg.d_model, self.dtype,
                                       device=x.device)
             x = x + pe[positions.clamp(max=self.max_positions - 1)]
         return x
 
+    def _hidden(self, tokens, embed, final_norm, blocks):
+        positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
+        x = self._stack(self._embed(embed, tokens, positions), positions=positions,
+                        blocks=blocks)
+        return rms_norm(x, final_norm, self.cfg.norm_eps)
+
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Final-normed hidden states (B, S, d) of ``tokens`` (B, S)."""
-        positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
-        x = self._stack(self._embed(tokens, positions), positions=positions)
-        return rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return self._hidden(tokens, self.embed, self.final_norm, self.blocks)
 
     def _head_matrix(self):
         return self.embed.T if self.cfg.tie_embeddings else self.head
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         return h @ self._head_matrix()
+
+    # ------------------------------------------------------------ training
+
+    def _unflatten(self, params: dict):
+        """``params`` (named as ``named_parameters()``) as (embed, final_norm,
+        head matrix, per-layer block dicts); raises on missing or extra names."""
+        want = [n for n, _ in self.named_parameters()]
+        if set(params) != set(want):
+            missing, extra = sorted(set(want) - set(params)), sorted(set(params) - set(want))
+            raise ValueError(f"{self.cfg.name}: parameter names differ from "
+                             f"named_parameters(): missing {missing[:4]}, extra {extra[:4]}")
+        blocks = [{n: params[f"blocks.{i}.{n}"] for n in bp} for i, bp in enumerate(self.blocks)]
+        head = params["embed"].T if self.cfg.tie_embeddings else params["head"]
+        return params["embed"], params["final_norm"], head, blocks
+
+    def loss(self, params: dict, tokens: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``tokens`` (B, S) against ``labels``
+        (B, S; -1 is ignored) under ``params``, a dict of tensors named as
+        ``named_parameters()``; a float32 0-d tensor (the JAX package's
+        ``DecoderLM.loss``).
+
+        The final-normed forward, then the LM head a chunk of ``loss_chunk``
+        positions at a time (the tail padded with zero states and -1 labels),
+        each chunk recomputed in the backward pass: float32 logits, logsumexp,
+        the label's logit.  The summed loss over the valid labels is divided by
+        their count floored at 1 (the JAX package adds ``_MOE_AUX_COEF`` times
+        the MoE aux loss, which is 0 for these stacks).
+        The kernel paths have no backward: with autograd on, ``"kernel"``
+        raises."""
+        if self.attn_impl == "kernel" and torch.is_grad_enabled():
+            raise NotImplementedError(
+                "attn_impl='kernel' does not train: the flash attention and SSD scan kernels "
+                "have no backward, as the JAX package's Pallas kernels have none; train with "
+                "'xla_flash' (the JAX package's default), 'chunked' or 'dense'")
+        embed, final_norm, w, blocks = self._unflatten(params)
+        h = self._hidden(tokens, embed, final_norm, blocks)
+        s = h.shape[1]
+        chunk = min(self.loss_chunk, s)
+        pad = (-s) % chunk
+        if pad:
+            h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+            labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        count = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i0 in range(0, s + pad, chunk):
+            hh, ll = h[:, i0:i0 + chunk], labels[:, i0:i0 + chunk]
+            if torch.is_grad_enabled():
+                nll, n = checkpoint(_chunk_nll, hh, ll, w, use_reentrant=False)
+            else:
+                nll, n = _chunk_nll(hh, ll, w)
+            total, count = total + nll, count + n
+        return total / torch.clamp(count, min=1.0)
 
     # ------------------------------------------------------------- serving
 
@@ -156,7 +256,8 @@ class DecoderLM(nn.Module):
     def prefill(self, tokens: torch.Tensor, caches: dict):
         """Logits (B, V) of the last prompt position; fills ``caches`` in place."""
         positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
-        x = self._stack(self._embed(tokens, positions), positions=positions, caches=caches)
+        x = self._stack(self._embed(self.embed, tokens, positions), positions=positions,
+                        caches=caches)
         h = rms_norm(x[:, -1:], self.final_norm, self.cfg.norm_eps)
         return self.logits(h)[:, 0], caches
 
@@ -165,7 +266,17 @@ class DecoderLM(nn.Module):
         """token: (B,) ids; pos: the position of ``token`` (uniform across the batch)."""
         positions = torch.full((token.shape[0], 1), int(pos), dtype=torch.int32,
                                device=token.device)
-        x = self._stack(self._embed(token[:, None], positions), positions=positions,
-                        caches=caches, decode_pos=int(pos))
+        x = self._stack(self._embed(self.embed, token[:, None], positions),
+                        positions=positions, caches=caches, decode_pos=int(pos))
         h = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return self.logits(h)[:, 0], caches
+
+
+def _chunk_nll(h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor):
+    """(summed negative log-likelihood, count) of one chunk's valid labels,
+    from float32 logits."""
+    logits = (h @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    valid = (labels >= 0).float()
+    return torch.sum((lse - gold) * valid), torch.sum(valid)

@@ -895,3 +895,99 @@ def test_a_compressed_run_on_the_card_is_deterministic_and_launches_nothing(dev)
     assert ops.dp_aggregate_sums.launches == before
     assert torch.equal(a.final_w, b.final_w) and torch.equal(a.eta_history, b.eta_history)
     assert torch.isfinite(a.final_w).all()
+
+
+# ---------------------------------------------------------------------------
+# federated LM training: the card against the CPU.  float32 with float32
+# products (TF32 off), the same weights, tokens and materialized noise; the
+# metrics within 1e-4 relative (float32 sums in other orders through a
+# forward, a backward and the FedEXP ratio; chip_smoke.TRAIN_CHECK_TOL at full
+# width).  The update tree within 1e-4 of its largest entry, or within four
+# times the CPU round's own spread where that is larger: the largest change
+# of the CPU's update when the weights move by float32's unit roundoff
+# (2^-24 relative, two draws).  A dense round's spread is ~3e-6 of the tree,
+# so 1e-4 holds it; a two-step Mamba2 round on the Markov stream amplifies a
+# last-bit change of its weights to ~1e-4 of the tree (through the input
+# projection, the SSD and the tied embedding; 0.9-1.0e-4 on one host, 4.7e-4
+# on another), so no two float32 summation orders agree to 1e-4 there.  The bound stays under 1e-2 of the
+# tree, far below a planted fault's error (eta_g forced to 1 moves it by
+# 1 - 1/eta_g).
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def f32_matmuls():
+    """cuBLAS products in float32, not TF32, as chip_smoke.py sets them."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def _train_step_pair(dev, arch, name, impl="xla_flash"):
+    """One round of ``name`` on the card and on the CPU: (card new params,
+    card metrics, CPU new params, CPU metrics, the old CPU params)."""
+    from repro_torch.configs import FederatedConfig, get_config, reduced
+    from repro_torch.data import make_client_stream
+    from repro_torch.launch import FederatedTrainer, count_params
+    from repro_torch.models import DecoderLM
+    cfg = reduced(get_config(arch), layers=2, d_model=256)
+    card = DecoderLM(cfg, attn_impl=impl, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    cpu = DecoderLM(cfg, attn_impl=impl, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    fed = FederatedConfig(algorithm=name, local_steps=2, local_lr=0.05, clip_norm=0.5,
+                          noise_sigma=1e-4)
+    k, n = 3, count_params(cfg)
+    toks = make_client_stream(torch.Generator().manual_seed(1), k, cfg.vocab_size).sample(
+        torch.Generator().manual_seed(2), 2, 2, 97)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    p_cpu = {key: p.detach() for key, p in cpu.named_parameters()}
+    p_card = {key: p.detach() for key, p in card.named_parameters()}
+    noise = FederatedTrainer(cpu, fed, n).draw_noise(p_cpu, k, torch.Generator().manual_seed(3))
+    cpu_step = FederatedTrainer(cpu, fed, n).make_train_step(k)
+    want, wm = cpu_step(p_cpu, batch, None, noise)
+    got, gm = FederatedTrainer(card, fed, n).make_train_step(k)(
+        p_card, {key: v.to(dev) for key, v in batch.items()}, None, noise)
+    spread = 0.0
+    for seed in (11, 12):
+        g = torch.Generator().manual_seed(seed)
+        moved = {key: p * (1 + 2.0**-24 * torch.randn(p.shape, generator=g))
+                 for key, p in p_cpu.items()}
+        again, _ = cpu_step(moved, batch, None, noise)
+        spread = max([spread] + [float(((again[key] - moved[key]) - (want[key] - p_cpu[key]))
+                                       .abs().max()) for key in want])
+    return got, gm, want, wm, p_cpu, spread
+
+
+@pytest.mark.parametrize("name", ["fedexp", "ldp-fedexp-gauss", "cdp-fedexp"])
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "mamba2-2.7b"])
+def test_a_train_step_on_the_card_equals_the_cpus(dev, f32_matmuls, arch, name):
+    before = (ops.dp_aggregate_sums.launches, flash_ops.flash_attention.launches,
+              ssd_ops.ssd_scan.launches)
+    got, gm, want, wm, old, spread = _train_step_pair(dev, arch, name)
+    assert (ops.dp_aggregate_sums.launches, flash_ops.flash_attention.launches,
+            ssd_ops.ssd_scan.launches) == before          # training reaches no kernel
+    for key in ("loss", "eta_g", "mean_update_norm", "agg_sq"):
+        assert gm[key].device.type == "cuda"
+        assert abs(float(gm[key]) / float(wm[key]) - 1) <= 1e-4, key
+    scale = max(float((want[k] - old[k]).abs().max()) for k in want)
+    bound = max(1e-4 * scale, 4 * spread)
+    print(f"\n{arch} {name}: the CPU's own spread {spread / scale:.2e} of the update tree")
+    assert bound <= 1e-2 * scale, (spread, scale)
+    for k in want:
+        err = float(((got[k].cpu() - old[k]) - (want[k] - old[k])).abs().max())
+        assert err <= bound, (k, err, scale, spread)
+
+
+def test_training_refuses_the_kernel_path_on_the_card(dev):
+    from repro_torch.configs import FederatedConfig, get_config, reduced
+    from repro_torch.launch import FederatedTrainer
+    from repro_torch.models import DecoderLM
+    cfg = reduced(get_config("h2o-danube-3-4b"))
+    model = DecoderLM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    with pytest.raises(ValueError, match="no backward"):
+        FederatedTrainer(model, FederatedConfig(), 1000)
+    params = {k: p.detach().clone().requires_grad_() for k, p in model.named_parameters()}
+    toks = torch.zeros(1, 8, dtype=torch.int64, device=dev)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        model.loss(params, toks, toks)

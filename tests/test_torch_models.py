@@ -239,9 +239,14 @@ class TestAttentionApply:
         _, tp = layer
         x = torch.tensor(self._x(3, 9)[:1])
         pos = torch.arange(3)[None]
-        for impl in ("xla_flash", "chunked"):
-            with pytest.raises(NotImplementedError, match="not ported"):
-                attention.attention_apply(tp, x, self.tcfg, positions=pos, impl=impl)
+        jp, _ = layer
+        for impl in ("xla_flash", "chunked"):     # ported: the JAX package's paths
+            want, _ = jax_attn.attention_apply(jp, jnp.asarray(x.numpy()), self.jcfg,
+                                               positions=jnp.asarray(pos.numpy()), impl=impl)
+            got, _ = attention.attention_apply(tp, x, self.tcfg, positions=pos, impl=impl)
+            _close(got, want)
+        with pytest.raises(ValueError, match="unknown attention impl"):
+            attention.attention_apply(tp, x, self.tcfg, positions=pos, impl="pallas")
         with pytest.raises(NotImplementedError, match="enc-dec"):
             attention.attention_apply(tp, x, self.tcfg, positions=pos, cross_kv=(x, x))
         capped = dataclasses.replace(self.tcfg, attn_logit_softcap=30.0)
@@ -249,7 +254,6 @@ class TestAttentionApply:
             attention.attention_apply(tp, x, capped, positions=pos)
         # the plain path keeps the softcap, as the JAX package's dense path does
         jcapped = dataclasses.replace(self.jcfg, attn_logit_softcap=30.0)
-        jp, _ = layer
         want, _ = jax_attn.attention_apply(jp, jnp.asarray(x.numpy()), jcapped,
                                            positions=jnp.asarray(pos.numpy()), impl="dense")
         got, _ = attention.attention_apply(tp, x, capped, positions=pos, impl="dense")

@@ -250,11 +250,15 @@ def test_registry_budget_and_draws():
     alg = make_algorithm("ldp-fedexp-privunit", **kw)
     a = alg.draw_noise(round_generator(2, 0), 10, 32, "cpu")
     b = alg.draw_noise(round_generator(2, 0), 10, 32, "cpu")
-    assert a.g.shape == (10, 32) and a.u_int.dtype == torch.int32
+    assert a.u_int.dtype == torch.int32
     assert 0 <= int(a.u_int.min()) and int(a.u_int.max()) < alg.mechanism.sc.k
-    for f in ("cap_u", "u01", "g", "round_u", "keep_u", "u_int"):
+    for f in ("cap_u", "u01", "round_u", "keep_u", "u_int"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
-    assert a.xi is None and a.seed is None
+    # the directions' normal is keyed by (seed, client, column), not drawn (M, d)
+    assert a.xi is None and a.g is None and isinstance(a.seed, int) and a.seed == b.seed
+    from repro_torch.kernels.dp_aggregate.ref import ldp_noise_ref
+    g = alg.mechanism._normal(a, (10, 32), 0, "cpu")
+    assert g.shape == (10, 32) and torch.equal(g, ldp_noise_ref(10, 32, a.seed, 1.0))
 
 
 M, D, TAU, ROUNDS = 40, 32, 5, 5

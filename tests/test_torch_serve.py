@@ -82,8 +82,10 @@ def test_unported_stacks_and_a_missing_card_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DecoderLM(reduced(get_config(name)), device="cpu")
     cfg = reduced(get_config("h2o-danube-3-4b"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        DecoderLM(cfg, device="cpu", attn_impl="xla_flash")
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        DecoderLM(cfg, device="cpu", attn_impl="pallas")   # the JAX package's name of "kernel"
+    for impl in ("xla_flash", "chunked"):                  # the training paths build
+        assert DecoderLM(cfg, device="cpu", attn_impl=impl).attn_impl == impl
     if torch.cuda.is_available():
         pytest.skip("the missing-card error needs a machine without a CUDA card")
     with pytest.raises(RuntimeError, match="no CUDA device"):

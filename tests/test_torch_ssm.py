@@ -123,7 +123,7 @@ class TestSSMApply:
                                            err_msg=f"{impl} prefill {short}", **TOL)
                 for key in ("conv", "state"):
                     np.testing.assert_allclose(_np(tc[key]), _np(wc[key]), err_msg=key, **TOL)
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(ValueError, match="unknown impl"):
             ssm.ssm_apply(tp, torch.tensor(self._x(5, 3)), PORT_CFG, impl="pallas")
 
 
