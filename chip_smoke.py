@@ -162,13 +162,34 @@ Phases, each of which exits non-zero on failure:
                under CohortSpec(q=0.1, gather=True) at M=1000, d=131072 for
                5 rounds: ms per round, its split, peak memory (dp-scaffold's
                (M, d) variate table is 0.52 GB), and the synchronizing CUDA
-               operations of one round (an adaptive-clip round may make no
-               more than cdp-fedexp's, a sampled round no more than its
-               name's full round, a dp-scaffold round no more than
-               ldp-fedexp-gauss's); PrivUnit's release time.  And e2's CNN
-               rounds (cdp-fedexp at d = 5046, ldp-fedexp-gauss at d = 237,
-               full batch and the minibatch spec) at M = 1000, tau = 10: ms
-               per round, the split, peak memory, syncs of a round.
+               operations of one round, which must be none; PrivUnit's
+               release time.  And e2's CNN rounds (cdp-fedexp at d = 5046,
+               ldp-fedexp-gauss at d = 237, full batch and the minibatch
+               spec) at M = 1000, tau = 10: ms per round, the split, peak
+               memory, syncs of a round.
+  4b. scan     the scan engine (EngineSpec("scan", chunk_rounds=25): each
+               round staged on the host and replayed from a CUDA graph):
+               all 18 labels at the paper size (M = 1000, tau = 20, 50
+               rounds) under eager and scan, equal in bits (final_w,
+               last_w, the four histories, the watchdog round); the same
+               for q = 0.1 gathered and for a faulted run whose watchdog
+               trips (eta_g above 1.05), on cdp-fedexp and
+               ldp-fedexp-gauss, and at full size (d = 131072, 5 rounds)
+               for ldp-fedexp-gauss, cdp-fedexp and ldp-fedexp-privunit (a
+               case not equal in bits would be held at SCAN_GRAPH_RTOL and
+               named); one dp_aggregate launch a replayed cdp-fedexp round;
+               a tracked scan run equal in bits to an untracked one, its
+               stream validated by tools/check_telemetry.py; both kernels
+               launched with their seed and sigma in device memory against
+               the by-value launches (bits, and times); the quickstart
+               (examples/quickstart_torch.py --quick --telemetry
+               --schedule) in a process of its own, its streams validated
+               (the schedule's sigma against sigma0 0.9**t); ms per round
+               and the profiled idle share of three names under both
+               engines at the paper size, with the dp_aggregate and noise
+               kernels in each profiled run's trace held equal to the
+               launch counters (which under scan count captured launches
+               times replays).
   5. reference the port on the card against the port on the CPU (plain
                versions, same seeds, same noise) on a small problem: fedexp,
                ldp-fedexp-gauss (also under CohortSpec(q=0.25), dense and
@@ -230,7 +251,7 @@ Phases, each of which exits non-zero on failure:
                and a planted fault (eta_g forced to 1) outside it.  No
                hand-written kernel launches: training reaches none (nor
                does the JAX package's).
-Phases 3, 3b, 3e, 3f, 3g and 4 are the round loop's main path, phase 6's bf16 generate the
+Phases 3, 3b, 3e, 3f, 3g, 4 and 4b are the round loop's main path, phase 6's bf16 generate the
 dense serve path's (the tensor-core flash kernel), its f32 generate and phase
 9's the float32 serve path's (the float32 tensor-core flash kernel), phase 7's
 generate the Mamba2 serve path's, phase 8's bf16 generate the Dh-256 serve
@@ -912,7 +933,7 @@ def gathered_rounds(name, d, dev, dense, gathered):
     variate carry (c and the (M, d) table) is held too."""
     from repro_torch.core.algorithm import round_generator
     from repro_torch.fedsim import CohortSpec, gather_slots
-    from repro_torch.fedsim.server import round_step, sampled_round
+    from repro_torch.fedsim.server import round_step
     m, tau, rounds = PAPER
     session, _, _ = run_session(name, m, d, 1, tau, dev, cohort=SAMPLED["q=0.1"])
     alg, batches, eta_l = session.algorithm, session.client_batches, session.train.eta_l
@@ -927,10 +948,10 @@ def gathered_rounds(name, d, dev, dense, gathered):
             noise = alg.draw_noise(gen, m, d, dev, t)
             deltas = session._local_fn(w, batches, eta_l)
             slots = gather_slots(mask, specs[1].resolved_cap(m))[0].to(dev)
-            w_d, aux_d, s_d = sampled_round(alg, lambda *_: deltas, w, state, noise, mask,
-                                            specs[0], t, batches, eta_l)
-            w_g, aux_g, _ = sampled_round(alg, lambda *_: deltas[slots], w, state, noise,
-                                          mask, specs[1], t, batches, eta_l)
+            w_d, aux_d, s_d = staged_round(alg, lambda *_: deltas, w, state, noise, mask,
+                                           specs[0], t, batches, eta_l)
+            w_g, aux_g, _ = staged_round(alg, lambda *_: deltas[slots], w, state, noise,
+                                         mask, specs[1], t, batches, eta_l)
             out_d, out_g = (aux_d.eta_g,), (aux_g.eta_g,)
         else:
             w_d, s_d, out_d = steps[0](w, state, round_generator(0, t), t, batches, eta_l)
@@ -1304,8 +1325,7 @@ def e2_gathered_rounds(session):
     import torch
     from repro_torch.core.algorithm import round_generator
     from repro_torch.fedsim import CohortSpec, gather_rows, gather_slots
-    from repro_torch.fedsim.local import local_shuffles
-    from repro_torch.fedsim.server import sampled_round
+    from repro_torch.fedsim.local import local_shuffles, shuffle_key
     m, _, rounds = E2
     alg, batches, eta_l = session.algorithm, session.client_batches, session.train.eta_l
     n, dev = batches["y"].shape[1], session.device
@@ -1316,23 +1336,23 @@ def e2_gathered_rounds(session):
         gen = round_generator(0, t)
         mask = specs[0].round_mask(gen, m)
         noise = alg.draw_noise(gen, m, session.dim, dev, t)
-        seed = gen.initial_seed()
+        key = shuffle_key(gen.initial_seed()).to(dev)
         slots = gather_slots(mask, specs[1].resolved_cap(m))[0]
         on, dslots = int((mask > 0).sum()), slots.to(dev)
-        if not torch.equal(local_shuffles(seed, dslots, E2_LOCAL["epochs"], n),
-                           local_shuffles(seed, torch.arange(m, device=dev),
+        if not torch.equal(local_shuffles(key, dslots, E2_LOCAL["epochs"], n),
+                           local_shuffles(key, torch.arange(m, device=dev),
                                           E2_LOCAL["epochs"], n)[dslots]):
             fail(f"e2 spec trainer: the gathered block's shuffles differ, round {t}")
-        deltas = session._local_fn(w, batches, eta_l, seed=seed, start=0)
-        block = session._local_fn(w, gather_rows(batches, dslots), eta_l, seed=seed, start=slots)
+        deltas = session._local_fn(w, batches, eta_l, key=key, start=0)
+        block = session._local_fn(w, gather_rows(batches, dslots), eta_l, key=key, start=slots)
         row_gap = (block[:on] - deltas[dslots[:on]]).abs().amax(dim=1)
         gap = max([gap] + row_gap.tolist())
         off += int((row_gap > RTOL * deltas.abs().max()).sum())
         rows += on
-        w_d, _, s_d = sampled_round(alg, lambda *_, **__: deltas, w, state, noise, mask,
-                                    specs[0], t, batches, eta_l)
-        w_g, _, _ = sampled_round(alg, lambda *_, **__: deltas[dslots], w, state, noise, mask,
-                                  specs[1], t, batches, eta_l)
+        w_d, _, s_d = staged_round(alg, lambda *_, **__: deltas, w, state, noise, mask,
+                                   specs[0], t, batches, eta_l)
+        w_g, _, _ = staged_round(alg, lambda *_, **__: deltas[dslots], w, state, noise, mask,
+                                 specs[1], t, batches, eta_l)
         worst = max(worst, close(w_g, w_d, f"e2 spec trainer: gathered vs dense w, round {t}"))
         w, state = w_d, s_d
     print(f"[3e e2] spec trainer, q=0.1, each of {rounds} rounds from the dense iterate: the "
@@ -2135,7 +2155,10 @@ def phase_checkpoints(dev):
 
 def syncs_of(fn) -> list[str]:
     """The synchronizing CUDA operations ``fn`` makes, as PyTorch's sync
-    debug mode reports them: the file and line of each."""
+    debug mode reports them: the file and line of each.  The mode's own
+    notice that it is a prototype (torch/cuda/__init__.py, the first time
+    it is switched on in a process) is not one: it was the "one sync" of
+    the first round this counted."""
     import warnings
 
     import torch
@@ -2149,7 +2172,7 @@ def syncs_of(fn) -> list[str]:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     return [f"{Path(w.filename).name}:{w.lineno}" for w in seen
-            if "synchroniz" in str(w.message)]
+            if "called a synchronizing" in str(w.message)]
 
 
 PAPER = (1000, 20, 50)                 # M, tau, rounds; d 500 or 100 by name
@@ -2173,48 +2196,50 @@ SYNC_BASE = {"ldp-fedexp-gauss q=0.1 gathered": "ldp-fedexp-gauss",
              "ldp-fedexp-gauss faults": "ldp-fedexp-gauss"}
 
 
+def staged_round(alg, local_fn, w, state, noise, mask, cohort, t, batches, eta_l):
+    """One masked round on the host draws ``noise`` and ``mask``, staged as
+    the engines stage them (``stage_noise``, ``stage_inputs``) and run by
+    ``masked_round``: ``(w_next, aux, state)``."""
+    from repro_torch.fedsim.server import masked_round, stage_inputs
+    inp = stage_inputs(alg, local_fn, alg.stage_noise(noise, w.device, t), t, mask.shape[0],
+                       w.device, cohort=cohort, mask=mask)
+    return masked_round(alg, local_fn, w, state, inp, cohort, t, batches, eta_l)
+
+
 def split_round(session, w, state, t, cohort, fault=None):
-    """One more round of ``session``'s algorithm at ``w``, split by CUDA
-    events into local training (of the gathered block, under a gathering
-    cohort; with the stragglers' cutoffs under ``fault``) and the rest of the
-    round: (local ms, server ms)."""
+    """One more round of ``session``'s algorithm at ``w`` as the engines run
+    it (``round_stage``, then ``round_body``), timed in three parts: the host
+    stage (host clock: the draws, PrivUnit's float64 quantiles, the copies
+    queued), then between CUDA events local training (of the gathered block
+    under a gathering cohort; with the stragglers' cutoffs under ``fault``)
+    and the rest of the body: (stage ms, local ms, server ms)."""
     import torch
     from repro_torch.core.algorithm import round_generator
-    from repro_torch.fedsim import CohortSpec, FaultSpec, gather_rows, gather_slots
-    from repro_torch.fedsim.faults import fault_masks, gather_fault_rows
-    from repro_torch.fedsim.server import local_caller, sampled_round
+    from repro_torch.fedsim import CohortSpec, FaultSpec, gather_rows
+    from repro_torch.fedsim.server import local_caller, round_body, round_stage
     alg, batches, eta_l = session.algorithm, session.client_batches, session.train.eta_l
     tau = session.train.tau
+    spec = None if cohort is None else CohortSpec(**cohort)
     fspec = None if fault is None else FaultSpec(**fault)
-    local = local_caller(session._local_fn, alg, fspec, tau)
-    m, d = session.num_clients, session.dim
-    gen = round_generator(1, t)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    if cohort is None and fault is None:
-        ev[0].record()
-        deltas = local(w, batches, eta_l, 0, state, seed=gen.initial_seed())
-        ev[1].record()
-        alg.apply_round_stateful(gen, w, deltas, state, t=t)
-        ev[2].record()
-    else:
-        spec = None if cohort is None else CohortSpec(**cohort)
-        mask = torch.ones(m) if spec is None else spec.round_mask(gen, m)
-        noise = alg.draw_noise(gen, m, d, w.device, t)
-        faults = None if fspec is None else fault_masks(fspec, gen.initial_seed(), m)
-        straggler = None if faults is None else faults[1]
-        block, start = batches, 0
-        if spec is not None and spec.gather:
-            start = gather_slots(mask, spec.resolved_cap(m))[0]
-            block = gather_rows(batches, start.to(w.device))
-            straggler = gather_fault_rows(start, straggler)[0]
-        ev[0].record()
-        deltas = local(w, block, eta_l, start, state, straggler, gen.initial_seed())
-        ev[1].record()
-        sampled_round(alg, lambda *_, **__: deltas, w, state, noise, mask, spec, t, batches,
-                      eta_l, fault=fspec, faults=faults, tau=tau)
-        ev[2].record()
+    stage = round_stage(alg, session._local_fn, spec, fspec)
     torch.cuda.synchronize()
-    return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    t0 = time.perf_counter()
+    inp = stage(round_generator(1, t), t, session.num_clients, session.dim, w.device)
+    stage_ms = 1e3 * (time.perf_counter() - t0)
+    block, start = batches, 0
+    if inp.slots is not None:
+        block, start = gather_rows(batches, inp.slots), inp.slots
+    straggler = None if inp.faults is None else inp.faults[1]
+    local = local_caller(session._local_fn, alg, fspec, tau)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    deltas = local(w, block, eta_l, start, state, straggler, inp.shuffle_key)
+    ev[1].record()
+    round_body(alg, lambda *_, **__: deltas, None, 1, spec, fspec, tau)(
+        w, state, inp, t, batches, eta_l)
+    ev[2].record()
+    torch.cuda.synchronize()
+    return stage_ms, ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
 
 
 def checkpoint_ms(session, result, rounds) -> tuple[float, float]:
@@ -2246,7 +2271,6 @@ def phase_full(dev, cases) -> dict:
     adaptive-clip round may make no more than cdp-fedexp's, a sampled round
     no more than its name's full round); PrivUnit's release time."""
     import torch
-    from repro_torch.core import mechanisms
     from repro_torch.core.algorithm import round_generator
     from repro_torch.data.synthetic import linreg_loss
     from repro_torch.fedsim import CohortSpec, FaultSpec, cohort_updates
@@ -2275,9 +2299,9 @@ def phase_full(dev, cases) -> dict:
         alg, w = session.algorithm, r.last_w
         state = alg.init_state(w)
         torch.cuda.reset_peak_memory_stats()
-        local_ms, server_ms = split_round(session, w, state, rounds, cohort, fault)
-        row = dict(ms_per_round=per_round, run_ms_per_round=run_only, local_ms=local_ms,
-                   server_ms=server_ms,
+        stage_ms, local_ms, server_ms = split_round(session, w, state, rounds, cohort, fault)
+        row = dict(ms_per_round=per_round, run_ms_per_round=run_only, stage_ms=stage_ms,
+                   local_ms=local_ms, server_ms=server_ms,
                    peak_gb=torch.cuda.max_memory_allocated() / 1e9, cohort=cohort)
         step = round_step(alg, session._local_fn, session.eval_fn, cohort=None if cohort is None
                           else CohortSpec(**cohort),
@@ -2291,7 +2315,8 @@ def phase_full(dev, cases) -> dict:
                 else "no dp_aggregate launch (plain PyTorch"
                 + (", the noise-only kernel)" if "perclient" in name else ")"))
         print(f"[4 full] {label} M={m} d={d} tau={tau}: {per_round:.3f} ms/round "
-              f"({run_only:.3f} without building the session; local training "
+              f"({run_only:.3f} without building the session; host stage "
+              f"{row['stage_ms']:.3f} ms (host clock), local training "
               f"{row['local_ms']:.3f} ms, server release+step {row['server_ms']:.3f} ms); "
               f"{kern} (CUDA events); peak "
               f"{row['peak_gb']:.2f} GB; {row['syncs']} synchronizing CUDA operations in a "
@@ -2304,24 +2329,37 @@ def phase_full(dev, cases) -> dict:
         if "privunit" in name:
             deltas = cohort_updates(linreg_loss, w, session.client_batches, tau,
                                     session.train.eta_l)
-            noise = alg.draw_noise(round_generator(3, 0), m, d, dev)
+            drawn = alg.draw_noise(round_generator(3, 0), m, d, dev)
+            torch.cuda.synchronize()
+            q0 = time.perf_counter()
+            noise = alg.stage_noise(drawn, dev)
+            torch.cuda.synchronize()
+            stage_noise_ms = 1e3 * (time.perf_counter() - q0)
             alg.mechanism.release(noise, deltas)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             release_ms = cuda_ms(lambda: alg.mechanism.release(noise, deltas), 5, warmup=0)
             host_ms = 1e3 * (time.perf_counter() - t0) / 5
             q0 = time.perf_counter()
-            mechanisms.privunit_quantile(noise.cap_u, noise.u01, alg.mechanism.pu)
+            alg.mechanism.stage(drawn)
             row.update(release_ms=release_ms, release_wall_ms=host_ms,
-                       quantile_ms=1e3 * (time.perf_counter() - q0))
-            print(f"[4 full] {name}: PrivUnit release (clip, quantiles, randomize, reduce, "
-                  f"Algorithm 4) {release_ms:.3f} ms (CUDA events), {host_ms:.3f} ms wall; "
-                  f"of it the host's float64 quantiles {row['quantile_ms']:.3f} ms  [{smi}]")
+                       quantile_ms=1e3 * (time.perf_counter() - q0),
+                       stage_noise_ms=stage_noise_ms)
+            print(f"[4 full] {name}: PrivUnit release (clip, randomize, reduce, Algorithm 4, "
+                  f"on the staged quantiles) {release_ms:.3f} ms (CUDA events), {host_ms:.3f} "
+                  f"ms wall; the stage before it: the host's float64 quantiles "
+                  f"{row['quantile_ms']:.3f} ms, the noise staged with its copies "
+                  f"{stage_noise_ms:.3f} ms (host clock)  [{smi}]")
         out[label] = row
     for label, base in SYNC_BASE.items():
         if out[label]["syncs"] > out[base]["syncs"]:
             fail(f"a {label} round syncs {out[label]['syncs']} times, {base}'s "
                  f"{out[base]['syncs']}")
+    # the rounds (stage and body) read nothing from the card: the scan engine
+    # replays the body from a graph
+    synced = {k: v["sync_at"] for k, v in out.items() if v["syncs"]}
+    if synced:
+        fail(f"rounds that synchronise with the card: {synced}")
     torch.cuda.empty_cache()
     return out
 
@@ -2359,19 +2397,280 @@ def phase_e2_rounds(dev, smi: str) -> dict:
         alg, w = session.algorithm, r.last_w
         state = alg.init_state(w)
         torch.cuda.reset_peak_memory_stats()
-        local_ms, server_ms = split_round(session, w, state, rounds, None)
+        stage_ms, local_ms, server_ms = split_round(session, w, state, rounds, None)
         step = round_step(alg, session._local_fn, session.eval_fn)
         syncs = syncs_of(lambda: step(w, state, round_generator(2, 0), 0,
                                       session.client_batches, session.train.eta_l))
-        out[label] = dict(ms_per_round=per_round, local_ms=local_ms, server_ms=server_ms,
+        out[label] = dict(ms_per_round=per_round, stage_ms=stage_ms, local_ms=local_ms,
+                          server_ms=server_ms,
                           peak_gb=torch.cuda.max_memory_allocated() / 1e9, syncs=len(syncs),
                           sync_at=syncs, d=model.dim, local=local)
         print(f"[4 full] {label} M={m} d={model.dim} tau={tau}"
               f"{'' if local is None else ' LocalSpec' + str(local)}: {per_round:.3f} ms/round "
-              f"(local training {local_ms:.3f} ms, server release+step {server_ms:.3f} ms, "
-              f"CUDA events; the round's eval besides); peak "
+              f"(host stage {stage_ms:.3f} ms, host clock; local training {local_ms:.3f} ms, "
+              f"server release+step {server_ms:.3f} ms, CUDA events; the round's eval "
+              f"besides); peak "
               f"{out[label]['peak_gb']:.2f} GB; {len(syncs)} synchronizing CUDA operations in a "
               f"round (sync debug mode){' at ' + ', '.join(syncs) if syncs else ''}  [{smi}]")
+    return out
+
+
+# phase 4b (the scan engine): the sampled and faulted pairs on the paper
+# workload (label, d, CohortSpec kwargs, FaultSpec kwargs); the faulted runs
+# arm a watchdog that FedEXP's extrapolation trips (eta_g above 1.05)
+SCAN_TRIP = dict(FAULT, watchdog=True, eta_max=1.05)
+SCAN_PAIRS = (("cdp-fedexp", 500, SAMPLED["q=0.1 gathered"], None),
+              ("ldp-fedexp-gauss", 100, SAMPLED["q=0.1 gathered"], None),
+              ("cdp-fedexp", 500, None, SCAN_TRIP), ("ldp-fedexp-gauss", 100, None, SCAN_TRIP))
+SCAN_FULL = ("ldp-fedexp-gauss", "cdp-fedexp", "ldp-fedexp-privunit")
+SCAN_TIMED = ("ldp-fedexp-gauss", "cdp-fedexp", "ldp-fedexp-privunit")
+SCAN_GRAPH_RTOL = 1e-6   # a case that is not bit-equal may differ by this much, and is named
+
+
+def scan_engine_spec():
+    """The phase's engine: scan, two chunks of 25 rounds, two rounds a graph."""
+    from repro_torch.fedsim import EngineSpec
+    return EngineSpec("scan", chunk_rounds=25)
+
+
+def scan_pair(label, name, m, d, rounds, tau, dev, *, data=None, **kw):
+    """The same run under the eager and the scan engine, held equal in bits
+    (``same_run``); a pair that is not is held at SCAN_GRAPH_RTOL and named.
+    Returns (eager session, scan session, eager result, scan result, data, gap)."""
+    import torch
+    se, data = make_session(name, m, d, rounds, tau, dev, data=data, **kw)
+    ss, _ = make_session(name, m, d, rounds, tau, dev, data=data, engine=scan_engine_spec(), **kw)
+    a, b = se.run(0), ss.run(0)
+    gap = 0.0
+    if not same_run(a, b):
+        if a.fault_round != b.fault_round:
+            fail(f"[4b scan] {label}: watchdog round {b.fault_round} under scan, "
+                 f"{a.fault_round} eager")
+        for f in RESULT_FIELDS:
+            x, y = getattr(a, f), getattr(b, f)
+            both = torch.isnan(x) & torch.isnan(y)
+            if bool((torch.isnan(x) ^ torch.isnan(y)).any()):
+                fail(f"[4b scan] {label}: {f} NaN pattern differs between the engines")
+            scale = float(torch.where(both, 0.0, x).abs().max()) or 1.0
+            gap = max(gap, float(torch.where(both, 0.0, (x - y).abs()).max()) / scale)
+        print(f"[4b scan] {label}: NOT equal in bits to eager: max gap {gap:.3e} of the "
+              f"largest entry (held at {SCAN_GRAPH_RTOL})")
+        if gap > SCAN_GRAPH_RTOL:
+            fail(f"[4b scan] {label}: scan differs from eager by {gap:.3e}")
+    return se, ss, a, b, data, gap
+
+
+# the dp_aggregate kernels' symbols in a profiler trace, beside the wrapper
+# whose launch counter counts them (``fedsim.scan.launch_counts`` keys)
+TRACED_KERNELS = (("aggregate_kernel", (0, "launches")), ("noise_kernel", (1, "launches")))
+
+
+def engine_window(session, label) -> dict:
+    """ms per round on the host clock and the profiled idle share of a
+    second run of ``session`` (its first run built and captured).  The
+    profiled run's kernels are counted in the trace and held equal to what
+    the wrappers' launch counters added in that run: under the scan engine
+    those counts are inferred (captured launches times replays), and the
+    trace shows whether each replay launched them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fedsim.scan import launch_counts
+    rounds = session.train.rounds
+    _, secs = timed_run(session)
+    torch.cuda.synchronize()
+    before = launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        session.run(0)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    after = launch_counts()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    idle = max(0.0, 1 - busy / wall) if busy > 0 else None
+    launches = {}
+    for symbol, counter in TRACED_KERNELS:
+        traced = sum(e.count for e in events if symbol in e.key)
+        counted = after[counter] - before[counter]
+        if traced != counted:
+            fail(f"[4b scan] {label}: the trace shows {traced} {symbol} launches in a run whose "
+                 f"launch counter added {counted}")
+        launches[symbol] = traced
+    return dict(ms_per_round=1e3 * secs / rounds, profiled_wall_ms=wall, busy_ms=busy,
+                idle_share=idle, traced_launches=launches)
+
+
+def pointer_launch_checks(dev, smi) -> dict:
+    """Both kernels launched with their seed and sigma in device memory
+    against the by-value launches at (1000, 131072): equal in bits (fused,
+    gated with row ids, the noise-only kernel, row ids too), and timed."""
+    import torch
+    from repro_torch.kernels.dp_aggregate import ops
+    m, d = 1000, 131072
+    seed, sigma = 2024, 0.21
+    g = torch.Generator(device=dev).manual_seed(11)
+    u = torch.randn(m, d, device=dev, generator=g) * 0.01
+    st = torch.tensor(seed, dtype=torch.int64, device=dev)
+    sg = torch.tensor(sigma, dtype=torch.float32, device=dev)
+    cap = 176
+    ids = torch.randperm(m, generator=torch.Generator().manual_seed(3))[:cap].sort().values
+    ids = ids.to(dev, torch.int32)
+    rows = u[:cap]
+    gate = (torch.arange(cap, device=dev) % 7 != 0).to(torch.float32)
+    out = {}
+    with uncounted():
+        cases = {
+            "fused": (lambda: ops.dp_aggregate_sums(u, 1.0, noise_seed=seed, noise_sigma=sigma),
+                      lambda: ops.dp_aggregate_sums(u, 1.0, noise_seed=st, noise_sigma=sg)),
+            "fused gated row_ids (176 rows)": (
+                lambda: ops.dp_aggregate_sums(rows, 1.0, noise_seed=seed, noise_sigma=sigma,
+                                              row_gate=gate, row_ids=ids),
+                lambda: ops.dp_aggregate_sums(rows, 1.0, noise_seed=st, noise_sigma=sg,
+                                              row_gate=gate, row_ids=ids)),
+            "noise-only": (lambda: ops.generate_ldp_noise(m, d, seed, sigma, device=dev),
+                           lambda: ops.generate_ldp_noise(m, d, st, sg, device=dev)),
+            "noise-only row_ids (176 rows)": (
+                lambda: ops.generate_ldp_noise(cap, d, seed, sigma, device=dev, row_ids=ids),
+                lambda: ops.generate_ldp_noise(cap, d, st, sg, device=dev, row_ids=ids)),
+        }
+        for label, (by_value, by_pointer) in cases.items():
+            a, b = by_value(), by_pointer()
+            a = a if isinstance(a, torch.Tensor) else torch.cat([a[0], a[1][None], a[2][None]])
+            b = b if isinstance(b, torch.Tensor) else torch.cat([b[0], b[1][None], b[2][None]])
+            if not torch.equal(a, b):
+                fail(f"[4b scan] {label}: the device-pointer seed and sigma launch differs from "
+                     f"the by-value launch")
+            value_ms, pointer_ms = cuda_ms(by_value, 10), cuda_ms(by_pointer, 10)
+            value_ms2 = cuda_ms(by_value, 10)
+            out[label] = dict(value_ms=min(value_ms, value_ms2), pointer_ms=pointer_ms)
+            print(f"[4b scan] {label} (1000, 131072): device-pointer seed and sigma = by-value in "
+                  f"bits; {pointer_ms:.4f} ms against {min(value_ms, value_ms2):.4f} ms by "
+                  f"value (CUDA events, 10 calls)  [{smi}]")
+    return out
+
+
+def quickstart_stream(smi) -> dict:
+    """``examples/quickstart_torch.py --quick --telemetry --schedule`` on the
+    card in a process of its own, its three streams validated by
+    ``tools/check_telemetry.py`` (8 rounds; the schedule's sigma against
+    sigma0 0.9**t)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "q.jsonl"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "examples" / "quickstart_torch.py"),
+                               "--quick", "--telemetry", str(path), "--schedule"],
+                              capture_output=True, text=True, timeout=300)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"[4b scan] quickstart_torch.py --quick exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        print(proc.stdout.strip())
+        checker = str(ROOT / "tools" / "check_telemetry.py")
+        sigma0 = 5 * 0.3 / math.sqrt(120)
+        checks = [[checker, "--rounds", "8", str(Path(tmp) / f"q-{n}.jsonl")]
+                  for n in ("dp-fedavg-cdp", "cdp-fedexp")]
+        checks.append([checker, "--rounds", "8", "--sigma0", repr(sigma0), "--sigma-decay", "0.9",
+                       str(Path(tmp) / "q-cdp-fedexp-schedule.jsonl")])
+        for cmd in checks:
+            r = subprocess.run([sys.executable] + cmd, capture_output=True, text=True)
+            if r.returncode != 0:
+                fail(f"[4b scan] check_telemetry rejected {cmd[-1]}: {r.stdout[-1500:]}")
+        print(f"[4b scan] quickstart_torch.py --quick --telemetry --schedule on the card in "
+              f"{secs:.1f} s (its process); 3 streams validated by tools/check_telemetry.py  "
+              f"[{smi}]")
+    return dict(seconds=secs)
+
+
+def phase_scan(dev, smi) -> dict:
+    """Phase 4b: the scan engine.  All 18 labels at the paper size under the
+    eager and the scan engine, equal in bits (final_w, last_w, the four
+    histories, the watchdog round); q = 0.1 gathered and a faulted run whose
+    watchdog trips, on cdp-fedexp and ldp-fedexp-gauss; ldp-fedexp-gauss,
+    cdp-fedexp and ldp-fedexp-privunit at full size; the kernels' device-
+    pointer launches against the by-value ones; a tracked run against an
+    untracked one, its stream validated; the quickstart's stream; ms per
+    round and the profiled idle share under both engines."""
+    import tempfile
+
+    import torch
+    from repro_torch.kernels.dp_aggregate import ops
+    from repro_torch.telemetry import JsonlTracker
+    m, tau, rounds = PAPER
+    out = {"gaps": {}}
+    captures = replays = 0
+    n0 = ops.dp_aggregate_sums.launches
+    data = {}
+    for name in NAMES:
+        d = 100 if "ldp" in name or "privunit" in name else 500
+        se, ss, a, b, data[d], gap = scan_pair(name, name, m, d, rounds, tau, dev,
+                                               data=data.get(d))
+        out["gaps"][name] = gap
+        eng = ss._scan
+        captures, replays = captures + eng.captures, replays + eng.replays
+        if name in SCAN_TIMED:
+            out[name] = {"eager": engine_window(se, name), "scan": engine_window(ss, name)}
+            e, s_ = out[name]["eager"], out[name]["scan"]
+            idle = lambda v: "not measured" if v is None else f"{v:.3f}"  # noqa: E731
+            print(f"[4b scan] {name} M={m} d={d} tau={tau}, {rounds} rounds: eager "
+                  f"{e['ms_per_round']:.3f} ms/round (idle share {idle(e['idle_share'])}), scan "
+                  f"{s_['ms_per_round']:.3f} ms/round (idle share {idle(s_['idle_share'])}), "
+                  f"host clock, card synchronised; kernels in the profiled runs' traces = the "
+                  f"launch counters (eager {e['traced_launches']}, scan replays "
+                  f"{s_['traced_launches']})  [{smi}]")
+    print(f"[4b scan] 18 labels at M={m}, {rounds} rounds: scan = eager in bits "
+          f"({sum(g > 0 for g in out['gaps'].values())} held at {SCAN_GRAPH_RTOL} instead); "
+          f"{captures} graphs captured, {replays} replays")
+    for name, d, cohort, fault in SCAN_PAIRS:
+        label = f"{name} {'q=0.1 gathered' if cohort else 'faulted, watchdog at eta_g 1.05'}"
+        _, ss, a, b, _, gap = scan_pair(label, name, m, d, rounds, tau, dev, data=data[d],
+                                        cohort=cohort, fault=fault)
+        out["gaps"][label] = gap
+        print(f"[4b scan] {label}: scan = eager (fault round {b.fault_round})")
+        if fault is not None:
+            out.setdefault("trips", []).append(b.fault_round)
+    if all(t is None for t in out["trips"]):
+        fail("[4b scan] the planted watchdog tripped in no faulted run")
+    mf, df, tf, rf = FULL_SIZE
+    full = None
+    for name in SCAN_FULL:
+        se, ss, a, b, full, gap = scan_pair(f"{name} full", name, mf, df, rf, tf, dev, data=full)
+        out["gaps"][f"{name} full"] = gap
+        _, secs_e = timed_run(se)
+        _, secs_s = timed_run(ss)
+        out[f"{name} full"] = dict(eager_ms=1e3 * secs_e / rf, scan_ms=1e3 * secs_s / rf)
+        print(f"[4b scan] {name} M={mf} d={df} tau={tf}, {rf} rounds: scan = eager; "
+              f"{1e3 * secs_e / rf:.3f} ms/round eager, {1e3 * secs_s / rf:.3f} scan (host clock)"
+              f"  [{smi}]")
+    del full
+    torch.cuda.empty_cache()
+    # launches a round under replay: one dp_aggregate launch a cdp-fedexp round
+    s_cdp, _ = make_session("cdp-fedexp", m, 500, rounds, tau, dev, data=data[500],
+                            engine=scan_engine_spec())
+    s_cdp.run(0)
+    before = ops.dp_aggregate_sums.launches
+    s_cdp.run(1)
+    per_round = (ops.dp_aggregate_sums.launches - before) / rounds
+    if per_round != 1:
+        fail(f"[4b scan] a replayed cdp-fedexp round counts {per_round} dp_aggregate launches")
+    out["launches_per_round_replayed"] = per_round
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "scan.jsonl")
+        tracked = s_cdp.run(0, tracker=JsonlTracker(path))
+        if not same_run(tracked, s_cdp.run(0)):
+            fail("[4b scan] a tracked scan run differs from the untracked one")
+        r = subprocess.run([sys.executable, str(ROOT / "tools" / "check_telemetry.py"),
+                            "--rounds", str(rounds), "--require-bytes", path],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            fail(f"[4b scan] check_telemetry rejected the scan stream: {r.stdout[-1500:]}")
+    print(f"[4b scan] cdp-fedexp under scan: {per_round:g} dp_aggregate launch a replayed "
+          f"round; a tracked run = the untracked one in bits, its stream validated")
+    out["pointer"] = pointer_launch_checks(dev, smi)
+    out["quickstart"] = quickstart_stream(smi)
+    out["scan_launches"] = ops.dp_aggregate_sums.launches - n0
     return out
 
 
@@ -3656,6 +3955,7 @@ def main() -> int:
     e9 = timed("3g e9", phase_e9, dev, smi)
     full = timed("4 full", phase_full, dev, cases)
     full.update(timed("4 full e2", phase_e2_rounds, dev, smi))
+    scan = timed("4b scan", phase_scan, dev, smi)
     launches = {"dp_aggregate": ops.dp_aggregate_sums.launches,
                 "ldp_noise": ops.generate_ldp_noise.launches,
                 "dp_aggregate gated": ops.dp_aggregate_sums.gated_launches}
@@ -3690,7 +3990,10 @@ def main() -> int:
              bound_by=head["bound_by"], library_ms=None, headline="fused (1000, 131072)",
              cases=cases, gated=gathered["modes"], gated_rows_on=gathered["rows_on"],
              gathered_shape=gathered["gathered_shape"], full_rounds=full, stream=stream,
-             e9=e9),
+             e9=e9, scan={k: v for k, v in scan.items() if k != "pointer"},
+             replays_traced={n: scan[n]["scan"]["traced_launches"]["aggregate_kernel"]
+                             for n in SCAN_TIMED},
+             device_pointer={k: v for k, v in scan["pointer"].items() if "fused" in k}),
         dict(name="ldp_noise", route="cuda", source=src,
              replaces="src/repro/kernels/dp_aggregate/kernel.py:222",
              launches=launches["ldp_noise"],
@@ -3699,7 +4002,10 @@ def main() -> int:
              bound_by=nhead["bound_by"], library_ms=None, headline="(1000, 131072)",
              cases=noise_cases, row_ids_ms=gathered["noise_rows_ms"],
              row_ids_bound_ms=gathered["noise_rows_bound_ms"],
-             row_ids_shape=gathered["gathered_shape"]),
+             row_ids_shape=gathered["gathered_shape"],
+             replays_traced={n: scan[n]["scan"]["traced_launches"]["noise_kernel"]
+                             for n in SCAN_TIMED},
+             device_pointer={k: v for k, v in scan["pointer"].items() if "noise" in k}),
         flash_tc,
         flash_simt,
         flash_wide,

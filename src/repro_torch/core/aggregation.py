@@ -114,16 +114,18 @@ def add_moments(a, b):
     return a + b
 
 
-def global_client_indices(start, m: int) -> torch.Tensor:
-    """(m,) global client indices (int64, on the host) of a block of m rows.
+def global_client_indices(start, m: int, device) -> torch.Tensor:
+    """(m,) global client indices (int64, on ``device``) of a block of m rows.
 
     ``start`` is the global index of row 0 (a contiguous block: ``start +
     arange(m)``) or already a (m,) tensor of global indices (a gathered
-    block, where row j holds client ``start[j]``), which passes through.
+    block, where row j holds client ``start[j]``), which passes through,
+    copied to ``device`` when it lies elsewhere.
     """
     if isinstance(start, torch.Tensor) and start.dim() == 1:
-        return start
-    return torch.arange(int(start), int(start) + m)
+        from repro_torch.core.algorithm import host_to_device
+        return host_to_device(start, device)
+    return torch.arange(int(start), int(start) + m, device=device)
 
 
 def row_keys(start, device) -> dict:

@@ -11,6 +11,15 @@ the JAX package's noise exactly.  A sampled round draws its cohort mask
 first (``CohortSpec.round_mask``), then the algorithm's noise for the whole
 cohort of M clients, so a gathered block of clients reads its rows of the
 same draws as the dense round.
+
+The round is a host stage and a device body.  The stage draws the
+``RoundNoise`` and puts it in the form the body reads
+(``ServerAlgorithm.stage_noise``): every field a tensor on the device (the
+seeds as 0-d int64, PrivUnit's quantiles computed on the host in float64
+and copied over, a round-indexed schedule's sigma(t) as a 0-d tensor).  The
+body then reads only device memory, so the scan engine can replay it from a
+CUDA graph (``fedsim/scan.py``): ``host_to_device`` refuses to run while a
+graph is being captured.
 """
 from __future__ import annotations
 
@@ -30,9 +39,12 @@ __all__ = [
     "device_normal",
     "draw_seed32",
     "host_to_device",
+    "stage_tensor",
+    "device_copy",
     "rows_at",
     "set_moment_count",
     "clamp_moment_counts",
+    "stage_fields",
 ]
 
 
@@ -66,11 +78,43 @@ def device_normal(gen: torch.Generator, shape, device) -> torch.Tensor:
 
 def host_to_device(x: torch.Tensor, device) -> torch.Tensor:
     """A host tensor on ``device``, copied from pinned memory without waiting
-    for the device (a pageable copy would synchronise the stream)."""
+    for the device (a pageable copy would synchronise the stream).
+
+    It raises while the current stream captures a CUDA graph: the graph
+    would replay this round's host values in every later round.  Such a
+    value belongs in the round's stage."""
     device = torch.device(device)
     if x.device.type == device.type:
         return x
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"host_to_device of a {tuple(x.shape)} {x.dtype} host tensor while a CUDA graph is "
+            "being captured: the graph would replay this round's host values forever; the "
+            "value belongs in the round's stage")
     return x.pin_memory().to(device, non_blocking=True)
+
+
+def stage_tensor(x, device, dtype=None) -> torch.Tensor:
+    """A round's host value as the body reads it: a tensor on ``device``
+    (a Python int as 0-d int64, a float as 0-d float32)."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.tensor(x, dtype=dtype or (torch.int64 if isinstance(x, int) else torch.float32))
+    return host_to_device(x, device)
+
+
+def device_copy(owner, name: str, host: torch.Tensor, device) -> torch.Tensor:
+    """A copy of the constant host tensor ``host`` on ``device``, cached on
+    ``owner`` (a frozen dataclass too) under ``name``: made the first time a
+    round asks for it, before any graph is captured, and read by every round
+    after."""
+    device = torch.device(device)
+    if device.type == host.device.type:
+        return host
+    cache = owner.__dict__.setdefault("_device_copies", {})
+    key = (name, str(device))
+    if key not in cache:
+        cache[key] = host_to_device(host, device)
+    return cache[key]
 
 
 def rows_at(x: torch.Tensor, start, m: int) -> torch.Tensor:
@@ -86,7 +130,7 @@ def rows_at(x: torch.Tensor, start, m: int) -> torch.Tensor:
         if rows.shape[0] < m:
             rows = torch.cat([rows, rows.new_zeros((m - rows.shape[0],) + tuple(x.shape[1:]))])
         return rows
-    return x.index_select(0, host_to_device(global_client_indices(start, m), x.device))
+    return x.index_select(0, global_client_indices(start, m, x.device))
 
 
 @dataclasses.dataclass
@@ -103,9 +147,10 @@ class RoundNoise:
     ldp_dc: torch.Tensor | None = None
     central_dc: torch.Tensor | None = None
     xi: torch.Tensor | None = None          # N(0, 1) of the CDP FedEXP numerator
-    # PrivUnit: (M,) host uniforms of the cap and its quantile, ScalarDP's (M,)
-    # rounding and keep uniforms and integers in [0, k) on the host, and a
-    # materialized (M, d) N(0, 1) in place of the normal keyed by ``seed``
+    # PrivUnit: (M,) host uniforms of the cap and its quantile (the stage
+    # turns them into ``quantile``), ScalarDP's (M,) rounding and keep
+    # uniforms and integers in [0, k), and a materialized (M, d) N(0, 1) in
+    # place of the normal keyed by ``seed``
     cap_u: torch.Tensor | None = None
     u01: torch.Tensor | None = None
     g: torch.Tensor | None = None
@@ -116,6 +161,23 @@ class RoundNoise:
     # a compressed aggregation's plan on the device: rand-k's (k,) indices, or
     # the sketch's (h, s) tables (a ``compression.SketchPlan``)
     plan: object = None
+    # set by the stage (``ServerAlgorithm.stage_noise``), which every release
+    # reads: PrivUnit's (M,) float32 quantiles in place of cap_u and u01, and
+    # a round-indexed noise schedule's sigma(t) as a 0-d float32 tensor
+    quantile: torch.Tensor | None = None
+    sigma_t: torch.Tensor | None = None
+
+
+def stage_fields(noise: RoundNoise, device, **extra) -> RoundNoise:
+    """``noise`` with ``extra`` set and every int and tensor field on
+    ``device`` (seeds as 0-d int64 tensors); other fields as they are."""
+    out = {}
+    for f in dataclasses.fields(RoundNoise):
+        v = extra[f.name] if f.name in extra else getattr(noise, f.name)
+        if isinstance(v, (int, torch.Tensor)) and not isinstance(v, bool):
+            v = stage_tensor(v, device)
+        out[f.name] = v
+    return RoundNoise(**out)
 
 
 def _map_moments(moments, fix):
@@ -204,6 +266,11 @@ class ServerAlgorithm:
     def draw_noise(self, gen: torch.Generator, m: int, d: int, device, t=None) -> RoundNoise:
         """All randomness of round ``t``, drawn from ``gen`` in a fixed order."""
         return RoundNoise()
+
+    def stage_noise(self, noise: RoundNoise, device, t=None) -> RoundNoise:
+        """``noise`` in the form the round's body reads: every int and host
+        tensor field on ``device`` (``stage_tensor``); the plan as it is."""
+        return stage_fields(noise, device)
 
     def apply_round_stateful(self, gen, w, raw_deltas, state, noise: RoundNoise | None = None,
                              t=None):

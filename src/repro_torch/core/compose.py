@@ -75,10 +75,11 @@ from repro_torch.core.algorithm import (
     RoundAux,
     RoundNoise,
     ServerAlgorithm,
+    device_copy,
     device_normal,
     draw_seed32,
-    host_to_device,
     rows_at,
+    stage_fields,
 )
 
 __all__ = [
@@ -266,10 +267,12 @@ class GaussianLDP(PrivacyMechanism):
 
 
 def _rows_of(values: torch.Tensor, start, m: int) -> torch.Tensor:
-    """A block's rows of a per-client (M,) host vector, zero past M (padding)."""
-    padded = torch.cat([values, torch.zeros(m, dtype=values.dtype)])
+    """A block's rows of a per-client (M,) vector, zero past M (padding), on
+    the vector's device."""
+    padded = torch.cat([values, values.new_zeros(m)])
     if isinstance(start, torch.Tensor):
-        return padded[torch.clamp(global_client_indices(start, m), max=values.shape[0])]
+        idx = global_client_indices(start, m, values.device)
+        return padded[torch.clamp(idx, max=values.shape[0])]
     return padded[int(start):int(start) + m]
 
 
@@ -315,8 +318,9 @@ class PerClientGaussian(PrivacyMechanism):
         return tuple(1.0 / (s * s) for s in self.sigmas)
 
     def _sigma_rows(self, start, m: int, device) -> torch.Tensor:
-        """(m,) float32 sigmas of a block of clients on ``device`` (0 past M)."""
-        return host_to_device(_rows_of(self._sigma_host, start, m), device)
+        """(m,) float32 sigmas of a block of clients on ``device`` (0 past M),
+        from the table's copy there."""
+        return _rows_of(device_copy(self, "sigmas", self._sigma_host, device), start, m)
 
     def draw(self, gen, m, d, device):
         """The round's 32-bit noise seed."""
@@ -435,6 +439,13 @@ class PrivUnitLDP(PrivacyMechanism):
         fields["seed"] = draw_seed32(gen)
         return fields
 
+    def stage(self, noise) -> dict:
+        """The staged form's fields: the (M,) quantiles computed on the host in
+        float64 from the cap and quantile uniforms, as float32, in their
+        place."""
+        t = mech.privunit_quantile(noise.cap_u, noise.u01, self.pu).to(torch.float32)
+        return {"quantile": t, "cap_u": None, "u01": None}
+
     def _normal(self, noise, shape, start, device) -> torch.Tensor:
         """The block's rows of the directions' N(0, 1) normal."""
         if noise.g is not None:
@@ -451,15 +462,15 @@ class PrivUnitLDP(PrivacyMechanism):
         c = self._clip(clip)
         norms = torch.linalg.vector_norm(deltas, dim=-1)
         clipped = deltas * torch.clamp(c / torch.clamp(norms, min=1e-12), max=1.0)[:, None]
-        t = mech.privunit_quantile(noise.cap_u, noise.u01, self.pu).to(torch.float32)
-        t = host_to_device(t, dev)
-        draws = [host_to_device(noise.round_u, dev), host_to_device(noise.keep_u, dev),
-                 host_to_device(noise.u_int, dev)]
+        if noise.quantile is None:
+            raise ValueError("PrivUnit releases the staged form of the round's noise, which "
+                             "holds its quantiles (stage_noise)")
+        draws = [noise.quantile, g, noise.round_u, noise.keep_u, noise.u_int]
         if clip is None:
-            released = mech.privunit_randomize(clipped, t, g, *draws, self.pu, self.sc)
+            released = mech.privunit_randomize(clipped, *draws, self.pu, self.sc)
         else:  # the release on the reference scale, rescaled publicly
             to_ref = self.clip_norm / c
-            released = mech.privunit_randomize(clipped * to_ref, t, g, *draws,
+            released = mech.privunit_randomize(clipped * to_ref, *draws,
                                                self.pu, self.sc) / to_ref
         return released, clipped
 
@@ -483,14 +494,13 @@ class PrivUnitLDP(PrivacyMechanism):
         with its own draws (the rows of the cohort's at its global index);
         masked rows where-zeroed in both the released and the clipped sets,
         each other row weighted by its mask value (and weight)."""
-        m = deltas.shape[0]
-        if not (isinstance(start, int) and start == 0 and noise.cap_u.shape[0] == m):
+        m, n = deltas.shape[0], noise.round_u.shape[0]
+        if not (isinstance(start, int) and start == 0 and n == m):
             # a streamed chunk's padding rows past M (mask 0) read client
-            # M - 1's host draws; their release is zeroed below
-            idx = torch.clamp(global_client_indices(start, m), max=noise.cap_u.shape[0] - 1)
-            host = {f: getattr(noise, f)[idx] for f in ("cap_u", "u01", "round_u", "keep_u",
-                                                         "u_int")}
-            noise = dataclasses.replace(noise, **host)
+            # M - 1's draws; their release is zeroed below
+            idx = torch.clamp(global_client_indices(start, m, noise.round_u.device), max=n - 1)
+            rows = {f: getattr(noise, f)[idx] for f in ("quantile", "round_u", "keep_u", "u_int")}
+            noise = dataclasses.replace(noise, **rows)
         released, clipped = self._randomize(noise, deltas, clip, start)
         keep = (mask > 0)[:, None]
         released = torch.where(keep, released, 0.0)
@@ -729,8 +739,11 @@ class NoiseSchedule(PrivacyMechanism):
         return factor
 
     def sigma_at(self, t: int) -> float:
-        """sigma(t) computed in float32, as the JAX package's traced value."""
-        s = np.float32(self.inner.sigma) * np.power(np.float32(self.decay), np.float32(t))
+        """sigma(t) in float32, as the JAX package's traced value: XLA's
+        float32 ``power`` is ``exp(t log decay)`` rounded once (numpy's
+        float32 ``power`` is off by one ulp in about a fifth of the rounds)."""
+        power = np.float32(math.exp(float(t) * math.log(float(np.float32(self.decay)))))
+        s = np.float32(self.inner.sigma) * power
         return float(np.float32(s) * np.float32(self._step_factor(t)))
 
     def sigma_value(self, t: int) -> float:
@@ -841,7 +854,7 @@ class WeightedAggregation(Aggregation):
     def row_weights(self, start, m_local, device):
         """(m_local,) float32 weights of the block's clients on ``device``;
         padding rows past M weigh 0."""
-        return host_to_device(_rows_of(self._host, start, m_local), device)
+        return _rows_of(device_copy(self, "weights", self._host, device), start, m_local)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1151,13 +1164,17 @@ class ComposedAlgorithm(ServerAlgorithm):
         raise AttributeError(
             f"{type(self).__name__} {d.get('name')!r} has no attribute {item!r}")
 
-    def _mech_at(self, t):
-        """The mechanism releasing round ``t``: ``at_round(t)`` of a varying
-        schedule, else the mechanism (a constant schedule's inner)."""
-        if self.needs_round_index and t is None:
-            raise ValueError(f"{self.name!r} carries a round-indexed noise schedule; pass "
-                             "the round index t")
-        return self.mechanism.at_round(t)
+    def _mech_at(self, noise):
+        """The mechanism releasing the round of the staged ``noise``: a
+        round-indexed schedule's inner mechanism at the staged sigma(t), a 0-d
+        tensor the release reads on the device; else the mechanism (a
+        constant schedule's inner)."""
+        if not self.needs_round_index:
+            return self.mechanism.at_round(None)
+        if noise is None or noise.sigma_t is None:
+            raise ValueError(f"{self.name!r} carries a round-indexed noise schedule: its round's "
+                             "noise must carry sigma(t) (stage_noise; pass the round index t)")
+        return dataclasses.replace(self.mechanism.inner, sigma=noise.sigma_t)
 
     def comm_floats(self, d: int) -> int:
         """Floats one client uploads and the round reduces: the aggregation's
@@ -1202,7 +1219,7 @@ class ComposedAlgorithm(ServerAlgorithm):
         compressed composition's central noise is (kc,) wide, and its plan
         comes from a generator of its own (``compression.plan_generator`` of
         ``gen``'s seed), which leaves ``gen``'s draws as they were."""
-        mech_t = self._mech_at(t)
+        mech_t = self.mechanism.at_round(self._round_index(t))
         fields = mech_t.draw(gen, m, self.aggregation.comm_floats(d), device)
         fields.update(self.step.draw(gen, mech_t))
         if self.aggregation.is_compressed:
@@ -1210,14 +1227,35 @@ class ComposedAlgorithm(ServerAlgorithm):
                 compression.plan_generator(gen.initial_seed()), d, device)
         return RoundNoise(**fields)
 
+    def stage_noise(self, noise, device, t=None) -> RoundNoise:
+        """``noise`` as the round's body reads it (``ServerAlgorithm``): a
+        PrivUnit mechanism's quantiles, and a round-indexed schedule's
+        sigma(t) (``sigma_at(t)``, float32), staged on ``device`` with the
+        rest."""
+        extra = {}
+        if self.needs_round_index:
+            extra["sigma_t"] = torch.tensor(self.mechanism.sigma_at(self._round_index(t)),
+                                            dtype=torch.float32)
+        if isinstance(self.mechanism, PrivUnitLDP):
+            extra.update(self.mechanism.stage(noise))
+        return stage_fields(noise, device, **extra)
+
+    def _round_index(self, t):
+        """``t``, which a round-indexed schedule needs."""
+        if self.needs_round_index and t is None:
+            raise ValueError(f"{self.name!r} carries a round-indexed noise schedule; pass "
+                             "the round index t")
+        return t
+
     def apply_round_stateful(self, gen, w, raw_deltas, state, noise=None, t=None):
         """Dense round ``t``: release the (M, d) raw deltas at the step's clip,
         then step.  A weighted composition takes the moment route with an
         all-ones mask, as the reference's does; a compressed one with no
         mask at all (full participation gates nothing)."""
-        mech_t = self._mech_at(t)
         if noise is None:
-            noise = self.draw_noise(gen, *raw_deltas.shape, raw_deltas.device, t)
+            noise = self.stage_noise(self.draw_noise(gen, *raw_deltas.shape, raw_deltas.device, t),
+                                     raw_deltas.device, t)
+        mech_t = self._mech_at(noise)
         if self.aggregation.is_compressed:
             moments = self.local_moments(noise, w, raw_deltas, None, 0, state, t)
             return self.apply_from_moments(noise, w, moments, state, t)
@@ -1242,7 +1280,7 @@ class ComposedAlgorithm(ServerAlgorithm):
         ``n_clients``, all sums.  ``mask`` None is full participation; a
         compressed composition's ``sum_c`` is (kc,), under the round's plan."""
         clip = self.step.clip_override(self._inner_state(state))
-        mech_t = self._mech_at(t)
+        mech_t = self._mech_at(noise)
         weights = self.aggregation.row_weights(start, deltas.shape[0], deltas.device)
         kw = {}
         if self.aggregation.is_compressed:
@@ -1263,7 +1301,7 @@ class ComposedAlgorithm(ServerAlgorithm):
         """The server update of round ``t`` from the cohort's moments."""
         mom, extras = moments
         clip = self.step.clip_override(self._inner_state(state))
-        mech_t = self._mech_at(t)
+        mech_t = self._mech_at(noise)
         m_eff = extras.get("n_clients", mom.count)
         if self.aggregation.is_compressed:
             return self._apply_compressed(noise, w, mom, extras, clip, m_eff, state, mech_t)

@@ -54,12 +54,17 @@ from repro_torch.core.algorithm import (
     ServerAlgorithm,
     device_normal,
     draw_seed32,
-    host_to_device,
     rows_at,
 )
 from repro_torch.core.clipping import clip_batch
 
-__all__ = ["ScaffoldState", "DPScaffoldServer"]
+__all__ = ["ScaffoldState", "DPScaffoldServer", "multiplicity_rows"]
+
+
+def multiplicity_rows(mask: torch.Tensor) -> torch.Tensor:
+    """(n,) int64 rows of a host multiplicity mask, row i ``mask[i]`` times
+    (DP-SCAFFOLD's ``draws`` of a with-replacement cohort), on the host."""
+    return torch.repeat_interleave(torch.arange(mask.shape[0]), mask.to(torch.int64))
 
 
 @dataclasses.dataclass
@@ -202,7 +207,7 @@ class DPScaffoldServer(ServerAlgorithm):
                                     weight_mask=gate, backend=self.backend)
 
     def local_moments(self, noise, w, deltas, mask, start, state, t=None, *,
-                      binary_mask: bool = False, host_mask: torch.Tensor | None = None):
+                      binary_mask: bool = False, draws: torch.Tensor | None = None):
         """Partial sums of both releases over the masked rows of a block at
         ``start``: the model release as ``RoundMoments``; the variate
         release's sum and the variate table's increment (a fresh
@@ -211,29 +216,36 @@ class DPScaffoldServer(ServerAlgorithm):
 
         ``dc`` is gated before the clip: a masked row's would otherwise be
         ``-c``.  A {0, 1} mask (``binary_mask``) gates rows in the kernel.  A
-        multiplicity mask is expanded on the host (``host_mask``, the same
-        mask on the host; a CPU ``mask`` serves as its own): row i enters
-        ``mask[i]`` times as rows of its own, keyed by its client, so each
-        release is one launch over the drawn rows.  The drawn rows are gated
-        by ``mask`` on the device: a row the host drew but the device turned
-        off (a faulted round's finite screen) adds no noise and no count."""
+        multiplicity mask comes with its expansion, ``draws`` (the round's
+        stage makes it from the host mask: ``multiplicity_rows``, on the
+        device): row i enters ``mask[i]`` times as rows of its own, keyed by
+        its client, so each release is one launch over the drawn rows.  The
+        drawn rows are gated by ``mask`` on the device: a row the stage drew
+        but the device turned off (a faulted client, a finite screen) adds no
+        noise and no count.
+
+        The block's table rows are indexed on the device: a gathered block's
+        slots (a tensor ``start``) all lie in the table, and of a contiguous
+        block the rows before ``num_clients``."""
         m_local, d = deltas.shape
         vs = self.variate_scale
         dev = deltas.device
         c_i = self.local_context(state, start, m_local)[0]
         dc = torch.where((mask > 0)[:, None], self._dc(deltas, c_i, state.c), 0.0)
         dc_clip = clip_batch(dc, self.clip_norm * vs)
-        gidx = global_client_indices(start, m_local)
+        gidx = global_client_indices(start, m_local, dev)
         # a streamed chunk's padding rows past M (mask 0) have no table row
-        inside = int((gidx < self.num_clients).sum())
+        inside = m_local if isinstance(start, torch.Tensor) else \
+            max(0, min(m_local, self.num_clients - int(start)))
         cis_add = torch.zeros((self.num_clients, d), dtype=dc_clip.dtype, device=dev) \
-            .index_add_(0, host_to_device(gidx[:inside], dev), (dc_clip * mask[:, None])[:inside])
+            .index_add_(0, gidx[:inside], (dc_clip * mask[:, None])[:inside])
         rows_dy, rows_dc, keys, gate = deltas, dc_clip, start, mask
         if not binary_mask:
-            draws = self._draws(mask, host_mask)
-            sel = host_to_device(draws, dev)
-            rows_dy, rows_dc = deltas.index_select(0, sel), dc_clip.index_select(0, sel)
-            keys, gate = gidx[draws], (mask.index_select(0, sel) > 0).to(mask.dtype)
+            if draws is None:
+                raise ValueError("a multiplicity mask needs its expanded rows (draws=, "
+                                 "multiplicity_rows of the host mask)")
+            rows_dy, rows_dc = deltas.index_select(0, draws), dc_clip.index_select(0, draws)
+            keys, gate = gidx[draws], (mask.index_select(0, draws) > 0).to(mask.dtype)
         ldp = not self.central
         std = self.sigma * math.sqrt(2.0)
         mom = self._moments(rows_dy, self.clip_norm, noise.ldp if ldp else None,
@@ -241,17 +253,6 @@ class DPScaffoldServer(ServerAlgorithm):
         dc_mom = self._moments(rows_dc, math.inf, noise.ldp_dc if ldp else None,
                                noise.seed_dc if ldp else None, std * vs, gate, keys)
         return mom, {"sum_dc": dc_mom.sum_c, "cis_add": cis_add}
-
-    @staticmethod
-    def _draws(mask, host_mask):
-        """(n,) host block rows of a multiplicity mask: row i ``mask[i]`` times."""
-        if host_mask is None:
-            if mask.device.type != "cpu":
-                raise ValueError("a multiplicity mask on the device needs its host copy "
-                                 "(host_mask=) to expand its draws without a read back")
-            host_mask = mask
-        counts = host_mask.to(torch.int64)
-        return torch.repeat_interleave(torch.arange(counts.shape[0]), counts)
 
     def apply_from_moments(self, noise, w, moments, state, t=None):
         """The server update from the cohort's moments; the CDP noise std

@@ -1,7 +1,8 @@
-"""Federated simulation of the port: ``FederatedSession`` over the eager and the
-streamed round loops, with the ``LocalSpec`` trainers, sampled cohorts, fault
-injection, the divergence watchdog, checkpoints, and client data on the device
-or behind a host, disk or generated source."""
+"""Federated simulation of the port: ``FederatedSession`` over the eager, the
+scan (CUDA graphs) and the streamed round loops, with the ``LocalSpec``
+trainers, sampled cohorts, fault injection, the divergence watchdog,
+checkpoints, telemetry, and client data on the device or behind a host, disk
+or generated source."""
 
 from repro_torch.fedsim.data import (
     ArraySource,
@@ -35,6 +36,7 @@ from repro_torch.fedsim.specs import (
     FaultSpec,
     LocalSpec,
     StreamSpec,
+    TelemetrySpec,
     TrainSpec,
 )
 
@@ -42,6 +44,6 @@ __all__ = ["flatten_model", "local_update", "cohort_updates", "local_update_spec
            "cohort_updates_spec", "build_cohort_local_fn", "local_update_scaffold",
            "cohort_updates_scaffold", "mask_rows", "gather_slots", "gather_rows", "RunResult",
            "FederatedSession", "RecoveryPolicy", "TrainSpec", "LocalSpec", "EngineSpec",
-           "CohortSpec", "FaultSpec", "StreamSpec", "DataSpec", "pad_cohort", "chunk_cohort",
+           "CohortSpec", "FaultSpec", "StreamSpec", "DataSpec", "TelemetrySpec", "pad_cohort", "chunk_cohort",
            "ClientDataSource", "ArraySource", "HostArraySource", "NpzSource", "SyntheticSource",
            "as_data_source"]

@@ -45,14 +45,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.aggregation import global_client_indices
-from repro_torch.core.algorithm import host_to_device
 from repro_torch.fedsim.specs import LOCAL_TRAIN_TAG, LocalSpec
 from repro_torch.kernels.dp_aggregate.ref import chunk_grid, threefry2x32
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["local_update", "cohort_updates", "local_update_scaffold", "cohort_updates_scaffold",
-           "local_update_spec", "cohort_updates_spec", "local_shuffles", "build_cohort_local_fn",
-           "mask_rows", "gather_slots", "gather_rows", "pad_cohort", "chunk_cohort"]
+           "local_update_spec", "cohort_updates_spec", "local_shuffles", "shuffle_key",
+           "build_cohort_local_fn", "mask_rows", "gather_slots", "gather_rows", "pad_cohort",
+           "chunk_cohort"]
 
 
 def local_update(loss_fn: Callable, w0: torch.Tensor, client_batch, tau: int,
@@ -172,19 +172,28 @@ def local_update_spec(loss_fn: Callable, w0, client_batch, perms: torch.Tensor |
     return tree_map(lambda a, c: a - c, w, w0)
 
 
-def local_shuffles(round_seed: int, clients: torch.Tensor, epochs: int, n: int) -> torch.Tensor:
+def shuffle_key(round_seed: int) -> torch.Tensor:
+    """The two key words of a round's local-training shuffles, ``SeedSequence(
+    [round_seed, LOCAL_TRAIN_TAG])``, as a (2,) int64 host tensor (the staged
+    round hands them to the body on the device)."""
+    words = np.random.SeedSequence([int(round_seed), LOCAL_TRAIN_TAG]).generate_state(
+        2, np.uint32)
+    return torch.tensor([int(k) for k in words], dtype=torch.int64)
+
+
+def local_shuffles(key: torch.Tensor, clients: torch.Tensor, epochs: int, n: int) -> torch.Tensor:
     """(m, epochs, n) int64: client ``clients[j]``'s shuffle of its n samples
     in each epoch of a round, on ``clients``' device.
 
     Sample s of epoch e takes the 63-bit sort key ``(b0 >> 1) << 32 | b1`` of
-    ``(b0, b1) = threefry2x32(key, (client, e * n + s))``, the key two words
-    of ``SeedSequence([round_seed, LOCAL_TRAIN_TAG])``; a stable sort of each
-    (client, epoch) row's keys gives its permutation.  A client's shuffle
-    depends on nothing but the round's seed and its global index, and only
-    integer arithmetic on the device produces it: no host read, no generator.
+    ``(b0, b1) = threefry2x32(key, (client, e * n + s))``, ``key`` the round's
+    two key words (``shuffle_key`` of its seed, a (2,) int64 tensor on
+    ``clients``' device); a stable sort of each (client, epoch) row's keys
+    gives its permutation.  A client's shuffle depends on nothing but the
+    round's seed and its global index, and only integer arithmetic on the
+    device produces it: no host read, no generator.
     """
-    k0, k1 = (int(k) for k in np.random.SeedSequence(
-        [int(round_seed), LOCAL_TRAIN_TAG]).generate_state(2, np.uint32))
+    k0, k1 = key[0], key[1]
     m = clients.shape[0]
     counters = torch.arange(epochs * n, dtype=torch.int64, device=clients.device)
     b0, b1 = threefry2x32(k0, k1, clients.to(torch.int64)[:, None].expand(m, epochs * n),
@@ -194,24 +203,25 @@ def local_shuffles(round_seed: int, clients: torch.Tensor, epochs: int, n: int) 
 
 
 def cohort_updates_spec(loss_fn: Callable, w, client_batches, spec: LocalSpec, tau: int,
-                        eta_l: float, round_seed: int | None = None, start=0,
+                        eta_l: float, key: torch.Tensor | None = None, start=0,
                         steps: torch.Tensor | None = None, perms: torch.Tensor | None = None):
     """Spec-driven updates of a block of m clients, vmapped: a tree whose
     leaves lead with the block's axis.
 
     A minibatch spec shuffles client j of the block by ``local_shuffles`` of
-    the round's seed ``round_seed`` and its global index (``start + j``, or
-    ``start[j]`` for a gathered block's host slot tensor), so a gathered
+    the round's key words ``key`` (``shuffle_key`` of the round's seed) and
+    its global index (``start + j``, or ``start[j]`` for a gathered block's
+    slot tensor), so a gathered
     block trains its clients as the dense round does.  ``perms`` (m, epochs,
     n) replaces those shuffles (a test feeds the JAX package's through it).
     ``steps``: per-client straggler cutoffs (``local_update_spec``)."""
     if spec.batch_size is not None and perms is None:
-        if round_seed is None:
+        if key is None:
             raise ValueError("a minibatch LocalSpec draws its shuffles from the round's seed: "
-                             "pass round_seed= (or perms=)")
+                             "pass key=shuffle_key(round_seed) (or perms=)")
         leaf = tree_leaves(client_batches)[0]
-        clients = host_to_device(global_client_indices(start, leaf.shape[0]), leaf.device)
-        perms = local_shuffles(round_seed, clients, spec.epochs, leaf.shape[1])
+        clients = global_client_indices(start, leaf.shape[0], leaf.device)
+        perms = local_shuffles(key, clients, spec.epochs, leaf.shape[1])
     return torch.func.vmap(
         lambda batch, p, s: local_update_spec(loss_fn, w, batch, p, spec, tau, eta_l, steps=s),
         in_dims=(0, None if perms is None else 0, None if steps is None else 0))(
@@ -226,9 +236,9 @@ def build_cohort_local_fn(loss_fn: Callable, spec: LocalSpec | None, tau: int) -
 
     ``cohort_updates`` for the default spec, bit for bit; SCAFFOLD's trainer
     for ``control_variates`` (``ctx`` the algorithm's ``(c_i rows, c)``);
-    otherwise ``cohort_updates_spec``, whose trainer also takes ``seed=``
-    (the round's seed) and ``start=`` (the block's global indices) and says
-    so by ``uses_round_seed`` (``fedsim.server.local_caller`` reads it)."""
+    otherwise ``cohort_updates_spec``, whose trainer also takes ``key=``
+    (the round's shuffle key) and ``start=`` (the block's global indices) and
+    says so by ``uses_round_seed`` (``fedsim.server.local_caller`` reads it)."""
     if spec is not None and spec.control_variates:
         def local_fn(w, client_batches, eta_l, ctx, steps=None):
             return cohort_updates_scaffold(loss_fn, w, client_batches, tau, eta_l, ctx,
@@ -239,8 +249,8 @@ def build_cohort_local_fn(loss_fn: Callable, spec: LocalSpec | None, tau: int) -
             return cohort_updates(loss_fn, w, client_batches, tau, eta_l, steps=steps)
         return local_fn
 
-    def local_fn(w, client_batches, eta_l, steps=None, *, seed=None, start=0):
-        return cohort_updates_spec(loss_fn, w, client_batches, spec, tau, eta_l, seed, start,
+    def local_fn(w, client_batches, eta_l, steps=None, *, key=None, start=0):
+        return cohort_updates_spec(loss_fn, w, client_batches, spec, tau, eta_l, key, start,
                                    steps=steps)
     local_fn.uses_round_seed = True
     return local_fn

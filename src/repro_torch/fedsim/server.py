@@ -15,10 +15,10 @@ resolved; ``apply_from_moments``.  An algorithm that declares
 ``uses_local_context`` (DP-SCAFFOLD) has ``local_context(state, start, m)``
 appended to the trainer call in both rounds (``local_caller``): each block
 of clients trains on its own rows of the server's carry; its
-``local_moments`` also gets the block's host mask (``host_mask=``), by which
-it expands a with-replacement multiplicity without reading the device.  A
-``LocalSpec`` trainer gets the round generator's seed and the block's global
-indices, which key its minibatch shuffles.
+``local_moments`` also gets a with-replacement block's expanded rows
+(``draws=``, made by the stage from the host mask).  A ``LocalSpec``
+trainer gets the round's shuffle key and the block's global indices, which
+key its minibatch shuffles.
 
 An injecting ``FaultSpec`` takes the masked-moment protocol even under full
 participation (a mask of ones): the round's fault draws (``fault_masks``,
@@ -55,6 +55,19 @@ pinned non-blocking copies, histories stay tensors until the run ends, and
 state such as an adaptive clip threshold or DP-SCAFFOLD's variate table
 stays on the device.  Sharding comes in a later slice (ROADMAP.md, queue 1,
 item 16).
+
+The eager round is a host stage and a device body (``round_stage``,
+``round_body``).  The stage draws from the round's generator, in the order
+above, everything the round consumes (the cohort mask, the noise put in its
+staged form, the faults, the gathered slot table, a with-replacement
+cohort's expanded rows for DP-SCAFFOLD, a minibatch trainer's shuffle key,
+the telemetry counts) and puts it on the device as a ``RoundInputs``.  The
+body reads only device memory, so the scan engine (``fedsim/scan.py``)
+replays it from a CUDA graph; the eager engine runs the same stage and body
+uncaptured.  ``tap_payload`` is the round's telemetry: twelve float32 slots
+in the JAX package's order (``telemetry/tap.py``), built on the device after
+the round from what the round already holds, so a tracked round computes
+what an untracked one computes.
 """
 from __future__ import annotations
 
@@ -68,12 +81,15 @@ import torch
 
 from repro_torch.core.aggregation import add_moments
 from repro_torch.core.algorithm import (
+    RoundNoise,
     ServerAlgorithm,
     clamp_moment_counts,
     host_to_device,
     round_generator,
     set_moment_count,
+    stage_tensor,
 )
+from repro_torch.core.variance_reduction import multiplicity_rows
 from repro_torch.fedsim.faults import (
     apply_faults,
     fault_masks,
@@ -82,13 +98,15 @@ from repro_torch.fedsim.faults import (
     sanitize_moments,
 )
 from repro_torch.fedsim.data import ClientDataSource
-from repro_torch.fedsim.local import gather_rows, gather_slots, mask_rows
+from repro_torch.fedsim.local import gather_rows, gather_slots, mask_rows, shuffle_key
 from repro_torch.fedsim.specs import CohortSpec, FaultSpec
 from repro_torch.kernels.dp_aggregate.ref import chunk_grid, grid_rows
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["RunResult", "run_rounds", "assemble_result", "round_step", "sampled_round",
-           "local_caller", "block_moments", "stream_round_step", "chunk_plan", "host_chunks"]
+__all__ = ["RunResult", "RoundInputs", "run_rounds", "assemble_result", "round_step",
+           "round_stage", "round_body", "stage_inputs", "masked_round", "local_caller",
+           "block_moments", "stream_round_step", "chunk_plan", "host_chunks", "tap_counts",
+           "tap_sigma", "tap_payload"]
 
 
 @dataclasses.dataclass
@@ -121,7 +139,7 @@ def _eval_metric(eval_fn, eval_every: int, w_next, t: int, device) -> torch.Tens
 def local_caller(local_fn: Callable, algorithm: ServerAlgorithm,
                  fault: FaultSpec | None = None, tau: int = 1) -> Callable:
     """The trainer as ``call(w, batches, eta_l, start, state, straggler=None,
-    seed=None)``.
+    key=None)``.
 
     It is ``local_fn(w, batches, eta_l)``; when the algorithm declares
     ``uses_local_context``, ``algorithm.local_context(state, start, m)`` of
@@ -133,13 +151,13 @@ def local_caller(local_fn: Callable, algorithm: ServerAlgorithm,
     client's ``tau``, for every trainer, as in the JAX package (a minibatch
     client with more than tau steps stops at tau under a fault model).  A
     trainer that declares ``uses_round_seed`` (a non-default ``LocalSpec``'s)
-    also gets the round's ``seed=`` and the block's ``start=``, which key a
-    minibatch client's shuffles."""
+    also gets the round's shuffle ``key=`` and the block's ``start=``, which
+    key a minibatch client's shuffles."""
     with_ctx = getattr(algorithm, "uses_local_context", False)
     straggling = fault is not None and fault.straggler > 0.0
     keyed = getattr(local_fn, "uses_round_seed", False)
 
-    def call(w, batches, eta_l, start, state, straggler=None, seed=None):
+    def call(w, batches, eta_l, start, state, straggler=None, key=None):
         args, kw = (w, batches, eta_l), {}
         if with_ctx:
             m = tree_leaves(batches)[0].shape[0]
@@ -147,7 +165,7 @@ def local_caller(local_fn: Callable, algorithm: ServerAlgorithm,
         if straggling:
             kw["steps"] = host_to_device(resolve_steps(fault, straggler, tau), w.device)
         if keyed:
-            kw.update(seed=seed, start=start)
+            kw.update(key=key, start=start)
         return local_fn(*args, **kw)
 
     return call
@@ -169,68 +187,56 @@ def _resolve_sampled_count(moments, cohort: CohortSpec | None, algorithm):
 
 def block_moments(algorithm: ServerAlgorithm, local: Callable, w, state, noise, batches, mask,
                   start, t, eta_l, *, cohort: CohortSpec | None = None,
-                  fault: FaultSpec | None = None, faults=None, round_seed: int | None = None):
+                  fault: FaultSpec | None = None, faults=None, key=None, draws=None):
     """Local training and the release's moments of one block of clients.
 
     ``local`` is the trainer as ``local_caller`` builds it; ``batches`` the
-    block's data on the device; ``mask`` its (m,) host participation mask;
-    ``start`` its global indices (an int, or a (m,) host tensor of slots).
-    With an injecting ``fault``, ``faults`` holds the block's rows of the
-    round's ``(alive, straggler, corrupt)`` draws: the stragglers train
-    fewer steps, the failed rows are gated out (``apply_faults``), and the
-    host's view of the mask follows.  Returns ``local_moments``' sums."""
+    block's data on the device; ``noise`` the round's staged ``RoundNoise``;
+    ``mask`` its (m,) participation; ``start`` its global indices (an int, or
+    a (m,) tensor of slots).  With an injecting ``fault``, ``faults`` holds
+    the block's rows of the round's ``(alive, straggler, corrupt)`` draws: the
+    stragglers train fewer steps, the failed rows are gated out
+    (``apply_faults``).  ``key``: a minibatch trainer's shuffle key.
+    ``draws``: a with-replacement block's expanded rows on the device, which
+    DP-SCAFFOLD's release takes.  Returns ``local_moments``' sums."""
     injecting = fault is not None and fault.injects
     alive, straggler, corrupt = faults if injecting else (None, None, None)
-    host_mask, mask = mask, host_to_device(mask, w.device)
-    deltas = local(w, batches, eta_l, start, state, straggler, round_seed)
+    mask = host_to_device(mask, w.device)
+    deltas = local(w, batches, eta_l, start, state, straggler, key)
     if injecting:
         deltas, mask = apply_faults(deltas, mask, *(
             None if v is None else host_to_device(v, w.device) for v in (alive, corrupt)))
-        # the host's view of the realized rows (the finite screen of a client
-        # that diverged by itself is known only on the device)
-        if alive is not None:
-            host_mask = host_mask * alive
-        if corrupt is not None:
-            host_mask = host_mask * (1.0 - corrupt)
     else:
         deltas = mask_rows(deltas, mask)
-    extra = {"host_mask": host_mask} if getattr(algorithm, "uses_local_context", False) else {}
+    extra = {} if draws is None else {"draws": draws}
     binary = cohort is None or not cohort.replace
     return algorithm.local_moments(noise, w, deltas, mask, start, state, t,
                                    binary_mask=binary, **extra)
 
 
-def sampled_round(algorithm: ServerAlgorithm, local_fn: Callable, w, state, noise, mask,
-                  cohort: CohortSpec | None, t, client_batches, eta_l, *,
-                  fault: FaultSpec | None = None, faults=None, tau: int = 1,
-                  round_seed: int | None = None):
-    """One masked-moment round for the host participation ``mask`` (M,) and
-    the round's ``noise`` (drawn for all M clients): ``-> (w_next, aux, state)``.
+def masked_round(algorithm: ServerAlgorithm, local_fn: Callable, w, state, inp: RoundInputs,
+                 cohort: CohortSpec | None, t, client_batches, eta_l, *,
+                 fault: FaultSpec | None = None, tau: int = 1):
+    """One masked-moment round on its staged inputs ``inp`` (``stage_inputs``):
+    ``-> (w_next, aux, state)``.
 
     ``cohort`` None is full participation (a faulted round's mask of ones).
-    With an injecting ``fault``, ``faults`` is the round's ``(alive,
-    straggler, corrupt)`` host draws for all M clients (``fault_masks``)
-    and ``tau`` the local step count a straggler is cut from.
-    ``round_seed`` (the round generator's seed) keys a minibatch trainer's
-    shuffles (``local_caller``)."""
-    m = mask.shape[0]
-    injecting = fault is not None and fault.injects
-    if cohort is not None and cohort.gather:
-        slots, slot_mask, _ = gather_slots(mask, cohort.resolved_cap(m))
-        client_batches = gather_rows(client_batches, host_to_device(slots, w.device))
-        mask, start = slot_mask, slots
-        if injecting:
-            faults = gather_fault_rows(slots, *faults)
+    A gathered round trains the rows of ``inp.slots`` only; an injecting
+    ``fault`` cuts ``inp.faults``' stragglers short of ``tau`` steps and
+    gates the failed rows out.  Nothing here reads the host."""
+    if inp.slots is not None:
+        client_batches = gather_rows(client_batches, inp.slots)
+        mask, start = inp.slot_mask, inp.slots
     else:
-        start = 0
+        mask, start = inp.mask, 0
     moments = block_moments(algorithm, local_caller(local_fn, algorithm, fault, tau), w, state,
-                            noise, client_batches, mask, start, t, eta_l, cohort=cohort,
-                            fault=fault, faults=faults, round_seed=round_seed)
-    if injecting:
+                            inp.noise, client_batches, mask, start, t, eta_l, cohort=cohort,
+                            fault=fault, faults=inp.faults, key=inp.shuffle_key, draws=inp.draws)
+    if fault is not None and fault.injects:
         moments = _resolve_sampled_count(sanitize_moments(moments), None, algorithm)
     else:
         moments = _resolve_sampled_count(moments, cohort, algorithm)
-    return algorithm.apply_from_moments(noise, w, moments, state, t)
+    return algorithm.apply_from_moments(inp.noise, w, moments, state, t)
 
 
 def chunk_plan(mask: torch.Tensor, cohort: CohortSpec | None, chunk_clients: int):
@@ -332,17 +338,18 @@ def stream_round_step(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn,
                       eval_every: int = 1, cohort: CohortSpec | None = None,
                       fault: FaultSpec | None = None, tau: int = 1, *, chunk_clients: int,
                       num_clients: int, prefetch: int = 2):
-    """One streamed server round as ``step(w, state, gen, t, data, eta_l)``
-    (``round_step``'s signature); ``data`` is the device-resident cohort or
-    a ``ClientDataSource``.
+    """One streamed server round as ``step(w, state, gen, t, data, eta_l,
+    tap=None)`` (``round_step``'s signature); ``data`` is the device-resident
+    cohort or a ``ClientDataSource``.
 
     The round draws from ``gen`` what the eager round draws, in its order:
     the cohort mask when sampled (a full-participation round draws none),
     then ``draw_noise`` for all M clients, then the faults from their own
     generators; so a streamed round consumes the eager round's
-    ``RoundNoise``.  Then per chunk of ``chunk_plan`` (``chunk_clients`` a
-    chunk, or of the gathered slot table) ``block_moments``, added into a
-    running sum, and the count resolved as the JAX package's stream step
+    ``RoundNoise``, staged as the eager round stages it (``stage_noise``, the
+    shuffle key, a with-replacement chunk's expanded rows).  Then per chunk
+    of ``chunk_plan`` (``chunk_clients`` a chunk, or of the gathered slot
+    table) ``block_moments``, added into a running sum, and the count resolved as the JAX package's stream step
     resolves it: the realized count under faults (sanitized first), the
     sampled count of a cohort, the static M under full participation, and a
     weighted round's weight sum floored at 1e-12.  Last
@@ -350,12 +357,16 @@ def stream_round_step(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn,
     sampled = cohort is not None and cohort.is_sampled
     injecting = fault is not None and fault.injects
     local = local_caller(local_fn, algorithm, fault, tau)
+    keyed = getattr(local_fn, "uses_round_seed", False)
+    expand = _expands(algorithm, cohort)
     m = num_clients
 
-    def step(w, state, gen, t, data, eta_l):
+    def step(w, state, gen, t, data, eta_l, tap=None):
         mask = cohort.round_mask(gen, m) if sampled else torch.ones(m)
-        noise = algorithm.draw_noise(gen, m, w.shape[-1], w.device, t)
+        noise = algorithm.stage_noise(algorithm.draw_noise(gen, m, w.shape[-1], w.device, t),
+                                      w.device, t)
         seed = gen.initial_seed()
+        key = stage_tensor(shuffle_key(seed), w.device) if keyed else None
         faults = fault_masks(fault, seed, m) if injecting else None
         plan = chunk_plan(mask, cohort if sampled else None, chunk_clients)
         chunks = (host_chunks(data, plan, w.device, prefetch)
@@ -365,7 +376,8 @@ def stream_round_step(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn,
             mom = block_moments(algorithm, local, w, state, noise, rows, mask_j, start, t, eta_l,
                                 cohort=cohort if sampled else None, fault=fault,
                                 faults=gather_fault_rows(idx, *faults) if injecting else None,
-                                round_seed=seed)
+                                key=key, draws=stage_tensor(multiplicity_rows(mask_j), w.device)
+                                if expand else None)
             moments = mom if moments is None else add_moments(moments, mom)
         if injecting:
             moments = _resolve_sampled_count(sanitize_moments(moments), None, algorithm)
@@ -373,40 +385,231 @@ def stream_round_step(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn,
             moments = _resolve_sampled_count(moments, cohort if sampled else None, algorithm)
         else:
             moments = set_moment_count(moments, m)
-        w_next, aux, state = algorithm.apply_from_moments(noise, w, moments, state, t)
+        w_next, aux, state_next = algorithm.apply_from_moments(noise, w, moments, state, t)
         metric = _eval_metric(eval_fn, eval_every, w_next, t, w.device)
-        return w_next, state, (aux.eta_g, metric, aux.eta_naive, aux.eta_target)
+        out = (aux.eta_g, metric, aux.eta_naive, aux.eta_target)
+        if tap is not None:
+            counts = tap_counts(mask, faults, m, sampled) + (tap_sigma(algorithm, t),)
+            tap(t, tap_payload(algorithm, state, out, host_to_device(
+                torch.tensor(counts, dtype=torch.float32), w.device), -1))
+        return w_next, state_next, out
 
     return step
 
 
-def round_step(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn, eval_every: int = 1,
+@dataclasses.dataclass
+class RoundInputs:
+    """One round's staged inputs (``round_stage``): what the round's body
+    reads, every tensor on the device.
+
+    ``noise`` the staged ``RoundNoise``; ``mask`` the (M,) participation of
+    a sampled or faulted round (None for a dense one); ``slots`` /
+    ``slot_mask`` a gathered round's (cap,) slot table; ``faults`` the
+    ``(alive, straggler, corrupt)`` rows of the block (None where a class is
+    off); ``draws`` DP-SCAFFOLD's expanded rows of a with-replacement cohort;
+    ``shuffle_key`` a minibatch trainer's key words.  What only the round's
+    telemetry payload reads is staged when asked for (``payload``): ``t``
+    the round index (0-d int64, the watchdog's round) and ``counts`` the
+    (participants, realized, dropped, stragglers, corrupt, sigma) as (6,)
+    float32."""
+
+    noise: RoundNoise
+    t: torch.Tensor | None = None
+    counts: torch.Tensor | None = None
+    mask: torch.Tensor | None = None
+    slots: torch.Tensor | None = None
+    slot_mask: torch.Tensor | None = None
+    faults: tuple | None = None
+    draws: torch.Tensor | None = None
+    shuffle_key: torch.Tensor | None = None
+
+
+def tap_counts(mask, faults, num_clients: int, sampled: bool) -> tuple[float, ...]:
+    """The telemetry's cohort counts of a round from its host draws, as the
+    JAX package's tap computes them: participants (the mask's sum, or M),
+    then realized, dropped, stragglers and corrupt clients among them (the
+    fault classes that are off count as alive, on time and clean)."""
+    participants = float(mask.sum()) if sampled else float(num_clients)
+    if faults is None:
+        return participants, participants, 0.0, 0.0, 0.0
+    ones, zeros = torch.ones(num_clients), torch.zeros(num_clients)
+    alive = ones if faults[0] is None else faults[0]
+    strag = zeros if faults[1] is None else faults[1]
+    corr = zeros if faults[2] is None else faults[2]
+    m = mask if sampled else ones
+    m, alive, strag, corr = (v.to(torch.float64) for v in (m, alive, strag, corr))
+    return (participants, float((m * alive * (1.0 - corr)).sum()),
+            float((m * (1.0 - alive)).sum()), float((m * alive * strag).sum()),
+            float((m * alive * corr).sum()))
+
+
+def tap_sigma(algorithm: ServerAlgorithm, t: int) -> float:
+    """The telemetry's noise std of round ``t`` (the JAX package's
+    ``_tap_sigma_fn``): a round-indexed schedule's sigma(t), a fixed sigma,
+    else NaN (no noise std shared by the cohort)."""
+    mech = getattr(algorithm, "mechanism", None)
+    if mech is not None and getattr(mech, "is_round_indexed", False):
+        return float(mech.sigma_at(t))
+    sigma = getattr(algorithm, "sigma", None)
+    return float(np.float32(sigma)) if isinstance(sigma, (int, float)) else float("nan")
+
+
+def _tap_clip(algorithm: ServerAlgorithm, state, device) -> torch.Tensor:
+    """The round's clip threshold for the telemetry (the JAX package's
+    ``_tap_clip_fn``): the step's override from the carry, else the static
+    ``clip_norm`` of the algorithm or its mechanism, else NaN."""
+    state = getattr(state, "inner", state)
+    step = getattr(algorithm, "step", None)
+    c = step.clip_override(state) if step is not None else None
+    if c is None:
+        for holder in (algorithm, getattr(algorithm, "mechanism", None)):
+            c = getattr(holder, "clip_norm", None)
+            if c is not None:
+                break
+    if isinstance(c, torch.Tensor):
+        return c.to(torch.float32).reshape(())
+    return torch.full((), float("nan") if c is None else float(c), dtype=torch.float32,
+                      device=device)
+
+
+def tap_payload(algorithm: ServerAlgorithm, state, out, counts: torch.Tensor,
+                fault_t) -> torch.Tensor:
+    """The round's (12,) float32 telemetry payload on the device, in the
+    JAX package's slot order: eta, eta_naive, eta_target, metric, clip,
+    participants, realized, dropped, stragglers, corrupt, fault_t, sigma.
+    ``state`` is the carry the round started from (its clip threshold),
+    ``out`` the round's history tuple (eta, metric, naive, target),
+    ``counts`` the staged (6,) counts, ``fault_t`` the watchdog's round (-1
+    while healthy).  It only reads: nothing of the round changes."""
+    eta, metric, naive, target = out
+    dev = counts.device
+    head = torch.stack([torch.as_tensor(v, dtype=torch.float32).to(dev).reshape(())
+                        for v in (eta, naive, target, metric)]
+                       + [_tap_clip(algorithm, state, dev)])
+    fault_t = (fault_t.to(torch.float32).reshape(1) if isinstance(fault_t, torch.Tensor)
+               else torch.full((1,), float(fault_t), device=dev))
+    return torch.cat([head, counts[:5], fault_t, counts[5:]])
+
+
+def _expands(algorithm: ServerAlgorithm, cohort: CohortSpec | None) -> bool:
+    """Whether a round's release takes a with-replacement cohort's expanded
+    rows (``draws``): a control-variate algorithm's (DP-SCAFFOLD's)."""
+    return (cohort is not None and cohort.is_sampled and cohort.replace
+            and getattr(algorithm, "uses_local_context", False))
+
+
+def stage_inputs(algorithm: ServerAlgorithm, local_fn: Callable, noise: RoundNoise, t: int,
+                 m: int, device, *, cohort: CohortSpec | None = None,
+                 fault: FaultSpec | None = None, mask=None, faults=None,
+                 seed: int | None = None, payload: bool = False) -> RoundInputs:
+    """Round ``t``'s host draws as its body reads them: a ``RoundInputs`` on
+    ``device``.
+
+    ``noise`` is the round's staged noise (``stage_noise`` of its
+    ``draw_noise``), ``mask`` its (M,) host cohort mask (None unless
+    sampled), ``faults`` its ``fault_masks`` (None unless injecting),
+    ``seed`` the round generator's seed.  A gathered round's slot table is
+    packed (``gather_slots``, its fault rows gathered with it); a
+    with-replacement cohort's rows expanded for a control-variate algorithm
+    (from the mask before faults: the faulted rows are gated on the
+    device); a minibatch trainer's shuffle key derived from ``seed``.  With
+    ``payload`` the round index and the telemetry's counts are staged too."""
+    sampled = cohort is not None and cohort.is_sampled
+    injecting = fault is not None and fault.injects
+    inp = RoundInputs(noise=noise)
+    if payload:
+        counts = tap_counts(mask, faults, m, sampled) + (tap_sigma(algorithm, t),)
+        inp.t = stage_tensor(int(t), device)
+        inp.counts = stage_tensor(torch.tensor(counts, dtype=torch.float32), device)
+    if getattr(local_fn, "uses_round_seed", False):
+        inp.shuffle_key = stage_tensor(shuffle_key(seed), device)
+    if not sampled and not injecting:
+        return inp
+    if mask is None:
+        mask = torch.ones(m)
+    if _expands(algorithm, cohort):
+        inp.draws = stage_tensor(multiplicity_rows(mask), device)
+    if sampled and cohort.gather:
+        slots, slot_mask, _ = gather_slots(mask, cohort.resolved_cap(m))
+        if injecting:
+            faults = gather_fault_rows(slots, *faults)
+        inp.slots, inp.slot_mask = stage_tensor(slots, device), stage_tensor(slot_mask, device)
+    inp.mask = stage_tensor(mask, device)
+    if injecting:
+        inp.faults = tuple(None if v is None else stage_tensor(v, device) for v in faults)
+    return inp
+
+
+def round_stage(algorithm: ServerAlgorithm, local_fn: Callable, cohort: CohortSpec | None = None,
+                fault: FaultSpec | None = None):
+    """The host half of a round as ``stage(gen, t, m, d, device, payload=False)
+    -> RoundInputs``.
+
+    It draws from ``gen`` what ``round_step`` draws, in its order: the
+    cohort mask when sampled, then ``draw_noise`` for all M clients (staged:
+    ``stage_noise``), then the faults from their own generators keyed by
+    ``gen``'s seed; then ``stage_inputs`` puts the rest on ``device``."""
+    sampled = cohort is not None and cohort.is_sampled
+    injecting = fault is not None and fault.injects
+
+    def stage(gen, t: int, m: int, d: int, device, payload: bool = False) -> RoundInputs:
+        mask = cohort.round_mask(gen, m) if sampled else None
+        noise = algorithm.stage_noise(algorithm.draw_noise(gen, m, d, device, t), device, t)
+        seed = gen.initial_seed()
+        faults = fault_masks(fault, seed, m) if injecting else None
+        return stage_inputs(algorithm, local_fn, noise, t, m, device, cohort=cohort, fault=fault,
+                            mask=mask, faults=faults, seed=seed, payload=payload)
+
+    return stage
+
+
+def round_body(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn, eval_every: int = 1,
                cohort: CohortSpec | None = None, fault: FaultSpec | None = None, tau: int = 1):
-    """One server round as ``step(w, state, gen, t, batches, eta_l)``: the
-    dense round, or with a sampling ``cohort`` or an injecting ``fault``
-    the masked-moment round.  The faulted round draws its cohort mask and
-    noise from ``gen`` as the sampled round does, and its faults from
-    generators of their own keyed by ``gen``'s seed (``fault_masks``); a
-    minibatch trainer's shuffles are keyed by that seed too."""
+    """The device half of a round as ``body(w, state, inp, t, batches, eta_l)
+    -> (w_next, state, (eta_g, metric, eta_naive, eta_target))``, reading
+    only the staged ``inp`` and device memory.  ``t`` decides the round's
+    kind alone (whether the eval cadence evaluates it): the scan engine
+    captures one graph per kind."""
     sampled = cohort is not None and cohort.is_sampled
     injecting = fault is not None and fault.injects
     local = local_caller(local_fn, algorithm)
 
-    def step(w, state, gen, t, client_batches, eta_l):
+    def body(w, state, inp: RoundInputs, t: int, client_batches, eta_l):
         if not sampled and not injecting:
-            deltas = local(w, client_batches, eta_l, 0, state, seed=gen.initial_seed())
-            w_next, aux, state = algorithm.apply_round_stateful(gen, w, deltas, state, t=t)
+            deltas = local(w, client_batches, eta_l, 0, state, key=inp.shuffle_key)
+            w_next, aux, state = algorithm.apply_round_stateful(None, w, deltas, state,
+                                                                noise=inp.noise, t=t)
         else:
-            m = tree_leaves(client_batches)[0].shape[0]
-            mask = cohort.round_mask(gen, m) if sampled else torch.ones(m)
-            noise = algorithm.draw_noise(gen, m, w.shape[-1], w.device, t)
-            faults = fault_masks(fault, gen.initial_seed(), m) if injecting else None
-            w_next, aux, state = sampled_round(algorithm, local_fn, w, state, noise, mask,
-                                               cohort if sampled else None, t, client_batches,
-                                               eta_l, fault=fault, faults=faults, tau=tau,
-                                               round_seed=gen.initial_seed())
+            w_next, aux, state = masked_round(algorithm, local_fn, w, state, inp,
+                                              cohort if sampled else None, t, client_batches,
+                                              eta_l, fault=fault, tau=tau)
         metric = _eval_metric(eval_fn, eval_every, w_next, t, w.device)
         return w_next, state, (aux.eta_g, metric, aux.eta_naive, aux.eta_target)
+
+    return body
+
+
+def round_step(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn, eval_every: int = 1,
+               cohort: CohortSpec | None = None, fault: FaultSpec | None = None, tau: int = 1):
+    """One server round as ``step(w, state, gen, t, batches, eta_l, tap=None)``:
+    ``round_stage`` then ``round_body`` (the dense round, or with a
+    sampling ``cohort`` or an injecting ``fault`` the masked-moment round).
+    The faulted round draws its cohort mask and noise from ``gen`` as the
+    sampled round does, and its faults from generators of their own keyed
+    by ``gen``'s seed (``fault_masks``); a minibatch trainer's shuffles are
+    keyed by that seed too.  ``tap`` (a callable) receives ``(t, payload)``
+    after the round, the (12,) ``tap_payload`` on the device; only then does
+    the stage put the payload's counts on the device."""
+    stage = round_stage(algorithm, local_fn, cohort, fault)
+    body = round_body(algorithm, local_fn, eval_fn, eval_every, cohort, fault, tau)
+
+    def step(w, state, gen, t, client_batches, eta_l, tap=None):
+        m = tree_leaves(client_batches)[0].shape[0]
+        inp = stage(gen, t, m, w.shape[-1], w.device, payload=tap is not None)
+        w_next, state_next, out = body(w, state, inp, t, client_batches, eta_l)
+        if tap is not None:
+            tap(t, tap_payload(algorithm, state, out, inp.counts, -1))
+        return w_next, state_next, out
 
     return step
 
@@ -419,7 +622,7 @@ def _healthy(w_next, eta, eta_max: float) -> bool:
 
 
 def run_rounds(step, carry, seed: int, start: int, end: int, client_batches, eta_l, *,
-               avg_last: int, fault: FaultSpec | None = None):
+               avg_last: int, fault: FaultSpec | None = None, tap=None):
     """Rounds ``[start, end)`` of ``step`` from ``carry = (w, state, tail)``
     (``tail`` the list of up to ``avg_last`` trailing iterates); round t
     draws from ``round_generator(seed, t)``.
@@ -427,14 +630,16 @@ def run_rounds(step, carry, seed: int, start: int, end: int, client_batches, eta
     Returns ``(carry, outs, fault_round)``: ``outs`` one history tuple a
     round run.  With ``fault.watchdog`` a round that trips the watchdog is
     run (its history is kept) but not committed, the loop stops, and
-    ``fault_round`` is that round; else it is None."""
+    ``fault_round`` is that round; else it is None.  ``tap`` goes to each
+    round's step (its telemetry callback)."""
     w, state, tail = carry
     tail = list(tail)
     watchdog = fault is not None and fault.watchdog
+    kw = {} if tap is None else {"tap": tap}
     outs = []
     for t in range(start, end):
         w_next, state_next, out = step(w, state, round_generator(seed, t), t, client_batches,
-                                       eta_l)
+                                       eta_l, **kw)
         outs.append(out)
         if watchdog and not _healthy(w_next, out[0], fault.eta_max):
             return (w, state, tail), outs, t

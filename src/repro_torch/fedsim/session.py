@@ -44,6 +44,15 @@ data may then be a ``ClientDataSource`` (``fedsim.data``: ``HostArraySource``,
 rows are fetched and copied to the card ``DataSpec.prefetch`` chunks ahead
 (``data=DataSpec(prefetch=2)``), so M is bounded by host storage.
 
+The scan engine: ``FederatedSession(..., engine=EngineSpec("scan",
+chunk_rounds=10))`` stages each round on the host and replays its body from
+a CUDA graph captured once per round kind (``fedsim/scan.py``), in the
+eager engine's bits.  Telemetry: ``session.run(seed,
+tracker=JsonlTracker("run.jsonl"))`` (also ``resume`` and ``run_batched``,
+on every engine) streams one event a round in the JAX package's schema
+(``telemetry/tap.py``; ``TelemetrySpec`` sets the ledger's delta and a
+profiled window of rounds); a tracked run equals an untracked one in bits.
+
 ``params`` may be a flat (d,) vector or a tree of tensors (dicts, lists);
 the session flattens a tree once (``flatten_model``), wraps the loss and eval
 closures, and unravels ``RunResult.final_w`` / ``last_w`` back to the
@@ -54,6 +63,8 @@ tensors; the session moves them to ``device``, floating data as float32
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 import time
 from typing import Any, Callable
 
@@ -68,6 +79,7 @@ from repro_torch.fedsim import server as _srv
 from repro_torch.fedsim.data import as_data_source
 from repro_torch.fedsim.flat import flatten_model
 from repro_torch.fedsim.local import build_cohort_local_fn
+from repro_torch.fedsim.scan import ScanEngine
 from repro_torch.fedsim.server import RunResult
 from repro_torch.fedsim.specs import (
     CohortSpec,
@@ -76,9 +88,12 @@ from repro_torch.fedsim.specs import (
     FaultSpec,
     LocalSpec,
     StreamSpec,
+    TelemetrySpec,
     TrainSpec,
 )
 from repro_torch.launch.mesh import auto_chunk_clients
+from repro_torch.telemetry import tap as _tap_mod
+from repro_torch.telemetry.trackers import NullTracker, Tracker
 from repro_torch.tree import tree_leaves, tree_map, tree_stack
 
 __all__ = ["FederatedSession", "RecoveryPolicy"]
@@ -124,8 +139,9 @@ class FederatedSession:
                  client_batches, *, train: TrainSpec, local: LocalSpec | None = None,
                  engine: EngineSpec = EngineSpec(), cohort: CohortSpec | None = None,
                  fault: FaultSpec | None = None, stream: StreamSpec = StreamSpec(),
-                 data: DataSpec | None = None, eval_fn: Callable | None = None,
-                 num_clients: int | None = None, device="cuda"):
+                 data: DataSpec | None = None, telemetry: TelemetrySpec = TelemetrySpec(),
+                 eval_fn: Callable | None = None, num_clients: int | None = None,
+                 device="cuda"):
         """Bind (algorithm, loss, model, client data) to the specs.
 
         Args:
@@ -146,8 +162,9 @@ class FederatedSession:
             ``momentum`` the spec trainer; ``control_variates=True``
             SCAFFOLD's steps, which a control-variate algorithm
             (``dp-scaffold``) needs and only it takes.
-          engine: how the round loop runs (``EngineSpec``: "eager", or
-            "stream" for rounds walked in client chunks).
+          engine: how the round loop runs (``EngineSpec``: "eager", "scan"
+            for rounds replayed from CUDA graphs, or "stream" for rounds
+            walked in client chunks).
           cohort: who participates each round (``CohortSpec``); None or
             ``CohortSpec()`` is full participation.
           fault: faults injected each round and the divergence watchdog
@@ -158,6 +175,9 @@ class FederatedSession:
             host-resident source (``DataSpec``); derived from
             ``client_batches`` when omitted, and refused when its kind
             contradicts them.
+          telemetry: how a tracked run is observed (``TelemetrySpec``: the
+            ledger's delta, a profiled window of rounds); it never changes
+            what a round computes.
           eval_fn: optional metric closure ``eval_fn(params) -> scalar``.
           num_clients: the cohort size M, needed only when the client axis
             is not leaf axis 0 (``run_batched(batched_data=True)``).
@@ -169,6 +189,8 @@ class FederatedSession:
         self.local = local
         self._check_local()
         self.engine = engine
+        self.telemetry = telemetry
+        self._scan = None
         self.cohort = cohort
         # FaultSpec() is the fault-free round loop, bit for bit
         self.fault = fault if fault is not None and fault.is_active else None
@@ -230,6 +252,12 @@ class FederatedSession:
         # the context ``(c_i rows, c)`` that the round appends; ``steps=`` the
         # stragglers' per-client cutoffs
         self._local_fn = build_cohort_local_fn(self.loss_fn, local, train.tau)
+        agg = getattr(algorithm, "aggregation", None)
+        if engine.engine == "scan" and getattr(agg, "is_compressed", False):
+            raise ValueError(
+                "engine='scan' does not run a compressed aggregation yet: the count-sketch "
+                "plan reads its bucket table's size on the host each round (ROADMAP.md, "
+                "queue 1, item 21); use engine='eager' or 'stream'")
         if engine.engine == "stream" and self.stream.is_auto:
             # the largest chunk the card's budget holds, recorded for the caller
             self.stream = StreamSpec(chunk_clients=auto_chunk_clients(
@@ -292,11 +320,17 @@ class FederatedSession:
     def _restore(self, w):
         return w if self._unravel is None else self._unravel(w)
 
-    def run(self, seed: int, *, checkpoint_dir: str | None = None,
-            checkpoint_every: int | None = None,
+    def run(self, seed: int, *, tracker: Tracker | None = None,
+            checkpoint_dir: str | None = None, checkpoint_every: int | None = None,
             on_divergence: RecoveryPolicy | None = None) -> RunResult:
         """Run all ``train.rounds`` rounds from round 0; round t draws its
         randomness from ``round_generator(seed, t)``.
+
+        ``tracker`` receives one event a round (eta, the metric on its
+        cadence, clip, sigma, participants, fault totals, wall time, the
+        cumulative privacy ledger; ``telemetry/tap.py``), rollbacks and
+        profile windows, on every engine; the run equals the untracked one
+        in bits.  None or a ``NullTracker`` reads nothing for it.
 
         ``checkpoint_dir`` saves the whole state of the run (model, server
         state, the ``avg_last`` tail, histories, seed) every
@@ -319,20 +353,96 @@ class FederatedSession:
             if checkpoint_dir is None:
                 raise ValueError("on_divergence requires checkpoint_dir (rollback needs a "
                                  "checkpoint target)")
-        return self._run_loop(seed, checkpoint_dir=checkpoint_dir,
-                              checkpoint_every=checkpoint_every, on_divergence=on_divergence)
+        return self._tracked(tracker, "run", 0, lambda sess: self._run_loop(
+            seed, checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            on_divergence=on_divergence, tap=sess))
 
-    def resume(self, checkpoint_dir: str, *, checkpoint_every: int | None = None) -> RunResult:
+    def resume(self, checkpoint_dir: str, *, checkpoint_every: int | None = None,
+               tracker: Tracker | None = None) -> RunResult:
         """Continue the newest intact checkpoint in ``checkpoint_dir`` up to
         ``train.rounds`` and return the whole ``RunResult`` (the histories
         of the rounds before the checkpoint included): bit for bit what the
-        uninterrupted run returns."""
+        uninterrupted run returns.  A ``tracker`` is told the resumed round
+        (``start_phase("resume", step)``) and gets the resumed rounds' events
+        only; its ledger counts from round 0."""
         step, seed, carry, hist = self._load(checkpoint_dir)
         if step > self.train.rounds:
             raise ValueError(f"checkpoint is at round {step}, past this session's "
                              f"train.rounds={self.train.rounds}")
-        return self._run_loop(seed, start=step, carry=carry, hist=hist,
-                              checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
+        return self._tracked(tracker, "resume", step, lambda sess: self._run_loop(
+            seed, start=step, carry=carry, hist=hist, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, tap=sess))
+
+    # -- telemetry --------------------------------------------------------------
+
+    @staticmethod
+    def _tap_on(tracker) -> bool:
+        """Whether a tracker is attached: None or a ``NullTracker`` is off,
+        and then no round reads anything for telemetry."""
+        return tracker is not None and not isinstance(tracker, NullTracker)
+
+    def _ledger_fn(self):
+        """The cumulative privacy ledger as ``executed_rounds -> PrivacyReport``,
+        or None: off by ``TelemetrySpec(ledger_delta=None)``, or for an
+        algorithm without a budget (probed once, at one round)."""
+        delta = self.telemetry.ledger_delta
+        if delta is None:
+            return None
+        try:
+            self._budget_at(delta, 1)
+        except (ValueError, AttributeError, TypeError):
+            return None
+        return lambda executed: self._budget_at(delta, executed)
+
+    def _bytes_per_round(self) -> float | None:
+        """The modeled communication of a round, ``4 * comm_floats(d)``
+        (static for a spec), or None."""
+        comm = getattr(self.algorithm, "comm_floats", None)
+        if comm is None:
+            return None
+        try:
+            return 4.0 * float(comm(self.dim))
+        except (TypeError, ValueError):
+            return None
+
+    def _tap_session(self, tracker, start_round: int) -> _tap_mod.TapSession:
+        return _tap_mod.TapSession(
+            tracker, start_round=start_round, ledger_fn=self._ledger_fn(),
+            faults_active=self.fault is not None and self.fault.injects,
+            bytes_per_round=self._bytes_per_round())
+
+    def _tracked(self, tracker, phase: str, step: int, fn):
+        """``fn(tap_session)`` with the tracker's tap installed (``fn(None)``
+        when no tracker is attached), the tracker finished after."""
+        if not self._tap_on(tracker):
+            return fn(None)
+        sess = self._tap_session(tracker, step)
+        _tap_mod.install(sess)
+        tracker.start_phase(phase, step)
+        try:
+            return fn(sess)
+        finally:
+            _tap_mod.uninstall()
+            tracker.finish()
+
+    def spec_identity(self) -> str:
+        """One line naming this session's specs, the JAX package's string for
+        the same specs: deterministic across processes.  Sharding is not
+        ported (ROADMAP.md, queue 1, item 16): the shard part is always the
+        unsharded client axis."""
+        parts = [
+            f"algorithm={self.algorithm.name}",
+            f"train={self.train!r}",
+            f"local={(self.local if self.local is not None else LocalSpec())!r}",
+            f"engine={self.engine!r}",
+            f"stream={self.stream!r}",
+            f"cohort={(self.cohort if self.cohort is not None else CohortSpec())!r}",
+            f"fault={(self.fault if self.fault is not None else FaultSpec())!r}",
+            f"data={self.data!r}",
+            f"telemetry={self.telemetry!r}",
+            "shard=mesh[none] axis=clients",
+        ]
+        return " | ".join(parts)
 
     def _step(self):
         t = self.train
@@ -386,24 +496,71 @@ class FederatedSession:
 
     def _chunk_bounds(self, start: int, every: int | None):
         """``[(s, e)]`` spans of rounds from ``start`` to ``train.rounds``,
-        split where a checkpoint is due."""
+        split on the scan engine's chunk grid (anchored at ``start``), where
+        a checkpoint is due (anchored at round 0) and at the edges of the
+        profiled window, as the JAX package splits its chunks."""
         rounds = self.train.rounds
         stops = {rounds}
+        if self.engine.engine == "scan":
+            chunk = self.engine.chunk_rounds or (rounds - start)
+            stops.update(range(start + chunk, rounds, chunk))
         if every:
             stops.update(b for b in range(every, rounds, every) if b > start)
+        profile = self.telemetry.profile_rounds
+        if profile is not None:
+            stops.update(e for e in (profile[0], min(profile[1], rounds)) if start < e < rounds)
         edges = [start] + sorted(stops)
         return [(s, e) for s, e in zip(edges[:-1], edges[1:]) if s < e]
+
+    def _scan_engine(self) -> ScanEngine:
+        """The session's scan engine, made at its first chunk and kept (its
+        graphs serve every later run, seed and resume)."""
+        if self._scan is None:
+            t = self.train
+            self._scan = ScanEngine(
+                self.algorithm, self._local_fn, self.eval_fn, eval_every=t.eval_every,
+                cohort=self.cohort, fault=self.fault, tau=t.tau, avg_last=t.avg_last,
+                eta_l=t.eta_l, unroll=self.engine.scan_unroll, num_clients=self.num_clients,
+                device=self.device, chunk_cap=min(t.rounds, self.engine.chunk_rounds or t.rounds))
+        return self._scan
+
+    def _profile_start(self, tap, s: int):
+        """Start the profiled window (``TelemetrySpec.profile_rounds``) at round ``s``."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.__enter__()
+        if tap is not None:
+            tap.profile_event("start", s, self.telemetry.profile_dir)
+        return prof
+
+    def _profile_stop(self, prof, tap, e: int) -> None:
+        """Stop the profiled window at round ``e`` and write its trace to
+        ``profile_dir/trace_<e>.json``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.__exit__(None, None, None)
+        out = self.telemetry.profile_dir
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out, f"trace_{e}.json"))
+        if tap is not None:
+            tap.profile_event("stop", e, out)
 
     def _run_loop(self, seed: int, *, start: int = 0, carry=None, hist=None,
                   checkpoint_dir=None, checkpoint_every=None,
                   on_divergence: RecoveryPolicy | None = None, w0=None,
-                  client_batches=None) -> RunResult:
+                  client_batches=None, tap: _tap_mod.TapSession | None = None) -> RunResult:
         """The round loop with checkpoints and rollback (the JAX package's
-        ``_run_scan`` loop on the eager rounds).  ``carry`` None starts from
-        ``w0``; ``w0`` / ``client_batches`` None are the session's own."""
+        ``_run_scan`` loop), a chunk at a time: the eager and streamed
+        engines' rounds (``run_rounds``) or the scan engine's replays
+        (``ScanEngine.run_chunk``).  ``carry`` None starts from ``w0``; ``w0``
+        / ``client_batches`` None are the session's own.  ``tap`` (the
+        tracked run's ``TapSession``) gets each round's payload."""
         t = self.train
         policy = on_divergence
-        step = self._step()
+        scan = self.engine.engine == "scan"
+        step = None if scan else self._step()
         w0 = self._w0 if w0 is None else w0
         client_batches = self.client_batches if client_batches is None else client_batches
         if carry is None:
@@ -412,6 +569,9 @@ class FederatedSession:
         if policy is not None and ckpt.latest_step(checkpoint_dir) is None:
             # a rollback target must exist before any round runs
             self._save(checkpoint_dir, start, seed, carry, hist)
+        emit = None if tap is None else (lambda r, payload: tap.emit(r, payload.cpu().numpy()))
+        profile = self.telemetry.profile_rounds
+        prof = None
         bounds = self._chunk_bounds(start, checkpoint_every)
         retries, idx, fault_round = 0, 0, None
         inject_pending = self._inject_divergence is not None
@@ -420,9 +580,22 @@ class FederatedSession:
             if inject_pending:
                 carry = self._inject_divergence(carry, retries)
                 inject_pending = False
-            carry, outs, fault_t = _srv.run_rounds(step, carry, seed, s, e, client_batches,
-                                                   t.eta_l, avg_last=t.avg_last,
-                                                   fault=self.fault)
+            if profile is not None and s == profile[0] and prof is None:
+                prof = self._profile_start(tap, s)
+            if scan:
+                carry, chunk_hist, fault_t, rows, times = self._scan_engine().run_chunk(
+                    carry, seed, s, e, client_batches, timing=tap is not None)
+                if tap is not None:
+                    for r, (row, dt) in enumerate(zip(rows.cpu().numpy(), times)):
+                        tap.emit(s + r, row, dt)
+            else:
+                carry, outs, fault_t = _srv.run_rounds(step, carry, seed, s, e, client_batches,
+                                                       t.eta_l, avg_last=t.avg_last,
+                                                       fault=self.fault, tap=emit)
+                chunk_hist = _srv.stack_outs(outs, self.device)
+            if prof is not None and (e >= min(profile[1], t.rounds) or fault_t is not None):
+                self._profile_stop(prof, tap, e)
+                prof = None
             if fault_t is not None and policy is not None and retries < policy.max_retries:
                 # roll back: the rounds past the checkpoint were run (their
                 # releases happened) and run again, so they join the budget
@@ -432,11 +605,12 @@ class FederatedSession:
                 back, seed, carry, hist = self._load(checkpoint_dir, retries=2,
                                                      backoff=policy.backoff)
                 self._rounds_retried += fault_t + 1 - back
+                if tap is not None:
+                    tap.rollback(back, fault_t, retries)
                 bounds, idx = self._chunk_bounds(back, checkpoint_every), 0
                 inject_pending = self._inject_divergence is not None
                 continue
-            hist = tuple(torch.cat([h, n]) for h, n in zip(hist, _srv.stack_outs(
-                outs, self.device)))
+            hist = tuple(torch.cat([h, n]) for h, n in zip(hist, chunk_hist))
             if fault_t is not None:
                 fault_round = fault_t
                 break
@@ -449,14 +623,18 @@ class FederatedSession:
         return self._finish(_srv.assemble_result(carry, hist, t.rounds, fault_round))
 
     def run_batched(self, seeds, *, batched_w0: bool = False,
-                    batched_data: bool = False) -> RunResult:
+                    batched_data: bool = False, tracker: Tracker | None = None) -> RunResult:
         """A sweep over ``seeds``: every ``RunResult`` field gains a leading
         (S,) axis, and slice s equals ``run(seeds[s])`` bit for bit.
 
         The seeds run one after another through the round loop, as the JAX
-        package's streamed sweep does.  ``batched_w0`` / ``batched_data``:
-        the initial model (a (S, d) stack of flat vectors) / every leaf of the
-        client data carries a leading seed axis, and seed s runs on its slice.
+        package's streamed sweep does (the scan engine's graphs serve every
+        seed).  ``batched_w0`` / ``batched_data``: the initial model (a (S,
+        d) stack of flat vectors) / every leaf of the client data carries a
+        leading seed axis, and seed s runs on its slice.  A ``tracker`` gets
+        each seed's events afterwards from its histories, through a per-seed
+        sub-tracker (the JAX package's replay: its schema without wall time
+        or fault fields).
         """
         if self.fault is not None:
             raise ValueError(
@@ -491,8 +669,36 @@ class FederatedSession:
                                   if batched_data else None)
                    for i, seed in enumerate(seeds)]
 
-        return RunResult(**{f.name: tree_stack([getattr(r, f.name) for r in results])
-                            for f in dataclasses.fields(RunResult) if f.name != "fault_round"})
+        result = RunResult(**{f.name: tree_stack([getattr(r, f.name) for r in results])
+                              for f in dataclasses.fields(RunResult) if f.name != "fault_round"})
+        if self._tap_on(tracker):
+            self._replay_batched(tracker, result)
+        return result
+
+    def _replay_batched(self, tracker: Tracker, result: RunResult) -> None:
+        """Each seed's events from its histories, through ``tracker.sub(i)``
+        (the JAX package's ``_replay_batched``)."""
+        ledger = self._ledger_fn()
+        bytes_pr = self._bytes_per_round()
+        etas, metrics, naives, targets = (np.asarray(h.cpu()) for h in (
+            result.eta_history, result.metric_history, result.eta_naive_history,
+            result.eta_target_history))
+        for i in range(etas.shape[0]):
+            sub = tracker.sub(i)
+            sub.start_phase("replay", 0)
+            for t in range(etas.shape[1]):
+                event = {"eta": float(etas[i, t]), "eta_naive": float(naives[i, t]),
+                         "eta_target": float(targets[i, t])}
+                if bytes_pr is not None:
+                    event["bytes_per_round"] = bytes_pr
+                if math.isfinite(float(metrics[i, t])):
+                    event["metric"] = float(metrics[i, t])
+                if ledger is not None:
+                    rep = ledger(t + 1)
+                    event.update(ledger_rounds=t + 1, mu=float(rep.mu),
+                                 eps=float(rep.eps_numerical), eps_rdp=float(rep.eps_rdp))
+                sub.log(t, event)
+        tracker.finish()
 
     def privacy_report(self, delta: float) -> accounting.PrivacyReport:
         """Privacy budget of this session's full run; raises for non-private
@@ -505,8 +711,13 @@ class FederatedSession:
         the release), and every round run again by ``run(on_divergence=...)``
         joins the composition; call it after ``run`` to fold that run's
         retries in."""
+        return self._budget_at(delta, self.train.rounds + self._rounds_retried)
+
+    def _budget_at(self, delta: float, rounds: int) -> accounting.PrivacyReport:
+        """``privacy_report`` at an explicit count of executed rounds: the
+        telemetry ledger calls it every round with the rounds run so far
+        (retries included), so its last entry equals ``privacy_report``."""
         q = 1.0 if self.cohort is None else self.cohort.sampling_rate(self.num_clients)
         dropout = self.fault.dropout if self.fault is not None and self.fault.injects else 0.0
         q = accounting.realized_participation(q, dropout)
-        return self.algorithm.budget(delta, rounds=self.train.rounds + self._rounds_retried,
-                                     dim=self.dim, sampling_q=q)
+        return self.algorithm.budget(delta, rounds=rounds, dim=self.dim, sampling_q=q)

@@ -2,8 +2,9 @@
 
 The port runs the local trainers of ``LocalSpec`` (full-batch GD, minibatch
 SGD over local epochs, FedProx, client momentum, and SCAFFOLD's
-control-variate steps) and two round loops, eager and streamed
-(``EngineSpec``; ``StreamSpec`` sets the stream's client chunk), with full
+control-variate steps) and three round loops, eager, scan (CUDA graphs) and
+streamed (``EngineSpec``; ``StreamSpec`` sets the stream's client chunk),
+observed by ``TelemetrySpec`` and ``run(tracker=)``, with full
 participation or a sampled cohort (``CohortSpec``), under an optional fault
 model and divergence watchdog (``FaultSpec``), on client data on the device
 or behind a host, disk or generated source (``DataSpec``); ``ShardSpec``
@@ -19,7 +20,7 @@ import torch
 from repro_torch.core.compression import COMPRESS_TAG
 
 __all__ = ["TrainSpec", "LocalSpec", "EngineSpec", "StreamSpec", "CohortSpec", "FaultSpec",
-           "DataSpec", "FAULT_TAG", "LOCAL_TRAIN_TAG", "COMPRESS_TAG"]
+           "TelemetrySpec", "DataSpec", "FAULT_TAG", "LOCAL_TRAIN_TAG", "COMPRESS_TAG"]
 
 # the tag of a round's fault draws (dropouts, straggler cutoffs, corrupted
 # updates): each fault class draws from a generator of its own keyed by the
@@ -113,24 +114,40 @@ class LocalSpec:
 
 @dataclasses.dataclass(frozen=True)
 class EngineSpec:
-    """How the round loop runs: ``"eager"``, a plain Python loop of rounds
-    that trains the whole cohort (or its gathered block) at once, or
-    ``"stream"``, the same loop with each round walking the cohort in
-    chunks of ``StreamSpec.chunk_clients`` clients, so that one (chunk, d)
-    block of updates is live at a time and the client data may stay on the
-    host (``fedsim/server.py::stream_round_step``).  The JAX package's
-    ``"scan"`` engine (its counterpart is CUDA graphs) comes in a later
-    slice (ROADMAP.md, queue 1, item 20)."""
+    """How the round loop runs.
 
-    engine: str = "eager"
+    * ``"eager"`` (the port's default): a plain Python loop of rounds that
+      trains the whole cohort (or its gathered block) at once.
+    * ``"scan"`` (the JAX package's default and its compiled scan's
+      counterpart): each round is staged on the host, then replayed from a
+      CUDA graph captured once per round kind and reused by every run and
+      seed of the session (``fedsim/scan.py``); on the CPU the same stage
+      and body run uncaptured.  ``chunk_rounds`` splits a run into chunks
+      whose histories (and telemetry payloads) the host reads once a chunk
+      (None = one chunk); ``scan_unroll`` is the number of rounds one graph
+      holds.  Results are the same bits for every value of either, and the
+      eager engine's bits.  The engine always works in buffers of its own
+      and never writes the caller's tensors, so ``donate`` (the JAX
+      package's carry donation) is accepted and changes nothing.
+    * ``"stream"``: the eager loop with each round walking the cohort in
+      chunks of ``StreamSpec.chunk_clients`` clients, so that one (chunk, d)
+      block of updates is live at a time and the client data may stay on the
+      host (``fedsim/server.py::stream_round_step``).
+    """
+
+    engine: str = "eager"           # "eager" | "scan" | "stream"
+    chunk_rounds: int | None = None  # rounds per chunk (None = all)
+    scan_unroll: int = 2            # rounds captured in one graph
+    donate: bool | None = None      # the JAX package's carry donation; no effect here
 
     def __post_init__(self):
-        if self.engine == "scan":
-            raise NotImplementedError(
-                "engine='scan' is not ported yet; the port runs 'eager' and 'stream'")
-        if self.engine not in ("eager", "stream"):
-            raise ValueError(f"unknown engine {self.engine!r}; the port runs 'eager' and "
-                             "'stream'")
+        if self.engine not in ("scan", "eager", "stream"):
+            raise ValueError(f"unknown engine {self.engine!r}; "
+                             "use 'scan', 'eager', or 'stream'")
+        if self.chunk_rounds is not None and self.chunk_rounds < 1:
+            raise ValueError(f"chunk_rounds must be >= 1, got {self.chunk_rounds}")
+        if self.scan_unroll < 1:
+            raise ValueError(f"scan_unroll must be >= 1, got {self.scan_unroll}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -308,6 +325,41 @@ class FaultSpec:
         """True when the round loop must differ from the unfaulted one
         (injection or the watchdog); ``FaultSpec()`` normalizes to None."""
         return self.injects or self.watchdog
+
+
+@dataclasses.dataclass(frozen=True)
+class TelemetrySpec:
+    """How a run is observed (a copy of the JAX package's spec).
+
+    The spec never changes what a round computes: the engines learn only
+    whether a tracker is attached (``run(tracker=...)``), and a tracked run
+    equals an untracked one in bits.
+
+    Attributes:
+      ledger_delta: the delta at which the cumulative privacy ledger is
+        evaluated (``session._budget_at(ledger_delta, rounds_executed)``
+        added to every round event); None disables ledger events.  A
+        session whose algorithm has no budget skips the ledger.
+      profile_rounds: an optional ``(a, b)`` half-open window of rounds
+        wrapped in ``torch.profiler`` (the scan engine splits its chunks at
+        a and b); None = off.
+      profile_dir: where the profiler writes its trace; recorded in the
+        profile_start / profile_stop tracker events.
+    """
+
+    ledger_delta: float | None = 1e-5
+    profile_rounds: tuple[int, int] | None = None
+    profile_dir: str = "results/profile"
+
+    def __post_init__(self):
+        if self.ledger_delta is not None and not (0.0 < self.ledger_delta < 1.0):
+            raise ValueError(
+                f"ledger_delta must be in (0, 1) or None, got {self.ledger_delta}")
+        if self.profile_rounds is not None:
+            a, b = self.profile_rounds
+            if not (0 <= a < b):
+                raise ValueError("profile_rounds must be (a, b) with "
+                                 f"0 <= a < b, got {self.profile_rounds}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -178,7 +178,21 @@ struct Params {
   // last, so that the fields above keep the offsets the ungated instance reads
   const float* row_gate; // (m,) a row enters the sums where its gate is > 0; or nullptr
   const int* row_ids;    // (m,) each row's noise key in place of row_start + row; or nullptr
+  // fused mode's seed and sigma in device memory, or nullptr: `seed` / `sigma`
+  // (a launch captured in a CUDA graph reads each replay's values here)
+  const uint32_t* seed_at;
+  const float* sigma_at;
 };
+
+// Fused mode's seed and sigma for this launch: the parameters, or the values
+// the pointers name (read once, at the kernel's entry).
+__device__ __forceinline__ uint32_t seed_of(const Params& p) {
+  return p.seed_at != nullptr ? __ldg(p.seed_at) : p.seed;
+}
+
+__device__ __forceinline__ float sigma_of(const Params& p) {
+  return p.sigma_at != nullptr ? __ldg(p.sigma_at) : p.sigma;
+}
 
 // C for this launch: the parameter, or the float the pointer names.  Read
 // where each row's scale is taken: a C loaded once at entry and held in a
@@ -388,6 +402,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) aggregate_kernel(const Params 
   const uint32_t pair0 = static_cast<uint32_t>(col0 >> 1);
   float* ring = reinterpret_cast<float*>(smem_raw);
   float sq = 0.0f, clip_sq = 0.0f;
+  const uint32_t seed = kMode == kFused ? seed_of(p) : 0u;
+  const float sigma = kMode == kFused ? sigma_of(p) : 0.0f;
 
   if (t == 0) {
     for (int s = 0; s < p.stages; ++s) {
@@ -429,8 +445,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) aggregate_kernel(const Params 
               n.x = src[0];
               if (2 * q + 1 < w) n.y = src[1];
             } else {
-              const float2 z = normal_pair(p.seed, row_key<kGated>(p, row), pair0 + q);
-              n = make_float2(__fmul_rn(p.sigma, z.x), __fmul_rn(p.sigma, z.y));
+              const float2 z = normal_pair(seed, row_key<kGated>(p, row), pair0 + q);
+              n = make_float2(__fmul_rn(sigma, z.x), __fmul_rn(sigma, z.y));
             }
           }
           nz[2 * j] = n.x;
@@ -505,9 +521,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) aggregate_kernel(const Params 
           v0 = __fadd_rn(v0, src[0]);
           if (odd) v1 = __fadd_rn(v1, src[1]);
         } else if (kMode == kFused) {
-          const float2 z = normal_pair(p.seed, row_key<kGated>(p, row), pair0 + q);
-          v0 = __fadd_rn(v0, __fmul_rn(p.sigma, z.x));
-          if (odd) v1 = __fadd_rn(v1, __fmul_rn(p.sigma, z.y));
+          const float2 z = normal_pair(seed, row_key<kGated>(p, row), pair0 + q);
+          v0 = __fadd_rn(v0, __fmul_rn(sigma, z.x));
+          if (odd) v1 = __fadd_rn(v1, __fmul_rn(sigma, z.y));
         }
         if (kMode != kNone) {
           sq = fmaf(v0, v0, sq);
@@ -569,12 +585,17 @@ __global__ void __launch_bounds__(kMaxThreads, 1) aggregate_kernel(const Params 
 }
 
 // Noise-only: out[i, j] = sigma * z(seed, key_i, j) with key_i = row_ids[i], or
-// row_start + i where row_ids is null; grid (m, tiles of 8 * kNoiseThreads
+// row_start + i where row_ids is null; seed and sigma are read from seed_at and
+// sigma_at where those are not null; grid (m, tiles of 8 * kNoiseThreads
 // columns), four column pairs a thread.
 __global__ void __launch_bounds__(kNoiseThreads) noise_kernel(float* __restrict__ out, int64_t d,
-                                                              float sigma, uint32_t seed,
+                                                              float sigma_arg, uint32_t seed_arg,
                                                               int64_t row_start,
-                                                              const int* __restrict__ row_ids) {
+                                                              const int* __restrict__ row_ids,
+                                                              const uint32_t* seed_at,
+                                                              const float* sigma_at) {
+  const uint32_t seed = seed_at != nullptr ? __ldg(seed_at) : seed_arg;
+  const float sigma = sigma_at != nullptr ? __ldg(sigma_at) : sigma_arg;
   const int64_t i = blockIdx.x;
   const int64_t c0 =
       (static_cast<int64_t>(blockIdx.y) * kNoiseThreads + threadIdx.x) * (2 * kNoisePairs);
@@ -672,7 +693,9 @@ bool valid_shape(int pairs, int cluster, int threads, int smem_bytes) {
 // clusters * (d + cluster + 1) floats, tickets 16 ints that are 0 before the
 // first launch on the stream (the kernel leaves them 0), out d + 2 floats
 // (sum_released, sq_released, sq_clipped).  C is `clip`, or *clip_at where
-// clip_at is not null (a float in device memory).  row_gate (m floats) and
+// clip_at is not null (a float in device memory); likewise fused mode's seed
+// and sigma are `seed` and `sigma`, or *seed_at and *sigma_at where those are
+// not null (a launch in a CUDA graph then reads each replay's values).  row_gate (m floats) and
 // row_ids (m int32) may each be null; either one non-null launches the gated
 // instance.  The shape plan (cluster, window,
 // threads, pairs, stages, slot_floats, smem_bytes, clusters, rows_per_cluster)
@@ -684,7 +707,8 @@ extern "C" int dp_aggregate_launch(const float* u, const float* noise, int mode,
                                    int cluster, int window, int threads,
                                    int pairs, int stages, int slot_floats, int smem_bytes,
                                    int clusters, int64_t rows_per_cluster, float* scratch,
-                                   int* tickets, float* out, void* stream) {
+                                   int* tickets, float* out, void* stream,
+                                   const uint32_t* seed_at, const float* sigma_at) {
   const bool gated = row_gate != nullptr || row_ids != nullptr;
   const AggregateFn kernel = aggregate_for(mode, pairs, gated);
   if (kernel == nullptr || !valid_shape(pairs, cluster, threads, smem_bytes) || clusters < 1 ||
@@ -709,6 +733,8 @@ extern "C" int dp_aggregate_launch(const float* u, const float* noise, int mode,
   p.row_ids = row_ids;
   p.sigma = sigma;
   p.seed = seed;
+  p.seed_at = seed_at;
+  p.sigma_at = sigma_at;
   p.window = window;
   p.stages = stages;
   p.slot_floats = slot_floats;
@@ -760,13 +786,16 @@ extern "C" const char* dp_aggregate_error_name(int err) {
                          : cudaGetErrorName(static_cast<cudaError_t>(err));
 }
 
-// row_ids: m int32 row keys, or null for row_start + i.
+// row_ids: m int32 row keys, or null for row_start + i; seed_at / sigma_at:
+// the seed and sigma in device memory, or null for `seed` / `sigma`.
 extern "C" int ldp_noise_launch(float* out, int64_t m, int64_t d, float sigma, uint32_t seed,
-                                int64_t row_start, const int* row_ids, void* stream) {
+                                int64_t row_start, const int* row_ids, void* stream,
+                                const uint32_t* seed_at, const float* sigma_at) {
   const int64_t tile = 2 * kNoisePairs * kNoiseThreads;
   const int64_t tiles = (d + tile - 1) / tile;
   if (m < 1 || d < 1 || m > 0x7fffffff || tiles > 65535) return cudaErrorInvalidValue;
   noise_kernel<<<dim3(static_cast<unsigned>(m), static_cast<unsigned>(tiles)), kNoiseThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(out, d, sigma, seed, row_start, row_ids);
+                 static_cast<cudaStream_t>(stream)>>>(out, d, sigma, seed, row_start, row_ids,
+                                                            seed_at, sigma_at);
   return cudaGetLastError();
 }

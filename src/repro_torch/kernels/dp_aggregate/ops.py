@@ -115,7 +115,7 @@ def load_library() -> ctypes.CDLL:
                              ctypes.c_int)
     lib.dp_aggregate_launch.argtypes = [
         p, p, i32, i64, i64, f32, p, f32, u32, i64, p, p,
-        i32, i32, i32, i32, i32, i32, i32, i32, i64, p, p, p, p]
+        i32, i32, i32, i32, i32, i32, i32, i32, i64, p, p, p, p, p, p]
     lib.dp_aggregate_launch.restype = i32
     lib.dp_aggregate_max_clusters.argtypes = [i32, i32, i32, i32, i32, ctypes.POINTER(i32)]
     lib.dp_aggregate_max_clusters.restype = i32
@@ -123,7 +123,7 @@ def load_library() -> ctypes.CDLL:
     lib.dp_aggregate_attributes.restype = i32
     lib.dp_aggregate_error_name.argtypes = [i32]
     lib.dp_aggregate_error_name.restype = ctypes.c_char_p
-    lib.ldp_noise_launch.argtypes = [p, i64, i64, f32, u32, i64, p, p]
+    lib.ldp_noise_launch.argtypes = [p, i64, i64, f32, u32, i64, p, p, p, p]
     lib.ldp_noise_launch.restype = i32
     return lib
 
@@ -236,6 +236,42 @@ def _seed32(seed) -> int:
     return seed
 
 
+def _on_device(name: str, x: torch.Tensor, device: torch.device) -> None:
+    if x.device.type != device.type or (device.index is not None
+                                        and x.device.index != device.index):
+        raise ValueError(f"{name} lies on {x.device}, the rows on {device}")
+
+
+def _seed_arg(seed, device: torch.device) -> tuple[int, int | None]:
+    """(the seed as an int, or the address of a 0-d int64 tensor on ``device``
+    holding it in [0, 2**32)): the kernel reads its low 32-bit word there, so
+    a launch captured in a CUDA graph reads each replay's seed."""
+    if not isinstance(seed, torch.Tensor):
+        return _seed32(seed or 0), None
+    if seed.dim() != 0 or seed.dtype != torch.int64:
+        raise ValueError(f"a tensor noise seed must be 0-d int64, got shape "
+                         f"{tuple(seed.shape)} {seed.dtype}")
+    _on_device("noise_seed", seed, device)
+    return 0, seed.data_ptr()
+
+
+def _sigma_arg(sigma, device: torch.device) -> tuple[float, int | None]:
+    """(sigma as a float, or the address of a 0-d float32 tensor on ``device``
+    holding it), as ``_seed_arg``."""
+    if not isinstance(sigma, torch.Tensor):
+        return float(sigma or 0.0), None
+    if sigma.dim() != 0 or sigma.dtype != torch.float32:
+        raise ValueError(f"a tensor noise sigma must be 0-d float32, got shape "
+                         f"{tuple(sigma.shape)} {sigma.dtype}")
+    _on_device("noise_sigma", sigma, device)
+    return 0.0, sigma.data_ptr()
+
+
+def _host_scalar(x):
+    """A CPU tensor's value (the plain versions take Python numbers)."""
+    return x.item() if isinstance(x, torch.Tensor) else x
+
+
 def dp_aggregate_sums(updates: torch.Tensor, clip_norm, noise: torch.Tensor | None = None,
                       *, noise_seed: int | None = None, noise_sigma=None,
                       row_start: int = 0, row_gate: torch.Tensor | None = None,
@@ -247,7 +283,9 @@ def dp_aggregate_sums(updates: torch.Tensor, clip_norm, noise: torch.Tensor | No
     ``noise_seed``), operand (a materialized (M, d) ``noise``), fused
     (``noise_seed`` and ``noise_sigma``: the kernel draws sigma * N(0, 1)).
     ``clip_norm`` is a Python float or a 0-d float32 tensor on the updates'
-    device, which the kernel reads there (no host read of it).
+    device, which the kernel reads there (no host read of it); so are
+    ``noise_sigma`` and ``noise_seed`` (a 0-d int64 tensor in [0, 2**32)), so
+    that a launch captured in a CUDA graph reads each replay's values.
     ``row_gate`` ((M,) on the updates' device): a row enters the sums only
     where its gate is > 0, once, whatever the gate's size; a row gated off
     adds nothing, NaN or not, and draws no noise.  ``row_ids`` ((M,) integer
@@ -270,8 +308,9 @@ def dp_aggregate_sums(updates: torch.Tensor, clip_norm, noise: torch.Tensor | No
     row_ids = _row_arg("row_ids", row_ids, m, torch.int32, u.device)
     if u.device.type == "cpu":
         if noise_seed is not None:
-            noise = ref.ldp_noise_ref(m, d, _seed32(noise_seed), noise_sigma,
-                                      row_start=row_start, row_ids=row_ids)
+            noise = ref.ldp_noise_ref(m, d, _seed32(_host_scalar(noise_seed)),
+                                      _host_scalar(noise_sigma), row_start=row_start,
+                                      row_ids=row_ids)
         return ref.dp_aggregate_ref(u, noise, clip_norm, row_gate=row_gate)
     if u.device.type != "cuda":
         raise ValueError(f"dp_aggregate runs on cpu or cuda tensors, got {u.device}")
@@ -282,15 +321,17 @@ def dp_aggregate_sums(updates: torch.Tensor, clip_norm, noise: torch.Tensor | No
     plan = launch_plan(m, d, mode, u.device)
     stream = torch.cuda.current_stream(u.device).cuda_stream
     f32 = dict(dtype=torch.float32, device=u.device)
+    seed, seed_at = _seed_arg(noise_seed, u.device)
+    sigma, sigma_at = _sigma_arg(noise_sigma, u.device)
     scratch = torch.empty(plan.clusters * (d + plan.cluster + 1), **f32)
     out = torch.empty(d + 2, **f32)
     err = lib.dp_aggregate_launch(
         u.data_ptr(), None if noise is None else noise.data_ptr(), _MODES[mode],
-        m, d, clip, clip_at, float(noise_sigma or 0.0), _seed32(noise_seed or 0),
-        int(row_start), _ptr(row_gate), _ptr(row_ids), plan.cluster, plan.window,
-        plan.threads, plan.pairs, plan.stages, plan.slot_floats, plan.smem_bytes, plan.clusters,
-        plan.rows_per_cluster,
-        scratch.data_ptr(), _tickets_for(u.device, stream).data_ptr(), out.data_ptr(), stream)
+        m, d, clip, clip_at, sigma, seed, int(row_start), _ptr(row_gate), _ptr(row_ids),
+        plan.cluster, plan.window, plan.threads, plan.pairs, plan.stages, plan.slot_floats,
+        plan.smem_bytes, plan.clusters, plan.rows_per_cluster,
+        scratch.data_ptr(), _tickets_for(u.device, stream).data_ptr(), out.data_ptr(), stream,
+        seed_at, sigma_at)
     if err != 0:
         raise RuntimeError(f"dp_aggregate kernel launch failed for {plan}: "
                            f"{lib.dp_aggregate_error_name(err).decode()} ({err})")
@@ -357,9 +398,15 @@ def generate_ldp_noise(m: int, d: int, noise_seed: int, noise_sigma, *, device,
                        row_start: int = 0, row_ids: torch.Tensor | None = None
                        ) -> torch.Tensor:
     """The (m, d) noise the fused mode draws for ``noise_seed`` (its test
-    oracle): row i is client ``row_start + i``'s, or ``row_ids[i]``'s."""
+    oracle): row i is client ``row_start + i``'s, or ``row_ids[i]``'s.  The
+    seed and sigma may be 0-d tensors on ``device``, as ``dp_aggregate_sums``
+    takes them (a tensor sigma is not checked for finiteness: that would read
+    the device)."""
     device = torch.device(device)
-    if m < 1 or d < 1 or not math.isfinite(float(noise_sigma)):
+    if device.type == "cpu":
+        noise_seed, noise_sigma = _host_scalar(noise_seed), _host_scalar(noise_sigma)
+    if m < 1 or d < 1 or (not isinstance(noise_sigma, torch.Tensor)
+                          and not math.isfinite(float(noise_sigma))):
         raise ValueError(f"bad noise request m={m} d={d} sigma={noise_sigma}")
     row_ids = _row_arg("row_ids", row_ids, m, torch.int32, device)
     if device.type == "cpu":
@@ -367,10 +414,12 @@ def generate_ldp_noise(m: int, d: int, noise_seed: int, noise_sigma, *, device,
                                  row_ids=row_ids)
     if device.type != "cuda":
         raise ValueError(f"generate_ldp_noise runs on cpu or cuda, got {device}")
+    seed, seed_at = _seed_arg(noise_seed, device)
+    sigma, sigma_at = _sigma_arg(noise_sigma, device)
     out = torch.empty(m, d, dtype=torch.float32, device=device)
     err = load_library().ldp_noise_launch(
-        out.data_ptr(), m, d, float(noise_sigma), _seed32(noise_seed), int(row_start),
-        _ptr(row_ids), torch.cuda.current_stream(device).cuda_stream)
+        out.data_ptr(), m, d, sigma, seed, int(row_start), _ptr(row_ids),
+        torch.cuda.current_stream(device).cuda_stream, seed_at, sigma_at)
     if err != 0:
         raise RuntimeError(f"ldp_noise kernel launch failed: CUDA error {err}")
     generate_ldp_noise.launches += 1

@@ -1,9 +1,11 @@
-"""repro_torch.telemetry — round trackers for long runs (counterpart of
-repro/telemetry; the trackers only: the engine tap and ``TelemetrySpec`` are
-still to port, ROADMAP queue 1, item 15).
+"""repro_torch.telemetry — round trackers and the engine tap (counterpart of
+repro/telemetry).
 
-Public surface: the ``Tracker`` protocol and its concrete sinks, which a host
-loop feeds directly (``examples/train_federated_lm_torch.py``).
+Public surface: the ``Tracker`` protocol and its concrete sinks, which
+``FederatedSession.run(seed, tracker=...)`` (and ``resume``, ``run_batched``)
+feeds through the engine tap (``tap.TapSession``: one event a round in the
+JAX package's schema), or a host loop feeds directly
+(``examples/train_federated_lm_torch.py``).
 """
 from repro_torch.telemetry.trackers import (
     CompositeTracker,

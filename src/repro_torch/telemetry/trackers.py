@@ -22,10 +22,9 @@ Concrete sinks:
 Every tracker supports ``sub(tag)`` — a child view that stamps ``seed: tag``
 into each event and forwards to the parent, with a no-op ``finish``.
 
-Pure Python, the JAX package's lines byte for byte.  Host loops feed it
-directly (``examples/train_federated_lm_torch.py``); the engine tap that
-streams rounds out of ``FederatedSession`` is still to port (ROADMAP queue
-1, item 15).
+Pure Python, the JAX package's lines byte for byte.  ``FederatedSession``
+feeds it through the engine tap (``telemetry/tap.py``); host loops feed it
+directly (``examples/train_federated_lm_torch.py``).
 """
 from __future__ import annotations
 

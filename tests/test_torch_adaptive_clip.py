@@ -189,7 +189,8 @@ def test_chained_rounds_match_jax_on_its_draws(name):
         else:
             for f, v in jax_draws(client_keys(k_mech, m, 0), d, jalg.mechanism.sc.k).items():
                 setattr(noise, f, torch.tensor(v))
-        tw, taux, tstate = talg.apply_round_stateful(None, tw, torch.tensor(x), tstate, noise)
+        tw, taux, tstate = talg.apply_round_stateful(None, tw, torch.tensor(x), tstate,
+                                                     talg.stage_noise(noise, "cpu"))
         np.testing.assert_allclose(float(taux.eta_g), float(jaux.eta_g), rtol=1e-5)
         np.testing.assert_allclose(float(taux.update_norm), float(jaux.update_norm), rtol=1e-6)
         np.testing.assert_allclose(float(tstate.clip), float(jstate.clip), rtol=1e-5)

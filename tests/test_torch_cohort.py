@@ -37,7 +37,7 @@ from repro_torch.fedsim import (  # noqa: E402
     gather_slots,
     mask_rows,
 )
-from repro_torch.fedsim.server import sampled_round  # noqa: E402
+from repro_torch.fedsim.server import masked_round, stage_inputs  # noqa: E402
 from test_torch_moments import (  # noqa: E402
     COMPOSED,
     algo_kwargs,
@@ -184,9 +184,10 @@ def test_sampled_round_matches_jax_round_step(name, cohort, data):
         norms = np.linalg.norm(np.asarray(local_fn(torch.tensor(w), {
             k: torch.tensor(v) for k, v in batches.items()}, ETA_L)), axis=1)
         assert np.min(np.abs(norms - kw["c0"])) > 1e-4 * kw["c0"]
-    tw, aux, tstate = sampled_round(talg, local_fn, torch.tensor(w), talg.init_state(
-        torch.tensor(w)), round_noise_of(jalg, key, M, D, t), mask, tcoh, t,
-        {k: torch.tensor(v) for k, v in batches.items()}, ETA_L)
+    inp = stage_inputs(talg, local_fn, round_noise_of(jalg, key, M, D, t), t, M, "cpu",
+                       cohort=tcoh, mask=mask)
+    tw, aux, tstate = masked_round(talg, local_fn, torch.tensor(w), talg.init_state(
+        torch.tensor(w)), inp, tcoh, t, {k: torch.tensor(v) for k, v in batches.items()}, ETA_L)
     close(aux.eta_g, jouts[0], what="eta_g")
     for f, j in zip(("eta_naive", "eta_target"), jouts[2:]):
         g = float(getattr(aux, f))
@@ -203,13 +204,14 @@ def test_an_empty_bernoulli_round_is_a_zero_update(data):
     for name in ("ldp-fedexp-gauss", "cdp-fedexp", "fedavg", "ldp-fedexp-perclient"):
         alg = make_algorithm(name, **algo_kwargs(name))
         w = torch.full((D,), 0.25)
-        noise = alg.draw_noise(round_generator(0, 0), M, D, "cpu")
+        noise = alg.stage_noise(alg.draw_noise(round_generator(0, 0), M, D, "cpu"), "cpu")
         if name == "cdp-fedexp":
             noise.central = torch.zeros(D)
-        w_next, aux, _ = sampled_round(
-            alg, lambda w_, b, eta: cohort_updates(linreg_loss, w_, b, TAU, eta), w,
-            alg.init_state(w), noise, torch.zeros(M), CohortSpec(q=0.3), 0,
-            {k: torch.tensor(data[k]) for k in ("x", "y")}, ETA_L)
+        local_fn = lambda w_, b, eta: cohort_updates(linreg_loss, w_, b, TAU, eta)  # noqa: E731
+        cohort = CohortSpec(q=0.3)
+        inp = stage_inputs(alg, local_fn, noise, 0, M, "cpu", cohort=cohort, mask=torch.zeros(M))
+        w_next, aux, _ = masked_round(alg, local_fn, w, alg.init_state(w), inp, cohort, 0,
+                                      {k: torch.tensor(data[k]) for k in ("x", "y")}, ETA_L)
         assert torch.isfinite(w_next).all() and torch.equal(w_next, w), name
 
 

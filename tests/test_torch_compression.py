@@ -600,9 +600,11 @@ def test_one_round_matches_jax_round_step(name, agg, engine, data):
         aux = tcomp.RoundAux(eta_g=outs[0])
     else:
         mask = torch.tensor(np.asarray(jcoh.round_mask(key, M)))
-        tw, aux, _ = srv.sampled_round(
-            talg, lambda w_, b, eta: cohort_updates(linreg_loss, w_, b, TAU, eta), tw0, (),
-            noise, mask, tkw["cohort"], t, tbatches(data), ETA_L)
+        local_fn = lambda w_, b, eta: cohort_updates(linreg_loss, w_, b, TAU, eta)  # noqa: E731
+        inp = srv.stage_inputs(talg, local_fn, noise, t, M, "cpu", cohort=tkw["cohort"],
+                               mask=mask)
+        tw, aux, _ = srv.masked_round(talg, local_fn, tw0, (), inp, tkw["cohort"], t,
+                                      tbatches(data), ETA_L)
     close(aux.eta_g, jouts[0], what="eta_g")
     close_vec(tw.numpy(), jw)
 
@@ -703,10 +705,11 @@ def test_a_faulted_compressed_round_matches_jax(data):
     def local_fn(w_, b, eta, steps=None):
         return cohort_updates(linreg_loss, w_, b, TAU, eta, steps=steps)
 
-    tw, aux, _ = srv.sampled_round(talg, local_fn, torch.tensor(w), (),
-                                   round_noise_of(jalg, key, M, D, t), torch.ones(M), None, t,
-                                   tbatches(data), ETA_L, fault=FaultSpec(**kw), faults=faults,
-                                   tau=TAU)
+    fault = FaultSpec(**kw)
+    inp = srv.stage_inputs(talg, local_fn, round_noise_of(jalg, key, M, D, t), t, M, "cpu",
+                           fault=fault, mask=torch.ones(M), faults=faults)
+    tw, aux, _ = srv.masked_round(talg, local_fn, torch.tensor(w), (), inp, None, t,
+                                  tbatches(data), ETA_L, fault=fault, tau=TAU)
     close(aux.eta_g, jouts[0], what="eta_g")
     close_vec(tw.numpy(), jw)
 

@@ -299,7 +299,7 @@ def test_masked_moments_are_one_launch_on_the_card(dev):
 @pytest.mark.parametrize("central", [False, True], ids=["ldp", "cdp"])
 def test_a_dp_scaffold_round_is_two_launches_and_equals_the_cpu(dev, central, kind):
     """One dp-scaffold round on the card, dense, over a gathered slot table
-    (sampled_round: the hook hands the block its variate rows) or over a
+    (masked_round: the hook hands the block its variate rows) or over a
     cohort drawn with replacement (each draw a row of its own), against the
     same round on the CPU fed the same noise: its two releases are two
     dp_aggregate launches and no plain sum."""
@@ -307,7 +307,7 @@ def test_a_dp_scaffold_round_is_two_launches_and_equals_the_cpu(dev, central, ki
     from repro_torch.core.fedexp import make_algorithm
     from repro_torch.core.variance_reduction import ScaffoldState
     from repro_torch.fedsim import CohortSpec
-    from repro_torch.fedsim.server import sampled_round
+    from repro_torch.fedsim.server import masked_round, stage_inputs
     m, d = 64, 300
     alg = make_algorithm("dp-scaffold", clip_norm=0.3, sigma=0.2, central=central,
                          num_clients=m, tau=5, eta_l=0.3)
@@ -328,8 +328,9 @@ def test_a_dp_scaffold_round_is_two_launches_and_equals_the_cpu(dev, central, ki
         w = torch.zeros(d, device=dv)
         if kind == "dense":
             return alg.apply_round_stateful(None, w, u.to(dv), state, noise)
-        return sampled_round(alg, lambda w_, b, eta, ctx: b["u"], w, state, noise, mask,
-                             cohort, 0, {"u": u.to(dv)}, 0.3)
+        local_fn = lambda w_, b, eta, ctx: b["u"]  # noqa: E731
+        inp = stage_inputs(alg, local_fn, noise, 0, m, dv, cohort=cohort, mask=mask)
+        return masked_round(alg, local_fn, w, state, inp, cohort, 0, {"u": u.to(dv)}, 0.3)
 
     before = ops.dp_aggregate_sums.launches
     got = round_on(dev)
@@ -384,18 +385,19 @@ def test_the_spec_trainer_on_the_card_equals_the_cpu(dev, f32_convs, spec_kw):
     stable sort), and trains the CNN cohort on them to the CPU's updates at
     the sum tolerance; a gathered block's shuffles are its dense rows'."""
     from repro_torch.fedsim import LocalSpec, cohort_updates_spec
-    from repro_torch.fedsim.local import local_shuffles
+    from repro_torch.fedsim.local import local_shuffles, shuffle_key
     from repro_torch.models.cnn import masked_xent_loss
     model, batches, _ = _cnn_cohort("cdp", 16, 12)
-    assert torch.equal(local_shuffles(77, torch.arange(16, device=dev), 2, 12).cpu(),
-                       local_shuffles(77, torch.arange(16), 2, 12))
+    key, dkey = shuffle_key(77), shuffle_key(77).to(dev)
+    assert torch.equal(local_shuffles(dkey, torch.arange(16, device=dev), 2, 12).cpu(),
+                       local_shuffles(key, torch.arange(16), 2, 12))
     slots = torch.tensor([3, 5, 11, 0])
-    assert torch.equal(local_shuffles(77, slots.to(dev), 2, 12),
-                       local_shuffles(77, torch.arange(16, device=dev), 2, 12)[slots.to(dev)])
+    assert torch.equal(local_shuffles(dkey, slots.to(dev), 2, 12),
+                       local_shuffles(dkey, torch.arange(16, device=dev), 2, 12)[slots.to(dev)])
     spec, loss = LocalSpec(**spec_kw), masked_xent_loss(model)
-    want = cohort_updates_spec(loss, model.init_flat, batches, spec, 3, 0.1, 77)
+    want = cohort_updates_spec(loss, model.init_flat, batches, spec, 3, 0.1, key)
     got = cohort_updates_spec(loss, model.init_flat.to(dev),
-                              {k: v.to(dev) for k, v in batches.items()}, spec, 3, 0.1, 77)
+                              {k: v.to(dev) for k, v in batches.items()}, spec, 3, 0.1, dkey)
     _close(got, want)
 
 
@@ -991,3 +993,75 @@ def test_training_refuses_the_kernel_path_on_the_card(dev):
     toks = torch.zeros(1, 8, dtype=torch.int64, device=dev)
     with pytest.raises(NotImplementedError, match="no backward"):
         model.loss(params, toks, toks)
+
+
+# ---------------------------------------------------------------------------
+# the scan engine: rounds replayed from CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _scan_pair(dev, name, **specs):
+    """A 12-round paper-protocol run of ``name`` (chip_smoke's sessions at M
+    = 200, d = 64) under the eager and the scan engine."""
+    from repro_torch.fedsim import EngineSpec
+    m, d, rounds, tau = 200, 64, 12, 5
+    eager, data = chip_smoke.make_session(name, m, d, rounds, tau, dev, **specs)
+    scan, _ = chip_smoke.make_session(name, m, d, rounds, tau, dev, data=data,
+                                      engine=EngineSpec("scan", chunk_rounds=5), **specs)
+    return eager.run(3), scan.run(3), scan
+
+
+@pytest.mark.parametrize("name", chip_smoke.NAMES)
+def test_a_captured_run_equals_the_eager_run_in_bits(dev, name):
+    want, got, session = _scan_pair(dev, name)
+    assert chip_smoke.same_run(got, want)
+    assert session._scan.captures >= 1 and session._scan.replays >= 6
+
+
+def test_device_pointer_seed_and_sigma_launch_the_by_value_bits(dev):
+    g = torch.Generator(device=dev).manual_seed(4)
+    u = torch.randn(300, 4099, device=dev, generator=g)
+    seed, sigma = 4_000_000_001, 0.37
+    st = torch.tensor(seed, dtype=torch.int64, device=dev)
+    sg = torch.tensor(sigma, dtype=torch.float32, device=dev)
+    ids = torch.arange(299, -1, -1, device=dev, dtype=torch.int32)
+    for kw in ({}, {"row_ids": ids, "row_gate": (ids % 3 != 0).float()}):
+        a = ops.dp_aggregate_sums(u, 1.5, noise_seed=seed, noise_sigma=sigma, **kw)
+        b = ops.dp_aggregate_sums(u, 1.5, noise_seed=st, noise_sigma=sg, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for kw in ({}, {"row_ids": ids}):
+        assert torch.equal(ops.generate_ldp_noise(300, 4099, seed, sigma, device=dev, **kw),
+                           ops.generate_ldp_noise(300, 4099, st, sg, device=dev, **kw))
+    # a later value in the same tensors is read at the next launch
+    st.fill_(7)
+    sg.fill_(0.5)
+    assert torch.equal(ops.generate_ldp_noise(300, 4099, st, sg, device=dev),
+                       ops.generate_ldp_noise(300, 4099, 7, 0.5, device=dev))
+
+
+def test_a_host_read_in_the_round_body_fails_the_capture_and_names_it(dev):
+    """A planted ``.item()`` in the eval metric synchronises: the warm-up
+    names the line; a planted host copy (``host_to_device``) fails the
+    capture; neither falls back to the eager loop."""
+    from repro_torch.core.algorithm import host_to_device
+    from repro_torch.fedsim import EngineSpec
+    from repro_torch.fedsim.scan import CaptureError
+    session, data = chip_smoke.make_session("cdp-fedexp", 100, 32, 4, 2, dev,
+                                            engine=EngineSpec("scan"))
+    target = data.w_star
+
+    def host_read_metric(w):
+        return torch.tensor((w - target).norm().item(), device=w.device)
+
+    session.eval_fn = host_read_metric
+    with pytest.raises(CaptureError, match="host_read_metric"):
+        session.run(0)
+    copied, _ = chip_smoke.make_session("cdp-fedexp", 100, 32, 4, 2, dev,
+                                        engine=EngineSpec("scan"))
+    local = copied._local_fn
+
+    def local_with_a_host_copy(w, batches, eta_l, **kw):
+        return local(w, batches, eta_l, **kw) + host_to_device(torch.zeros(32), w.device)
+
+    copied._local_fn = local_with_a_host_copy
+    with pytest.raises(CaptureError, match="host_to_device"):
+        copied.run(0)

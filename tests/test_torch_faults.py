@@ -54,7 +54,7 @@ from repro_torch.fedsim import (  # noqa: E402
     local_update_scaffold,
 )
 from repro_torch.fedsim import faults as tfaults  # noqa: E402
-from repro_torch.fedsim.server import sampled_round  # noqa: E402
+from repro_torch.fedsim.server import masked_round, stage_inputs  # noqa: E402
 from repro_torch.fedsim.specs import FAULT_TAG  # noqa: E402
 from test_torch_moments import algo_kwargs, close, close_vec, round_noise_of  # noqa: E402
 from test_torch_scaffold import noise_of as scaffold_noise_of  # noqa: E402
@@ -425,9 +425,10 @@ def _faulted_round_against_jax(name, cohort, data, diverged=None):
         upd = local_fn(torch.tensor(w), tbatches(data), ETA_L,
                        *(talg.local_context(tstate, 0, M),) if scaffold else ())
         assert not torch.isfinite(upd[diverged]).all()
-    tw, aux, tstate2 = sampled_round(talg, local_fn, torch.tensor(w), tstate, noise, mask, tcoh,
-                                     t, tbatches(data), ETA_L, fault=FAULT, faults=faults,
-                                     tau=TAU)
+    inp = stage_inputs(talg, local_fn, noise, t, M, "cpu", cohort=tcoh, fault=FAULT, mask=mask,
+                       faults=faults)
+    tw, aux, tstate2 = masked_round(talg, local_fn, torch.tensor(w), tstate, inp, tcoh, t,
+                                    tbatches(data), ETA_L, fault=FAULT, tau=TAU)
     assert torch.isfinite(tw).all()
     close(aux.eta_g, jouts[0], what="eta_g")
     for f, j in zip(("eta_naive", "eta_target"), jouts[2:]):

@@ -127,3 +127,36 @@ def test_the_training_example_stands_alone():
                           env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, cwd=ROOT,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+SCAN_MODULES = ["telemetry/tap.py", "fedsim/scan.py", "fedsim/server.py"]
+QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
+
+
+@pytest.mark.parametrize("rel", SCAN_MODULES)
+def test_the_tap_and_scan_modules_stand_alone(rel):
+    """The tap's and the scan engine's modules are among the files checked
+    above and import torch, numpy and the standard library only (traceback
+    names the operation a failed capture stopped at), besides the port."""
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path in PORT_FILES
+    roots = set(_imported_roots(path))
+    assert not roots & (BANNED | {"."})
+    assert roots <= {"__future__", "collections", "dataclasses", "math", "time", "traceback",
+                     "typing", "numpy", "torch", "repro_torch"}, roots
+
+
+def test_the_quickstart_example_stands_alone(tmp_path):
+    """examples/quickstart_torch.py imports neither jax nor the JAX package,
+    and its --quick --cpu run works with both blocked."""
+    assert not set(_imported_roots(QUICKSTART)) & (BANNED | {"."})
+    code = ("import sys, runpy\n"
+            "for m in ('jax', 'jaxlib', 'repro'): sys.modules[m] = None\n"
+            f"sys.argv = ['q', '--quick', '--cpu', '--telemetry', {str(tmp_path / 'q.jsonl')!r}]\n"
+            f"runpy.run_path({str(QUICKSTART)!r}, run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, cwd=tmp_path,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "cdp-fedexp" in proc.stdout
+    assert (tmp_path / "q-cdp-fedexp.jsonl").read_text().count("\n") == 8

@@ -45,7 +45,7 @@ from repro_torch.fedsim import (  # noqa: E402
     local_update_spec,
 )
 from repro_torch.fedsim import faults as tfaults  # noqa: E402
-from repro_torch.fedsim.local import local_shuffles  # noqa: E402
+from repro_torch.fedsim.local import local_shuffles, shuffle_key  # noqa: E402
 from repro_torch.fedsim.server import local_caller  # noqa: E402
 from repro_torch.fedsim.specs import LOCAL_TRAIN_TAG  # noqa: E402
 
@@ -152,7 +152,7 @@ def test_the_spec_trainer_trains_a_parameter_tree(targets):
 
     params = {"a": torch.zeros(D), "b": torch.ones(D)}
     spec = LocalSpec(batch_size=4, epochs=2, momentum=0.5)
-    perms = local_shuffles(3, torch.arange(1), 2, N)[0]
+    perms = local_shuffles(shuffle_key(3), torch.arange(1), 2, N)[0]
     delta = local_update_spec(tree_loss, params, torch.tensor(targets[0]), perms, spec, 1, 0.2)
     assert set(delta) == {"a", "b"}
     flat, unravel = flatten_model(params)
@@ -177,7 +177,7 @@ def test_a_full_cover_minibatch_step_is_one_gd_step(targets):
     """batch_size = n, one epoch: one step on a permutation of all n samples,
     which only reorders the mean (JAX's tests/test_local.py:71)."""
     w0 = torch.zeros(D)
-    perms = local_shuffles(1, torch.arange(1), 1, N)[0]
+    perms = local_shuffles(shuffle_key(1), torch.arange(1), 1, N)[0]
     got = local_update_spec(loss, w0, torch.tensor(targets[0]), perms,
                             LocalSpec(batch_size=N), tau=5, eta_l=0.3)
     g = torch.func.grad(loss)(w0, torch.tensor(targets[0]))
@@ -199,15 +199,15 @@ def test_momentum_follows_its_recurrence(targets):
 
 
 def test_shuffles_are_permutations_and_deterministic():
-    p = local_shuffles(123, torch.arange(50), 3, N)
+    p = local_shuffles(shuffle_key(123), torch.arange(50), 3, N)
     assert p.shape == (50, 3, N) and p.dtype == torch.int64
     assert torch.equal(torch.sort(p, dim=-1).values, torch.arange(N).expand(50, 3, N))
-    assert torch.equal(p, local_shuffles(123, torch.arange(50), 3, N))
+    assert torch.equal(p, local_shuffles(shuffle_key(123), torch.arange(50), 3, N))
 
 
 def test_shuffles_differ_across_rounds_clients_and_epochs():
     seeds = [round_generator(0, t).initial_seed() for t in range(2)]
-    a, b = (local_shuffles(s, torch.arange(40), 2, N) for s in seeds)
+    a, b = (local_shuffles(shuffle_key(s), torch.arange(40), 2, N) for s in seeds)
     assert (a != b).any(dim=-1).float().mean() > 0.9          # rounds
     assert len({tuple(r.tolist()) for r in a[:, 0]}) == 40    # clients
     assert (a[:, 0] != a[:, 1]).any(dim=-1).all()             # epochs
@@ -217,10 +217,11 @@ def test_a_clients_shuffle_depends_on_its_global_index_alone():
     """A gathered block (host slot tensor) and any split into contiguous
     blocks shuffle each client as the dense cohort does, in bits."""
     seed = round_generator(3, 1).initial_seed()
-    dense = local_shuffles(seed, torch.arange(M), 2, N)
+    dense = local_shuffles(shuffle_key(seed), torch.arange(M), 2, N)
     slots = torch.tensor([2, 3, 7, 11, 0, 0])
-    assert torch.equal(local_shuffles(seed, slots, 2, N), dense[slots])
-    halves = [local_shuffles(seed, torch.arange(s, s + M // 2), 2, N) for s in (0, M // 2)]
+    assert torch.equal(local_shuffles(shuffle_key(seed), slots, 2, N), dense[slots])
+    halves = [local_shuffles(shuffle_key(seed), torch.arange(s, s + M // 2), 2, N)
+              for s in (0, M // 2)]
     assert torch.equal(torch.cat(halves), dense)
 
 
@@ -229,13 +230,14 @@ def test_the_trainers_gathered_block_equals_its_dense_rows(targets):
     (host slots) and two contiguous halves give the dense rows in bits."""
     spec = LocalSpec(batch_size=4, epochs=2, prox_mu=0.01, momentum=0.9)
     w, t, seed = 0.1 * torch.ones(D), torch.tensor(targets), 99
-    dense = cohort_updates_spec(loss, w, t, spec, TAU, ETA_L, seed)
+    dense = cohort_updates_spec(loss, w, t, spec, TAU, ETA_L, shuffle_key(seed))
     slots = torch.tensor([1, 4, 5, 13])
-    block = cohort_updates_spec(loss, w, t[slots], spec, TAU, ETA_L, seed, start=slots)
+    block = cohort_updates_spec(loss, w, t[slots], spec, TAU, ETA_L, shuffle_key(seed),
+                                start=slots)
     assert torch.equal(block, dense[slots])
-    half = cohort_updates_spec(loss, w, t[8:], spec, TAU, ETA_L, seed, start=8)
+    half = cohort_updates_spec(loss, w, t[8:], spec, TAU, ETA_L, shuffle_key(seed), start=8)
     assert torch.equal(half, dense[8:])
-    other = cohort_updates_spec(loss, w, t, spec, TAU, ETA_L, seed + 1)
+    other = cohort_updates_spec(loss, w, t, spec, TAU, ETA_L, shuffle_key(seed + 1))
     assert not torch.equal(other, dense)
 
 
@@ -366,10 +368,10 @@ def test_under_a_fault_model_every_client_stops_at_tau(targets):
     w, t, seed = 0.1 * torch.ones(D), torch.tensor(targets), 17
     call = local_caller(build_cohort_local_fn(loss, spec, TAU), make_algorithm("fedavg"),
                         fault, TAU)
-    got = call(w, t, ETA_L, 0, None, torch.zeros(M), seed)
-    cut = cohort_updates_spec(loss, w, t, spec, TAU, ETA_L, seed,
+    got = call(w, t, ETA_L, 0, None, torch.zeros(M), shuffle_key(seed))
+    cut = cohort_updates_spec(loss, w, t, spec, TAU, ETA_L, shuffle_key(seed),
                               steps=torch.full((M,), TAU))
-    uncut = cohort_updates_spec(loss, w, t, spec, TAU, ETA_L, seed)
+    uncut = cohort_updates_spec(loss, w, t, spec, TAU, ETA_L, shuffle_key(seed))
     assert torch.equal(got, cut) and not torch.allclose(got, uncut)
     # JAX's trainer, on its own shuffles, cut at tau: the same three steps
     key = jax.random.PRNGKey(4)

@@ -82,11 +82,15 @@ def jax_privunit_draws(keys, d, k):
     return {n: torch.tensor(np.asarray(v)) for n, v in zip(names, jax.vmap(one)(keys))}
 
 
-def round_noise_of(jalg, key, m, d, t=None) -> RoundNoise:
-    """The JAX round's randomness as the port's ``RoundNoise``, for all m clients:
-    the per-client rows keyed by global index, so any block reads its own.  A
-    compressed composition's central noise is its (kc,) draw, and its plan
-    JAX's ``aggregation.plan(fold_in(key, COMPRESS_TAG), d)``."""
+def round_noise_of(jalg, key, m, d, t=None, *, raw=False) -> RoundNoise:
+    """The JAX round's randomness as the port's staged ``RoundNoise``, for all
+    m clients: the per-client rows keyed by global index, so any block reads
+    its own.  A compressed composition's central noise is its (kc,) draw,
+    and its plan JAX's ``aggregation.plan(fold_in(key, COMPRESS_TAG), d)``.
+    As the port's stage does, PrivUnit's cap and quantile uniforms become
+    the port's quantiles, and a round-indexed schedule's sigma(t) (JAX's)
+    rides along as a 0-d float32 tensor; ``raw`` leaves the draws as drawn,
+    for the port's own stage."""
     k_mech, extra = jalg._split_keys(key)
     mech = jalg._mech_at(t)
     noise = RoundNoise()
@@ -104,8 +108,14 @@ def round_noise_of(jalg, key, m, d, t=None) -> RoundNoise:
     elif isinstance(mech, jcomp.PrivUnitLDP):
         for f, v in jax_privunit_draws(client_keys(k_mech, m, 0), d, mech.sc.k).items():
             setattr(noise, f, v)
+        tmech = tcomp.PrivUnitLDP(clip_norm=mech.clip_norm, eps0=mech.eps0, eps1=mech.eps1,
+                                  eps2=mech.eps2, dim=mech.dim)
+        for f, v in ({} if raw else tmech.stage(noise)).items():
+            setattr(noise, f, v)
     elif isinstance(mech, jcomp.CentralGaussian):
         noise.central = torch.tensor(np.asarray(jax.random.normal(k_mech, (d,))))
+    if getattr(jalg.mechanism, "is_round_indexed", False) and not raw:
+        noise.sigma_t = torch.tensor(float(mech.sigma), dtype=torch.float32)
     if mech.needs_xi_key and jalg.step.uses_extrapolation and extra:
         noise.xi = torch.tensor(np.asarray(jax.random.normal(extra[0], ())))
     if jalg.step.needs_clip_bits:
@@ -191,10 +201,10 @@ def test_raw_moments_match_jax(mask_kind, weighted, binary_mask):
 
 
 def test_global_client_indices():
-    assert torch.equal(tagg.global_client_indices(5, 4), torch.arange(5, 9))
+    assert torch.equal(tagg.global_client_indices(5, 4, "cpu"), torch.arange(5, 9))
     ids = torch.tensor([3, 0, 7])
-    assert tagg.global_client_indices(ids, 3) is ids
-    np.testing.assert_array_equal(tagg.global_client_indices(5, 4).numpy(),
+    assert tagg.global_client_indices(ids, 3, "cpu") is ids
+    np.testing.assert_array_equal(tagg.global_client_indices(5, 4, "cpu").numpy(),
                                   np.asarray(jagg.global_client_indices(5, 4)))
 
 

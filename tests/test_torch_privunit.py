@@ -212,7 +212,8 @@ def test_mechanism_release_matches_jax(clip_override):
     jclip = None if clip_override is None else jnp.float32(clip_override)
     tclip = None if clip_override is None else torch.tensor(clip_override)
     jstats, jextras = jalg.mechanism.release(key, jnp.asarray(x), jclip, float(m))
-    noise = noise_of(jax_draws(client_keys(key, m, 0), d, jalg.mechanism.sc.k))
+    noise = talg.stage_noise(noise_of(jax_draws(client_keys(key, m, 0), d,
+                                                jalg.mechanism.sc.k)), "cpu")
     tstats, textras = talg.mechanism.release(noise, torch.tensor(x), tclip)
     _close_vec(tstats.cbar.numpy(), jstats.cbar)
     for f in ("mean_sq", "agg_sq", "mean_sq_clipped"):
@@ -228,7 +229,8 @@ def test_round_matches_jax_on_its_draws(name):
     jalg, talg, x, key = _release_inputs(name, m, d, c, 9)
     w = np.random.default_rng(1).standard_normal(d).astype(np.float32)
     jw, jaux, _ = jalg.apply_round_stateful(key, jnp.asarray(w), jnp.asarray(x), ())
-    noise = noise_of(jax_draws(client_keys(key, m, 0), d, jalg.mechanism.sc.k))
+    noise = talg.stage_noise(noise_of(jax_draws(client_keys(key, m, 0), d,
+                                                jalg.mechanism.sc.k)), "cpu")
     tw, taux = talg.apply_round(None, torch.tensor(w), torch.tensor(x), noise)
     for f in ("eta_g", "eta_naive", "eta_target"):
         j, t = float(getattr(jaux, f)), float(getattr(taux, f))

@@ -37,7 +37,11 @@ from repro.fedsim.specs import CohortSpec as JaxCohort  # noqa: E402
 from repro.fedsim.specs import LocalSpec as JaxLocal  # noqa: E402
 from repro_torch.core.algorithm import RoundNoise, round_generator  # noqa: E402
 from repro_torch.core.fedexp import list_algorithms, make_algorithm  # noqa: E402
-from repro_torch.core.variance_reduction import DPScaffoldServer, ScaffoldState  # noqa: E402
+from repro_torch.core.variance_reduction import (  # noqa: E402
+    DPScaffoldServer,
+    ScaffoldState,
+    multiplicity_rows,
+)
 from repro_torch.data.synthetic import distance_to_opt, linreg_loss  # noqa: E402
 from repro_torch.fedsim import (  # noqa: E402
     CohortSpec,
@@ -49,7 +53,8 @@ from repro_torch.fedsim import (  # noqa: E402
     local_update_scaffold,
 )
 from repro_torch.fedsim import scaffold as tscaffold  # noqa: E402
-from repro_torch.fedsim.server import sampled_round  # noqa: E402
+from repro_torch.fedsim.local import shuffle_key  # noqa: E402
+from repro_torch.fedsim.server import masked_round, stage_inputs  # noqa: E402
 
 M, D, TAU, ETA_L, C, ROUNDS = 40, 32, 5, 0.3, 0.3, 10
 MODES = {"ldp": False, "cdp": True}
@@ -287,8 +292,9 @@ def test_local_moments_and_apply_from_moments_match_jax(mode, kind):
     key = jax.random.PRNGKey(12)
     noise = noise_of(jalg, key)
     jmom = jalg.local_moments(key, jnp.asarray(w), jnp.asarray(x), jnp.asarray(mask), jstart, js)
+    draws = None if binary else multiplicity_rows(torch.tensor(mask))
     tmom = talg.local_moments(noise, torch.tensor(w), torch.tensor(x), torch.tensor(mask),
-                              tstart, ts, binary_mask=binary)
+                              tstart, ts, binary_mask=binary, draws=draws)
     close_vec(tmom[0].sum_c.numpy(), jmom[0].sum_c)
     for f in ("sum_sq", "sum_sq_clipped", "count"):
         close(getattr(tmom[0], f), getattr(jmom[0], f), what=f)
@@ -342,9 +348,10 @@ def test_a_multiplicity_is_its_draws_as_rows_of_their_own(mode):
     mask[[3, 7, 20]] = [2.0, 1.0, 3.0]
     x[mask == 0] = 0.0
     noise = talg.draw_noise(torch.Generator().manual_seed(1), M, D, "cpu")
-    mom, extras = talg.local_moments(noise, torch.zeros(D), torch.tensor(x), torch.tensor(mask),
-                                     0, ts, binary_mask=False)
     draws = np.array([3, 3, 7, 20, 20, 20])
+    assert torch.equal(multiplicity_rows(torch.tensor(mask)), torch.tensor(draws))
+    mom, extras = talg.local_moments(noise, torch.zeros(D), torch.tensor(x), torch.tensor(mask),
+                                     0, ts, binary_mask=False, draws=torch.tensor(draws))
     want, wextras = talg.local_moments(noise, torch.zeros(D), torch.tensor(x[draws]),
                                        torch.ones(len(draws)), torch.tensor(draws), ts,
                                        binary_mask=True)
@@ -380,8 +387,9 @@ def test_sampled_round_matches_jax_round_step(mode, cohort, data):
     def local_fn(w_, b, eta, ctx):
         return cohort_updates_scaffold(linreg_loss, w_, b, TAU, eta, ctx)
 
-    tw, aux, ts2 = sampled_round(talg, local_fn, torch.tensor(w), ts, noise_of(jalg, key), mask,
-                                 tcoh, t, tbatches(data), ETA_L)
+    inp = stage_inputs(talg, local_fn, noise_of(jalg, key), t, M, "cpu", cohort=tcoh, mask=mask)
+    tw, aux, ts2 = masked_round(talg, local_fn, torch.tensor(w), ts, inp, tcoh, t,
+                                tbatches(data), ETA_L)
     close_vec(tw.numpy(), jw)
     state_close(ts2, js2)
     assert float(aux.eta_g) == float(jouts[0]) == 1.0
@@ -581,7 +589,7 @@ def test_the_session_refuses_unpaired_trainers_and_tables(data):
         for t in range(train.rounds):
             gen = round_generator(0, t)
             deltas = cohort_updates_spec(mean_loss, w, samples, spec, TAU, ETA_L,
-                                         gen.initial_seed())
+                                         shuffle_key(gen.initial_seed()))
             w, _, state = alg.apply_round_stateful(gen, w, deltas, state, t=t)
         assert torch.isfinite(got.last_w).all() and torch.equal(got.last_w, w), spec
     # the default spec is full-batch GD, bit for bit

@@ -232,7 +232,8 @@ def test_decayed_round_matches_jax_at_its_round_index(name):
     else:
         noise.central = torch.tensor(np.asarray(jax.random.normal(k_mech, (d,))))
         noise.xi = torch.tensor(np.asarray(jax.random.normal(extra[0], ())))
-    tw, taux = talg.apply_round(None, torch.tensor(w), torch.tensor(x), noise, t=t)
+    tw, taux = talg.apply_round(None, torch.tensor(w), torch.tensor(x),
+                                talg.stage_noise(noise, "cpu", t), t=t)
     np.testing.assert_allclose(float(taux.eta_g), float(jaux.eta_g), rtol=1e-5)
     _close_vec(tw.numpy(), jw)
     with pytest.raises(ValueError, match="pass the round index t"):
@@ -247,7 +248,8 @@ def test_decayed_schedule_threads_t_through_the_session(data):
     js, ts = _sessions("ldp-fedexp-schedule", data, eta_l=0.3, **kw)
     alg = ts.algorithm
     n0 = alg.draw_noise(round_generator(0, 0), M, D, "cpu", t=0)
-    assert n0.seed is not None and alg._mech_at(5).sigma < alg._mech_at(0).sigma
+    assert n0.seed is not None
+    assert alg.mechanism.at_round(5).sigma < alg.mechanism.at_round(0).sigma
     ws = data["w_star"]
     jd = np.array([np.linalg.norm(np.asarray(js.run(jax.random.PRNGKey(s)).final_w) - ws)
                    for s in range(8)])

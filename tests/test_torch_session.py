@@ -172,5 +172,6 @@ def test_device_and_engine_guards(data):
         FederatedSession(make_algorithm("fedavg"), linreg_loss, np.zeros(D, np.float32),
                          {"x": data["x"], "y": data["y"]},
                          train=TrainSpec(rounds=1, tau=1, eta_l=0.1))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        EngineSpec(engine="scan")
+    assert EngineSpec(engine="scan").engine == "scan"
+    with pytest.raises(ValueError, match="unknown engine"):
+        EngineSpec(engine="jit")

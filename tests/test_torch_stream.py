@@ -247,8 +247,8 @@ def test_engine_spec_accepts_stream_only_beside_eager():
     assert EngineSpec(engine="stream").engine == "stream"
     with pytest.raises(ValueError, match="unknown engine"):
         EngineSpec(engine="streaming")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        EngineSpec(engine="scan")
+    # the scan engine is the third (tests/test_torch_scan.py)
+    assert EngineSpec(engine="scan").engine == "scan"
 
 
 # ---------------------------------------------------------------------------
@@ -282,9 +282,11 @@ def _one_chunk_round(data, name, cohort, t=1):
         mask, cohort = torch.ones(M), CohortSpec(size=M)   # the static count of full participation
     else:
         mask = cohort.round_mask(gen, M)
-    noise = alg.draw_noise(gen, M, D, w.device, t)
-    w_next, aux, state_next = srv.sampled_round(alg, s._local_fn, w, state, noise, mask, cohort,
-                                                t, batches, ETA_L, round_seed=gen.initial_seed())
+    noise = alg.stage_noise(alg.draw_noise(gen, M, D, w.device, t), w.device, t)
+    inp = srv.stage_inputs(alg, s._local_fn, noise, t, M, w.device, cohort=cohort, mask=mask,
+                           seed=gen.initial_seed())
+    w_next, aux, state_next = srv.masked_round(alg, s._local_fn, w, state, inp, cohort, t,
+                                               batches, ETA_L)
     return got, (w_next, state_next, aux)
 
 
