@@ -240,7 +240,8 @@ Phases, each of which exits non-zero on failure:
                tokens a local step from per-client Markov streams, clip 1,
                sigma 0.05, eta_l 0.05: h2o-danube-3-4b cdp-fedexp (K = 4,
                tau = 2, 3 rounds) and ldp-fedexp-gauss (1 round), mamba2-2.7b
-               cdp-fedexp (K = 2, tau = 1, 1 round); held after every round:
+               cdp-fedexp (K = 2, tau = 1, 1 round; 16 of its 64 layers
+               since phase 12 came, TRAIN_DEPTH); held after every round:
                finite metrics, eta_g >= 1, every client's clipped norm <= C
                within CLIP_SLACK, the parameters moved; ms per round (host
                clock, the card synchronised), one local step timed five
@@ -251,12 +252,56 @@ Phases, each of which exits non-zero on failure:
                and a planted fault (eta_g forced to 1) outside it.  No
                hand-written kernel launches: training reaches none (nor
                does the JAX package's).
+  11. serve-zoo the rest of the decoder zoo.  First (11a) the kernels at its
+               prefill shapes against their plain versions: the bf16
+               tensor-core flash kernel at one layer's every head of
+               zamba2-2.7b's shared block (B 2, MHA 32, S 8192, Dh 80),
+               granite-moe-1b-a400m (2, GQA 16/8, 8192, Dh 64), chameleon-34b
+               (1, GQA 64/8, 4096, Dh 128) and llama4-maverick (2, GQA 40/8,
+               4096, Dh 128), tight against its rounding order, within the
+               P-rounding bounds, a planted fault (a window of half the
+               prompt), timed beside the plain version, the bound and SDPA;
+               the float32 kernel at the two-layer checks' shapes; ssd_scan
+               at zamba2's prefill (2, 8192, 80, 64, N 64), timed with its
+               bound.  Then ServeEngine.generate of 16 greedy tokens, seeded
+               bf16 weights: zamba2-2.7b at full width and depth (2.341 B,
+               Mamba2's A and dt ranges) after 2 x 8192 tokens, 9
+               tensor-core flash launches (one per site of the shared block)
+               and 54 ssd_scan launches per prefill; granite-moe-1b-a400m
+               (1.335 B) after 2 x 8192, 24 flash launches, the dropped share
+               of (token, slot) assignments per layer at capacity factor
+               1.25; chameleon-34b (34.293 B, 68.6 GB) after 1 x 4096, 48
+               flash launches (its float32 form, 137 GB, cannot fit: said,
+               not tried); llama4-maverick's MoE block (top-1 of 128 experts
+               and the shared expert, the combine in bf16) at full width, 1
+               of its 48 layers (17.33 B; the experts drawn an expert at a
+               time, so no float32 copy of a (128, 5120, 16384) stack
+               exists), after 2 x 4096, 1 flash launch.  Each: prefill and
+               decode ms (host clock, card synchronised), peak memory, a
+               profiled prefill, finite logits, the timed steps' tokens =
+               generate's.  Then two layers of zamba2 (one super-block),
+               granite-moe and chameleon at full width in float32, card
+               (kernels) vs CPU (plain versions): prefill logits within
+               phase 9's float32 bounds, 6 greedy tokens equal, and a
+               planted fault on the CPU (the shared block after every Mamba2
+               layer; a capacity factor of 0.25; qk-norm dropped) outside.
+  12. train-zoo phase 10's recipe (cdp-fedexp) at full width and depth:
+               zamba2-2.7b K = 2, tau = 1, 1 round; granite-moe-1b-a400m
+               K = 4, tau = 2, 2 rounds; after every round phase 10's
+               checks, and every shared_attn.* leaf (zamba2) and every
+               router and expert tensor (granite-moe) moved; ms per round,
+               per local step (median of 5, profiled), peak memory.  Then
+               two float32 layers of each (zamba2: one super-block) card vs
+               CPU within TRAIN_CHECK_TOL and the planted eta_g = 1 outside.
+               No hand-written kernel launches.
 Phases 3, 3b, 3e, 3f, 3g, 4 and 4b are the round loop's main path, phase 6's bf16 generate the
 dense serve path's (the tensor-core flash kernel), its f32 generate and phase
 9's the float32 serve path's (the float32 tensor-core flash kernel), phase 7's
 generate the Mamba2 serve path's, phase 8's bf16 generate the Dh-256 serve
-path's (the tensor-core kernel's 64-key route): every launch counter is set
-to 0 before a path and read after.  The SIMT flash kernel runs only in the
+path's (the tensor-core kernel's 64-key route), phase 11's four generates
+the MoE, hybrid and VLM serve paths' (the tensor-core kernel at Dh 64, 80
+and 128, ssd_scan at N 64): every launch counter is set to 0 before a path
+and read after.  The SIMT flash kernel runs only in the
 route-before prefills of phases 8 and 9, whose launches its entry counts.
 The line before the last is {"kernels": [...]}, the last {"ok": true, "device":
 {...}}.  It imports nothing of JAX or of the JAX package ``repro``.
@@ -3708,6 +3753,10 @@ TRAIN_SEQ = 2048
 TRAIN_RUNS = ((H2O, "cdp-fedexp", 4, 2, 3), (H2O, "ldp-fedexp-gauss", 4, 2, 1),
               (MAMBA2, "cdp-fedexp", 2, 1, 1))
 TRAIN_FED = dict(clip_norm=1.0, noise_sigma=0.05, local_lr=0.05)
+# Depth cut to keep the script within its time limit since phase 12 came:
+# mamba2-2.7b trains 16 of its 64 layers (its step is host-bound, idle
+# share 0.60; phase 12 trains zamba2-2.7b's 54 Mamba2 layers at full depth)
+TRAIN_DEPTH = {MAMBA2: 16}
 TRAIN_STEP_REPEATS = 5    # one local step timed this often (a host's hiccup shows in one)
 CLIP_SLACK = 1e-3      # a clipped update's norm may exceed C by this share (its bf16 casts)
 # The card against the CPU: two full-width h2o layers in float32, cdp-fedexp at
@@ -3744,25 +3793,28 @@ def train_checks(label: str, metrics: dict, name: str, clip: float) -> None:
 
 
 def train_model(name: str, dev):
-    """``name`` at full width and depth in bf16, seeded as phases 6 and 7 seed
-    it, on the xla_flash path (the chunked SSD in Mamba2) with remat."""
+    """``name`` at full width in bf16, at full depth but for TRAIN_DEPTH's
+    cuts, seeded as phases 6 and 7 seed it, on the xla_flash path (the
+    chunked SSD in Mamba2) with remat."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import DecoderLM
     cfg = get_config(name)
+    if name in TRAIN_DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=TRAIN_DEPTH[name])
     model = DecoderLM(cfg, dtype=torch.bfloat16, attn_impl="xla_flash", remat=True, device=dev,
                       generator=torch.Generator(device=dev).manual_seed(0))
-    if cfg.arch_type == "ssm":
+    if cfg.arch_type in ("ssm", "hybrid"):
         mamba2_ranges_(model, torch.Generator(device=dev).manual_seed(4))
     return cfg, model
 
 
-def train_runs(dev, smi: str, arch: str) -> dict:
-    """The TRAIN_RUNS of ``arch``: rounds timed on the host clock with the card
+def train_runs(dev, smi: str, arch: str, runs=TRAIN_RUNS, phase: str = "10 train") -> dict:
+    """The ``runs`` of ``arch`` (TRAIN_RUNS): rounds timed on the host clock with the card
     synchronised, peak memory, the checks after every round, the parameters
-    moved; one local step warmed up, timed TRAIN_STEP_REPEATS times and
-    profiled before the first run (a profiled round's 140 k launches take the
-    profiler minutes to sum)."""
+    moved (and among them every leaf ZOO_TRAIN_MOVED names); one local step
+    warmed up, timed TRAIN_STEP_REPEATS times and profiled before the first
+    run (a profiled round's 140 k launches take the profiler minutes to sum)."""
     import torch
     from repro_torch.configs import FederatedConfig
     from repro_torch.data import make_client_stream
@@ -3774,10 +3826,11 @@ def train_runs(dev, smi: str, arch: str) -> dict:
         fail(f"train {arch}: count_params of the config {n} != the model's "
              f"{count_params(model)}")
     params = {k: p.detach() for k, p in model.named_parameters()}
-    print(f"[10 train] {arch}: {n / 1e9:.3f} B bf16 parameters (count_params), xla_flash, "
+    print(f"[{phase}] {arch}: {cfg.num_layers} layers, {n / 1e9:.3f} B bf16 parameters "
+          f"(count_params), xla_flash, "
           f"remat on, built in {time.perf_counter() - t0:.2f} s")
     out = {}
-    for run_arch, name, k, tau, rounds in TRAIN_RUNS:
+    for run_arch, name, k, tau, rounds in runs:
         if run_arch != arch:
             continue
         r0 = time.perf_counter()
@@ -3799,8 +3852,8 @@ def train_runs(dev, smi: str, arch: str) -> dict:
                 steps.append(1e3 * (time.perf_counter() - s0))
             row["step_ms"], row["step_ms_runs"] = sorted(steps)[len(steps) // 2], steps
             row["step_profile"] = device_window(lambda: trainer._local_train(*one),
-                                                f"one local step of {arch}", "10 train")
-            print(f"[10 train] {arch}: one local step (1 x {TRAIN_SEQ} tokens, forward, "
+                                                f"one local step of {arch}", phase)
+            print(f"[{phase}] {arch}: one local step (1 x {TRAIN_SEQ} tokens, forward, "
                   f"backward with remat, update) median {row['step_ms']:.1f} ms of "
                   f"{[round(x, 1) for x in steps]}  [{smi}]")
             del one
@@ -3814,7 +3867,7 @@ def train_runs(dev, smi: str, arch: str) -> dict:
             torch.cuda.synchronize()
             round_ms.append(1e3 * (time.perf_counter() - s0))
             train_checks(f"{arch} {name} round {t}", metrics, name, fed.clip_norm)
-            print(f"[10 train] {arch} {name} round {t}: loss {float(metrics['loss']):.5f}, "
+            print(f"[{phase}] {arch} {name} round {t}: loss {float(metrics['loss']):.5f}, "
                   f"eta_g {float(metrics['eta_g']):.5f}, update norms "
                   f"{[round(x, 5) for x in metrics['client_norms'].tolist()]}, clipped "
                   f"{[round(x, 5) for x in metrics['clipped_norms'].tolist()]}, agg_sq "
@@ -3825,8 +3878,15 @@ def train_runs(dev, smi: str, arch: str) -> dict:
         total = sum(v.numel() for v in params.values())
         if moved == 0:
             fail(f"train {arch} {name}: no parameter moved in {rounds} rounds")
+        tracked = [key for key in params if any(m in key for m in ZOO_TRAIN_MOVED.get(arch, ()))]
+        still = [key for key in tracked if torch.equal(params[key], first[key])]
+        if still:
+            fail(f"train {arch} {name}: {still[:4]} did not move in {rounds} rounds")
+        if tracked:
+            print(f"[{phase}] {arch} {name}: all {len(tracked)} leaves named "
+                  f"{ZOO_TRAIN_MOVED[arch]} moved")
         row.update(round_ms=round_ms, peak_gb=peak_gb, moved=moved / total)
-        print(f"[10 train] {arch} {name}: K = {k}, tau = {tau}, 1 x {TRAIN_SEQ} tokens a step: "
+        print(f"[{phase}] {arch} {name}: K = {k}, tau = {tau}, 1 x {TRAIN_SEQ} tokens a step: "
               f"ms per round {[round(x, 1) for x in round_ms]}, peak {peak_gb:.3f} GB; "
               f"{moved / total:.4f} of the parameters moved; run {time.perf_counter() - r0:.1f} "
               f"s  [{smi}]")
@@ -3837,9 +3897,10 @@ def train_runs(dev, smi: str, arch: str) -> dict:
     return out
 
 
-def train_reference(dev) -> dict:
-    """The card against the CPU (TRAIN_CHECK), and a planted fault, eta_g
-    forced to 1 on the card, that must break the bound."""
+def train_reference(dev, arch: str = H2O, phase: str = "10 train") -> dict:
+    """The card against the CPU (TRAIN_CHECK) on two layers of ``arch`` (a
+    hybrid's: one super-block of two), and a planted fault, eta_g forced to 1
+    on the card, that must break the bound."""
     import torch
     from repro_torch.configs import FederatedConfig, get_config
     from repro_torch.core import stepsize
@@ -3847,7 +3908,9 @@ def train_reference(dev) -> dict:
     from repro_torch.launch import FederatedTrainer, count_params
     from repro_torch.models import DecoderLM
     c = TRAIN_CHECK
-    small = dataclasses.replace(get_config(H2O), num_layers=c["layers"])
+    small = dataclasses.replace(get_config(arch), num_layers=c["layers"])
+    if small.arch_type == "hybrid":
+        small = dataclasses.replace(small, hybrid_attn_every=c["layers"])
     card = DecoderLM(small, attn_impl="xla_flash", device=dev,
                      generator=torch.Generator(device=dev).manual_seed(2))
     cpu = DecoderLM(small, attn_impl="xla_flash", device="cpu")
@@ -3866,7 +3929,7 @@ def train_reference(dev) -> dict:
     want, wm = FederatedTrainer(cpu, fed, n).make_train_step(c["k"])(
         p_cpu, batch, torch.Generator(), noise)
     t2 = time.perf_counter()
-    print(f"[10 train] reference: the CPU's noise drawn in {t1 - t0:.1f} s, its train_step "
+    print(f"[{phase}] reference: the CPU's noise drawn in {t1 - t0:.1f} s, its train_step "
           f"in {t2 - t1:.1f} s on {torch.get_num_threads()} threads")
     step = FederatedTrainer(card, fed, n).make_train_step(c["k"])
     card_batch = {k: v.to(dev) for k, v in batch.items()}
@@ -3889,7 +3952,7 @@ def train_reference(dev) -> dict:
     finally:
         stepsize.cdp = plain_cdp
     bad_upd, bad_met = gaps(bad, bm)
-    print(f"[10 train] reference: {c['layers']} h2o layers at full width in float32, "
+    print(f"[{phase}] reference: {c['layers']} {arch} layers at full width in float32, "
           f"cdp-fedexp, K = {c['k']}, tau = {c['tau']}, {c['seq']} tokens, the same "
           f"materialized noise (sigma {c['sigma']:g}): card vs CPU update tree "
           f"{upd:.3e} of its largest entry, metrics {met:.3e} relative (bound "
@@ -3897,10 +3960,10 @@ def train_reference(dev) -> dict:
           f"{float(wm['loss']):.6f}; planted fault (eta_g forced to 1): {bad_upd:.3e}, "
           f"{bad_met:.3e}; {time.perf_counter() - t0:.1f} s in all")
     if max(upd, met) > TRAIN_CHECK_TOL:
-        fail(f"train reference: the card's train_step differs from the CPU's by {upd:.3e} "
+        fail(f"train reference {arch}: the card's train_step differs from the CPU's by {upd:.3e} "
              f"(update tree) and {met:.3e} (metrics), beyond {TRAIN_CHECK_TOL:g}")
     if max(bad_upd, bad_met) <= TRAIN_CHECK_TOL:
-        fail("train reference: a planted fault (eta_g forced to 1) stays within the bound")
+        fail(f"train reference {arch}: a planted fault (eta_g forced to 1) stays within the bound")
     return dict(update_err=upd, metric_err=met, fault_update_err=bad_upd,
                 eta_g=float(wm["eta_g"]))
 
@@ -3920,6 +3983,413 @@ def phase_train(dev, smi: str) -> dict:
              ssd_ops.ssd_scan.launches)
     if after != before:
         fail(f"train: the training path launched kernels ({before} -> {after})")
+    return out
+
+
+# Phase 11: the rest of the decoder zoo served through ServeEngine at full
+# width, seeded bf16 weights, 16 greedy tokens a request.  (model, batch,
+# prompt, layers kept: None is full depth).  llama4-maverick keeps 1 of its
+# 48 layers: the whole model (783.2 B parameters, 1566 GB in bf16) fits on
+# no card, nor on four.
+ZAMBA2, GRANITE_MOE, CHAMELEON = "zamba2-2.7b", "granite-moe-1b-a400m", "chameleon-34b"
+LLAMA4 = "llama4-maverick-400b-a17b"
+ZOO_NEW = 16
+
+
+class ZooServe(NamedTuple):
+    name: str
+    batch: int
+    prompt: int
+    layers: int | None = None
+
+
+ZOO_SERVE = (ZooServe(ZAMBA2, 2, 8192), ZooServe(GRANITE_MOE, 2, 8192),
+             ZooServe(CHAMELEON, 1, 4096), ZooServe(LLAMA4, 2, 4096, layers=1))
+# The card against the CPU: two layers at full width in float32 (zamba2: one
+# super-block of two Mamba2 layers and one site of the shared block), the
+# same weights and a 2 x 300 prompt; the prefill logits within phase 9's
+# float32 bounds (SERVE_F32_MAX_ERR, SERVE_F32_MEAN_ERR) and 6 greedy tokens
+# equal; a planted fault on the CPU's plain path (config fields it changes)
+# must leave the bounds.
+ZOO_FAULTS = {
+    ZAMBA2: ("the shared block after every Mamba2 layer", dict(hybrid_attn_every=1)),
+    GRANITE_MOE: ("a capacity factor of 0.25", dict(capacity_factor=0.25)),
+    CHAMELEON: ("qk-norm dropped", dict(qk_norm=False)),
+}
+
+
+def zoo_attention_shape(cfg, batch: int, prompt: int) -> tuple:
+    """(b, hq, hkv, s, dh) of one attention layer's prefill."""
+    return batch, cfg.num_heads, cfg.num_kv_heads, prompt, cfg.resolved_head_dim
+
+
+def zoo_ssd_shape(cfg, batch: int, prompt: int) -> tuple:
+    """(b, s, h, p, n) of one Mamba2 layer's prefill."""
+    return batch, prompt, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+
+
+def zoo_kernels(dev) -> tuple[list, list, list]:
+    """Phase 11a: the kernels at the zoo's prefill shapes, each held against
+    its plain version: the bf16 tensor-core flash kernel at one layer's every
+    head (zamba2's shared block MHA 32 at Dh 80, granite-moe's GQA 16/8 at Dh
+    64, chameleon's GQA 64/8 at Dh 128, llama4's GQA 40/8 at Dh 128), tight
+    against its rounding order and within the P-rounding bounds of
+    attention_ref, a planted fault (a window of half the prompt) that the
+    tight check must see, its time beside the plain version's, the bound and
+    SDPA's; the float32 tensor-core kernel at the two-layer checks' shapes
+    (prompt 300) with its checks; ssd_scan at zamba2's prefill (N 64) against
+    ssd_chunked and _final_state, twice in bits, timed with its bound.
+    Returns (tensor-core cases, float32 cases, ssd_scan cases)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.ssd_scan import ops as scan_ops
+    from repro_torch.models.ssm import _final_state, ssd_chunked
+    fa = ops.flash_attention
+    tc_cases, f32_cases, ssd_cases = [], [], []
+    for i, spec in enumerate(ZOO_SERVE):
+        cfg = get_config(spec.name)
+        b, hq, hkv, s, dh = zoo_attention_shape(cfg, spec.batch, spec.prompt)
+        g = torch.Generator(device=dev).manual_seed(300 + i)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                   for shape in ((b, hq, s, dh), (b, hkv, s, dh), (b, hkv, s, dh)))
+        what = f"flash_attention {spec.name} prefill (B {b}, Hq {hq}, Hkv {hkv}, S {s}, Dh {dh})"
+        before = (fa.launches_tc, fa.launches_tc_wide, fa.launches_f32, fa.launches_simt)
+        got = fa(q, k, v, causal=True)
+        if (fa.launches_tc - before[0], fa.launches_tc_wide - before[1],
+                fa.launches_f32 - before[2], fa.launches_simt - before[3]) != (1, 0, 0, 0):
+            fail(f"{what}: not routed to the tensor-core kernel at Dh <= 128")
+        want, flip = tc_reference(q, k, v, causal=True)
+        err = flash_close(got, want, f"{what} (tensor cores)", flip)
+        plain = ref.attention_ref(q, k, v, causal=True)
+        p_max, p_mean = p_rounding(got, plain, v, what)
+        if not torch.equal(got, ops.tc_kernel(q, k, v, causal=True)):
+            fail(f"{what}: two launches differ in bits")
+        _, fault = flash_excess(got, *tc_reference(q, k, v, causal=True, window=s // 2))
+        if fault <= 1:
+            fail(f"{what}: a planted fault (a window of {s // 2}) passes the tight check")
+        del want
+        nops = 4 * dh * visible_pairs(s, s, True, None) * b * hq
+        b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()), nops, BF16_OPS_PER_S)
+        ms = cuda_ms(lambda: ops.tc_kernel(q, k, v, causal=True), 10)
+        plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), 1, warmup=1)
+        backend = sdpa_backend(q, k, v, None, causal=True)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+        sdpa_err = (sdpa().float() - plain.float()).abs().max().item()
+        library_ms = cuda_ms(sdpa, 5, warmup=1)
+        tc_cases.append(dict(name=f"{spec.name} prefill", shape=[b, hq, hkv, s, s, dh],
+                             causal=True, dtype="torch.bfloat16", kernel="tc", max_abs_err=err,
+                             p_rounding=[p_max, p_mean], fault_window_half=fault, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=library_ms,
+                             library=f"scaled_dot_product_attention [{backend}]"))
+        print(f"[11 zoo kernels] {what}, causal, bf16 (key tile {ops.tc_block_k(dh)}): "
+              f"tensor-core kernel {ms:.4f} ms (max abs err {err:.3e} against attention_tc_ref; "
+              f"P-rounding bound used {p_max:.3f} max, {p_mean:.3f} mean; two launches "
+              f"bit-identical; a window of {s // 2} fails the tight check at {fault:.1f}x)  plain "
+              f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  SDPA is_causal [{backend}] "
+              f"{library_ms:.4f} ms (max abs diff to plain {sdpa_err:.3e})")
+        del q, k, v, got, plain
+        if spec.name in ZOO_FAULTS:   # the shape of the two-layer float32 check
+            shape = (2, hq, hkv, 300, 300, dh)
+            q, k, v = (torch.randn(x, generator=g, device=dev)
+                       for x in ((2, hq, 300, dh), (2, hkv, 300, dh), (2, hkv, 300, dh)))
+            before = fa.launches_f32
+            got = fa(q, k, v, causal=True)
+            if fa.launches_f32 - before != 1:
+                fail(f"flash_attention {spec.name} f32 check shape: not the float32 kernel")
+            fault = f32_fault(shape, None)
+            tight, err, ratio = f32_checks(got, q, k, v, f"flash_attention {spec.name} {shape}",
+                                           fault, causal=True)
+            f32_cases.append(dict(name=f"{spec.name} two-layer check", shape=list(shape),
+                                  causal=True, dtype="torch.float32", kernel="f32",
+                                  max_abs_err=err, tight=tight, fault=ratio))
+            print(f"[11 zoo kernels] flash_attention {spec.name} {shape} float32: max abs err "
+                  f"{err:.3e} against attention_ref (tight against the 3xTF32 order: "
+                  f"{tight:.3e}; {fault} fails it at {ratio:.1f}x)")
+            del q, k, v, got
+        if cfg.arch_type == "hybrid":
+            shape = zoo_ssd_shape(cfg, spec.batch, spec.prompt)
+            sb, ss, sh, sp, sn = shape
+            args = ssd_inputs(*shape, dev, seed=310)
+            want, want_state = ssd_chunked(*args), _final_state(*args[:4])
+            y, state = scan_ops.ssd_scan(*args, return_state=True)
+            what = f"ssd_scan {spec.name} prefill {shape}"
+            err = max(close(y, want, f"{what} vs ssd_chunked", SSD_RTOL),
+                      close(state, want_state, f"{what} state vs _final_state", SSD_RTOL))
+            again, again_state = scan_ops.ssd_scan(*args, return_state=True)
+            if not (torch.equal(y, again) and torch.equal(state, again_state)):
+                fail(f"{what}: two launches differ in bits")
+            del y, state, again, again_state
+            ms = cuda_ms(lambda: scan_ops.ssd_scan(*args, return_state=True), 10)
+            plain_ms = cuda_ms(lambda: (ssd_chunked(*args), _final_state(*args[:4])), 1,
+                               warmup=1)
+            nbytes = 4 * (2 * sb * ss * sh * sp + sb * ss * sh + sh + 2 * sb * ss * sn
+                          + sb * sh * sn * sp)
+            b_ms, b_by = bound(nbytes, ssd_ops(*shape), TF32X3_OPS_PER_S)
+            ssd_cases.append(dict(name=f"{spec.name} prefill", shape=list(shape),
+                                  inputs="mamba2", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=b_ms, bound_by=b_by, library_ms=None))
+            print(f"[11 zoo kernels] {what} (Mamba2 A and dt), chunk {scan_ops.CHUNK}: max abs "
+                  f"err {err:.3e} against ssd_chunked and _final_state; two launches "
+                  f"bit-identical; kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}, 3xTF32)")
+            del args, want, want_state
+        torch.cuda.empty_cache()
+    return tc_cases, f32_cases, ssd_cases
+
+
+def zoo_model(spec: ZooServe, dev, dtype_name: str = "bfloat16", **changes):
+    """``spec``'s config (cut to ``spec.layers``, with ``changes``) built on
+    ``dev`` from seed 0; Mamba2 layers get Mamba2's ranges of A and dt, as
+    phase 7's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+    cfg = get_config(spec.name)
+    if spec.layers is not None:
+        changes = dict(num_layers=spec.layers, **changes)
+    cfg = dataclasses.replace(cfg, **changes)
+    model = DecoderLM(cfg, dtype=getattr(torch, dtype_name), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    if cfg.arch_type == "hybrid":
+        mamba2_ranges_(model, torch.Generator(device=dev).manual_seed(4))
+    return cfg, model
+
+
+def moe_drops(model, prompt) -> list[float]:
+    """Per MoE layer, the share of the prefill's (token, slot) assignments
+    dropped for want of capacity (one prefill with ``moe_apply`` wrapped; its
+    host reads stay out of every timed run)."""
+    from repro_torch.models import moe
+    shares, plain = [], moe.moe_apply
+
+    def recording(params, x, cfg, prefix="moe_"):
+        shares.append(moe.dropped_share(params, x, cfg, prefix))
+        return plain(params, x, cfg, prefix)
+
+    moe.moe_apply = recording
+    try:
+        model.prefill(prompt, model.init_cache(prompt.shape[0], prompt.shape[1]))
+    finally:
+        moe.moe_apply = plain
+    return shares
+
+
+def zoo_serve(dev, smi: str, spec: ZooServe) -> dict:
+    """One model of phase 11 through ServeEngine: 16 greedy tokens after the
+    prompt with the launch counters set to 0 before and read after (flash:
+    one tensor-core launch per attention layer or shared-block site; ssd_scan:
+    one per Mamba2 layer), then the same request through the engine's steps,
+    timed, finite and equal in tokens, a profiled prefill and peak memory;
+    an MoE's dropped share per layer."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import ServeEngine, count_params
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model = zoo_model(spec, dev)
+    n_params = count_params(model)
+    if n_params != count_params(cfg):
+        fail(f"serve-zoo {spec.name}: count_params of the config {count_params(cfg)} != the "
+             f"model's {n_params}")
+    weights_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    build_peak = torch.cuda.max_memory_allocated() / 1e9
+    prompt = torch.randint(0, cfg.vocab_size, (spec.batch, spec.prompt), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    cache_len = spec.prompt + ZOO_NEW
+    engine = ServeEngine(model)
+    engine.generate(prompt[:, :256], 2, 258)          # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    depth = get_config(spec.name).num_layers
+    cut = "" if spec.layers is None else f" (cut to {spec.layers} of its {depth} layers)"
+    print(f"[11 serve-zoo] {spec.name}{cut}: {n_params / 1e9:.3f} B parameters in bf16 "
+          f"({weights_gb:.3f} GB; the card's allocation peaked at {build_peak:.3f} GB while "
+          f"building), built in {time.perf_counter() - t0:.2f} s")
+
+    fa, ssd = ops.flash_attention, ssd_ops.ssd_scan
+    sites = cfg.num_layers // cfg.hybrid_attn_every if cfg.arch_type == "hybrid" \
+        else cfg.num_layers
+    mamba = cfg.num_layers if cfg.arch_type == "hybrid" else 0
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.launches_tc = fa.launches_tc_wide = fa.launches_f32 = fa.launches_simt = 0
+    ssd.launches = 0
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompt, ZOO_NEW, cache_len)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = dict(flash=fa.launches, tc=fa.launches_tc, ssd_scan=ssd.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if (fa.launches, fa.launches_tc, fa.launches_tc_wide, fa.launches_f32, fa.launches_simt,
+            ssd.launches) != (sites, sites, 0, 0, 0, mamba):
+        fail(f"serve-zoo {spec.name}: {fa.launches} flash launches ({fa.launches_tc} "
+             f"tensor-core, {fa.launches_tc_wide} at Dh > 128, {fa.launches_f32} float32, "
+             f"{fa.launches_simt} SIMT) and {ssd.launches} ssd_scan launches in one generate, "
+             f"want {sites} tensor-core launches and {mamba} ssd_scan launches")
+    if tokens.shape != (spec.batch, ZOO_NEW):
+        fail(f"serve-zoo {spec.name}: generate gave tokens of shape {tuple(tokens.shape)}")
+
+    with torch.inference_mode():
+        caches = model.init_cache(spec.batch, cache_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(prompt, caches)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decode = engine.make_decode_step()
+        tok, all_logits, out = logits.argmax(-1), [logits], [logits.argmax(-1)]
+        for pos in range(spec.prompt, spec.prompt + ZOO_NEW - 1):
+            tok, lg, caches = decode(tok, pos, caches)
+            out.append(tok)
+            all_logits.append(lg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if not all(bool(torch.isfinite(lg).all()) for lg in all_logits):
+            fail(f"serve-zoo {spec.name}: non-finite logits")
+        if not torch.equal(torch.stack(out, 1), tokens):
+            fail(f"serve-zoo {spec.name}: the timed steps gave other tokens than generate")
+        del caches, all_logits
+        top = device_window(lambda: model.prefill(prompt, model.init_cache(spec.batch,
+                                                                          cache_len)),
+                            f"{spec.name} one prefill", "11 serve-zoo")
+        drops = moe_drops(model, prompt) if cfg.arch_type == "moe" else None
+    prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (ZOO_NEW - 1)
+    print(f"[11 serve-zoo] {spec.name}: generate of {ZOO_NEW} tokens after a "
+          f"{spec.batch}x{spec.prompt} prompt {gen_s:.3f} s; {counts['tc']} tensor-core flash "
+          f"launches, {counts['ssd_scan']} ssd_scan launches; prefill {prefill_ms:.3f} ms "
+          f"({spec.batch * spec.prompt / (t1 - t0):.0f} prompt tokens/s); decode "
+          f"{decode_ms:.3f} ms/token step; peak memory {peak_gb:.3f} GB  [{smi}]")
+    if drops is not None:
+        print(f"[11 serve-zoo] {spec.name}: dropped share of the prefill's (token, slot) "
+              f"assignments at capacity factor {cfg.capacity_factor}, per layer: "
+              f"{[round(x, 4) for x in drops]} (mean {sum(drops) / len(drops):.4f})")
+    if spec.name == CHAMELEON:
+        print(f"[11 serve-zoo] {spec.name}: its float32 form would hold "
+              f"{4 * n_params / 1e9:.1f} GB of weights, beyond the card's "
+              f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB: not tried")
+    counts.update(prefill_ms=prefill_ms, decode_ms=decode_ms, peak_gb=peak_gb,
+                  params=n_params, prefill_profile=top, dropped_share=drops)
+    del model, logits, prompt, tokens
+    torch.cuda.empty_cache()
+    return counts
+
+
+def greedy(model, prompt, new: int):
+    """The prefill logits of ``prompt`` and ``new`` greedy tokens, through
+    ServeEngine's steps."""
+    import torch
+    from repro_torch.launch import ServeEngine
+    engine = ServeEngine(model)
+    with torch.inference_mode():
+        caches = model.init_cache(prompt.shape[0], prompt.shape[1] + new)
+        logits, caches = model.prefill(prompt, caches)
+        tok, out = logits.argmax(-1), [logits.argmax(-1)]
+        decode = engine.make_decode_step()
+        for pos in range(prompt.shape[1], prompt.shape[1] + new - 1):
+            tok, _, caches = decode(tok, pos, caches)
+            out.append(tok)
+    return logits, torch.stack(out, 1)
+
+
+def zoo_reference(dev, name: str) -> dict:
+    """Two layers of ``name`` at full width in float32 on the card (the
+    kernels) and on the CPU (their plain versions): the prefill logits within
+    the float32 serve bounds, 6 greedy tokens equal, and a planted fault
+    (ZOO_FAULTS) on the CPU that the bounds must see."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import DecoderLM
+    t0 = time.perf_counter()
+    changes = dict(num_layers=2)
+    if name == ZAMBA2:
+        changes["hybrid_attn_every"] = 2
+    small, card = zoo_model(ZooServe(name, 2, 300), dev, "float32", **changes)
+    cpu = DecoderLM(small, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    p = torch.randint(0, small.vocab_size, (2, 300), generator=torch.Generator().manual_seed(3))
+    fa, ssd = ops.flash_attention, ssd_ops.ssd_scan
+    before = (fa.launches_f32, ssd.launches)
+    got, got_tokens = greedy(card, p.to(dev), 6)
+    want, want_tokens = greedy(cpu, p, 6)
+    with torch.inference_mode():
+        cpu.cfg = dataclasses.replace(small, **ZOO_FAULTS[name][1])
+        faulty, _ = cpu.prefill(p, cpu.init_cache(2, 306))
+        cpu.cfg = small
+    sites = 1 if name == ZAMBA2 else 2
+    launched = (fa.launches_f32 - before[0], ssd.launches - before[1])
+    if launched != (sites, 2 if name == ZAMBA2 else 0):
+        fail(f"serve-zoo {name} reference: the card launched {launched} (float32 flash, "
+             f"ssd_scan) in a prefill, want ({sites}, {2 if name == ZAMBA2 else 0})")
+
+    def drift(x):
+        d = (x.float().cpu() - want.float()).abs()
+        return d.max().item() / want.abs().max().item(), d.mean().item() / want.std().item()
+
+    max_rel, mean_rel = drift(got)
+    fault_max, fault_mean = drift(faulty)
+    print(f"[11 serve-zoo] reference: {name}, 2 layers at full width in float32 (head_dim "
+          f"{small.resolved_head_dim}, prompt 2x300): card vs CPU prefill logits {max_rel:.3e} "
+          f"of max|logit|, {mean_rel:.3e} of the std; planted fault ({ZOO_FAULTS[name][0]}) "
+          f"{fault_max:.3e}, {fault_mean:.3e} (bounds {SERVE_F32_MAX_ERR}, "
+          f"{SERVE_F32_MEAN_ERR}); 6 greedy tokens "
+          f"{'equal' if torch.equal(got_tokens.cpu(), want_tokens) else 'DIFFERENT'}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if max_rel > SERVE_F32_MAX_ERR or mean_rel > SERVE_F32_MEAN_ERR:
+        fail(f"serve-zoo {name} reference: card and CPU logits differ beyond the float32 bounds")
+    if fault_max <= SERVE_F32_MAX_ERR and fault_mean <= SERVE_F32_MEAN_ERR:
+        fail(f"serve-zoo {name} reference: a planted fault ({ZOO_FAULTS[name][0]}) stays "
+             "within the bounds")
+    if not torch.equal(got_tokens.cpu(), want_tokens):
+        fail(f"serve-zoo {name} reference: greedy tokens on the card {got_tokens.tolist()} "
+             f"differ from the CPU's {want_tokens.tolist()}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return dict(logits_drift=(max_rel, mean_rel), fault_drift=(fault_max, fault_mean),
+                f32_launches=launched[0], ssd_launches=launched[1])
+
+
+def phase_serve_zoo(dev, smi: str) -> dict:
+    """Phase 11: the zoo's kernels at their shapes (zoo_kernels), each model
+    of ZOO_SERVE served (zoo_serve), and two float32 layers of each new stack
+    card vs CPU (zoo_reference)."""
+    tc_cases, f32_cases, ssd_cases = zoo_kernels(dev)
+    out = {"kernels": dict(tc=tc_cases, f32=f32_cases, ssd=ssd_cases)}
+    for spec in ZOO_SERVE:
+        out[spec.name] = zoo_serve(dev, smi, spec)
+    out["reference"] = {name: zoo_reference(dev, name) for name in ZOO_FAULTS}
+    return out
+
+
+# Phase 12: phase 10's recipe on the zoo, full width and depth, cdp-fedexp.
+ZOO_TRAIN_RUNS = ((ZAMBA2, "cdp-fedexp", 2, 1, 1), (GRANITE_MOE, "cdp-fedexp", 4, 2, 2))
+# leaves that must move in a round: the hybrid's shared block, the experts
+ZOO_TRAIN_MOVED = {ZAMBA2: ("shared_attn.",), GRANITE_MOE: (".moe_wi", ".moe_wo", ".moe_router")}
+
+
+def phase_train_zoo(dev, smi: str) -> dict:
+    """Phase 12: zamba2-2.7b and granite-moe-1b-a400m trained at full width
+    and depth (train_runs on ZOO_TRAIN_RUNS), and two float32 layers of each
+    card vs CPU (train_reference).  Launches no hand-written kernel."""
+    from repro_torch.kernels.dp_aggregate import ops as dp_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    before = (dp_ops.dp_aggregate_sums.launches, fa_ops.flash_attention.launches,
+              ssd_ops.ssd_scan.launches)
+    out = {arch: train_runs(dev, smi, arch, ZOO_TRAIN_RUNS, "12 train-zoo")
+           for arch in (ZAMBA2, GRANITE_MOE)}
+    out["reference"] = {arch: train_reference(dev, arch, "12 train-zoo")
+                        for arch in (ZAMBA2, GRANITE_MOE)}
+    after = (dp_ops.dp_aggregate_sums.launches, fa_ops.flash_attention.launches,
+             ssd_ops.ssd_scan.launches)
+    if after != before:
+        fail(f"train-zoo: the training path launched kernels ({before} -> {after})")
     return out
 
 
@@ -3969,10 +4439,21 @@ def main() -> int:
     gemma = timed("8 serve-gemma", phase_serve, dev, smi, SERVE_GEMMA)
     f32 = timed("9 serve-f32", phase_serve, dev, smi, SERVE_F32)
     timed("10 train", phase_train, dev, smi)
-    flash_tc["launches"] = h2o["tc"]
+    zoo = timed("11 serve-zoo", phase_serve_zoo, dev, smi)
+    timed("12 train-zoo", phase_train_zoo, dev, smi)
+    zoo_tc = {spec.name: zoo[spec.name]["tc"] for spec in ZOO_SERVE}
+    flash_tc["launches"] = h2o["tc"] + sum(zoo_tc.values())
+    flash_tc["zoo"] = dict(launches=zoo_tc, shapes=zoo["kernels"]["tc"],
+                           serve={spec.name: {k: zoo[spec.name][k] for k in (
+                               "prefill_ms", "decode_ms", "peak_gb", "params", "dropped_share")}
+                               for spec in ZOO_SERVE})
     flash_wide["launches"] = gemma["tc_wide"]
     flash_wide["simt_prefill_ms"] = gemma["simt_prefill_ms"]
-    flash_f32["launches"] = f32["f32"] + h2o["f32_check"] + gemma["f32_check"]
+    flash_f32["launches"] = f32["f32"] + h2o["f32_check"] + gemma["f32_check"] + sum(
+        r["f32_launches"] for r in zoo["reference"].values())
+    flash_f32["zoo"] = dict(shapes=zoo["kernels"]["f32"], reference=zoo["reference"])
+    ssd["launches"] += zoo[ZAMBA2]["ssd_scan"]
+    ssd["zoo"] = dict(launches={ZAMBA2: zoo[ZAMBA2]["ssd_scan"]}, shapes=zoo["kernels"]["ssd"])
     flash_f32["serve_f32"] = {k: f32[k] for k in ("prefill_ms", "simt_prefill_ms", "decode_ms",
                                                   "peak_gb", "logits_drift", "fault_drift")}
     # the route-before prefills of phases 8 and 9: the SIMT kernel in place of the dispatch

@@ -40,22 +40,30 @@ def decoder_from_jax(cfg, params, device="cuda"):
     parameters (``jax.device_get`` of them).
 
     The JAX blocks are stacked on a leading L axis (``params["blocks"][name]``
-    is (L, ...)); here they are unstacked into one block per layer, by name,
-    for dense (``attn_*``, ``mlp_*``) and SSM (``ssm_*``) blocks alike.  The
+    is (L, ...), an MoE block's experts (L, E, ...)); here they are unstacked
+    into one block per layer, by name, for dense (``attn_*``, ``mlp_*``), MoE
+    (``moe_*``) and SSM (``ssm_*``) blocks alike.  A hybrid's
+    ``params["shared_attn"]`` (not stacked) fills ``model.shared_attn``.  The
     model's dtype is that of the embedding; it takes the kernel path, and a
     caller that wants the plain one sets ``model.attn_impl = "dense"``.
     """
     p = params_from_jax(params, device)
     model = DecoderLM(cfg, dtype=p["embed"].dtype, device=device)
-    want = {"embed", "final_norm", "blocks"} | ({"head"} if model.head is not None else set())
+    want = {"embed", "final_norm", "blocks"} | ({"head"} if model.head is not None else set()) \
+        | ({"shared_attn"} if model.shared_attn is not None else set())
     if set(p) != want:
         raise ValueError(f"{cfg.name}: parameter names {sorted(p)} differ from {sorted(want)}")
     if set(p["blocks"]) != set(model.blocks[0]):
         raise ValueError(f"{cfg.name}: block parameters {sorted(p['blocks'])} differ from "
                          f"{sorted(model.blocks[0])}")
+    if model.shared_attn is not None and set(p["shared_attn"]) != set(model.shared_attn):
+        raise ValueError(f"{cfg.name}: shared block parameters {sorted(p['shared_attn'])} "
+                         f"differ from {sorted(model.shared_attn)}")
     with torch.no_grad():
-        for name in want - {"blocks"}:
+        for name in want - {"blocks", "shared_attn"}:
             getattr(model, name).copy_(p[name])
+        for name, t in p.get("shared_attn", {}).items():
+            model.shared_attn[name].copy_(t)
         for name, stacked in p["blocks"].items():
             if stacked.shape[0] != cfg.num_layers:
                 raise ValueError(f"blocks/{name}: {stacked.shape[0]} layers stacked, "
@@ -69,19 +77,23 @@ def trainer_params_from_jax(params, device) -> dict:
     """``FederatedTrainer``'s parameter dict, named as ``DecoderLM``'s
     ``named_parameters()``, from the JAX package's ``DecoderLM`` params tree
     (``jax.device_get`` of it): ``blocks[name]``, stacked on L, becomes
-    ``"blocks.<i>.<name>"``; the other leaves keep their names."""
+    ``"blocks.<i>.<name>"``, a hybrid's ``shared_attn[name]``
+    ``"shared_attn.<name>"``; the other leaves keep their names."""
     p = params_from_jax(params, device)
-    out = {n: t for n, t in p.items() if n != "blocks"}
+    out = {n: t for n, t in p.items() if n not in ("blocks", "shared_attn")}
     for name, stacked in p["blocks"].items():
         for i in range(stacked.shape[0]):
             out[f"blocks.{i}.{name}"] = stacked[i].contiguous()
+    for name, t in p.get("shared_attn", {}).items():
+        out[f"shared_attn.{name}"] = t
     return out
 
 
 def trainer_params_to_jax(params: dict) -> dict:
     """The JAX package's ``DecoderLM`` params tree, numpy arrays with the
-    blocks stacked on L, of a parameter dict named as ``named_parameters()``
-    (the inverse of ``trainer_params_from_jax``).  bfloat16 leaves come back
+    blocks stacked on L (and a hybrid's ``shared_attn`` dict), of a parameter
+    dict named as ``named_parameters()`` (the inverse of
+    ``trainer_params_from_jax``).  bfloat16 leaves come back
     as float32: numpy has no bfloat16 of its own, the widening is exact, and
     the JAX package's ``load_checkpoint`` casts each leaf to its template's
     dtype."""
@@ -94,6 +106,8 @@ def trainer_params_to_jax(params: dict) -> dict:
         if name.startswith("blocks."):
             _, i, leaf = name.split(".", 2)
             blocks.setdefault(leaf, {})[int(i)] = host(t)
+        elif name.startswith("shared_attn."):
+            out.setdefault("shared_attn", {})[name.split(".", 1)[1]] = host(t)
         else:
             out[name] = host(t)
     out["blocks"] = {leaf: np.stack([layers[i] for i in range(len(layers))])

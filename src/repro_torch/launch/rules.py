@@ -21,7 +21,8 @@ GIANT_PARAM_THRESHOLD = 20e9
 def count_params(model) -> int:
     """Exact parameter count of a ``DecoderLM`` or of the ``ModelConfig`` it
     would be built from, as the JAX package's ``count_params`` counts it:
-    the embedding, the final norm, every block and an untied head.  A config
+    the embedding, the final norm, every block (an MoE block's experts E
+    times), a hybrid's shared block once and an untied head.  A config
     counts from the defs alone (no tensor is made, so a 104 B configuration
     counts in milliseconds); a model counts its parameters."""
     if not isinstance(model, ModelConfig):
@@ -29,11 +30,16 @@ def count_params(model) -> int:
     cfg = model
     if cfg.arch_type not in transformer.ARCHS:
         raise NotImplementedError(
-            f"{cfg.name}: the port's DecoderLM runs {' and '.join(transformer.ARCHS)} stacks; "
-            f"{cfg.arch_type} stacks are still to port (ROADMAP queue 1, item 17)")
-    block = sum(math.prod(p.shape) for p in transformer.block_defs(cfg).values())
+            f"{cfg.name}: the port's DecoderLM runs {', '.join(transformer.ARCHS)} stacks; "
+            f"{cfg.arch_type} (enc-dec) stacks are still to port (ROADMAP queue 1, item 17)")
+
+    def size(defs):
+        return sum(math.prod(p.shape) for p in defs.values())
+
+    shared = size(transformer.shared_attn_defs(cfg)) if cfg.arch_type == "hybrid" else 0
     head = 0 if cfg.tie_embeddings else cfg.d_model * cfg.vocab_size
-    return cfg.vocab_size * cfg.d_model + cfg.d_model + cfg.num_layers * block + head
+    return (cfg.vocab_size * cfg.d_model + cfg.d_model
+            + cfg.num_layers * size(transformer.block_defs(cfg)) + shared + head)
 
 
 def is_giant(cfg: ModelConfig, num_params: int) -> bool:

@@ -1,11 +1,12 @@
 """Serving steps of a decoder LM (counterpart of repro/launch/serve.py).
 
 Batched requests share a uniform position counter, as in the JAX package.
-The model is a ``repro_torch.models.DecoderLM``, dense (a KV cache per layer)
-or Mamba2 (a conv window and an SSM state per layer, in float32); its
-weights, caches and tokens live on the model's device (the card unless the
-model was built for the CPU).  Encoder-decoder serving is still to port
-(ROADMAP queue 1, item 17).
+The model is a ``repro_torch.models.DecoderLM``: dense, MoE or VLM (a KV
+cache per layer), Mamba2 (a conv window and an SSM state per layer, in
+float32) or hybrid (both: one per Mamba2 layer, a KV cache per site of the
+shared block); its weights, caches and tokens live on the model's device
+(the card unless the model was built for the CPU).  Encoder-decoder serving
+is still to port (ROADMAP queue 1, item 17).
 """
 from __future__ import annotations
 

@@ -60,7 +60,15 @@ class Param:
 
 
 def dense_init(generator: torch.Generator, shape, fan_in: int, dtype) -> torch.Tensor:
-    """N(0, 1) / sqrt(fan_in), drawn in float32 on the generator's device."""
+    """N(0, 1) / sqrt(fan_in), drawn in float32 on the generator's device.  A
+    stack of experts (three dimensions) is drawn an expert at a time into a
+    tensor of ``dtype``, so that no float32 copy of the whole stack exists
+    (llama4's (128, 5120, 16384) would be 43 GB)."""
+    if len(shape) == 3:
+        out = torch.empty(shape, dtype=dtype, device=generator.device)
+        for i in range(shape[0]):
+            out[i] = dense_init(generator, shape[1:], fan_in, dtype)
+        return out
     w = torch.randn(shape, generator=generator, dtype=torch.float32, device=generator.device)
     return (w / math.sqrt(float(fan_in))).to(dtype)
 

@@ -1065,3 +1065,75 @@ def test_a_host_read_in_the_round_body_fails_the_capture_and_names_it(dev):
     copied._local_fn = local_with_a_host_copy
     with pytest.raises(CaptureError, match="host_to_device"):
         copied.run(0)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the decoder zoo: the kernels at its prefill shapes, and reduced
+# MoE, hybrid and VLM stacks on the card against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", [s.name for s in chip_smoke.ZOO_SERVE])
+def test_tc_kernel_matches_its_rounding_order_at_the_zoos_shapes(dev, name):
+    """One layer's prefill attention of each model of chip_smoke.py's phase
+    11 (zamba2's shared block MHA 32 at Dh 80, granite-moe GQA 16/8 at Dh 64,
+    chameleon GQA 64/8 and llama4 GQA 40/8 at Dh 128), every head, and a
+    planted fault (a window of half the prompt) the tight check must see."""
+    from repro_torch.configs import get_config
+    spec = next(s for s in chip_smoke.ZOO_SERVE if s.name == name)
+    b, hq, hkv, s, dh = chip_smoke.zoo_attention_shape(get_config(name), spec.batch, spec.prompt)
+    q, k, v = _qkv(dev, torch.bfloat16, b, hq, hkv, s, s, dh, seed=9)
+    before = flash_ops.flash_attention.launches_tc
+    got = flash_ops.flash_attention(q, k, v, causal=True)
+    assert flash_ops.flash_attention.launches_tc == before + 1
+    _tc_close(got, q, k, v, causal=True)
+    assert torch.equal(got, flash_ops.tc_kernel(q, k, v, causal=True))
+    _, fault = chip_smoke.flash_excess(got, *chip_smoke.tc_reference(q, k, v, causal=True,
+                                                                      window=s // 2))
+    assert fault > 1
+
+
+@pytest.mark.parametrize("dh,hq,hkv", [(80, 32, 32), (64, 16, 8), (128, 64, 8)])
+def test_f32_kernel_at_the_zoos_head_dims(dev, dh, hq, hkv):
+    """The float32 tensor-core kernel at the zoo's head dims and head groups
+    (the shapes of chip_smoke.py's two-layer float32 checks)."""
+    q, k, v = _qkv(dev, torch.float32, 2, hq, hkv, 300, 300, dh, seed=10)
+    got = flash_ops.flash_attention(q, k, v, causal=True)
+    _f32_close(got, q, k, v, causal=True)
+
+
+def test_ssd_kernel_at_zamba2s_prefill(dev):
+    """ssd_scan at zamba2-2.7b's prefill (N = 64: 2 x 8192 steps, 80 heads of
+    64) against the chunked SSD and its final state, twice in bits."""
+    from repro_torch.configs import get_config
+    shape = chip_smoke.zoo_ssd_shape(get_config("zamba2-2.7b"), 2, 8192)
+    assert shape == (2, 8192, 80, 64, 64)
+    args = _ssd_inputs(dev, *shape, seed=11)
+    y, state = ssd_ops.ssd_scan(*args, return_state=True)
+    _close(y, ssd_chunked(*args))
+    _close(state, _final_state(*args[:4]))
+    again, again_state = ssd_ops.ssd_scan(*args, return_state=True)
+    assert torch.equal(y, again) and torch.equal(state, again_state)
+
+
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "llama4-maverick-400b-a17b",
+                                  "zamba2-2.7b", "chameleon-34b"])
+def test_the_zoo_serves_on_the_card_as_on_the_cpu(dev, f32_matmuls, name):
+    """A reduced MoE, hybrid (4 layers, two sites of the shared block) or VLM
+    stack in float32: the card's kernel path against the CPU's plain versions,
+    the prefill logits at rtol 1e-5 with an atol of 1e-5 times the largest
+    (float32 sums in other orders) and 6 greedy tokens equal."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import DecoderLM
+    cfg = reduced(get_config(name), layers=4)
+    card = DecoderLM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    cpu = DecoderLM(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    prompt = torch.randint(0, cfg.vocab_size, (2, 200), generator=torch.Generator().manual_seed(1))
+    before = (flash_ops.flash_attention.launches_f32, ssd_ops.ssd_scan.launches)
+    got, got_tokens = chip_smoke.greedy(card, prompt.to(dev), 6)
+    want, want_tokens = chip_smoke.greedy(cpu, prompt, 6)
+    sites = 2 if cfg.arch_type == "hybrid" else 4
+    assert (flash_ops.flash_attention.launches_f32 - before[0],
+            ssd_ops.ssd_scan.launches - before[1]) == (sites, 4 if sites == 2 else 0)
+    _close(got, want)
+    assert torch.equal(got_tokens.cpu(), want_tokens)

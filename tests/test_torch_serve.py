@@ -78,9 +78,12 @@ def test_decoder_from_jax_unstacks_the_blocks():
 
 
 def test_unported_stacks_and_a_missing_card_raise():
-    for name in ("granite-moe-1b-a400m", "zamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DecoderLM(reduced(get_config(name)), device="cpu")
+    for name in ("granite-moe-1b-a400m", "zamba2-2.7b", "chameleon-34b"):   # ported now
+        model = DecoderLM(reduced(get_config(name)), device="cpu")
+        assert model.cfg.arch_type in ("moe", "hybrid", "vlm")
+        assert (model.shared_attn is not None) == (name == "zamba2-2.7b")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DecoderLM(reduced(get_config("whisper-large-v3")), device="cpu")
     cfg = reduced(get_config("h2o-danube-3-4b"))
     with pytest.raises(ValueError, match="unknown attention impl"):
         DecoderLM(cfg, device="cpu", attn_impl="pallas")   # the JAX package's name of "kernel"

@@ -5,9 +5,9 @@ granite-8b, command-r-plus-104b and mamba2-2.7b (two layers, d_model 128),
 labels of -1 and a sequence that is not a multiple of ``loss_chunk``, on
 every plain attention path; remat (and the "dots" policy) against no remat
 in bits; the chunked SSD's gradient where the JAX package's is NaN;
-``clip_tree``; ``count_params`` for every dense and SSM configuration at full
-size; one ``FederatedTrainer`` train_step of fedavg, fedexp,
-dp-fedavg-ldp-gauss, ldp-fedexp-gauss, dp-fedavg-cdp and cdp-fedexp against
+``clip_tree``; ``count_params`` for every decoder configuration at full
+size (whisper's enc-dec refused); one ``FederatedTrainer`` train_step of
+fedavg, fedexp, dp-fedavg-ldp-gauss, ldp-fedexp-gauss, dp-fedavg-cdp and cdp-fedexp against
 the JAX package's jitted ``train_step``, the port fed the JAX round's own
 noise (``_tree_noise`` of its key splits, and its xi); the same in bf16; the
 port's own draws materialized (``draw_noise``) against the step's; the
@@ -302,7 +302,7 @@ def test_clip_tree_matches_jax(clip):
 @pytest.mark.parametrize("name", sorted(configs.ARCHS))
 def test_count_params_matches_jax_at_full_size(name):
     cfg = configs.get_config(name)
-    if cfg.arch_type not in ("dense", "ssm"):
+    if cfg.arch_type == "audio":      # enc-dec, the one stack still to port
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             count_params(cfg)
         return
@@ -343,15 +343,15 @@ def jax_round_noise(jtrainer, jp, key, k):
     return noise
 
 
-def both_steps(name, dtype=jnp.float32, arch="h2o-danube-3-4b"):
+def both_steps(name, dtype=jnp.float32, arch="h2o-danube-3-4b", fed=FED):
     """One round of ``name`` in both packages on the same parameters, tokens
-    and noise: (port new params, port metrics, JAX new params, JAX metrics,
-    the old params)."""
+    and noise (``fed``: the FederatedConfig fields): (port new params, port
+    metrics, JAX new params, JAX metrics, the old params)."""
     jcfg, cfg = cfgs(arch)
     jp = jax_params(arch, dtype)
     jm = JaxDecoderLM(jcfg, dtype=dtype, attn_impl="xla_flash", loss_chunk=LOSS_CHUNK)
     n = jax_count(jm)
-    jtrainer = JaxTrainer(jm, jconfigs.FederatedConfig(algorithm=name, **FED), n)
+    jtrainer = JaxTrainer(jm, jconfigs.FederatedConfig(algorithm=name, **fed), n)
     toks, labels = tokens_labels(cfg.vocab_size, seed=6, lead=(K, TAU))
     key = jax.random.PRNGKey(7)
     jnew, jmet = jax.jit(jtrainer.make_train_step(K))(
@@ -359,7 +359,7 @@ def both_steps(name, dtype=jnp.float32, arch="h2o-danube-3-4b"):
     tdtype = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
     model = DecoderLM(cfg, dtype=tdtype, attn_impl="xla_flash", loss_chunk=LOSS_CHUNK,
                       device="cpu")
-    trainer = FederatedTrainer(model, configs.FederatedConfig(algorithm=name, **FED), n)
+    trainer = FederatedTrainer(model, configs.FederatedConfig(algorithm=name, **fed), n)
     params = trainer_params_from_jax(jax.device_get(jp), "cpu")
     new, met = trainer.make_train_step(K)(
         params, {"tokens": torch.tensor(toks), "labels": torch.tensor(labels)},
