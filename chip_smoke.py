@@ -63,7 +63,8 @@ Phases, each of which exits non-zero on failure:
                the bound for 3xTF32 tensor-core products and for float32
                ones, and a profiled split over the four stages.
   3. paper     the paper's synthetic linear regression (M=1000, tau=20,
-               50 rounds; d=500 CDP/noiseless, d=100 LDP and PrivUnit) for
+               25 of its 50 rounds since phase 13 came, PAPER_RUN_ROUNDS; d=500
+               CDP/noiseless, d=100 LDP and PrivUnit) for
                all seventeen names, dp-scaffold in both modes (LDP sigma =
                0.7C, CDP 5C/sqrt(M), (eta_l, C) = (0.3, 0.3)) (PrivUnit at
                eps0 = eps1 = eps2 = 2; adaptive clipping from c0 = C, z_mult
@@ -76,7 +77,7 @@ Phases, each of which exits non-zero on failure:
                the same iterate and carry and equal at rtol 1e-5 (dp-scaffold's
                variate table too; the two whole runs' gap printed:
                cdp-fedexp's extrapolation and PrivUnit's release compound
-               rounding over 50 rounds); dp_aggregate launches must rise by
+               rounding over the rounds); dp_aggregate launches must rise by
                one a round, by two for dp-scaffold (its model and variate
                releases), by none for the PrivUnit names and the weighted
                ldp-fedexp-perclient (which launch the noise-only kernel
@@ -85,7 +86,8 @@ Phases, each of which exits non-zero on failure:
   3b. e1       the paper's e1 comparison (benchmarks/e1_synthetic.py): for
                cdp (d=500), ldp-gauss and ldp-privunit (d=100), DP-FedAvg,
                DP-FedEXP and DP-SCAFFOLD at e1's (eta_l, C), each through
-               FederatedSession.run_batched over 5 seeds: the final
+               FederatedSession.run_batched over 3 seeds (e1 runs 5; cut
+               since phase 13 came, E1_SEEDS): the final
                ||w - w*|| as mean +/- std, and OK/WARN for DP-FedEXP <
                DP-FedAvg, printed as e1 prints it; in ldp-gauss each seed's
                slice must equal its own run() in bits.
@@ -95,7 +97,8 @@ Phases, each of which exits non-zero on failure:
                50 rounds on the 12000/2000 generated image set under a
                Dirichlet(0.3) split; DP-FedAvg, DP-FedEXP and DP-SCAFFOLD at
                e2's (eta_l, C), each through run_batched(batched_w0=True,
-               batched_data=True) over seeds 0-2 (each seed its own split and
+               batched_data=True) over seeds 0-1 (e2 runs 0-2; cut since
+               phase 13 came, E2_SEEDS) (each seed its own split and
                CNN init): test accuracy of the last 5 rounds, mean +/- std,
                e2's OK/WARN/n/a, printed; held: finite, one dp_aggregate
                launch a round (two for DP-SCAFFOLD, none for PrivUnit's), and
@@ -241,10 +244,11 @@ Phases, each of which exits non-zero on failure:
                sigma 0.05, eta_l 0.05: h2o-danube-3-4b cdp-fedexp (K = 4,
                tau = 2, 3 rounds) and ldp-fedexp-gauss (1 round), mamba2-2.7b
                cdp-fedexp (K = 2, tau = 1, 1 round; 16 of its 64 layers
-               since phase 12 came, TRAIN_DEPTH); held after every round:
+               since phase 12 came, and h2o 12 of its 24 since phase 13
+               came, TRAIN_DEPTH); held after every round:
                finite metrics, eta_g >= 1, every client's clipped norm <= C
                within CLIP_SLACK, the parameters moved; ms per round (host
-               clock, the card synchronised), one local step timed five
+               clock, the card synchronised), one local step timed three
                times (the median) and profiled, peak memory.  Then two
                h2o layers at full width in float32 (TF32 off), cdp-fedexp,
                K = 2, tau = 1, 256 tokens, the same materialized noise: the
@@ -286,22 +290,53 @@ Phases, each of which exits non-zero on failure:
                planted fault on the CPU (the shared block after every Mamba2
                layer; a capacity factor of 0.25; qk-norm dropped) outside.
   12. train-zoo phase 10's recipe (cdp-fedexp) at full width and depth:
-               zamba2-2.7b K = 2, tau = 1, 1 round; granite-moe-1b-a400m
+               zamba2-2.7b K = 2, tau = 1, 1 round (18 of its 54 Mamba2
+               layers, three super-blocks, since phase 13 came,
+               TRAIN_DEPTH); granite-moe-1b-a400m (8 of its 24 layers
+               since phase 13 came)
                K = 4, tau = 2, 2 rounds; after every round phase 10's
                checks, and every shared_attn.* leaf (zamba2) and every
                router and expert tensor (granite-moe) moved; ms per round,
-               per local step (median of 5, profiled), peak memory.  Then
+               per local step (median of 3, profiled), peak memory.  Then
                two float32 layers of each (zamba2: one super-block) card vs
                CPU within TRAIN_CHECK_TOL and the planted eta_g = 1 outside.
                No hand-written kernel launches.
+  13. audio  whisper-large-v3's encoder-decoder.  First (13a) the flash
+               kernels at its shapes against their plain versions: the bf16
+               tensor-core kernel at one encoder layer's every head (B 8,
+               MHA 20, S 1500, Dh 64, non-causal: a ragged last tile of 92
+               rows and keys) and at the decoder's prefill (4 causal query
+               rows in a 128-row tile), phase 11a's tight check, the
+               P-rounding bounds, two launches and strided views in bits, the
+               other mask planted as the fault; each timed beside the plain
+               version, the bound and SDPA (its backend named); the float32
+               kernel at the encoder's shape (f32_timing).  Then (13b) the
+               model at full width and depth (1.536 B seeded bf16
+               parameters) served through ServeEngine(is_encdec=True)'s
+               prefill and decode steps: 8 utterances x 1500 frames of seeded
+               frame embeddings (the stubbed frontend's), a seeded 4-token
+               prompt, 16 greedy tokens, a cache of 448 slots; 64 tensor-core
+               flash launches in the prefill (32 non-causal at S 1500, 32
+               causal at S 4, the recorded calls say), none in the decode
+               steps; prefill and decode ms, peak memory, a profiled prefill.
+               Then (13c) 2 + 2 layers at full width in float32 card vs CPU
+               (2 x 1500 frames): the prefill logits within phase 9's float32
+               bounds, 6 greedy tokens equal, RoPE planted on the CPU outside
+               the bounds.  Then (13d) phase 10's recipe (cdp-fedexp) at full
+               width and depth, K = 2, tau = 1, 1 round, each step 1 x (1500
+               frames, 256 tokens): phase 10's checks, every enc_blocks.* and
+               dec_blocks.*.xattn_* leaf moved, and train_reference's 2 + 2
+               float32 layers card vs CPU.  Training launches no hand-written
+               kernel.
 Phases 3, 3b, 3e, 3f, 3g, 4 and 4b are the round loop's main path, phase 6's bf16 generate the
 dense serve path's (the tensor-core flash kernel), its f32 generate and phase
 9's the float32 serve path's (the float32 tensor-core flash kernel), phase 7's
 generate the Mamba2 serve path's, phase 8's bf16 generate the Dh-256 serve
 path's (the tensor-core kernel's 64-key route), phase 11's four generates
 the MoE, hybrid and VLM serve paths' (the tensor-core kernel at Dh 64, 80
-and 128, ssd_scan at N 64): every launch counter is set to 0 before a path
-and read after.  The SIMT flash kernel runs only in the
+and 128, ssd_scan at N 64), phase 13's request the enc-dec serve path's (the
+tensor-core kernel non-causal and causal at Dh 64): every launch counter is
+set to 0 before a path and read after.  The SIMT flash kernel runs only in the
 route-before prefills of phases 8 and 9, whose launches its entry counts.
 The line before the last is {"kernels": [...]}, the last {"ok": true, "device":
 {...}}.  It imports nothing of JAX or of the JAX package ``repro``.
@@ -910,7 +945,8 @@ def paper_run(name, d, dev, backend="auto", cohort=None):
     and the kernel launches a round of ``launches_per_round``.  Returns the
     result and the final distance to w*."""
     from repro_torch.kernels.dp_aggregate import ops
-    m, tau, rounds = PAPER
+    m, tau, _ = PAPER
+    rounds = PAPER_RUN_ROUNDS
     label = "full" if cohort is None else next(k for k, v in {**SAMPLED, **REPLACE}.items()
                                                if v == cohort)
     before = (ops.dp_aggregate_sums.launches, ops.generate_ldp_noise.launches)
@@ -979,7 +1015,8 @@ def gathered_rounds(name, d, dev, dense, gathered):
     from repro_torch.core.algorithm import round_generator
     from repro_torch.fedsim import CohortSpec, gather_slots
     from repro_torch.fedsim.server import round_step
-    m, tau, rounds = PAPER
+    m, tau, _ = PAPER
+    rounds = PAPER_RUN_ROUNDS
     session, _, _ = run_session(name, m, d, 1, tau, dev, cohort=SAMPLED["q=0.1"])
     alg, batches, eta_l = session.algorithm, session.client_batches, session.train.eta_l
     specs = [CohortSpec(**SAMPLED[k]) for k in ("q=0.1", "q=0.1 gathered")]
@@ -1050,7 +1087,7 @@ E1_HP = {
     "cdp": {"fedexp": (0.1, 0.3), "fedavg": (0.3, 3.0), "scaffold": (0.3, 0.3)},
 }
 E1_SETTINGS = (("cdp", 500), ("ldp-gauss", 100), ("ldp-privunit", 100))
-E1_SEEDS = tuple(1000 + s for s in range(5))
+E1_SEEDS = tuple(1000 + s for s in range(3))   # e1 runs 5: cut for the script's time limit
 E1_HELD = "ldp-gauss"    # its sweeps are held seed by seed against run()
 
 
@@ -1143,7 +1180,7 @@ E2_HP = {
 # initialises the CNN from 100 + s, as e2's _make_problem
 E2 = (1000, 10, 50)
 E2_IMAGES = (12000, 2000)
-E2_SEEDS = (0, 1, 2)
+E2_SEEDS = (0, 1)   # e2 runs 0-2: cut for the script's time limit
 E2_SETTINGS = ("cdp", "ldp-gauss", "ldp-privunit")
 E2_HELD = ("cdp", "fedexp")     # its sweep's seed 0 is held against run()
 # the spec trainer's four ways (dense, gathered, faulted, resumed), on cdp-fedexp;
@@ -2221,6 +2258,10 @@ def syncs_of(fn) -> list[str]:
 
 
 PAPER = (1000, 20, 50)                 # M, tau, rounds; d 500 or 100 by name
+# phase 3 runs its 19 labels x 4-5 runs (and the gathered retakes) for 25 of
+# the 50 rounds, cut for the script's time limit since phase 13 came; the
+# other phases on the paper workload keep 50
+PAPER_RUN_ROUNDS = 25
 FULL_SIZE = (1000, 131072, 20, 5)      # M, d, tau, rounds
 FULL = (("ldp-fedexp-gauss", "fused", None, None), ("cdp-fedexp", "none", None, None),
         ("ldp-fedexp-privunit", None, None, None), ("cdp-fedexp-adaptive-clip", "none", None, None),
@@ -3069,7 +3110,8 @@ def phase_flash(dev):
     return tc, simt, wide, f32_entry
 
 
-def f32_timing(q, k, v, label: str, fault: dict, kw: dict, mask=None) -> dict:
+def f32_timing(q, k, v, label: str, fault: dict, kw: dict, mask=None,
+               phase: str = "2 kernels") -> dict:
     """The float32 tensor-core kernel at a main path's shape: through the
     dispatch, its checks (f32_checks), bitwise determinism on strided views,
     its time beside the SIMT kernel's (the route before), the plain
@@ -3117,7 +3159,7 @@ def f32_timing(q, k, v, label: str, fault: dict, kw: dict, mask=None) -> dict:
 
     library_ms = None if backend == "MATH" else cuda_ms(sdpa, 3, warmup=1)
     del kx, vx
-    print(f"[2 kernels] flash_attention {label} (B {b}, Hq {hq}, Hkv {hkv}, S {s}, Dh {dh}, "
+    print(f"[{phase}] flash_attention {label} (B {b}, Hq {hq}, Hkv {hkv}, S {s}, Dh {dh}, "
           f"{'causal' if kw['causal'] else 'non-causal'}, window {window}, f32; key tile "
           f"{ops.f32_block_k(dh)}): float32 tensor-core kernel {ms:.4f} ms (again {ms_again:.4f}; "
           f"max abs err {err:.3e} against attention_ref, {tight:.3e} against its 3xTF32 order; "
@@ -3755,9 +3797,11 @@ TRAIN_RUNS = ((H2O, "cdp-fedexp", 4, 2, 3), (H2O, "ldp-fedexp-gauss", 4, 2, 1),
 TRAIN_FED = dict(clip_norm=1.0, noise_sigma=0.05, local_lr=0.05)
 # Depth cut to keep the script within its time limit since phase 12 came:
 # mamba2-2.7b trains 16 of its 64 layers (its step is host-bound, idle
-# share 0.60; phase 12 trains zamba2-2.7b's 54 Mamba2 layers at full depth)
-TRAIN_DEPTH = {MAMBA2: 16}
-TRAIN_STEP_REPEATS = 5    # one local step timed this often (a host's hiccup shows in one)
+# share 0.60); since phase 13 came, h2o-danube-3-4b 12 of its 24 and
+# (phase 12) zamba2-2.7b 18 of its 54 Mamba2 layers.  Whisper (phase 13)
+# trains at full depth.
+TRAIN_DEPTH = {MAMBA2: 16, H2O: 12}
+TRAIN_STEP_REPEATS = 3    # one local step timed this often (a host's hiccup shows in one)
 CLIP_SLACK = 1e-3      # a clipped update's norm may exceed C by this share (its bf16 casts)
 # The card against the CPU: two full-width h2o layers in float32, cdp-fedexp at
 # K = 2, tau = 1, 256 tokens, the same materialized noise (sigma 1e-6: the
@@ -3771,11 +3815,18 @@ TRAIN_CHECK = dict(layers=2, k=2, tau=1, seq=256, sigma=1e-6)
 TRAIN_CHECK_TOL = 1e-4
 
 
-def train_batch(stream, seed: int, tau: int, seq: int, dev) -> dict:
-    """A round's (K, tau, 1, seq) tokens and next-token labels from ``stream``."""
+def train_batch(stream, seed: int, tau: int, seq: int, dev, cfg=None) -> dict:
+    """A round's (K, tau, 1, seq) tokens and next-token labels from ``stream``;
+    for an enc-dec ``cfg``, also (K, tau, 1, WHISPER_FRAMES, d_model) frame
+    embeddings drawn N(0, 1) from ``seed`` (the stubbed frontend's), in the
+    model's dtype on the model's side."""
     import torch
     toks = stream.sample(torch.Generator().manual_seed(seed), tau, 1, seq + 1).to(dev)
-    return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    if cfg is not None and cfg.arch_type == "audio":
+        batch["frames"] = torch.randn(toks.shape[:3] + (WHISPER_FRAMES, cfg.d_model),
+                                      generator=torch.Generator().manual_seed(seed)).to(dev)
+    return batch
 
 
 def train_checks(label: str, metrics: dict, name: str, clip: float) -> None:
@@ -3795,15 +3846,15 @@ def train_checks(label: str, metrics: dict, name: str, clip: float) -> None:
 def train_model(name: str, dev):
     """``name`` at full width in bf16, at full depth but for TRAIN_DEPTH's
     cuts, seeded as phases 6 and 7 seed it, on the xla_flash path (the
-    chunked SSD in Mamba2) with remat."""
+    chunked SSD in Mamba2) with remat; an enc-dec config as an EncDecLM."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import DecoderLM
+    from repro_torch.models import build_model
     cfg = get_config(name)
     if name in TRAIN_DEPTH:
         cfg = dataclasses.replace(cfg, num_layers=TRAIN_DEPTH[name])
-    model = DecoderLM(cfg, dtype=torch.bfloat16, attn_impl="xla_flash", remat=True, device=dev,
-                      generator=torch.Generator(device=dev).manual_seed(0))
+    model = build_model(cfg, dtype=torch.bfloat16, attn_impl="xla_flash", remat=True, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
     if cfg.arch_type in ("ssm", "hybrid"):
         mamba2_ranges_(model, torch.Generator(device=dev).manual_seed(4))
     return cfg, model
@@ -3826,7 +3877,11 @@ def train_runs(dev, smi: str, arch: str, runs=TRAIN_RUNS, phase: str = "10 train
         fail(f"train {arch}: count_params of the config {n} != the model's "
              f"{count_params(model)}")
     params = {k: p.detach() for k, p in model.named_parameters()}
-    print(f"[{phase}] {arch}: {cfg.num_layers} layers, {n / 1e9:.3f} B bf16 parameters "
+    audio = cfg.arch_type == "audio"
+    seq = WHISPER_DECODER_LEN if audio else TRAIN_SEQ
+    what = f"({WHISPER_FRAMES} frames, {seq} tokens)" if audio else f"{seq} tokens"
+    layers = (f"{cfg.num_encoder_layers} + {cfg.num_layers}" if audio else str(cfg.num_layers))
+    print(f"[{phase}] {arch}: {layers} layers, {n / 1e9:.3f} B bf16 parameters "
           f"(count_params), xla_flash, "
           f"remat on, built in {time.perf_counter() - t0:.2f} s")
     out = {}
@@ -3838,10 +3893,11 @@ def train_runs(dev, smi: str, arch: str, runs=TRAIN_RUNS, phase: str = "10 train
         trainer = FederatedTrainer(model, fed, n)
         step = trainer.make_train_step(k)
         stream = make_client_stream(torch.Generator().manual_seed(1), k, cfg.vocab_size)
-        batch = train_batch(stream, 100, tau, TRAIN_SEQ, dev)
+        batch = train_batch(stream, 100, tau, seq, dev, cfg)
         row = {}
         if not out:
-            one = (params, batch["tokens"][0, :1], batch["labels"][0, :1])
+            one = (params, batch["tokens"][0, :1], batch["labels"][0, :1]) + (
+                (batch["frames"][0, :1],) if "frames" in batch else ())
             trainer._local_train(*one)                   # warm-up: cuBLAS, the allocator
             steps = []
             for _ in range(TRAIN_STEP_REPEATS):
@@ -3853,14 +3909,14 @@ def train_runs(dev, smi: str, arch: str, runs=TRAIN_RUNS, phase: str = "10 train
             row["step_ms"], row["step_ms_runs"] = sorted(steps)[len(steps) // 2], steps
             row["step_profile"] = device_window(lambda: trainer._local_train(*one),
                                                 f"one local step of {arch}", phase)
-            print(f"[{phase}] {arch}: one local step (1 x {TRAIN_SEQ} tokens, forward, "
+            print(f"[{phase}] {arch}: one local step (1 x {what}, forward, "
                   f"backward with remat, update) median {row['step_ms']:.1f} ms of "
                   f"{[round(x, 1) for x in steps]}  [{smi}]")
             del one
         torch.cuda.reset_peak_memory_stats()
         round_ms, first = [], params
         for t in range(rounds):
-            batch = train_batch(stream, 100 + t, tau, TRAIN_SEQ, dev)
+            batch = train_batch(stream, 100 + t, tau, seq, dev, cfg)
             torch.cuda.synchronize()
             s0 = time.perf_counter()
             new, metrics = step(params, batch, torch.Generator().manual_seed(200 + t))
@@ -3886,7 +3942,7 @@ def train_runs(dev, smi: str, arch: str, runs=TRAIN_RUNS, phase: str = "10 train
             print(f"[{phase}] {arch} {name}: all {len(tracked)} leaves named "
                   f"{ZOO_TRAIN_MOVED[arch]} moved")
         row.update(round_ms=round_ms, peak_gb=peak_gb, moved=moved / total)
-        print(f"[{phase}] {arch} {name}: K = {k}, tau = {tau}, 1 x {TRAIN_SEQ} tokens a step: "
+        print(f"[{phase}] {arch} {name}: K = {k}, tau = {tau}, 1 x {what} a step: "
               f"ms per round {[round(x, 1) for x in round_ms]}, peak {peak_gb:.3f} GB; "
               f"{moved / total:.4f} of the parameters moved; run {time.perf_counter() - r0:.1f} "
               f"s  [{smi}]")
@@ -3906,20 +3962,22 @@ def train_reference(dev, arch: str = H2O, phase: str = "10 train") -> dict:
     from repro_torch.core import stepsize
     from repro_torch.data import make_client_stream
     from repro_torch.launch import FederatedTrainer, count_params
-    from repro_torch.models import DecoderLM
+    from repro_torch.models import build_model
     c = TRAIN_CHECK
     small = dataclasses.replace(get_config(arch), num_layers=c["layers"])
     if small.arch_type == "hybrid":
         small = dataclasses.replace(small, hybrid_attn_every=c["layers"])
-    card = DecoderLM(small, attn_impl="xla_flash", device=dev,
-                     generator=torch.Generator(device=dev).manual_seed(2))
-    cpu = DecoderLM(small, attn_impl="xla_flash", device="cpu")
+    if small.arch_type == "audio":
+        small = dataclasses.replace(small, num_encoder_layers=c["layers"])
+    card = build_model(small, attn_impl="xla_flash", device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(2))
+    cpu = build_model(small, attn_impl="xla_flash", device="cpu")
     cpu.load_state_dict(card.state_dict())
     fed = FederatedConfig(algorithm="cdp-fedexp", local_steps=c["tau"], clip_norm=1.0,
                           noise_sigma=c["sigma"], local_lr=0.05)
     n = count_params(small)
     stream = make_client_stream(torch.Generator().manual_seed(1), c["k"], small.vocab_size)
-    batch = train_batch(stream, 7, c["tau"], c["seq"], "cpu")
+    batch = train_batch(stream, 7, c["tau"], c["seq"], "cpu", small)
     p_cpu = {k: p.detach() for k, p in cpu.named_parameters()}
     p_card = {k: p.detach() for k, p in card.named_parameters()}
     t0 = time.perf_counter()
@@ -3953,7 +4011,8 @@ def train_reference(dev, arch: str = H2O, phase: str = "10 train") -> dict:
         stepsize.cdp = plain_cdp
     bad_upd, bad_met = gaps(bad, bm)
     print(f"[{phase}] reference: {c['layers']} {arch} layers at full width in float32, "
-          f"cdp-fedexp, K = {c['k']}, tau = {c['tau']}, {c['seq']} tokens, the same "
+          f"cdp-fedexp, K = {c['k']}, tau = {c['tau']}, {c['seq']} tokens"
+          f"{f' and {WHISPER_FRAMES} frames' if 'frames' in batch else ''}, the same "
           f"materialized noise (sigma {c['sigma']:g}): card vs CPU update tree "
           f"{upd:.3e} of its largest entry, metrics {met:.3e} relative (bound "
           f"{TRAIN_CHECK_TOL:g}); eta_g {float(wm['eta_g']):.6f}, loss "
@@ -4367,15 +4426,18 @@ def phase_serve_zoo(dev, smi: str) -> dict:
     return out
 
 
-# Phase 12: phase 10's recipe on the zoo, full width and depth, cdp-fedexp.
+# Phase 12: phase 10's recipe on the zoo, full width and depth (zamba2 cut to
+# three super-blocks, TRAIN_DEPTH), cdp-fedexp.
 ZOO_TRAIN_RUNS = ((ZAMBA2, "cdp-fedexp", 2, 1, 1), (GRANITE_MOE, "cdp-fedexp", 4, 2, 2))
+TRAIN_DEPTH.update({ZAMBA2: 18, GRANITE_MOE: 8})
 # leaves that must move in a round: the hybrid's shared block, the experts
 ZOO_TRAIN_MOVED = {ZAMBA2: ("shared_attn.",), GRANITE_MOE: (".moe_wi", ".moe_wo", ".moe_router")}
 
 
 def phase_train_zoo(dev, smi: str) -> dict:
-    """Phase 12: zamba2-2.7b and granite-moe-1b-a400m trained at full width
-    and depth (train_runs on ZOO_TRAIN_RUNS), and two float32 layers of each
+    """Phase 12: zamba2-2.7b (18 of its 54 layers) and granite-moe-1b-a400m
+    (8 of 24; TRAIN_DEPTH) trained at full width (train_runs on
+    ZOO_TRAIN_RUNS), and two float32 layers of each
     card vs CPU (train_reference).  Launches no hand-written kernel."""
     from repro_torch.kernels.dp_aggregate import ops as dp_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -4390,6 +4452,329 @@ def phase_train_zoo(dev, smi: str) -> dict:
              ssd_ops.ssd_scan.launches)
     if after != before:
         fail(f"train-zoo: the training path launched kernels ({before} -> {after})")
+    return out
+
+
+# Phase 13: whisper-large-v3's encoder-decoder (the audio stack).  Serving: 8
+# utterances of whisper's 30 s window (1500 frames of seeded frame embeddings,
+# standing in for the stubbed frontend), a seeded 4-token decoder prompt, 16
+# greedy tokens, a KV cache of whisper's 448 trained positions; seeded bf16
+# weights at full width and depth.  Training: phase 10's recipe (cdp-fedexp)
+# at full width and depth, K = 2, tau = 1, 1 round, each step 1 x (1500
+# frames, 256 decoder tokens), launch/specs.py's WHISPER_DECODER_LEN.
+WHISPER = "whisper-large-v3"
+WHISPER_PARAMS = 1_535_587_840          # the JAX package's count_params(EncDecLM(cfg))
+WHISPER_FRAMES = 1500                   # launch/specs.py: WHISPER_ENC_FRAMES
+WHISPER_DECODER_LEN = 256               # launch/specs.py: WHISPER_DECODER_LEN
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW, WHISPER_CACHE = 8, 4, 16, 448
+WHISPER_TRAIN_RUNS = ((WHISPER, "cdp-fedexp", 2, 1, 1),)
+# the card against the CPU: 2 + 2 layers at full width in float32, 2
+# utterances; a planted fault on the CPU's plain path (config fields it changes)
+WHISPER_CHECK_BATCH, WHISPER_CHECK_NEW = 2, 6
+WHISPER_FAULT = ("RoPE applied to self-attention (use_rope=True)", dict(use_rope=True))
+ZOO_TRAIN_MOVED[WHISPER] = ("enc_blocks.", ".xattn_")
+
+
+def whisper_kernels(dev, smi: str) -> tuple[list, dict]:
+    """Phase 13a: the flash kernels at whisper's shapes, each held against its
+    plain version.  The bf16 tensor-core kernel at one encoder layer's every
+    head (B 8, MHA 20, S 1500, Dh 64, non-causal: a ragged last tile of 92
+    query rows and keys) and at the decoder's prefill (4 query rows of a
+    128-row tile, causal): tight against its rounding order (phase 11a's
+    check), within the P-rounding bounds of attention_ref, two launches in
+    bits, a planted fault (the other mask) that the tight check must see,
+    its time beside the plain version's, the bound and SDPA's.  The float32
+    kernel at the encoder's shape through f32_timing.  Returns (tensor-core
+    cases, the float32 case)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops, ref
+    cfg = get_config(WHISPER)
+    fa = ops.flash_attention
+    b, h, dh = WHISPER_BATCH, cfg.num_heads, cfg.resolved_head_dim
+    cases = []
+    for label, s, causal in (("encoder", WHISPER_FRAMES, False),
+                             ("decoder prefill", WHISPER_PROMPT, True)):
+        g = torch.Generator(device=dev).manual_seed(400 + s)
+        q, k, v = (torch.randn((b, h, s, dh), generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        what = (f"flash_attention whisper {label} (B {b}, H {h}/{h}, S {s}, Dh {dh}, "
+                f"{'causal' if causal else 'non-causal'})")
+        before = (fa.launches_tc, fa.launches_tc_wide, fa.launches_f32, fa.launches_simt)
+        got = fa(q, k, v, causal=causal)
+        if (fa.launches_tc - before[0], fa.launches_tc_wide - before[1],
+                fa.launches_f32 - before[2], fa.launches_simt - before[3]) != (1, 0, 0, 0):
+            fail(f"{what}: not routed to the tensor-core kernel at Dh <= 128")
+        want, flip = tc_reference(q, k, v, causal=causal)
+        err = flash_close(got, want, f"{what} (tensor cores)", flip)
+        plain = ref.attention_ref(q, k, v, causal=causal)
+        p_max, p_mean = p_rounding(got, plain, v, what)
+        if not torch.equal(got, ops.tc_kernel(q, k, v, causal=causal)):
+            fail(f"{what}: two launches differ in bits")
+        if not strided_bits_equal(ops.tc_kernel, q, k, v, causal=causal):
+            fail(f"{what}: the tensor-core kernel's bits differ on the model's strided views")
+        _, fault = flash_excess(got, *tc_reference(q, k, v, causal=not causal))
+        if fault <= 1:
+            fail(f"{what}: a planted fault (causal={not causal}) passes the tight check")
+        del want
+        nops = 4 * dh * visible_pairs(s, s, causal, None) * b * h
+        b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()), nops, BF16_OPS_PER_S)
+        bytes_ms = 1e3 * 2 * (2 * q.numel() + k.numel() + v.numel()) / HBM_BYTES_PER_S
+        ms = cuda_ms(lambda: ops.tc_kernel(q, k, v, causal=causal), 20)
+        plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=causal), 2, warmup=1)
+        backend = sdpa_backend(q, k, v, None, causal=causal)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+        sdpa_err = (sdpa().float() - plain.float()).abs().max().item()
+        library_ms = cuda_ms(sdpa, 20, warmup=2)
+        cases.append(dict(name=f"whisper {label}", shape=[b, h, h, s, s, dh], causal=causal,
+                          dtype="torch.bfloat16", kernel="tc", max_abs_err=err,
+                          p_rounding=[p_max, p_mean], fault_mask_flipped=fault, ms=ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          bytes_bound_ms=bytes_ms, operations=nops, library_ms=library_ms,
+                          library=f"scaled_dot_product_attention [{backend}]"))
+        print(f"[13 audio] {what}, bf16 (key tile {ops.tc_block_k(dh)}): tensor-core kernel "
+              f"{ms:.4f} ms (max abs err {err:.3e} against attention_tc_ref; P-rounding bound "
+              f"used {p_max:.3f} max, {p_mean:.3f} mean; two launches and strided views "
+              f"bit-identical; causal={not causal} fails the tight check at {fault:.1f}x)  plain "
+              f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}: {nops:.4g} operations at "
+              f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s; bytes {bytes_ms:.4f} ms)  SDPA "
+              f"is_causal={causal} [{backend}] {library_ms:.4f} ms (max abs diff to plain "
+              f"{sdpa_err:.3e})  [{smi}]")
+        del q, k, v, got, plain
+    g = torch.Generator(device=dev).manual_seed(420)
+    q, k, v = (torch.randn((b, h, WHISPER_FRAMES, dh), generator=g, device=dev)
+               for _ in range(3))
+    f32 = f32_timing(q, k, v, "whisper encoder", dict(causal=True), dict(causal=False),
+                     phase="13 audio")
+    f32.update(name="whisper encoder", shape=[b, h, h, WHISPER_FRAMES, WHISPER_FRAMES, dh],
+               causal=False, dtype="torch.float32", kernel="f32")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return cases, f32
+
+
+def whisper_inputs(cfg, batch: int, dev, dtype):
+    """Seeded frame embeddings (batch, WHISPER_FRAMES, d_model) in ``dtype``,
+    standing in for the stubbed frontend, and a seeded (batch,
+    WHISPER_PROMPT) decoder prompt."""
+    import torch
+    frames = torch.randn(batch, WHISPER_FRAMES, cfg.d_model,
+                         generator=torch.Generator().manual_seed(11)).to(dev, dtype)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, WHISPER_PROMPT),
+                           generator=torch.Generator().manual_seed(12)).to(dev)
+    return frames, prompt
+
+
+def whisper_request(model, frames, prompt, new: int, cache_len: int):
+    """One request through ServeEngine(is_encdec=True)'s two steps: (the
+    greedy tokens (B, new), every decode step's logits, the prefill's and a
+    decode step's host-clock ms with the card synchronised)."""
+    import torch
+    from repro_torch.launch import ServeEngine
+    engine = ServeEngine(model, is_encdec=True)
+    prefill, decode = engine.make_prefill_step(), engine.make_decode_step()
+    with torch.inference_mode():
+        caches = model.init_cache(prompt.shape[0], cache_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, caches, enc_out = prefill(frames, prompt, caches)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, logits = [tok], []
+        for pos in range(prompt.shape[1], prompt.shape[1] + new - 1):
+            tok, lg, caches = decode(tok, pos, caches, enc_out)
+            out.append(tok)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return torch.stack(out, 1), logits, 1e3 * (t1 - t0), 1e3 * (t2 - t1) / max(new - 1, 1)
+
+
+def whisper_prefill_logits(model, frames, prompt):
+    """The last prompt position's logits: the encoder, then the decoder's
+    teacher-forced forward of the prompt (no cache; the prefill's
+    arithmetic)."""
+    import torch
+    with torch.inference_mode():
+        return model.decode(prompt, model.encode(frames))[0][:, -1]
+
+
+def whisper_serve(dev, smi: str) -> dict:
+    """Phase 13b: whisper-large-v3 at full width and depth in bf16 served
+    through ServeEngine(is_encdec=True)'s steps.  The launch counters are set
+    to 0 before one request and read after: 64 tensor-core flash launches in
+    its prefill (each layer's self-attention, 32 non-causal at S 1500 in the
+    encoder and 32 causal at S 4 in the decoder, as the recorded calls say)
+    and none in its decode steps.  Then the request again, timed, with the
+    same tokens; a profiled prefill; peak memory; finite logits."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import count_params
+    from repro_torch.models import EncDecLM, attention
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(WHISPER)
+    model = EncDecLM(cfg, dtype=torch.bfloat16, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    n_params = count_params(model)
+    if not n_params == count_params(cfg) == WHISPER_PARAMS:
+        fail(f"audio: count_params of the model {n_params}, of the config "
+             f"{count_params(cfg)}, want {WHISPER_PARAMS} (the JAX package's)")
+    weights_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    frames, prompt = whisper_inputs(cfg, WHISPER_BATCH, dev, torch.bfloat16)
+    whisper_request(model, frames[:1], prompt[:1], 2, WHISPER_CACHE)   # warm-up: cuBLAS
+    print(f"[13 audio] {WHISPER}: {cfg.num_encoder_layers} + {cfg.num_layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters in bf16 ({weights_gb:.3f} GB), built in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    fa, plain_call, calls = ops.flash_attention, attention.flash_attention, []
+
+    def recording(q, k, v, **kw):
+        calls.append((q.shape[2], bool(kw.get("causal", True)), q.is_cuda))
+        return plain_call(q, k, v, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.launches_tc = fa.launches_tc_wide = fa.launches_f32 = fa.launches_simt = 0
+    attention.flash_attention = recording
+    try:
+        tokens, logits, _, _ = whisper_request(model, frames, prompt, WHISPER_NEW,
+                                               WHISPER_CACHE)
+        torch.cuda.synchronize()
+    finally:
+        attention.flash_attention = plain_call
+    counts = (fa.launches, fa.launches_tc, fa.launches_tc_wide, fa.launches_f32,
+              fa.launches_simt)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    enc_calls = [c for c in calls if c == (WHISPER_FRAMES, False, True)]
+    dec_calls = [c for c in calls if c == (WHISPER_PROMPT, True, True)]
+    per_prefill = cfg.num_encoder_layers + cfg.num_layers
+    if counts != (per_prefill, per_prefill, 0, 0, 0) or len(calls) != per_prefill:
+        fail(f"audio: {counts} flash launches (all, tensor-core, Dh > 128, float32, SIMT) and "
+             f"{len(calls)} calls in one request, want {per_prefill} tensor-core launches, "
+             "all in the prefill")
+    if len(enc_calls) != cfg.num_encoder_layers or len(dec_calls) != cfg.num_layers:
+        fail(f"audio: the flash calls were {sorted(set(calls))}, want "
+             f"{cfg.num_encoder_layers} non-causal at S {WHISPER_FRAMES} and "
+             f"{cfg.num_layers} causal at S {WHISPER_PROMPT}")
+    if tokens.shape != (WHISPER_BATCH, WHISPER_NEW):
+        fail(f"audio: {tuple(tokens.shape)} tokens, want ({WHISPER_BATCH}, {WHISPER_NEW})")
+    first = whisper_prefill_logits(model, frames, prompt)
+    if not all(bool(torch.isfinite(x).all()) for x in [first] + logits):
+        fail("audio: non-finite logits")
+    if not torch.equal(first.argmax(-1), tokens[:, 0]):
+        fail("audio: the prefill step's token is not the argmax of the prefill's logits")
+    again, _, prefill_ms, decode_ms = whisper_request(model, frames, prompt, WHISPER_NEW,
+                                                      WHISPER_CACHE)
+    if not torch.equal(again, tokens):
+        fail("audio: the timed request gave other tokens than the counted one")
+    with torch.inference_mode():
+        from repro_torch.launch import ServeEngine
+        prefill = ServeEngine(model, is_encdec=True).make_prefill_step()
+        top = device_window(lambda: prefill(frames, prompt,
+                                            model.init_cache(WHISPER_BATCH, WHISPER_CACHE)),
+                            f"{WHISPER} one prefill", "13 audio")
+    n_tokens = WHISPER_BATCH * (WHISPER_FRAMES + WHISPER_PROMPT)
+    print(f"[13 audio] {WHISPER}: {WHISPER_BATCH} utterances x {WHISPER_FRAMES} frames, a "
+          f"{WHISPER_PROMPT}-token prompt, {WHISPER_NEW} greedy tokens, cache "
+          f"{WHISPER_CACHE}: {per_prefill} tensor-core flash launches a prefill "
+          f"({cfg.num_encoder_layers} non-causal at S {WHISPER_FRAMES}, {cfg.num_layers} causal "
+          f"at S {WHISPER_PROMPT}), none in {WHISPER_NEW - 1} decode steps; prefill "
+          f"{prefill_ms:.3f} ms ({n_tokens / prefill_ms * 1e3:.0f} frames+tokens/s); decode "
+          f"{decode_ms:.3f} ms/step (each recomputes 32 layers' cross K/V, as the JAX package "
+          f"does); peak memory {peak_gb:.3f} GB  [{smi}]")
+    out = dict(tc=per_prefill, flash_calls=dict(encoder=cfg.num_encoder_layers,
+                                                decoder=cfg.num_layers),
+               prefill_ms=prefill_ms, decode_ms=decode_ms, peak_gb=peak_gb, params=n_params,
+               prefill_profile=top)
+    del model, frames, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_reference(dev) -> dict:
+    """Phase 13c: 2 + 2 layers of whisper at full width in float32 on the card
+    (the float32 flash kernel) and on the CPU (its plain version): the
+    prefill logits within the float32 serve bounds, WHISPER_CHECK_NEW greedy
+    tokens equal, and WHISPER_FAULT planted on the CPU outside the bounds."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import EncDecLM
+    t0 = time.perf_counter()
+    small = dataclasses.replace(get_config(WHISPER), num_layers=2, num_encoder_layers=2)
+    card = EncDecLM(small, device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+    cpu = EncDecLM(small, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    frames, prompt = whisper_inputs(small, WHISPER_CHECK_BATCH, "cpu", torch.float32)
+    fa = ops.flash_attention
+    before = fa.launches_f32
+    got_tokens, _, _, _ = whisper_request(card, frames.to(dev), prompt.to(dev),
+                                          WHISPER_CHECK_NEW, WHISPER_CACHE)
+    launched = fa.launches_f32 - before
+    got = whisper_prefill_logits(card, frames.to(dev), prompt.to(dev))
+    want_tokens, _, _, _ = whisper_request(cpu, frames, prompt, WHISPER_CHECK_NEW,
+                                           WHISPER_CACHE)
+    want = whisper_prefill_logits(cpu, frames, prompt)
+    cpu.cfg = dataclasses.replace(small, **WHISPER_FAULT[1])
+    try:
+        faulty = whisper_prefill_logits(cpu, frames, prompt)
+    finally:
+        cpu.cfg = small
+    if launched != 4:
+        fail(f"audio reference: {launched} float32 flash launches a prefill on the card, want "
+             "4 (2 encoder, 2 decoder layers)")
+
+    def drift(x):
+        d = (x.float().cpu() - want.float()).abs()
+        return d.max().item() / want.abs().max().item(), d.mean().item() / want.std().item()
+
+    max_rel, mean_rel = drift(got)
+    fault_max, fault_mean = drift(faulty)
+    same = torch.equal(got_tokens.cpu(), want_tokens)
+    print(f"[13 audio] reference: 2 + 2 whisper layers at full width in float32, "
+          f"{WHISPER_CHECK_BATCH} x {WHISPER_FRAMES} frames, a {WHISPER_PROMPT}-token prompt: "
+          f"card vs CPU prefill logits {max_rel:.3e} of max|logit|, {mean_rel:.3e} of the std; "
+          f"planted fault ({WHISPER_FAULT[0]}) {fault_max:.3e}, {fault_mean:.3e} (bounds "
+          f"{SERVE_F32_MAX_ERR}, {SERVE_F32_MEAN_ERR}); {WHISPER_CHECK_NEW} greedy tokens "
+          f"{'equal' if same else 'DIFFERENT'}; {time.perf_counter() - t0:.1f} s")
+    if max_rel > SERVE_F32_MAX_ERR or mean_rel > SERVE_F32_MEAN_ERR:
+        fail("audio reference: card and CPU logits differ beyond the float32 bounds")
+    if fault_max <= SERVE_F32_MAX_ERR and fault_mean <= SERVE_F32_MEAN_ERR:
+        fail(f"audio reference: a planted fault ({WHISPER_FAULT[0]}) stays within the bounds")
+    if not same:
+        fail(f"audio reference: greedy tokens on the card {got_tokens.tolist()} differ from "
+             f"the CPU's {want_tokens.tolist()}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return dict(logits_drift=(max_rel, mean_rel), fault_drift=(fault_max, fault_mean),
+                f32_launches=launched)
+
+
+def phase_audio(dev, smi: str) -> dict:
+    """Phase 13: whisper's flash shapes (whisper_kernels), its serve path
+    (whisper_serve), 2 + 2 float32 layers card vs CPU (whisper_reference),
+    then its training at full width and depth (train_runs) and two float32
+    layers of each side card vs CPU (train_reference), which launch no
+    hand-written kernel."""
+    from repro_torch.kernels.dp_aggregate import ops as dp_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    tc_cases, f32_case = whisper_kernels(dev, smi)
+    out = dict(kernels=dict(tc=tc_cases, f32=f32_case), serve=whisper_serve(dev, smi),
+               reference=whisper_reference(dev))
+    before = (dp_ops.dp_aggregate_sums.launches, fa_ops.flash_attention.launches,
+              ssd_ops.ssd_scan.launches)
+    out["train"] = train_runs(dev, smi, WHISPER, WHISPER_TRAIN_RUNS, "13 audio")
+    out["train_reference"] = train_reference(dev, WHISPER, "13 audio")
+    after = (dp_ops.dp_aggregate_sums.launches, fa_ops.flash_attention.launches,
+             ssd_ops.ssd_scan.launches)
+    if after != before:
+        fail(f"audio: the training path launched kernels ({before} -> {after})")
     return out
 
 
@@ -4441,8 +4826,14 @@ def main() -> int:
     timed("10 train", phase_train, dev, smi)
     zoo = timed("11 serve-zoo", phase_serve_zoo, dev, smi)
     timed("12 train-zoo", phase_train_zoo, dev, smi)
+    audio = timed("13 audio", phase_audio, dev, smi)
     zoo_tc = {spec.name: zoo[spec.name]["tc"] for spec in ZOO_SERVE}
-    flash_tc["launches"] = h2o["tc"] + sum(zoo_tc.values())
+    flash_tc["launches"] = h2o["tc"] + sum(zoo_tc.values()) + audio["serve"]["tc"]
+    flash_tc["whisper"] = dict(launches=audio["serve"]["tc"],
+                               flash_calls=audio["serve"]["flash_calls"],
+                               shapes=audio["kernels"]["tc"],
+                               serve={k: audio["serve"][k] for k in (
+                                   "prefill_ms", "decode_ms", "peak_gb", "params")})
     flash_tc["zoo"] = dict(launches=zoo_tc, shapes=zoo["kernels"]["tc"],
                            serve={spec.name: {k: zoo[spec.name][k] for k in (
                                "prefill_ms", "decode_ms", "peak_gb", "params", "dropped_share")}
@@ -4450,7 +4841,8 @@ def main() -> int:
     flash_wide["launches"] = gemma["tc_wide"]
     flash_wide["simt_prefill_ms"] = gemma["simt_prefill_ms"]
     flash_f32["launches"] = f32["f32"] + h2o["f32_check"] + gemma["f32_check"] + sum(
-        r["f32_launches"] for r in zoo["reference"].values())
+        r["f32_launches"] for r in zoo["reference"].values()) + audio["reference"]["f32_launches"]
+    flash_f32["whisper"] = dict(shape=audio["kernels"]["f32"], reference=audio["reference"])
     flash_f32["zoo"] = dict(shapes=zoo["kernels"]["f32"], reference=zoo["reference"])
     ssd["launches"] += zoo[ZAMBA2]["ssd_scan"]
     ssd["zoo"] = dict(launches={ZAMBA2: zoo[ZAMBA2]["ssd_scan"]}, shapes=zoo["kernels"]["ssd"])

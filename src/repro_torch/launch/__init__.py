@@ -1,5 +1,5 @@
 """Launch path of the port: serving (``serve.ServeEngine``), federated
-training of a decoder LM (``train.FederatedTrainer``), parameter counting
+training of a decoder LM or an enc-dec (``train.FederatedTrainer``), parameter counting
 (``rules.count_params``) and the streaming engine's memory sizing
 (``mesh.auto_chunk_clients``).  The sharding rules, the client mesh, the
 launch specs and the dry-run tools are still to port (ROADMAP queue 1,

@@ -11,7 +11,7 @@ from __future__ import annotations
 import math
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 __all__ = ["GIANT_PARAM_THRESHOLD", "count_params", "is_giant"]
 
@@ -19,22 +19,24 @@ GIANT_PARAM_THRESHOLD = 20e9
 
 
 def count_params(model) -> int:
-    """Exact parameter count of a ``DecoderLM`` or of the ``ModelConfig`` it
-    would be built from, as the JAX package's ``count_params`` counts it:
-    the embedding, the final norm, every block (an MoE block's experts E
-    times), a hybrid's shared block once and an untied head.  A config
-    counts from the defs alone (no tensor is made, so a 104 B configuration
-    counts in milliseconds); a model counts its parameters."""
+    """Exact parameter count of a ``DecoderLM`` or ``EncDecLM``, or of the
+    ``ModelConfig`` it would be built from, as the JAX package's
+    ``count_params`` counts it: the embedding, the final norm, every block (an
+    MoE block's experts E times), a hybrid's shared block once and an untied
+    head; an enc-dec stack's embedding, encoder and decoder blocks and its four
+    norms.  A config counts from the defs alone (no tensor is made, so a 104 B
+    configuration counts in milliseconds); a model counts its parameters."""
     if not isinstance(model, ModelConfig):
         return sum(p.numel() for p in model.parameters())
     cfg = model
-    if cfg.arch_type not in transformer.ARCHS:
-        raise NotImplementedError(
-            f"{cfg.name}: the port's DecoderLM runs {', '.join(transformer.ARCHS)} stacks; "
-            f"{cfg.arch_type} (enc-dec) stacks are still to port (ROADMAP queue 1, item 17)")
 
     def size(defs):
         return sum(math.prod(p.shape) for p in defs.values())
+
+    if cfg.arch_type == "audio":
+        return (cfg.vocab_size * cfg.d_model + len(encdec.NORMS) * cfg.d_model
+                + cfg.num_encoder_layers * size(encdec.enc_block_defs(cfg))
+                + cfg.num_layers * size(encdec.dec_block_defs(cfg)))
 
     shared = size(transformer.shared_attn_defs(cfg)) if cfg.arch_type == "hybrid" else 0
     head = 0 if cfg.tie_embeddings else cfg.d_model * cfg.vocab_size

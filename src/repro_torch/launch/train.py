@@ -1,12 +1,12 @@
-"""Federated training of a decoder LM: one DP-FedEXP round over its parameter
-tree (counterpart of repro/launch/train.py).
+"""Federated training of a decoder LM or an encoder-decoder: one DP-FedEXP
+round over its parameter tree (counterpart of repro/launch/train.py).
 
 ``FederatedTrainer.make_train_step`` returns a ``train_step`` that runs one
 federated round (Algorithms 1/2 of the paper) for a cohort of K clients:
 
   1. local training: each client runs tau SGD steps on its own token
-     microbatches from the broadcast parameters (``DecoderLM.loss``,
-     autograd);
+     microbatches from the broadcast parameters (``DecoderLM.loss``, or
+     ``EncDecLM.loss`` with the step's frames; autograd);
   2. per-client clipping by the global L2 norm of the update tree;
   3. the mechanism's release, leaf-wise: Gaussian noise per client (LDP), or
      on the mean (CDP);
@@ -108,12 +108,12 @@ class _Draws:
 
 @dataclasses.dataclass
 class FederatedTrainer:
-    """DP-FedEXP rounds over a ``DecoderLM``'s parameters (a dict named as
-    its ``named_parameters()``).  ``num_params`` is d, for the
-    hyperparameter-free sigma_xi.  The model must take a plain attention
-    path: the kernels have no backward."""
+    """DP-FedEXP rounds over a ``DecoderLM``'s or an ``EncDecLM``'s
+    parameters (a dict named as its ``named_parameters()``).  ``num_params``
+    is d, for the hyperparameter-free sigma_xi.  The model must take a plain
+    attention path: the kernels have no backward."""
 
-    model: Any                      # DecoderLM
+    model: Any                      # DecoderLM | EncDecLM
     fed: FederatedConfig
     num_params: int
 
@@ -170,15 +170,23 @@ class FederatedTrainer:
 
     # ------------------------------------------------------------------
 
-    def _local_train(self, params: dict, tokens: torch.Tensor, labels: torch.Tensor):
-        """tau local SGD steps (Algorithm 3) on (tau, b, s) token batches:
-        (the update tree, the mean loss)."""
+    def _local_loss(self, leaves: dict, tokens, labels, frames):
+        if frames is None:
+            return self.model.loss(leaves, tokens, labels)
+        return self.model.loss(leaves, frames, tokens, labels)
+
+    def _local_train(self, params: dict, tokens: torch.Tensor, labels: torch.Tensor,
+                     frames: torch.Tensor | None = None):
+        """tau local SGD steps (Algorithm 3) on (tau, b, s) token batches (and
+        an enc-dec model's (tau, b, T, d_model) frames): (the update tree, the
+        mean loss)."""
         eta_l = self.train.eta_l
         p, losses = params, []
         for step in range(tokens.shape[0]):
             leaves = {n: t.detach().requires_grad_() for n, t in p.items()}
             with torch.enable_grad():
-                loss = self.model.loss(leaves, tokens[step], labels[step])
+                loss = self._local_loss(leaves, tokens[step], labels[step],
+                                        None if frames is None else frames[step])
                 grads = list(torch.autograd.grad(loss, list(leaves.values())))
             losses.append(loss.detach())
             p = {}
@@ -198,7 +206,8 @@ class FederatedTrainer:
 
         ``params``: a dict of tensors named as the model's
         ``named_parameters()``; ``batch``: ``{"tokens", "labels"}``, each (K,
-        tau, b, s); ``generator``: the round's ``torch.Generator`` on the CPU;
+        tau, b, s), and for an enc-dec model ``"frames"``, (K, tau, b, T,
+        d_model); ``generator``: the round's ``torch.Generator`` on the CPU;
         ``noise``: a ``TrainNoise`` in place of the draws.  ``metrics``:
         ``loss``, ``eta_g``, ``mean_update_norm`` and ``agg_sq`` as in the JAX
         package, and ``client_norms`` (each update's norm) and
@@ -215,7 +224,7 @@ class FederatedTrainer:
         @torch.no_grad()
         def train_step(params: dict, batch: dict, generator: torch.Generator,
                        noise: TrainNoise | None = None):
-            tokens, labels = batch["tokens"], batch["labels"]
+            tokens, labels, frames = batch["tokens"], batch["labels"], batch.get("frames")
             k = tokens.shape[0]
             names = sorted(params)
             device = params[names[0]].device
@@ -224,7 +233,8 @@ class FederatedTrainer:
                     for n in names}
             losses, sqs, norms, clipped_norms, released_sq = [], [], [], [], []
             for i in range(k):
-                delta, loss = self._local_train(params, tokens[i], labels[i])
+                delta, loss = self._local_train(params, tokens[i], labels[i],
+                                                None if frames is None else frames[i])
                 losses.append(loss)
                 sqs.append(_sq_norm(delta.values()))
                 norm = torch.sqrt(torch.clamp(sqs[-1], min=1e-24))

@@ -12,7 +12,10 @@ Four execution paths for self-attention (``IMPLS``):
     in plain PyTorch, the JAX package's default and training path.
   - ``chunked``: ``chunked_attention``, a dense softmax per 512-query chunk.
 The last three are differentiable by autograd and train through the model.
-Cross-attention (``cross_kv``, enc-dec) is still to port (ROADMAP.md).
+Cross-attention (``cross_kv``: the enc-dec decoder's K and V of the encoder's
+output) takes none of these paths: as in the JAX package it is
+``dense_attention`` under ``dense`` or for a one-token step, else
+``blockwise_attention``, non-causal, whatever ``impl`` is.
 
 Decode path: single-query attention against a KV cache; sliding-window
 layers keep a ring buffer of ``window`` slots.  Unlike the JAX package, the
@@ -173,11 +176,10 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *, positions: tor
     """Returns (output, cache).  ``cache`` is updated in place.
 
     With a cache, a one-token ``x`` is a decode step at ``decode_pos``; a
-    longer one is a prefill from position 0.
+    longer one is a prefill from position 0.  ``cross_kv``: the (k, v) of
+    cross-attention, each (B, Skv, Hkv, Dh); then only q is projected (and
+    qk-normed), no RoPE is applied and no cache is read or written.
     """
-    if cross_kv is not None:
-        raise NotImplementedError("cross-attention (enc-dec) is not ported yet "
-                                  "(ROADMAP queue 1, item 17)")
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     b, s, _ = x.shape
     window = cfg.sliding_window
@@ -185,18 +187,25 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *, positions: tor
     q = (x @ params[prefix + "wq"]).reshape(b, s, hq, dh)
     if prefix + "wq_b" in params:
         q = q + params[prefix + "wq_b"].reshape(hq, dh)
-    k = (x @ params[prefix + "wk"]).reshape(b, s, hkv, dh)
-    v = (x @ params[prefix + "wv"]).reshape(b, s, hkv, dh)
-    if prefix + "wv_b" in params:
-        v = v + params[prefix + "wv_b"].reshape(hkv, dh)
+    if cross_kv is None:
+        k = (x @ params[prefix + "wk"]).reshape(b, s, hkv, dh)
+        v = (x @ params[prefix + "wv"]).reshape(b, s, hkv, dh)
+        if prefix + "wv_b" in params:
+            v = v + params[prefix + "wv_b"].reshape(hkv, dh)
+    else:
+        k, v = cross_kv
     if cfg.qk_norm:
         q = rms_norm(q, params[prefix + "qnorm"], cfg.norm_eps)
-        k = rms_norm(k, params[prefix + "knorm"], cfg.norm_eps)
-    if cfg.use_rope:
+        if cross_kv is None:
+            k = rms_norm(k, params[prefix + "knorm"], cfg.norm_eps)
+    if cfg.use_rope and cross_kv is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
 
-    if cache is not None and s == 1:   # decode: write the new KV into its (ring) slot
+    if cross_kv is not None:
+        attend = dense_attention if impl == "dense" or s == 1 else blockwise_attention
+        out = attend(q, k, v, causal=False, window=None)
+    elif cache is not None and s == 1:   # decode: write the new KV into its (ring) slot
         slot = int(decode_pos) % cache["k"].shape[1]
         cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
         cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)

@@ -5,8 +5,8 @@ import math
 
 import torch
 
-__all__ = ["rms_norm", "rope", "sinusoidal_positions", "softcap", "dense_init", "Param",
-           "init_params"]
+__all__ = ["rms_norm", "layer_norm", "rope", "sinusoidal_positions", "softcap", "dense_init",
+           "Param", "init_params"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -14,6 +14,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Layer norm in float32, scaled by ``1 + scale`` (norm weights start at
+    zero, as for ``rms_norm``) plus ``bias``, cast back to ``x``'s dtype.
+    ``1 + scale`` is taken in the scale's dtype, as the JAX package takes it."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    return ((x32 - mean) * torch.rsqrt(var + eps) * (1.0 + scale) + bias).to(x.dtype)
 
 
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:

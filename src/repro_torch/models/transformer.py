@@ -21,8 +21,7 @@ own parameters never require grad.  ``remat`` recomputes each block in the backw
 and the LM head runs in chunks of ``loss_chunk`` positions, each recomputed
 too, so the (tokens, vocab) logits never exist at once.  The hybrid's
 remat recomputes its Mamba2 blocks and not the shared block, as the JAX
-package's.  The audio (enc-dec) stack is still to port (ROADMAP queue 1,
-item 17).
+package's.  The audio (enc-dec) stack is ``encdec.EncDecLM``.
 """
 from __future__ import annotations
 
@@ -105,8 +104,9 @@ class DecoderLM(nn.Module):
         super().__init__()
         if cfg.arch_type not in ARCHS:
             raise NotImplementedError(
-                f"{cfg.name}: the port's DecoderLM runs {', '.join(ARCHS)} stacks; "
-                f"{cfg.arch_type} (enc-dec) stacks are still to port (ROADMAP queue 1, item 17)")
+                f"{cfg.name}: the port's DecoderLM runs {', '.join(ARCHS)} stacks; build "
+                f"{cfg.arch_type} (enc-dec) stacks as repro_torch.models.EncDecLM "
+                "(or through repro_torch.models.build_model)")
         if attn_impl not in attn_mod.IMPLS:
             raise ValueError(f"unknown attention impl {attn_impl!r}; the port has "
                              f"{attn_mod.IMPLS}")

@@ -93,7 +93,7 @@ def test_the_compression_module_stands_alone():
 TRAIN_MODULES = ["launch/train.py", "launch/rules.py", "telemetry/__init__.py",
                  "telemetry/trackers.py", "data/tokens.py", "models/transformer.py",
                  "models/attention.py", "models/ssm.py", "core/clipping.py", "convert.py",
-                 "models/moe.py"]
+                 "models/moe.py", "models/encdec.py", "models/common.py", "launch/serve.py"]
 TRAIN_EXAMPLE = ROOT / "examples" / "train_federated_lm_torch.py"
 
 

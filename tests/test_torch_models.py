@@ -48,8 +48,8 @@ def _cfgs(pkg):
         "h2o-gqa4/2-dh120": dataclasses.replace(h2o, num_heads=4, num_kv_heads=2, head_dim=120),
         "gemma": pkg.reduced(pkg.get_config("gemma-2b")),
         "command-r": pkg.reduced(pkg.get_config("command-r-plus-104b")),
-        # branches of chameleon and whisper, which the port's DecoderLM refuses
-        # as vlm and enc-dec: qk-norm, and sinusoidal positions in place of RoPE
+        # branches of chameleon and whisper (tests/test_torch_encdec.py holds
+        # whisper's EncDecLM): qk-norm, and sinusoidal positions in place of RoPE
         "h2o-qk-norm": dataclasses.replace(h2o, qk_norm=True),
         "h2o-sinusoidal": dataclasses.replace(h2o, use_rope=False),
     }
@@ -247,8 +247,17 @@ class TestAttentionApply:
             _close(got, want)
         with pytest.raises(ValueError, match="unknown attention impl"):
             attention.attention_apply(tp, x, self.tcfg, positions=pos, impl="pallas")
-        with pytest.raises(NotImplementedError, match="enc-dec"):
-            attention.attention_apply(tp, x, self.tcfg, positions=pos, cross_kv=(x, x))
+        # cross-attention is ported now: the given K and V, the plain path whatever impl is
+        hkv, dh = self.tcfg.num_kv_heads, self.tcfg.resolved_head_dim
+        kv = np.random.default_rng(9).standard_normal((2, 1, 11, hkv, dh)).astype(np.float32)
+        want, _ = jax_attn.attention_apply(jp, jnp.asarray(x.numpy()), self.jcfg,
+                                           positions=jnp.asarray(pos.numpy()),
+                                           cross_kv=tuple(jnp.asarray(a) for a in kv),
+                                           impl="pallas")
+        got, cache = attention.attention_apply(tp, x, self.tcfg, positions=pos,
+                                               cross_kv=tuple(torch.tensor(a) for a in kv))
+        assert cache is None
+        _close(got, want)
         capped = dataclasses.replace(self.tcfg, attn_logit_softcap=30.0)
         with pytest.raises(NotImplementedError, match="softcap"):
             attention.attention_apply(tp, x, capped, positions=pos)

@@ -26,7 +26,7 @@ from repro.models.transformer import DecoderLM as JaxDecoderLM  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.convert import decoder_from_jax, params_from_jax  # noqa: E402
 from repro_torch.launch import ServeEngine  # noqa: E402
-from repro_torch.models import DecoderLM  # noqa: E402
+from repro_torch.models import DecoderLM, EncDecLM  # noqa: E402
 
 PROMPT, NEW = 90, 8
 HEAD_DIM = {"gemma-2b-dh256": ("gemma-2b", 256)}   # a reduced config at another head_dim
@@ -82,8 +82,11 @@ def test_unported_stacks_and_a_missing_card_raise():
         model = DecoderLM(reduced(get_config(name)), device="cpu")
         assert model.cfg.arch_type in ("moe", "hybrid", "vlm")
         assert (model.shared_attn is not None) == (name == "zamba2-2.7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecoderLM(reduced(get_config("whisper-large-v3")), device="cpu")
+    whisper = reduced(get_config("whisper-large-v3"))      # ported now, as EncDecLM
+    encdec = EncDecLM(whisper, device="cpu")
+    assert len(encdec.enc_blocks) == len(encdec.dec_blocks) == 2
+    with pytest.raises(NotImplementedError, match="EncDecLM"):
+        DecoderLM(whisper, device="cpu")
     cfg = reduced(get_config("h2o-danube-3-4b"))
     with pytest.raises(ValueError, match="unknown attention impl"):
         DecoderLM(cfg, device="cpu", attn_impl="pallas")   # the JAX package's name of "kernel"

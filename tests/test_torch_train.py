@@ -5,8 +5,8 @@ granite-8b, command-r-plus-104b and mamba2-2.7b (two layers, d_model 128),
 labels of -1 and a sequence that is not a multiple of ``loss_chunk``, on
 every plain attention path; remat (and the "dots" policy) against no remat
 in bits; the chunked SSD's gradient where the JAX package's is NaN;
-``clip_tree``; ``count_params`` for every decoder configuration at full
-size (whisper's enc-dec refused); one ``FederatedTrainer`` train_step of
+``clip_tree``; ``count_params`` for every configuration at full size
+(whisper's enc-dec included); one ``FederatedTrainer`` train_step of
 fedavg, fedexp, dp-fedavg-ldp-gauss, ldp-fedexp-gauss, dp-fedavg-cdp and cdp-fedexp against
 the JAX package's jitted ``train_step``, the port fed the JAX round's own
 noise (``_tree_noise`` of its key splits, and its xi); the same in bf16; the
@@ -58,6 +58,7 @@ from repro.launch.rules import is_giant as jax_is_giant  # noqa: E402
 from repro.launch.train import FederatedTrainer as JaxTrainer  # noqa: E402
 from repro.launch.train import _tree_noise  # noqa: E402
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked  # noqa: E402
+from repro.models.encdec import EncDecLM as JaxEncDecLM  # noqa: E402
 from repro.models.transformer import DecoderLM as JaxDecoderLM  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.convert import (  # noqa: E402
@@ -302,11 +303,8 @@ def test_clip_tree_matches_jax(clip):
 @pytest.mark.parametrize("name", sorted(configs.ARCHS))
 def test_count_params_matches_jax_at_full_size(name):
     cfg = configs.get_config(name)
-    if cfg.arch_type == "audio":      # enc-dec, the one stack still to port
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            count_params(cfg)
-        return
-    want = jax_count(JaxDecoderLM(jconfigs.get_config(name)))
+    jcfg = jconfigs.get_config(name)
+    want = jax_count(JaxEncDecLM(jcfg) if cfg.arch_type == "audio" else JaxDecoderLM(jcfg))
     assert count_params(cfg) == want
     assert is_giant(cfg, want) == jax_is_giant(jconfigs.get_config(name), want)
     assert GIANT_PARAM_THRESHOLD == 20e9
