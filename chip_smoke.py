@@ -63,8 +63,9 @@ Phases, each of which exits non-zero on failure:
                the bound for 3xTF32 tensor-core products and for float32
                ones, and a profiled split over the four stages.
   3. paper     the paper's synthetic linear regression (M=1000, tau=20,
-               25 of its 50 rounds since phase 13 came, PAPER_RUN_ROUNDS; d=500
-               CDP/noiseless, d=100 LDP and PrivUnit) for
+               50 rounds, PAPER_RUN_ROUNDS, restored in PR 31; d=500
+               CDP/noiseless, d=100 LDP and PrivUnit) on the default scan
+               engine (CUDA graphs; phases 3b and 3e too) for
                all seventeen names, dp-scaffold in both modes (LDP sigma =
                0.7C, CDP 5C/sqrt(M), (eta_l, C) = (0.3, 0.3)) (PrivUnit at
                eps0 = eps1 = eps2 = 2; adaptive clipping from c0 = C, z_mult
@@ -78,7 +79,8 @@ Phases, each of which exits non-zero on failure:
                variate table too; the two whole runs' gap printed:
                cdp-fedexp's extrapolation and PrivUnit's release compound
                rounding over the rounds); dp_aggregate launches must rise by
-               one a round, by two for dp-scaffold (its model and variate
+               one a round (the scan engine's warm-up rounds before its
+               captures count: they ran), by two for dp-scaffold (its model and variate
                releases), by none for the PrivUnit names and the weighted
                ldp-fedexp-perclient (which launch the noise-only kernel
                once a round: PrivUnit's directions' normal, keyed by
@@ -86,8 +88,8 @@ Phases, each of which exits non-zero on failure:
   3b. e1       the paper's e1 comparison (benchmarks/e1_synthetic.py): for
                cdp (d=500), ldp-gauss and ldp-privunit (d=100), DP-FedAvg,
                DP-FedEXP and DP-SCAFFOLD at e1's (eta_l, C), each through
-               FederatedSession.run_batched over 3 seeds (e1 runs 5; cut
-               since phase 13 came, E1_SEEDS): the final
+               FederatedSession.run_batched over e1's 5 seeds (E1_SEEDS,
+               restored in PR 31): the final
                ||w - w*|| as mean +/- std, and OK/WARN for DP-FedEXP <
                DP-FedAvg, printed as e1 prints it; in ldp-gauss each seed's
                slice must equal its own run() in bits.
@@ -154,7 +156,8 @@ Phases, each of which exits non-zero on failure:
                = eager, and gathered at q = 0.1 = dense sampled, at RTOL;
                the EF sketch saved at round 5 and resumed = uninterrupted
                in bits.
-  4. full      ldp-fedexp-gauss (fused mode), cdp-fedexp (none mode),
+  4. full      the eager loop (EngineSpec("eager"), timed with its split):
+               ldp-fedexp-gauss (fused mode), cdp-fedexp (none mode),
                ldp-fedexp-privunit (the noise-only kernel for its normal),
                cdp-fedexp-adaptive-clip
                (none mode, C on the card), ldp-fedexp-gauss under
@@ -173,7 +176,7 @@ Phases, each of which exits non-zero on failure:
   4b. scan     the scan engine (EngineSpec("scan", chunk_rounds=25): each
                round staged on the host and replayed from a CUDA graph):
                all 18 labels at the paper size (M = 1000, tau = 20, 50
-               rounds) under eager and scan, equal in bits (final_w,
+               rounds) under eager (named) and scan, equal in bits (final_w,
                last_w, the four histories, the watchdog round); the same
                for q = 0.1 gathered and for a faulted run whose watchdog
                trips (eta_g above 1.05), on cdp-fedexp and
@@ -193,6 +196,18 @@ Phases, each of which exits non-zero on failure:
                kernels in each profiled run's trace held equal to the
                launch counters (which under scan count captured launches
                times replays).
+  4c. shard    client sharding: a one-rank NCCL client mesh
+               (make_client_mesh(), a one-process group through an in-memory
+               store); the full cell (M = 1000, d = 131072, tau = 20, 5
+               rounds) under ShardSpec(mesh) equal in bits to the unsharded
+               scan run for ldp-fedexp-gauss (fused noise keyed by global
+               row), cdp-fedexp, ldp-fedexp-privunit and ldp-fedexp-gauss
+               gathered at q = 0.1; ms per round sharded and unsharded, the
+               dp_aggregate launches and all-reduces of a replayed round (one
+               all-reduce, held), the all-reduce's device time in a profiled
+               run; at e9's shape (M = 256, d = 2^20, 10 rounds) rand-k and
+               the sketch with top-k and error feedback under scan equal in
+               bits to the eager loop, ms per round of both.
   5. reference the port on the card against the port on the CPU (plain
                versions, same seeds, same noise) on a small problem: fedexp,
                ldp-fedexp-gauss (also under CohortSpec(q=0.25), dense and
@@ -328,7 +343,7 @@ Phases, each of which exits non-zero on failure:
                dec_blocks.*.xattn_* leaf moved, and train_reference's 2 + 2
                float32 layers card vs CPU.  Training launches no hand-written
                kernel.
-Phases 3, 3b, 3e, 3f, 3g, 4 and 4b are the round loop's main path, phase 6's bf16 generate the
+Phases 3, 3b, 3e, 3f, 3g, 4, 4b and 4c are the round loop's main path, phase 6's bf16 generate the
 dense serve path's (the tensor-core flash kernel), its f32 generate and phase
 9's the float32 serve path's (the float32 tensor-core flash kernel), phase 7's
 generate the Mamba2 serve path's, phase 8's bf16 generate the Dh-256 serve
@@ -346,6 +361,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -940,6 +956,14 @@ def check_run(name, result, rounds):
         fail(f"{name}: eta_g < 1 in a FedEXP run")
 
 
+def warmup_rounds(session) -> int:
+    """The rounds the scan engine of ``session`` ran uncaptured to warm up
+    before its captures (0 on another engine): their launches ran on the
+    card, so the launch counters count them beside the rounds'."""
+    eng = getattr(session, "_scan", None)
+    return 0 if eng is None else eng.warmup_rounds
+
+
 def paper_run(name, d, dev, backend="auto", cohort=None):
     """One paper-workload run, checked: finite, eta_g >= 1 for FedEXP names,
     and the kernel launches a round of ``launches_per_round``.  Returns the
@@ -951,16 +975,18 @@ def paper_run(name, d, dev, backend="auto", cohort=None):
                                                if v == cohort)
     before = (ops.dp_aggregate_sums.launches, ops.generate_ldp_noise.launches)
     t0 = time.perf_counter()
-    _, r, data = run_session(name, m, d, rounds, tau, dev, backend=backend, cohort=cohort)
+    session, r, data = run_session(name, m, d, rounds, tau, dev, backend=backend, cohort=cohort)
     dist = float(data.w_star.sub(r.final_w).norm())
     secs = time.perf_counter() - t0
     check_run(name, r, rounds)
     agg = ops.dp_aggregate_sums.launches - before[0]
     noise = ops.generate_ldp_noise.launches - before[1]
-    want_agg, want_noise = (rounds * n for n in launches_per_round(name, backend))
+    ran = rounds + warmup_rounds(session)
+    want_agg, want_noise = (ran * n for n in launches_per_round(name, backend))
     if agg != want_agg or noise != want_noise:
         fail(f"{name} [{backend}, {label}]: {agg} dp_aggregate and {noise} ldp_noise launches "
-             f"in {rounds} rounds (want {want_agg} and {want_noise})")
+             f"in {rounds} rounds and {ran - rounds} warm-up rounds (want {want_agg} and "
+             f"{want_noise})")
     print(f"[3 paper] {name:29s} [{backend:6s}] {label:14s} d={d}: final ||w - w*|| = "
           f"{dist:.4f}  eta_g in [{r.eta_history.min().item():.3f}, "
           f"{r.eta_history.max().item():.3f}]  {secs:.2f} s")
@@ -1087,7 +1113,7 @@ E1_HP = {
     "cdp": {"fedexp": (0.1, 0.3), "fedavg": (0.3, 3.0), "scaffold": (0.3, 0.3)},
 }
 E1_SETTINGS = (("cdp", 500), ("ldp-gauss", 100), ("ldp-privunit", 100))
-E1_SEEDS = tuple(1000 + s for s in range(3))   # e1 runs 5: cut for the script's time limit
+E1_SEEDS = tuple(1000 + s for s in range(5))   # e1's seeds
 E1_HELD = "ldp-gauss"    # its sweeps are held seed by seed against run()
 
 
@@ -1275,9 +1301,11 @@ def phase_e2(dev):
                     or not all(torch.isfinite(x).all() for x in (r.final_w, r.eta_history,
                                                                   r.metric_history)):
                 fail(f"e2 {setting} {alg}: non-finite or misshapen run_batched results")
-            if launched != s * rounds * e2_launches(setting, alg):
+            ran = s * rounds + warmup_rounds(session)
+            if launched != ran * e2_launches(setting, alg):
                 fail(f"e2 {setting} {alg}: {launched} dp_aggregate launches in {s} x {rounds} "
-                     f"rounds (want {s * rounds * e2_launches(setting, alg)})")
+                     f"rounds and {ran - s * rounds} warm-up rounds (want "
+                     f"{ran * e2_launches(setting, alg)})")
             held = ""
             if (setting, alg) == E2_HELD:
                 one = e2_session(setting, alg, *problems[0], images, dev).run(E2_SEEDS[0])
@@ -1341,7 +1369,6 @@ def e2_local(dev, images):
     every round of the dense q = 0.1 run retaken gathered
     (``e2_gathered_rounds``); under FAULT (held: finite, every launch gated,
     differs from the clean run)."""
-    import os
     import tempfile
 
     import torch
@@ -1361,9 +1388,10 @@ def e2_local(dev, images):
         check_run("cdp-fedexp", r, rounds)
         launched = (ops.dp_aggregate_sums.launches - before[0],
                     ops.dp_aggregate_sums.gated_launches - before[1])
-        if launched != (rounds, rounds if kw else 0):   # a cohort or faults gate every launch
+        ran = rounds + warmup_rounds(session)
+        if launched != (ran, ran if kw else 0):   # a cohort or faults gate every launch
             fail(f"e2 spec trainer {label}: {launched[0]} dp_aggregate launches, {launched[1]} "
-                 f"gated, in {rounds} rounds")
+                 f"gated, in {rounds} rounds and {warmup_rounds(session)} warm-up rounds")
         print(f"[3e e2] cdp-fedexp LocalSpec({E2_LOCAL}) {label:22s}: test acc (last 5) "
               f"{last5(r.metric_history):.2f} %, eta_g in [{r.eta_history.min().item():.3f}, "
               f"{r.eta_history.max().item():.3f}]; {launched[1]} of {launched[0]} launches "
@@ -1974,7 +2002,7 @@ def e9_sums(dev, targets, smi) -> dict:
     the main path's counts: dp_aggregate (none mode, the dense cdp-fedexp
     release) held to its plain version at RTOL, with its bound, beside the
     compressed moments in plain PyTorch (rand-k's and the sketch's
-    ``partial_clip_moments`` on a round's plan, its slot table built)."""
+    ``partial_clip_moments`` on a round's plan, its bucket order built)."""
     import torch
     from repro_torch.core.aggregation import partial_clip_moments
     from repro_torch.core.compression import plan_generator
@@ -2019,7 +2047,6 @@ def phase_e9(dev, smi) -> dict:
     and carry at RTOL; an EF-sketch run saved at round 5 and resumed = the
     uninterrupted run in bits.  A profiled 10-round run of dense and of the
     sketch, and the release's sums at e9's shape (``e9_sums``)."""
-    import os
     import tempfile
 
     import torch
@@ -2036,7 +2063,7 @@ def phase_e9(dev, smi) -> dict:
         torch.cuda.reset_peak_memory_stats()
         n0 = ops.dp_aggregate_sums.launches
         first, _ = timed_run(session)
-        launches = (ops.dp_aggregate_sums.launches - n0) / rounds
+        launches = (ops.dp_aggregate_sums.launches - n0) / (rounds + warmup_rounds(session))
         peak = torch.cuda.max_memory_allocated() / 1e9
         (a, ta), (b, tb) = timed_run(session), timed_run(session)
         check_run(f"e9 {label}", a, rounds)
@@ -2134,12 +2161,12 @@ def phase_faults(dev):
         label = name + ("" if cohort is None else " q=0.1 gathered")
         before = (count.launches, count.gated_launches)
         t0 = time.perf_counter()
-        _, r, data = run_session(name, m, d, rounds, tau, dev, cohort=cohort, fault=FAULT)
+        session, r, data = run_session(name, m, d, rounds, tau, dev, cohort=cohort, fault=FAULT)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launched, gated = count.launches - before[0], count.gated_launches - before[1]
         check_run(label, r, rounds)
-        want = rounds * launches_per_round(name)[0]
+        want = (rounds + warmup_rounds(session)) * launches_per_round(name)[0]
         if launched != want or gated != want:
             fail(f"{label} under faults: {launched} dp_aggregate launches, {gated} gated, in "
                  f"{rounds} rounds (want {want} and {want})")
@@ -2177,7 +2204,6 @@ def phase_checkpoints(dev):
     with the watchdog armed, a divergence planted in attempt 0 and rolled
     back by RecoveryPolicy equals the unkilled run in bits; a divergence
     planted in every attempt exhausts the retries and surfaces fault_round."""
-    import os
     import tempfile
 
     from repro_torch import checkpoint as ckpt
@@ -2258,10 +2284,9 @@ def syncs_of(fn) -> list[str]:
 
 
 PAPER = (1000, 20, 50)                 # M, tau, rounds; d 500 or 100 by name
-# phase 3 runs its 19 labels x 4-5 runs (and the gathered retakes) for 25 of
-# the 50 rounds, cut for the script's time limit since phase 13 came; the
-# other phases on the paper workload keep 50
-PAPER_RUN_ROUNDS = 25
+# phase 3's 19 labels x 4-5 runs (and the gathered retakes) run the paper's
+# 50 rounds: on the scan engine (PR 31) they fit the script's time limit again
+PAPER_RUN_ROUNDS = PAPER[2]
 FULL_SIZE = (1000, 131072, 20, 5)      # M, d, tau, rounds
 FULL = (("ldp-fedexp-gauss", "fused", None, None), ("cdp-fedexp", "none", None, None),
         ("ldp-fedexp-privunit", None, None, None), ("cdp-fedexp-adaptive-clip", "none", None, None),
@@ -2370,11 +2395,12 @@ def phase_full(dev, cases) -> dict:
         label = name if cohort is None else name + " " + next(
             k for k, v in SAMPLED.items() if v == cohort)
         label += "" if fault is None else " faults"
-        run_session(name, m, d, 1, tau, dev, data=data, cohort=cohort, fault=fault)  # warm-up
+        run_session(name, m, d, 1, tau, dev, data=data, cohort=cohort, fault=fault,
+                    engine=eager_spec())  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         session, r, data = run_session(name, m, d, rounds, tau, dev, data=data, cohort=cohort,
-                                       fault=fault)
+                                       fault=fault, engine=eager_spec())
         torch.cuda.synchronize()
         per_round = 1e3 * (time.perf_counter() - t0) / rounds
         check_run(name, r, rounds)
@@ -2471,9 +2497,9 @@ def phase_e2_rounds(dev, smi: str) -> dict:
     for label, setting, local in E2_FULL:
         model, batches = e2_problem(setting, 0, images, dev)
         e2_session(setting, "fedexp", model, batches, images, dev, local=local,
-                   rounds=1).run(0)   # warm-up
+                   rounds=1, engine=eager_spec()).run(0)   # warm-up
         session = e2_session(setting, "fedexp", model, batches, images, dev, local=local,
-                             rounds=rounds)
+                             rounds=rounds, engine=eager_spec())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r = session.run(0)
@@ -2519,12 +2545,19 @@ def scan_engine_spec():
     return EngineSpec("scan", chunk_rounds=25)
 
 
+def eager_spec():
+    """The eager loop, named where a phase times or holds it (the default
+    engine is scan)."""
+    from repro_torch.fedsim import EngineSpec
+    return EngineSpec(engine="eager")
+
+
 def scan_pair(label, name, m, d, rounds, tau, dev, *, data=None, **kw):
     """The same run under the eager and the scan engine, held equal in bits
     (``same_run``); a pair that is not is held at SCAN_GRAPH_RTOL and named.
     Returns (eager session, scan session, eager result, scan result, data, gap)."""
     import torch
-    se, data = make_session(name, m, d, rounds, tau, dev, data=data, **kw)
+    se, data = make_session(name, m, d, rounds, tau, dev, data=data, engine=eager_spec(), **kw)
     ss, _ = make_session(name, m, d, rounds, tau, dev, data=data, engine=scan_engine_spec(), **kw)
     a, b = se.run(0), ss.run(0)
     gap = 0.0
@@ -2757,6 +2790,123 @@ def phase_scan(dev, smi) -> dict:
     out["pointer"] = pointer_launch_checks(dev, smi)
     out["quickstart"] = quickstart_stream(smi)
     out["scan_launches"] = ops.dp_aggregate_sums.launches - n0
+    return out
+
+
+# phase 4c (client sharding): the full cell under a one-rank NCCL client mesh
+# (label, registry name, CohortSpec kwargs), and e9's compressed variants
+# whose scan runs are held to the eager loop
+SHARD_FULL = (("ldp-fedexp-gauss", "ldp-fedexp-gauss", None),
+              ("cdp-fedexp", "cdp-fedexp", None),
+              ("ldp-fedexp-privunit", "ldp-fedexp-privunit", None),
+              ("ldp-fedexp-gauss q=0.1 gathered", "ldp-fedexp-gauss", SAMPLED["q=0.1 gathered"]))
+SHARD_E9 = ("rand-k", "sketch top-k ef")
+
+
+def shard_window(session, label) -> dict:
+    """A second run of the sharded ``session`` (its first captured the
+    graphs): ms per round (host clock, card synchronised), the dp_aggregate
+    launches and all-reduces a replayed round (the counters, which the scan
+    engine adds a replay), and from one profiled run the device time of the
+    NCCL all-reduce's kernels and copies against the run's busy time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.algorithm import all_reduce_moments
+    from repro_torch.kernels.dp_aggregate import ops
+    rounds = session.train.rounds
+    n0, r0 = ops.dp_aggregate_sums.launches, all_reduce_moments.launches
+    _, secs = timed_run(session)
+    launches = (ops.dp_aggregate_sums.launches - n0) / rounds
+    reduces = (all_reduce_moments.launches - r0) / rounds
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        session.run(0)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    nccl = sum(e.self_device_time_total for e in events if "nccl" in e.key.lower()) / 1e3
+    if reduces != 1:
+        fail(f"[4c shard] {label}: {reduces:g} all-reduces a replayed round, want 1")
+    return dict(ms_per_round=1e3 * secs / rounds, dp_aggregate_per_round=launches,
+                all_reduces_per_round=reduces, profiled_wall_ms=wall, busy_ms=busy,
+                all_reduce_device_ms=nccl,
+                all_reduce_share=(nccl / busy if busy > 0 else None))
+
+
+def phase_shard(dev, smi) -> dict:
+    """Phase 4c: client sharding on the card.  A one-rank NCCL client mesh
+    (``make_client_mesh()``: a one-process group through an in-memory
+    store, its sockets on the loopback device): the full cell (M = 1000, d = 131072, tau = 20, 5 rounds) under
+    ``ShardSpec(mesh)`` equal in bits to the unsharded scan run for
+    ldp-fedexp-gauss (fused, keyed by global row), cdp-fedexp, PrivUnit and
+    ldp-fedexp-gauss gathered at q = 0.1; ms per round of both, the launches
+    and all-reduces of a replayed round, the all-reduce's device share of a
+    profiled run.  Then e9's shape (M = 256, d = 2^20): rand-k and the
+    sketch with top-k and error feedback under scan equal in bits to the
+    eager loop, with ms per round of both."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.fedsim import ShardSpec
+    from repro_torch.launch.mesh import make_client_mesh
+    made = not dist.is_initialized()
+    # the one-process group's bootstrap stays on the loopback device
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    mesh = make_client_mesh()
+    out = {"backend": str(dist.get_backend()), "ranks": dist.get_world_size()}
+    try:
+        if mesh.device_type != "cuda":
+            fail(f"[4c shard] the client mesh is on {mesh.device_type}, not the card")
+        shard = ShardSpec(mesh)
+        m, d, tau, rounds = FULL_SIZE
+        data = None
+        for label, name, cohort in SHARD_FULL:
+            plain, data = make_session(name, m, d, rounds, tau, dev, data=data, cohort=cohort)
+            sharded, _ = make_session(name, m, d, rounds, tau, dev, data=data, cohort=cohort,
+                                      shard=shard)
+            a, b = plain.run(0), sharded.run(0)
+            check_run(label, b, rounds)
+            if not same_run(a, b):
+                fail(f"[4c shard] {label}: the one-rank sharded run differs from the unsharded "
+                     "scan run")
+            row = shard_window(sharded, label)
+            row["unsharded_ms_per_round"] = 1e3 * timed_run(plain)[1] / rounds
+            out[label] = row
+            share = ("not measured" if row["all_reduce_share"] is None
+                     else f"{row['all_reduce_share']:.4f}")
+            print(f"[4c shard] {label} M={m} d={d} tau={tau}, {rounds} rounds, one NCCL rank: "
+                  f"sharded = unsharded scan in bits; {row['ms_per_round']:.3f} ms/round "
+                  f"sharded, {row['unsharded_ms_per_round']:.3f} unsharded (host clock, card "
+                  f"synchronised); a replayed round: {row['dp_aggregate_per_round']:g} "
+                  f"dp_aggregate launch(es), {row['all_reduces_per_round']:g} all-reduce; the "
+                  f"all-reduce's kernels {row['all_reduce_device_ms']:.4f} ms of "
+                  f"{row['busy_ms']:.3f} busy in a profiled run (share {share})  [{smi}]")
+        del data, plain, sharded
+        torch.cuda.empty_cache()
+        targets = e9_targets(dev)
+        variants = e9_variants()
+        for label in SHARD_E9:
+            scan_s = e9_session(dev, targets, variants[label])
+            eager_s = e9_session(dev, targets, variants[label], engine=eager_spec())
+            a, b = scan_s.run(0), eager_s.run(0)
+            check_run(f"e9 {label}", a, E9["rounds"])
+            if not same_run(a, b):
+                fail(f"[4c shard] e9 {label}: the scan run differs from the eager loop")
+            row = {engine: 1e3 * timed_run(sess)[1] / E9["rounds"]
+                   for engine, sess in (("scan_ms", scan_s), ("eager_ms", eager_s))}
+            out[f"e9 {label}"] = row
+            print(f"[4c shard] e9 {label} M={E9['m']} d={E9['d']}, {E9['rounds']} rounds: scan "
+                  f"= eager in bits; {row['scan_ms']:.3f} ms/round scan, "
+                  f"{row['eager_ms']:.3f} eager (host clock, card synchronised)  [{smi}]")
+        del targets
+        torch.cuda.empty_cache()
+    finally:
+        if made:
+            dist.destroy_process_group()
     return out
 
 
@@ -4811,6 +4961,7 @@ def main() -> int:
     full = timed("4 full", phase_full, dev, cases)
     full.update(timed("4 full e2", phase_e2_rounds, dev, smi))
     scan = timed("4b scan", phase_scan, dev, smi)
+    shard = timed("4c shard", phase_shard, dev, smi)
     launches = {"dp_aggregate": ops.dp_aggregate_sums.launches,
                 "ldp_noise": ops.generate_ldp_noise.launches,
                 "dp_aggregate gated": ops.dp_aggregate_sums.gated_launches}
@@ -4863,7 +5014,7 @@ def main() -> int:
              bound_by=head["bound_by"], library_ms=None, headline="fused (1000, 131072)",
              cases=cases, gated=gathered["modes"], gated_rows_on=gathered["rows_on"],
              gathered_shape=gathered["gathered_shape"], full_rounds=full, stream=stream,
-             e9=e9, scan={k: v for k, v in scan.items() if k != "pointer"},
+             e9=e9, scan={k: v for k, v in scan.items() if k != "pointer"}, shard=shard,
              replays_traced={n: scan[n]["scan"]["traced_launches"]["aggregate_kernel"]
                              for n in SCAN_TIMED},
              device_pointer={k: v for k, v in scan["pointer"].items() if "fused" in k}),

@@ -12,8 +12,9 @@ Layers
   global step-size rules (LDP/CDP-FedEXP), clipping, privacy accounting.
 - ``repro_torch.optim``    — server optimizers (SGD, momentum, Adam) over
   pseudo-gradients.
-- ``repro_torch.fedsim``   — the M-client federated simulation (the eager and
-  streamed round loops of ``FederatedSession``).
+- ``repro_torch.fedsim``   — the M-client federated simulation (the scan,
+  eager and streamed round loops of ``FederatedSession``, the cohort split
+  over a ``torch.distributed`` client mesh by ``ShardSpec``).
 - ``repro_torch.kernels``  — hand-written CUDA kernels for Hopper
   (dp_aggregate, flash_attention, ssd_scan) with plain PyTorch versions
   beside them.
@@ -21,13 +22,15 @@ Layers
   generated image set and per-client token streams.
 - ``repro_torch.configs``  — the architecture registry (a copy of the JAX
   package's dataclasses).
-- ``repro_torch.models``   — the model zoo: the paper's CNNs and dense and
-  Mamba2 decoder LMs (``DecoderLM``), trainable through plain attention paths.
-- ``repro_torch.launch``   — serving (``ServeEngine``) and federated LM
-  training (``FederatedTrainer``).
-- ``repro_torch.telemetry`` — round trackers.
-MoE, hybrid and enc-dec models, sharding and the engine tap are still to
-port (ROADMAP.md).
+- ``repro_torch.models``   — the model zoo: the paper's CNNs, the dense, MoE,
+  Mamba2, hybrid and VLM decoder LMs (``DecoderLM``) and whisper's
+  encoder-decoder (``EncDecLM``), trainable through plain attention paths;
+  the logical-axis rules of the client mesh.
+- ``repro_torch.launch``   — serving (``ServeEngine``), federated LM
+  training (``FederatedTrainer``) and the client mesh.
+- ``repro_torch.telemetry`` — round trackers and the engine tap.
+The launch specs, the parameter sharding rules, the production meshes and
+the dry-run tools are still to port (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

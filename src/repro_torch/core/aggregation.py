@@ -334,8 +334,9 @@ def partial_clip_moments(
         sum_sq = sum_sq_clipped if noise is None else v @ torch.sum(released * released, dim=-1)
         return RoundMoments(v @ released, sum_sq, sum_sq_clipped, count)
     sum_sq_clipped = torch.sum(sq_clipped)
-    sum_sq = (sum_sq_clipped if noise is None
-              else torch.sum(torch.sum(released * released, dim=-1)))
+    # the dense release's reductions (``ref.dp_aggregate_ref``), so a block
+    # with every row in sums what the dense round sums
+    sum_sq = sum_sq_clipped if noise is None else torch.sum(released * released)
     return RoundMoments(released.sum(dim=0), sum_sq, sum_sq_clipped, count)
 
 

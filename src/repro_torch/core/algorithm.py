@@ -20,6 +20,15 @@ and copied over, a round-indexed schedule's sigma(t) as a 0-d tensor).  The
 body then reads only device memory, so the scan engine can replay it from a
 CUDA graph (``fedsim/scan.py``): ``host_to_device`` refuses to run while a
 graph is being captured.
+
+A client-sharded round (``fedsim.specs.ShardSpec``) is the masked-moment
+protocol across the ranks of a ``torch.distributed`` group: each rank's
+``local_moments`` over its slice of the cohort, one ``all_reduce_moments``
+(one collective of one flat float32 buffer), then the same
+``apply_from_moments`` on every rank: the engine's
+``fedsim.server.masked_round`` with ``shard=``, and
+``ServerAlgorithm.apply_round_sharded`` for one full-participation round
+on given updates (the JAX package's method).
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.aggregation import RoundMoments, global_client_indices
+from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = [
     "RoundAux",
@@ -44,6 +54,7 @@ __all__ = [
     "rows_at",
     "set_moment_count",
     "clamp_moment_counts",
+    "all_reduce_moments",
     "stage_fields",
 ]
 
@@ -210,6 +221,58 @@ def clamp_moment_counts(moments, floor: float = 1.0):
     return _map_moments(moments, clamp)
 
 
+def _summable(x) -> bool:
+    """Whether a leaf of a round's moments is a sum that the ranks add."""
+    return isinstance(x, (torch.Tensor, float, int)) and not isinstance(x, bool)
+
+
+def _fields(x) -> tuple:
+    """A ``RoundMoments``' fields in order; any other leaf alone."""
+    if isinstance(x, RoundMoments):
+        return tuple(getattr(x, f.name) for f in dataclasses.fields(RoundMoments))
+    return (x,)
+
+
+def all_reduce_moments(moments, group=None, device=None):
+    """The sum over the ranks of ``group`` of a round's moments: every leaf
+    (a ``RoundMoments``' sums and count, the extras: PrivUnit's sum of
+    s_hat, the clip-bit count, a weighted round's client count and sum of
+    sigma_i^2, DP-SCAFFOLD's variate sums) packed into one flat float32
+    buffer, one ``torch.distributed.all_reduce`` (SUM) of it, and unpacked:
+    the one collective of a sharded round.  A float leaf (a block's static
+    count) comes back a 0-d tensor.  ``device``: where the buffer lives when
+    no leaf is a tensor.  Each call adds one to ``all_reduce_moments.launches``
+    (the scan engine's replays add their captured count)."""
+    import torch.distributed as dist
+
+    leaves = [v for x in tree_leaves(moments) for v in _fields(x) if _summable(v)]
+    dev = next((x.device for x in leaves if isinstance(x, torch.Tensor)), device)
+    flat = []
+    for x in leaves:
+        if isinstance(x, torch.Tensor):
+            if x.dtype != torch.float32:
+                raise TypeError(f"a round's moments are float32; a {x.dtype} leaf would not "
+                                "survive the float32 all-reduce in bits")
+            flat.append(x.reshape(-1))
+        else:
+            flat.append(torch.full((1,), float(x), dtype=torch.float32, device=dev))
+    buf = torch.cat(flat)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    all_reduce_moments.launches += 1
+    it = iter(torch.split(buf, [v.numel() for v in flat]))
+
+    def take(v):
+        if not _summable(v):
+            return v
+        return next(it).reshape(tuple(v.shape) if isinstance(v, torch.Tensor) else ())
+
+    return tree_map(lambda x: RoundMoments(*map(take, _fields(x))) if isinstance(x, RoundMoments)
+                    else take(x), moments)
+
+
+all_reduce_moments.launches = 0
+
+
 @dataclasses.dataclass
 class RoundAux:
     """Diagnostics for one round; diagnostics not produced are NaN, not None."""
@@ -285,6 +348,25 @@ class ServerAlgorithm:
     def apply_from_moments(self, noise: RoundNoise, w, moments, state, t=None):
         """The server update from the cohort's moments: ``-> (w_next, RoundAux, state)``."""
         raise NotImplementedError(f"{self.name} has no masked-moment round")
+
+    def apply_round_sharded(self, noise: RoundNoise, w, deltas, mask, start, state, group,
+                            m_total: int | None = None, t=None):
+        """One full-participation round on a rank's slice of the cohort:
+        ``-> (w_next, RoundAux, state)``, the same on every rank.
+
+        ``deltas`` are the rank's (m_local, d) rows, whose first client is
+        ``start``; ``mask`` None (no padding row) or its (m_local,) {0, 1}
+        padding mask.  The slice's ``local_moments`` cross the ranks of
+        ``group`` in one ``all_reduce_moments``; ``m_total`` (the static true
+        client count M) replaces the reduced count when the count is a
+        client count, as the unsharded dense round divides by M; then
+        ``apply_from_moments``.  At one rank this is the dense round's
+        release, sum for sum."""
+        moments = self.local_moments(noise, w, deltas, mask, start, state, t, binary_mask=True)
+        moments = all_reduce_moments(moments, group, w.device)
+        if m_total is not None and self.supports_static_count:
+            moments = set_moment_count(moments, m_total)
+        return self.apply_from_moments(noise, w, moments, state, t)
 
     def apply_round(self, gen, w, raw_deltas, noise: RoundNoise | None = None, t=None):
         """One dense round from a fresh carry: ``-> (w_next, RoundAux)``."""

@@ -269,11 +269,12 @@ class GaussianLDP(PrivacyMechanism):
 def _rows_of(values: torch.Tensor, start, m: int) -> torch.Tensor:
     """A block's rows of a per-client (M,) vector, zero past M (padding), on
     the vector's device."""
-    padded = torch.cat([values, values.new_zeros(m)])
     if isinstance(start, torch.Tensor):
+        padded = torch.cat([values, values.new_zeros(1)])
         idx = global_client_indices(start, m, values.device)
         return padded[torch.clamp(idx, max=values.shape[0])]
-    return padded[int(start):int(start) + m]
+    rows = values[int(start):int(start) + m]
+    return torch.cat([rows, values.new_zeros(m - rows.shape[0])]) if rows.shape[0] < m else rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -368,8 +369,11 @@ class PerClientGaussian(PrivacyMechanism):
                                                           deltas.device),
                                    weight_mask=mask, row_weights=row_weights,
                                    backend=self.backend)
-        v = mask if row_weights is None else mask * row_weights
         sig_sq = torch.square(self._sigma_rows(start, m, deltas.device))
+        if mask is None and row_weights is None:
+            return mom, {"sum_sigma_sq": torch.sum(sig_sq)}
+        v = (row_weights if mask is None else mask if row_weights is None
+             else mask * row_weights)
         return mom, {"sum_sigma_sq": v @ sig_sq}
 
     def finalize(self, noise, mom, extras, clip, m_eff):
@@ -493,7 +497,8 @@ class PrivUnitLDP(PrivacyMechanism):
         """The masked release's sums over the block's clients, each randomized
         with its own draws (the rows of the cohort's at its global index);
         masked rows where-zeroed in both the released and the clipped sets,
-        each other row weighted by its mask value (and weight)."""
+        each other row weighted by its mask value (and weight).  ``mask``
+        None (every row in, no weights) sums as the dense release does."""
         m, n = deltas.shape[0], noise.round_u.shape[0]
         if not (isinstance(start, int) and start == 0 and n == m):
             # a streamed chunk's padding rows past M (mask 0) read client
@@ -502,6 +507,14 @@ class PrivUnitLDP(PrivacyMechanism):
             rows = {f: getattr(noise, f)[idx] for f in ("quantile", "round_u", "keep_u", "u_int")}
             noise = dataclasses.replace(noise, **rows)
         released, clipped = self._randomize(noise, deltas, clip, start)
+        if mask is None and row_weights is None:
+            # every row in, summed as the dense release reduces them
+            sq_clipped = torch.sum(torch.sum(torch.square(clipped), dim=-1))
+            mom = RoundMoments(sum_c=released.sum(dim=0), sum_sq=torch.sum(released * released),
+                               sum_sq_clipped=sq_clipped, count=float(m))
+            return mom, {"sum_s_hat": torch.sum(self._s_hat(released, clip))}
+        if mask is None:
+            mask = deltas.new_ones(m)
         keep = (mask > 0)[:, None]
         released = torch.where(keep, released, 0.0)
         clipped = torch.where(keep, clipped, 0.0)
@@ -1294,7 +1307,9 @@ class ComposedAlgorithm(ServerAlgorithm):
         if self.aggregation.is_weighted:
             # mom.count is a weight sum; the clip update and the realized
             # cohort's noise read the client count
-            extras = {**extras, "n_clients": torch.sum(mask)}
+            n = (torch.full((), float(deltas.shape[0]), device=deltas.device) if mask is None
+                 else torch.sum(mask))
+            extras = {**extras, "n_clients": n}
         return mom, extras
 
     def apply_from_moments(self, noise, w, moments, state, t=None):

@@ -22,9 +22,13 @@ operations are not, or differ from ``jnp``:
 * The sketch's bucket sums are not a scatter-add (CUDA adds by atomics, in
   an order that changes from run to run).  ``sketch_plan`` sorts each
   depth's bucket ids once a round (stably, so a bucket's columns keep their
-  order) into a (depth, width, L) table of columns, padded to the fullest
-  bucket with the index d of a zero column; ``sketch_compress`` gathers
-  each bucket's signed columns through it and sums them in that order.
+  ascending order) into a (depth, d) column order and a (depth, width)
+  table of bucket sizes, both on the device; ``sketch_compress`` gathers the
+  signed columns in that order and sums each bucket's run of them with a
+  segmented sum (``torch.segment_reduce``, one sequential sum a bucket on
+  the card, no atomics).  Every shape depends on (depth, d, width) alone and
+  no size is read on the host, so the scan engine's CUDA graphs replay the
+  plan and the sums.
 * ``jnp.median`` averages the two middle values of an even count;
   ``torch.median`` returns the lower one.  ``sketch_decompress`` sorts over
   the depth and averages the middle pair, as ``jnp`` does.
@@ -49,7 +53,7 @@ __all__ = [
     "randk_compress",
     "randk_decompress",
     "sketch_plan",
-    "bucket_slots",
+    "bucket_order",
     "sketch_compress",
     "sketch_decompress",
     "topk_select",
@@ -114,51 +118,47 @@ def randk_decompress(comp: torch.Tensor, idx: torch.Tensor, d: int) -> torch.Ten
 
 class SketchPlan(NamedTuple):
     """A round's sketch tables: ``h`` (depth, d) int64 bucket ids in [0,
-    width), ``s`` (depth, d) float32 signs, and ``slots`` (depth, width, L)
-    int64, bucket b's columns of depth t in ascending order, padded with d
-    (``bucket_slots``).  A plain ``(h, s)`` pair is a plan too; the sketch
-    then builds its slots at every call."""
+    width), ``s`` (depth, d) float32 signs, ``order`` (depth, d) int64, the
+    columns of each depth sorted by bucket (ascending within a bucket), and
+    ``counts`` (depth, width) int64, each bucket's size (``bucket_order``).
+    A plain ``(h, s)`` pair is a plan too; the sketch then sorts it at every
+    call."""
 
     h: torch.Tensor
     s: torch.Tensor
-    slots: torch.Tensor | None = None
+    order: torch.Tensor | None = None
+    counts: torch.Tensor | None = None
 
 
-def bucket_slots(h: torch.Tensor, width: int) -> torch.Tensor:
-    """(depth, width, L) int64: row (t, b) lists the columns j with ``h[t, j]
-    == b`` in ascending order, padded with d to L, the fullest bucket's
-    size.  Built by a stable sort of each depth's ids; its size is read on
-    the host, the one wait for the device of a round's sketch plan."""
+def bucket_order(h: torch.Tensor, width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(order, counts)`` of (depth, d) bucket ids: ``order[t]`` the columns
+    sorted by bucket by a stable sort (ascending within a bucket), and
+    ``counts[t, b]`` the number of columns of depth t in bucket b, an integer
+    sum (exact in any order).  Shapes (depth, d) and (depth, width): nothing
+    is read on the host."""
     h = h.to(torch.int64)
-    depth, d = h.shape
-    counts = torch.zeros((depth, width), dtype=torch.int64, device=h.device)
-    counts.scatter_add_(1, h, torch.ones_like(h))      # integer sums: exact in any order
-    fullest = max(1, int(counts.max()))
-    order = torch.sort(h, dim=1, stable=True).indices   # columns in bucket order
-    bucket = torch.gather(h, 1, order)
-    first = torch.cumsum(counts, dim=1) - counts        # each bucket's first position
-    pos = torch.arange(d, device=h.device) - torch.gather(first, 1, bucket)
-    slots = torch.full((depth, width * fullest), d, dtype=torch.int64, device=h.device)
-    slots.scatter_(1, bucket * fullest + pos, order)    # one column a cell
-    return slots.view(depth, width, fullest)
+    counts = torch.zeros((h.shape[0], width), dtype=torch.int64, device=h.device)
+    counts.scatter_add_(1, h, torch.ones_like(h))
+    return torch.sort(h, dim=1, stable=True).indices, counts
 
 
 def sketch_plan(gen: torch.Generator, d: int, width: int, depth: int,
                 device="cpu") -> SketchPlan:
     """A round's sketch tables on ``device``: (depth, d) uniform bucket ids in
-    [0, width), (depth, d) uniform signs, and their ``bucket_slots``."""
+    [0, width), (depth, d) uniform signs, and their ``bucket_order``."""
     device = torch.device(device)
     g = device_generator(gen, device)
     h = torch.randint(0, width, (depth, d), generator=g, device=device)
     s = torch.randint(0, 2, (depth, d), generator=g, device=device).to(torch.float32) * 2.0 - 1.0
-    return SketchPlan(h, s, bucket_slots(h, width))
+    return SketchPlan(h, s, *bucket_order(h, width))
 
 
 def _plan_parts(plan, width: int):
-    """``(h, s, slots)`` of a ``SketchPlan`` or an ``(h, s)`` pair."""
+    """``(h, s, order, counts)`` of a ``SketchPlan`` or an ``(h, s)`` pair."""
     h, s = plan[0], plan[1]
-    slots = plan[2] if len(plan) > 2 and plan[2] is not None else bucket_slots(h, width)
-    return h, s, slots
+    if len(plan) > 3 and plan[2] is not None:
+        return h, s, plan[2], plan[3]
+    return (h, s) + bucket_order(h, width)
 
 
 def sketch_compress(u: torch.Tensor, plan, width: int) -> torch.Tensor:
@@ -166,24 +166,23 @@ def sketch_compress(u: torch.Tensor, plan, width: int) -> torch.Tensor:
     tables side by side, ``S[t, b] = sum over j with h[t, j] = b of s[t, j]
     u[j]``.
 
-    Linear in ``u``.  Each bucket's signed columns are gathered through the
-    plan's slots (the padding reads an appended zero column) and summed in
-    the slots' order, so a result depends on its inputs alone; one (m, d)
-    signed copy and one (m, width, L) gather are live per depth."""
-    h, s, slots = _plan_parts(plan, width)
-    depth, d = h.shape
+    Linear in ``u``.  Per depth the rows' columns are gathered in the plan's
+    bucket order, signed, and each bucket's run summed in that order by a
+    segmented sum over the plan's counts, so a result depends on its inputs
+    alone; one (d, m) signed copy is live at a time."""
+    h, s, order, counts = _plan_parts(plan, width)
+    depth = h.shape[0]
     squeeze = u.dim() == 1
     rows = (u[None] if squeeze else u).to(torch.float32)
-    m = rows.shape[0]
-    s = s.to(rows.device, torch.float32)
-    slots = slots.to(rows.device)
+    dev = rows.device
+    cols = rows.t().contiguous()                          # (d, m): a bucket's run is a row range
+    s, order, counts = (x.to(dev) for x in (s, order, counts))
     tables = []
     for t in range(depth):
-        signed = rows.new_empty((m, d + 1))
-        torch.mul(rows, s[t], out=signed[:, :d])
-        signed[:, d] = 0.0
-        cells = signed.index_select(1, slots[t].reshape(-1))
-        tables.append(cells.view(m, width, -1).sum(dim=-1))
+        signed = cols.index_select(0, order[t]) * s[t].index_select(0, order[t])[:, None]
+        sums = torch.segment_reduce(signed, "sum", lengths=counts[t], axis=0, unsafe=True,
+                                    initial=0.0)
+        tables.append(sums.t())
     comp = torch.cat(tables, dim=-1)
     return comp[0] if squeeze else comp
 

@@ -230,6 +230,8 @@ class DPScaffoldServer(ServerAlgorithm):
         m_local, d = deltas.shape
         vs = self.variate_scale
         dev = deltas.device
+        if mask is None:   # every row in: a gate of ones, the dense round's values
+            mask = deltas.new_ones(m_local)
         c_i = self.local_context(state, start, m_local)[0]
         dc = torch.where((mask > 0)[:, None], self._dc(deltas, c_i, state.c), 0.0)
         dc_clip = clip_batch(dc, self.clip_norm * vs)

@@ -1,5 +1,6 @@
-"""Federated simulation of the port: ``FederatedSession`` over the eager, the
-scan (CUDA graphs) and the streamed round loops, with the ``LocalSpec``
+"""Federated simulation of the port: ``FederatedSession`` over the scan (CUDA
+graphs, the default), the eager and the streamed round loops, the cohort
+optionally split over the ranks of a client mesh (``ShardSpec``), with the ``LocalSpec``
 trainers, sampled cohorts, fault injection, the divergence watchdog,
 checkpoints, telemetry, and client data on the device or behind a host, disk
 or generated source."""
@@ -25,6 +26,7 @@ from repro_torch.fedsim.local import (
     local_update_scaffold,
     local_update_spec,
     mask_rows,
+    masked_cohort_updates,
     pad_cohort,
 )
 from repro_torch.fedsim.server import RunResult
@@ -35,6 +37,7 @@ from repro_torch.fedsim.specs import (
     EngineSpec,
     FaultSpec,
     LocalSpec,
+    ShardSpec,
     StreamSpec,
     TelemetrySpec,
     TrainSpec,
@@ -42,8 +45,8 @@ from repro_torch.fedsim.specs import (
 
 __all__ = ["flatten_model", "local_update", "cohort_updates", "local_update_spec",
            "cohort_updates_spec", "build_cohort_local_fn", "local_update_scaffold",
-           "cohort_updates_scaffold", "mask_rows", "gather_slots", "gather_rows", "RunResult",
-           "FederatedSession", "RecoveryPolicy", "TrainSpec", "LocalSpec", "EngineSpec",
+           "cohort_updates_scaffold", "mask_rows", "masked_cohort_updates", "gather_slots", "gather_rows", "RunResult",
+           "FederatedSession", "RecoveryPolicy", "TrainSpec", "LocalSpec", "EngineSpec", "ShardSpec",
            "CohortSpec", "FaultSpec", "StreamSpec", "DataSpec", "TelemetrySpec", "pad_cohort", "chunk_cohort",
            "ClientDataSource", "ArraySource", "HostArraySource", "NpzSource", "SyntheticSource",
            "as_data_source"]

@@ -35,7 +35,9 @@ The streaming engine walks the cohort in chunks of the grid of
 chunk with rows that repeat client 0 and carry mask 0, and chunk j holds
 global clients ``[j c, (j + 1) c)``.  Its round takes each chunk's rows as
 it trains it (``fedsim.server.chunk_plan``); ``pad_cohort`` and
-``chunk_cohort`` lay the whole cohort on that grid at once.
+``chunk_cohort`` lay the whole cohort on that grid at once, and
+``chunk_cohort(..., n_shards=)`` on the grid of a client-sharded stream,
+whose ranks each hold whole chunks.
 """
 from __future__ import annotations
 
@@ -51,8 +53,8 @@ from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["local_update", "cohort_updates", "local_update_scaffold", "cohort_updates_scaffold",
            "local_update_spec", "cohort_updates_spec", "local_shuffles", "shuffle_key",
-           "build_cohort_local_fn", "mask_rows", "gather_slots", "gather_rows", "pad_cohort",
-           "chunk_cohort"]
+           "build_cohort_local_fn", "mask_rows", "masked_cohort_updates", "gather_slots",
+           "gather_rows", "pad_cohort", "chunk_cohort"]
 
 
 def local_update(loss_fn: Callable, w0: torch.Tensor, client_batch, tau: int,
@@ -263,6 +265,14 @@ def mask_rows(deltas: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where((mask > 0)[:, None], deltas, 0.0)
 
 
+def masked_cohort_updates(loss_fn: Callable, w: torch.Tensor, client_batches, tau: int,
+                          eta_l: float, mask: torch.Tensor) -> torch.Tensor:
+    """``cohort_updates`` with the rows whose mask is not > 0 zeroed by
+    ``mask_rows``: a padding or left-out client's NaN update reaches no sum."""
+    return mask_rows(cohort_updates(loss_fn, w, client_batches, tau, eta_l),
+                     mask.to(w.device))
+
+
 def gather_slots(mask: torch.Tensor, cap: int):
     """Pack a host participation mask into a dense slot table of ``cap`` rows.
 
@@ -311,17 +321,19 @@ def pad_cohort(client_batches, multiple: int):
     return tree_map(lambda x: x.index_select(0, idx.to(x.device)), client_batches), mask
 
 
-def chunk_cohort(client_batches, chunk_clients: int):
+def chunk_cohort(client_batches, chunk_clients: int, *, n_shards: int = 1):
     """The cohort on the streaming engine's chunk grid: ``(grid, mask)``.
 
-    M is padded to a multiple of ``chunk_clients`` (``pad_cohort``) and every
-    leaf reshaped from (m_pad, ...) to (n_chunks, chunk_clients, ...); the
-    host mask comes back as (n_chunks, chunk_clients).  Chunk j holds the
-    global clients ``[j c, (j + 1) c)``: the rows the engine's round takes
-    for its chunk j, laid out all at once."""
+    M is padded to a multiple of ``chunk_clients * n_shards``
+    (``pad_cohort``) and every leaf reshaped from (m_pad, ...) to (n_chunks,
+    chunk_clients, ...); the host mask comes back as (n_chunks,
+    chunk_clients).  Chunk j holds the global clients ``[j c, (j + 1) c)``:
+    the rows the engine's round takes for its chunk j, laid out all at
+    once.  With ``n_shards`` ranks each holds a contiguous block of
+    ``n_chunks / n_shards`` chunks, the rows of its ``ShardLayout``."""
     if chunk_clients < 1:
         raise ValueError(f"chunk_clients must be >= 1, got {chunk_clients}")
-    batches, mask = pad_cohort(client_batches, chunk_clients)
+    batches, mask = pad_cohort(client_batches, chunk_clients * n_shards)
     n_chunks = mask.shape[0] // chunk_clients
     return (tree_map(lambda x: x.reshape((n_chunks, chunk_clients) + tuple(x.shape[1:])),
                      batches),

@@ -26,10 +26,18 @@ there is no fallback to the eager loop.  Graphs are
 kept for the session: every later chunk, run, seed of ``run_batched`` and
 ``resume`` replays them.  The kernels' Python launch counters count at
 warm-up and capture; the engine takes the capture's counts back and adds
-them once a replay, so a counter reads the launches that ran.
+them once a replay, so a counter reads the launches that ran: a replay's,
+and a warm-up's (its rounds ran on the card, their results dropped;
+``warmup_rounds`` counts them).
 
 On the CPU the same stage, body and commit run uncaptured, so a CPU
 session exercises the code the card replays.
+
+A client-sharded session (``ShardSpec``) gives the engine its rank's
+``ShardLayout``: the stage cuts the round's draws to the rank's rows, the
+body trains the rank's slice of the cohort and its graph holds the round's
+one all-reduce (NCCL collectives replay inside a CUDA graph; the warm-up
+before the capture makes the communicator).
 """
 from __future__ import annotations
 
@@ -55,14 +63,17 @@ class CaptureError(RuntimeError):
 
 
 def _counter_fns():
+    from repro_torch.core.algorithm import all_reduce_moments
     from repro_torch.kernels.dp_aggregate import ops as agg
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.ssd_scan import ops as ssd
-    return (agg.dp_aggregate_sums, agg.generate_ldp_noise, flash.flash_attention, ssd.ssd_scan)
+    return (agg.dp_aggregate_sums, agg.generate_ldp_noise, flash.flash_attention, ssd.ssd_scan,
+            all_reduce_moments)
 
 
 def launch_counts() -> dict[tuple[int, str], int]:
-    """Every kernel wrapper's launch counters, keyed by (wrapper, name)."""
+    """Every kernel wrapper's launch counters and the sharded round's
+    all-reduce count, keyed by (function, name)."""
     return {(i, k): v for i, fn in enumerate(_counter_fns())
             for k, v in vars(fn).items() if "launches" in k and isinstance(v, int)}
 
@@ -143,7 +154,8 @@ def _clone(x):
         return dataclasses.replace(x, **{f.name: _clone(getattr(x, f.name))
                                          for f in dataclasses.fields(x)})
     if isinstance(x, (tuple, list)):
-        return type(x)(_clone(v) for v in x)
+        vals = [_clone(v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else type(x)(vals)
     return x
 
 
@@ -187,11 +199,11 @@ class ScanEngine:
 
     def __init__(self, algorithm, local_fn, eval_fn, *, eval_every: int, cohort, fault,
                  tau: int, avg_last: int, eta_l: float, unroll: int, num_clients: int,
-                 device, chunk_cap: int):
+                 device, chunk_cap: int, shard=None):
         self.algorithm = algorithm
-        self.stage = _srv.round_stage(algorithm, local_fn, cohort, fault)
+        self.stage = _srv.round_stage(algorithm, local_fn, cohort, fault, shard)
         self.body = _srv.round_body(algorithm, local_fn, eval_fn, eval_every, cohort, fault,
-                                    tau)
+                                    tau, shard)
         self.eval_fn, self.eval_every = eval_fn, eval_every
         self.fault = fault if fault is not None and fault.watchdog else None
         self.avg_last, self.eta_l, self.unroll = avg_last, eta_l, unroll
@@ -204,6 +216,7 @@ class ScanEngine:
         self.graphs: dict[tuple, tuple] = {}
         self.replays = 0
         self.captures = 0
+        self.warmup_rounds = 0     # rounds run uncaptured before a capture
         if self.cuda:
             self.capture_stream = torch.cuda.Stream(self.device)
             self.pool = torch.cuda.graph_pool_handle()
@@ -321,6 +334,7 @@ class ScanEngine:
             # builds and caches what a first launch makes (libraries, launch
             # plans, the capture stream's tickets, cuBLAS's workspace)
             self._bodies(ts)
+        self.warmup_rounds += len(ts)
         cur.wait_stream(self.capture_stream)
         torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()

@@ -47,14 +47,27 @@ drawn once a round from a generator of its own, so the dense round, the
 sampled and gathered blocks and every streamed chunk compress with the one
 plan; the moments' ``sum_c`` is then (kc,) wide, and a streamed round's
 running sum, which starts from its first chunk's moments, takes that width.
-Its sums are plain PyTorch (no ``dp_aggregate`` launch); a count-sketch plan
-reads its bucket table's size once on the host.
+Its sums are plain PyTorch (no ``dp_aggregate`` launch), and its plan's
+tensors have static shapes (a count-sketch's bucket order and sizes), so the
+scan engine stages and replays a compressed round like any other.
 
 Nothing else in the loop waits for the device: host values reach it by
 pinned non-blocking copies, histories stay tensors until the run ends, and
 state such as an adaptive clip threshold or DP-SCAFFOLD's variate table
-stays on the device.  Sharding comes in a later slice (ROADMAP.md, queue 1,
-item 16).
+stays on the device.
+
+A client-sharded round (``ShardSpec``: the scan and stream engines) runs
+the same round on each rank of a ``torch.distributed`` group over its slice
+of the cohort (``ShardLayout``: the padded cohort's rows ``[r m_local, (r +
+1) m_local)``).  Every rank draws the round's host values for the whole
+cohort from the same round generator (the cohort mask, the noise for all M
+clients, the faults) and keeps its rows; its block trains, releases at its
+global client indices (the LDP noise keyed by global row in the kernel, a
+gathered block by its slots' global indices) and reduces to moments; one
+``all_reduce_moments`` a round sums them over the ranks, and every rank
+applies the same server update.  A rank that holds no padding row reduces
+its block as the dense round reduces the cohort, so one rank is the
+unsharded round in bits.
 
 The eager round is a host stage and a device body (``round_stage``,
 ``round_body``).  The stage draws from the round's generator, in the order
@@ -83,6 +96,7 @@ from repro_torch.core.aggregation import add_moments
 from repro_torch.core.algorithm import (
     RoundNoise,
     ServerAlgorithm,
+    all_reduce_moments,
     clamp_moment_counts,
     host_to_device,
     round_generator,
@@ -103,10 +117,11 @@ from repro_torch.fedsim.specs import CohortSpec, FaultSpec
 from repro_torch.kernels.dp_aggregate.ref import chunk_grid, grid_rows
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["RunResult", "RoundInputs", "run_rounds", "assemble_result", "round_step",
-           "round_stage", "round_body", "stage_inputs", "masked_round", "local_caller",
-           "block_moments", "stream_round_step", "chunk_plan", "host_chunks", "tap_counts",
-           "tap_sigma", "tap_payload"]
+__all__ = ["RunResult", "RoundInputs", "ShardLayout", "shard_layout", "local_cohort",
+           "run_rounds", "assemble_result", "round_step", "round_stage", "round_body",
+           "stage_inputs", "masked_round", "local_caller", "block_moments",
+           "stream_round_step", "chunk_plan", "host_chunks", "tap_counts", "tap_sigma",
+           "tap_payload"]
 
 
 @dataclasses.dataclass
@@ -127,6 +142,79 @@ class RunResult:
     NaN of rounds off the cadence or after a watchdog trip dropped)."""
         return [(t, v) for t, v in enumerate(self.metric_history.tolist())
                 if math.isfinite(v)]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLayout:
+    """A rank's slice of a client-sharded cohort: the rows ``[start, start +
+    m_local)`` of the cohort padded to ``n_shards * m_local`` clients, whose
+    rows past ``num_clients`` repeat client 0 at mask 0 (``local_cohort``).
+    ``group`` is the client axis's process group, which the round's one
+    all-reduce spans."""
+
+    rank: int
+    n_shards: int
+    m_local: int
+    num_clients: int
+    group: Any = None
+
+    @property
+    def start(self) -> int:
+        """The global index of the rank's first row."""
+        return self.rank * self.m_local
+
+    @property
+    def padded(self) -> bool:
+        """Whether the rank's slice holds a padding row."""
+        return self.start + self.m_local > self.num_clients
+
+    def pad_mask(self) -> torch.Tensor:
+        """(m_local,) float32 on the host: 1 on the real clients, 0 on padding."""
+        return (torch.arange(self.start, self.start + self.m_local)
+                < self.num_clients).to(torch.float32)
+
+    def rows(self, v: torch.Tensor | None) -> torch.Tensor | None:
+        """The rank's rows of an (M,) host vector of the whole cohort (a mask,
+        a fault class), zero on padding; None passes through."""
+        if v is None:
+            return None
+        pad = v.new_zeros(max(0, self.start + self.m_local - v.shape[0]))
+        return torch.cat([v, pad])[self.start:self.start + self.m_local]
+
+    def reduce(self, moments, device):
+        """The round's one collective: ``moments`` summed over the ranks."""
+        return all_reduce_moments(moments, self.group, device)
+
+
+def shard_layout(num_clients: int, n_shards: int, rank: int, group=None,
+                 multiple: int = 1) -> ShardLayout:
+    """The layout of rank ``rank`` of ``n_shards`` over M clients padded to a
+    multiple of ``n_shards * multiple`` (``multiple`` the stream engine's
+    chunk, so each rank's slice is whole chunks, as the JAX package's
+    ``chunk_cohort(..., n_shards=)`` lays it out; 1 otherwise, its
+    ``pad_cohort``)."""
+    block = n_shards * multiple
+    m_pad = -(-num_clients // block) * block
+    return ShardLayout(rank=rank, n_shards=n_shards, m_local=m_pad // n_shards,
+                       num_clients=num_clients, group=group)
+
+
+def local_cohort(client_batches, layout: ShardLayout, device):
+    """The rank's rows of the cohort ``client_batches`` on ``device``, split
+    along every leaf's leading (client) axis: a slice when they are all real
+    clients, else a gather whose padding rows repeat client 0 (real data:
+    their training stays finite)."""
+    m = layout.num_clients
+    lo, hi = layout.start, layout.start + layout.m_local
+    g = torch.arange(lo, hi)
+    idx = torch.where(g < m, g, 0)
+
+    def rows(x):
+        if hi <= m:
+            return x.narrow(0, lo, hi - lo).to(device)
+        return x.index_select(0, idx.to(x.device)).to(device)
+
+    return tree_map(rows, client_batches)
 
 
 def _eval_metric(eval_fn, eval_every: int, w_next, t: int, device) -> torch.Tensor:
@@ -192,8 +280,8 @@ def block_moments(algorithm: ServerAlgorithm, local: Callable, w, state, noise, 
 
     ``local`` is the trainer as ``local_caller`` builds it; ``batches`` the
     block's data on the device; ``noise`` the round's staged ``RoundNoise``;
-    ``mask`` its (m,) participation; ``start`` its global indices (an int, or
-    a (m,) tensor of slots).  With an injecting ``fault``, ``faults`` holds
+    ``mask`` its (m,) participation (None: every row); ``start`` its global
+    indices (an int, or a (m,) tensor of slots).  With an injecting ``fault``, ``faults`` holds
     the block's rows of the round's ``(alive, straggler, corrupt)`` draws: the
     stragglers train fewer steps, the failed rows are gated out
     (``apply_faults``).  ``key``: a minibatch trainer's shuffle key.
@@ -201,12 +289,12 @@ def block_moments(algorithm: ServerAlgorithm, local: Callable, w, state, noise, 
     DP-SCAFFOLD's release takes.  Returns ``local_moments``' sums."""
     injecting = fault is not None and fault.injects
     alive, straggler, corrupt = faults if injecting else (None, None, None)
-    mask = host_to_device(mask, w.device)
+    mask = None if mask is None else host_to_device(mask, w.device)
     deltas = local(w, batches, eta_l, start, state, straggler, key)
     if injecting:
         deltas, mask = apply_faults(deltas, mask, *(
             None if v is None else host_to_device(v, w.device) for v in (alive, corrupt)))
-    else:
+    elif mask is not None:
         deltas = mask_rows(deltas, mask)
     extra = {} if draws is None else {"draws": draws}
     binary = cohort is None or not cohort.replace
@@ -216,52 +304,66 @@ def block_moments(algorithm: ServerAlgorithm, local: Callable, w, state, noise, 
 
 def masked_round(algorithm: ServerAlgorithm, local_fn: Callable, w, state, inp: RoundInputs,
                  cohort: CohortSpec | None, t, client_batches, eta_l, *,
-                 fault: FaultSpec | None = None, tau: int = 1):
+                 fault: FaultSpec | None = None, tau: int = 1,
+                 shard: ShardLayout | None = None):
     """One masked-moment round on its staged inputs ``inp`` (``stage_inputs``):
     ``-> (w_next, aux, state)``.
 
     ``cohort`` None is full participation (a faulted round's mask of ones).
     A gathered round trains the rows of ``inp.slots`` only; an injecting
     ``fault`` cuts ``inp.faults``' stragglers short of ``tau`` steps and
-    gates the failed rows out.  Nothing here reads the host."""
+    gates the failed rows out.  With ``shard`` the block is the rank's slice
+    (its rows keyed from ``shard.start``, a gathered block by ``inp.keys``,
+    its padding rows masked by ``inp.mask``) and its moments cross the ranks
+    in one all-reduce before the count is resolved.  Nothing here reads the
+    host."""
     if inp.slots is not None:
         client_batches = gather_rows(client_batches, inp.slots)
-        mask, start = inp.slot_mask, inp.slots
+        mask, start = inp.slot_mask, inp.slots if inp.keys is None else inp.keys
     else:
-        mask, start = inp.mask, 0
+        mask, start = inp.mask, 0 if shard is None else shard.start
     moments = block_moments(algorithm, local_caller(local_fn, algorithm, fault, tau), w, state,
                             inp.noise, client_batches, mask, start, t, eta_l, cohort=cohort,
                             fault=fault, faults=inp.faults, key=inp.shuffle_key, draws=inp.draws)
+    if shard is not None:
+        moments = shard.reduce(moments, w.device)
     if fault is not None and fault.injects:
         moments = _resolve_sampled_count(sanitize_moments(moments), None, algorithm)
+    elif shard is not None and cohort is None and algorithm.supports_static_count:
+        # full participation: the static true M, as the dense round divides
+        # by M (the JAX package's m_total)
+        moments = set_moment_count(moments, shard.num_clients)
     else:
         moments = _resolve_sampled_count(moments, cohort, algorithm)
     return algorithm.apply_from_moments(inp.noise, w, moments, state, t)
 
 
-def chunk_plan(mask: torch.Tensor, cohort: CohortSpec | None, chunk_clients: int):
+def chunk_plan(mask: torch.Tensor, cohort: CohortSpec | None, chunk_clients: int,
+               offset: int = 0):
     """The chunks of a streamed round, on the host: ``(idx, mask_j, start_j)``
     for each chunk in order.
 
-    ``idx`` (c,) int64 are the clients whose data the chunk trains, ``mask_j``
-    their participation, ``start_j`` their global indices as the moments key
-    them.  Dense: chunk j of ``chunk_grid(M, c)``, global clients ``[j c,
-    (j + 1) c)`` of the padded grid: ``start_j = j c``, and a row past M
-    reads client 0 with mask 0 (it keeps its padded-grid index as its key;
-    gated off, it draws no noise).  Gathered (``cohort.gather``): the mask
-    packed by ``gather_slots`` at ``resolved_cap(M)`` rounded up to the
-    chunk, chunk j of ``chunk_grid`` over that slot table, ``start_j`` its
-    slots."""
+    ``idx`` (c,) int64 are the rows of the data whose clients the chunk
+    trains, ``mask_j`` their participation, ``start_j`` their global indices
+    as the moments key them: the rows' own plus ``offset`` (a sharded rank's
+    first client, whose slice of the cohort ``mask`` is).  Dense: chunk j of
+    ``chunk_grid(M, c)``, clients ``[j c, (j + 1) c)`` of the padded grid:
+    ``start_j = offset + j c``, and a row past M reads client 0 with mask 0
+    (it keeps its padded-grid index as its key; gated off, it draws no
+    noise).  Gathered (``cohort.gather``): the mask packed by
+    ``gather_slots`` at ``resolved_cap(M)`` rounded up to the chunk, chunk j
+    of ``chunk_grid`` over that slot table, ``start_j`` its slots plus
+    ``offset``."""
     m = mask.shape[0]
     if cohort is not None and cohort.gather:
         cap = cohort.resolved_cap(m)
         c = min(chunk_clients, cap)
         slots, slot_mask, _ = gather_slots(mask, -(-cap // c) * c)
         for _, idx, _ in chunk_grid(slots.shape[0], c):
-            yield slots[idx], slot_mask[idx], slots[idx]
+            yield slots[idx], slot_mask[idx], slots[idx] + offset
         return
     for j0, idx, valid in chunk_grid(m, min(chunk_clients, m)):
-        yield idx, mask[idx] * valid, j0
+        yield idx, mask[idx] * valid, offset + j0
 
 
 def _device_chunks(batches, plan):
@@ -271,7 +373,8 @@ def _device_chunks(batches, plan):
     device = tree_leaves(batches)[0].device
     for idx, mask_j, start in plan:
         if isinstance(start, int):
-            rows = tree_map(lambda x: grid_rows(x, start, idx), batches)
+            j0 = int(idx[0])    # the chunk's first row: the grid's rows start at one
+            rows = tree_map(lambda x: grid_rows(x, j0, idx), batches)
         else:
             rows = gather_rows(batches, host_to_device(idx, device))
         yield rows, (idx, mask_j, start)
@@ -337,7 +440,7 @@ def host_chunks(source: ClientDataSource, plan, device, prefetch: int = 2):
 def stream_round_step(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn,
                       eval_every: int = 1, cohort: CohortSpec | None = None,
                       fault: FaultSpec | None = None, tau: int = 1, *, chunk_clients: int,
-                      num_clients: int, prefetch: int = 2):
+                      num_clients: int, prefetch: int = 2, shard: ShardLayout | None = None):
     """One streamed server round as ``step(w, state, gen, t, data, eta_l,
     tap=None)`` (``round_step``'s signature); ``data`` is the device-resident
     cohort or a ``ClientDataSource``.
@@ -353,7 +456,15 @@ def stream_round_step(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn,
     resolves it: the realized count under faults (sanitized first), the
     sampled count of a cohort, the static M under full participation, and a
     weighted round's weight sum floored at 1e-12.  Last
-    ``apply_from_moments``."""
+    ``apply_from_moments``.
+
+    With ``shard`` (a rank's ``ShardLayout``) ``data`` is the rank's slice
+    of the cohort (``local_cohort``): the round's mask and faults are drawn
+    for all M clients and sliced, the plan walks the slice (a gathered one
+    packs the slice's own slot table, as the JAX package's sharded
+    gather-stream does), the chunks are keyed by global index, and the
+    accumulated moments cross the ranks in one all-reduce before the count
+    is resolved."""
     sampled = cohort is not None and cohort.is_sampled
     injecting = fault is not None and fault.injects
     local = local_caller(local_fn, algorithm, fault, tau)
@@ -368,17 +479,24 @@ def stream_round_step(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn,
         seed = gen.initial_seed()
         key = stage_tensor(shuffle_key(seed), w.device) if keyed else None
         faults = fault_masks(fault, seed, m) if injecting else None
-        plan = chunk_plan(mask, cohort if sampled else None, chunk_clients)
+        own_mask, own_faults, offset = mask, faults, 0
+        if shard is not None:
+            own_mask = shard.rows(mask) * shard.pad_mask()
+            own_faults = None if faults is None else tuple(shard.rows(v) for v in faults)
+            offset = shard.start
+        plan = chunk_plan(own_mask, cohort if sampled else None, chunk_clients, offset)
         chunks = (host_chunks(data, plan, w.device, prefetch)
                   if isinstance(data, ClientDataSource) else _device_chunks(data, plan))
         moments = None
         for rows, (idx, mask_j, start) in chunks:
             mom = block_moments(algorithm, local, w, state, noise, rows, mask_j, start, t, eta_l,
                                 cohort=cohort if sampled else None, fault=fault,
-                                faults=gather_fault_rows(idx, *faults) if injecting else None,
+                                faults=gather_fault_rows(idx, *own_faults) if injecting else None,
                                 key=key, draws=stage_tensor(multiplicity_rows(mask_j), w.device)
                                 if expand else None)
             moments = mom if moments is None else add_moments(moments, mom)
+        if shard is not None:
+            moments = shard.reduce(moments, w.device)
         if injecting:
             moments = _resolve_sampled_count(sanitize_moments(moments), None, algorithm)
         elif sampled or not getattr(algorithm, "supports_static_count", True):
@@ -407,7 +525,9 @@ class RoundInputs:
     ``slot_mask`` a gathered round's (cap,) slot table; ``faults`` the
     ``(alive, straggler, corrupt)`` rows of the block (None where a class is
     off); ``draws`` DP-SCAFFOLD's expanded rows of a with-replacement cohort;
-    ``shuffle_key`` a minibatch trainer's key words.  What only the round's
+    ``shuffle_key`` a minibatch trainer's key words; ``keys`` a sharded
+    gathered block's global client indices (its slots plus the rank's
+    first client; ``slots`` index the rank's rows).  What only the round's
     telemetry payload reads is staged when asked for (``payload``): ``t``
     the round index (0-d int64, the watchdog's round) and ``counts`` the
     (participants, realized, dropped, stragglers, corrupt, sigma) as (6,)
@@ -422,6 +542,7 @@ class RoundInputs:
     faults: tuple | None = None
     draws: torch.Tensor | None = None
     shuffle_key: torch.Tensor | None = None
+    keys: torch.Tensor | None = None
 
 
 def tap_counts(mask, faults, num_clients: int, sampled: bool) -> tuple[float, ...]:
@@ -501,7 +622,8 @@ def _expands(algorithm: ServerAlgorithm, cohort: CohortSpec | None) -> bool:
 def stage_inputs(algorithm: ServerAlgorithm, local_fn: Callable, noise: RoundNoise, t: int,
                  m: int, device, *, cohort: CohortSpec | None = None,
                  fault: FaultSpec | None = None, mask=None, faults=None,
-                 seed: int | None = None, payload: bool = False) -> RoundInputs:
+                 seed: int | None = None, payload: bool = False,
+                 shard: ShardLayout | None = None) -> RoundInputs:
     """Round ``t``'s host draws as its body reads them: a ``RoundInputs`` on
     ``device``.
 
@@ -513,7 +635,14 @@ def stage_inputs(algorithm: ServerAlgorithm, local_fn: Callable, noise: RoundNoi
     with-replacement cohort's rows expanded for a control-variate algorithm
     (from the mask before faults: the faulted rows are gated on the
     device); a minibatch trainer's shuffle key derived from ``seed``.  With
-    ``payload`` the round index and the telemetry's counts are staged too."""
+    ``payload`` the round index and the telemetry's counts are staged too.
+
+    With ``shard`` (a rank's ``ShardLayout``) the whole cohort's ``mask``
+    and ``faults`` are cut to the rank's rows (zero on padding), a gathered
+    round packs the rank's own slot table at ``resolved_cap(m_local)`` and
+    stages its global ``keys``; a full-participation round stages the
+    padding mask, or None when the rank holds no padding row.  The payload's
+    counts are the whole cohort's."""
     sampled = cohort is not None and cohort.is_sampled
     injecting = fault is not None and fault.injects
     inp = RoundInputs(noise=noise)
@@ -523,6 +652,14 @@ def stage_inputs(algorithm: ServerAlgorithm, local_fn: Callable, noise: RoundNoi
         inp.counts = stage_tensor(torch.tensor(counts, dtype=torch.float32), device)
     if getattr(local_fn, "uses_round_seed", False):
         inp.shuffle_key = stage_tensor(shuffle_key(seed), device)
+    if shard is not None:
+        pad = shard.pad_mask()
+        if not sampled and not injecting:
+            inp.mask = stage_tensor(pad, device) if shard.padded else None
+            return inp
+        mask = pad if mask is None else shard.rows(mask) * pad
+        faults = None if faults is None else tuple(shard.rows(v) for v in faults)
+        m = shard.m_local
     if not sampled and not injecting:
         return inp
     if mask is None:
@@ -534,6 +671,8 @@ def stage_inputs(algorithm: ServerAlgorithm, local_fn: Callable, noise: RoundNoi
         if injecting:
             faults = gather_fault_rows(slots, *faults)
         inp.slots, inp.slot_mask = stage_tensor(slots, device), stage_tensor(slot_mask, device)
+        if shard is not None:
+            inp.keys = stage_tensor(slots + shard.start, device)
     inp.mask = stage_tensor(mask, device)
     if injecting:
         inp.faults = tuple(None if v is None else stage_tensor(v, device) for v in faults)
@@ -541,14 +680,15 @@ def stage_inputs(algorithm: ServerAlgorithm, local_fn: Callable, noise: RoundNoi
 
 
 def round_stage(algorithm: ServerAlgorithm, local_fn: Callable, cohort: CohortSpec | None = None,
-                fault: FaultSpec | None = None):
+                fault: FaultSpec | None = None, shard: ShardLayout | None = None):
     """The host half of a round as ``stage(gen, t, m, d, device, payload=False)
     -> RoundInputs``.
 
     It draws from ``gen`` what ``round_step`` draws, in its order: the
     cohort mask when sampled, then ``draw_noise`` for all M clients (staged:
     ``stage_noise``), then the faults from their own generators keyed by
-    ``gen``'s seed; then ``stage_inputs`` puts the rest on ``device``."""
+    ``gen``'s seed; then ``stage_inputs`` puts the rest on ``device`` (a
+    sharded rank's rows of it, ``shard``)."""
     sampled = cohort is not None and cohort.is_sampled
     injecting = fault is not None and fault.injects
 
@@ -558,31 +698,34 @@ def round_stage(algorithm: ServerAlgorithm, local_fn: Callable, cohort: CohortSp
         seed = gen.initial_seed()
         faults = fault_masks(fault, seed, m) if injecting else None
         return stage_inputs(algorithm, local_fn, noise, t, m, device, cohort=cohort, fault=fault,
-                            mask=mask, faults=faults, seed=seed, payload=payload)
+                            mask=mask, faults=faults, seed=seed, payload=payload, shard=shard)
 
     return stage
 
 
 def round_body(algorithm: ServerAlgorithm, local_fn: Callable, eval_fn, eval_every: int = 1,
-               cohort: CohortSpec | None = None, fault: FaultSpec | None = None, tau: int = 1):
+               cohort: CohortSpec | None = None, fault: FaultSpec | None = None, tau: int = 1,
+               shard: ShardLayout | None = None):
     """The device half of a round as ``body(w, state, inp, t, batches, eta_l)
     -> (w_next, state, (eta_g, metric, eta_naive, eta_target))``, reading
     only the staged ``inp`` and device memory.  ``t`` decides the round's
     kind alone (whether the eval cadence evaluates it): the scan engine
-    captures one graph per kind."""
+    captures one graph per kind.  With ``shard`` ``batches`` are the rank's
+    slice (``local_cohort``) and every round is the sharded ``masked_round``,
+    with its one all-reduce."""
     sampled = cohort is not None and cohort.is_sampled
     injecting = fault is not None and fault.injects
     local = local_caller(local_fn, algorithm)
 
     def body(w, state, inp: RoundInputs, t: int, client_batches, eta_l):
-        if not sampled and not injecting:
+        if not sampled and not injecting and shard is None:
             deltas = local(w, client_batches, eta_l, 0, state, key=inp.shuffle_key)
             w_next, aux, state = algorithm.apply_round_stateful(None, w, deltas, state,
                                                                 noise=inp.noise, t=t)
         else:
             w_next, aux, state = masked_round(algorithm, local_fn, w, state, inp,
                                               cohort if sampled else None, t, client_batches,
-                                              eta_l, fault=fault, tau=tau)
+                                              eta_l, fault=fault, tau=tau, shard=shard)
         metric = _eval_metric(eval_fn, eval_every, w_next, t, w.device)
         return w_next, state, (aux.eta_g, metric, aux.eta_naive, aux.eta_target)
 

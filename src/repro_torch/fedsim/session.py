@@ -44,10 +44,17 @@ data may then be a ``ClientDataSource`` (``fedsim.data``: ``HostArraySource``,
 rows are fetched and copied to the card ``DataSpec.prefetch`` chunks ahead
 (``data=DataSpec(prefetch=2)``), so M is bounded by host storage.
 
-The scan engine: ``FederatedSession(..., engine=EngineSpec("scan",
-chunk_rounds=10))`` stages each round on the host and replays its body from
+The scan engine, the default (``EngineSpec()``, or ``EngineSpec("scan",
+chunk_rounds=10)``), stages each round on the host and replays its body from
 a CUDA graph captured once per round kind (``fedsim/scan.py``), in the
-eager engine's bits.  Telemetry: ``session.run(seed,
+eager engine's bits; ``EngineSpec("eager")`` runs the same rounds
+uncaptured.  Client sharding: ``FederatedSession(..., shard=ShardSpec(
+make_client_mesh()))``, the same call on every rank of a
+``torch.distributed`` group (``launch.mesh.make_client_mesh``), splits the
+cohort over the ranks under the scan and stream engines: rank r trains and
+releases its slice, one all-reduce a round sums the moments, and every rank
+returns the same result; rank 0 alone writes checkpoints and tracker events.
+Telemetry: ``session.run(seed,
 tracker=JsonlTracker("run.jsonl"))`` (also ``resume`` and ``run_batched``,
 on every engine) streams one event a round in the JAX package's schema
 (``telemetry/tap.py``; ``TelemetrySpec`` sets the ledger's delta and a
@@ -87,6 +94,7 @@ from repro_torch.fedsim.specs import (
     EngineSpec,
     FaultSpec,
     LocalSpec,
+    ShardSpec,
     StreamSpec,
     TelemetrySpec,
     TrainSpec,
@@ -124,11 +132,16 @@ class RecoveryPolicy:
             raise ValueError(f"backoff must be >= 0, got {self.backoff}")
 
 
+def _as_tensor(x) -> torch.Tensor:
+    """A tensor of ``x`` where it lies (a numpy array as a writable copy)."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.array(x))
+    return torch.as_tensor(x)
+
+
 def _to_device(x, device) -> torch.Tensor:
     """A tensor on ``device``; floating data as float32, other dtypes kept."""
-    if isinstance(x, np.ndarray):
-        x = torch.from_numpy(np.array(x))  # a writable copy
-    x = torch.as_tensor(x)
+    x = _as_tensor(x)
     return x.to(device, torch.float32 if x.is_floating_point() else x.dtype)
 
 
@@ -137,7 +150,8 @@ class FederatedSession:
 
     def __init__(self, algorithm: ServerAlgorithm, loss_fn: Callable, params: Any,
                  client_batches, *, train: TrainSpec, local: LocalSpec | None = None,
-                 engine: EngineSpec = EngineSpec(), cohort: CohortSpec | None = None,
+                 engine: EngineSpec = EngineSpec(), shard: ShardSpec = ShardSpec(),
+                 cohort: CohortSpec | None = None,
                  fault: FaultSpec | None = None, stream: StreamSpec = StreamSpec(),
                  data: DataSpec | None = None, telemetry: TelemetrySpec = TelemetrySpec(),
                  eval_fn: Callable | None = None, num_clients: int | None = None,
@@ -162,9 +176,13 @@ class FederatedSession:
             ``momentum`` the spec trainer; ``control_variates=True``
             SCAFFOLD's steps, which a control-variate algorithm
             (``dp-scaffold``) needs and only it takes.
-          engine: how the round loop runs (``EngineSpec``: "eager", "scan"
-            for rounds replayed from CUDA graphs, or "stream" for rounds
-            walked in client chunks).
+          engine: how the round loop runs (``EngineSpec``: "scan", the
+            default, for rounds replayed from CUDA graphs, "eager", or
+            "stream" for rounds walked in client chunks).
+          shard: where the cohort lives (``ShardSpec``): a 1-D client mesh
+            splits it over the ranks of a ``torch.distributed`` group (the
+            scan and stream engines); every rank builds the session on the
+            whole cohort and keeps its slice on its device.
           cohort: who participates each round (``CohortSpec``); None or
             ``CohortSpec()`` is full participation.
           fault: faults injected each round and the divergence watchdog
@@ -189,6 +207,7 @@ class FederatedSession:
         self.local = local
         self._check_local()
         self.engine = engine
+        self.shard = shard
         self.telemetry = telemetry
         self._scan = None
         self.cohort = cohort
@@ -226,6 +245,11 @@ class FederatedSession:
                     f"a {kind!r} ClientDataSource requires engine='stream' (the eager engine "
                     "trains on device-resident batches); pass EngineSpec(engine='stream') or "
                     "stage the data yourself and pass tensors")
+            if shard.mesh is not None:
+                raise ValueError(
+                    "host-resident sources stream on a single device (chunk "
+                    "staging does not compose with the clients mesh yet); "
+                    "drop ShardSpec or pass device-resident batches")
             if self.fault is not None and self.fault.injects:
                 raise ValueError(
                     "fault injection requires device-resident batches; drop FaultSpec or pass "
@@ -234,7 +258,10 @@ class FederatedSession:
             self.client_batches = source
             self.num_clients = source.num_clients
         else:
-            self.client_batches = tree_map(lambda x: _to_device(x, self.device), client_batches)
+            # a sharded rank moves only its slice to the device (``_local_batches``)
+            self.client_batches = tree_map(
+                _as_tensor if shard.mesh is not None else (lambda x: _to_device(x, self.device)),
+                client_batches)
             self.num_clients = (num_clients if num_clients is not None
                                 else tree_leaves(self.client_batches)[0].shape[0])
         self._validate_cohort(self.num_clients)
@@ -252,16 +279,20 @@ class FederatedSession:
         # the context ``(c_i rows, c)`` that the round appends; ``steps=`` the
         # stragglers' per-client cutoffs
         self._local_fn = build_cohort_local_fn(self.loss_fn, local, train.tau)
-        agg = getattr(algorithm, "aggregation", None)
-        if engine.engine == "scan" and getattr(agg, "is_compressed", False):
-            raise ValueError(
-                "engine='scan' does not run a compressed aggregation yet: the count-sketch "
-                "plan reads its bucket table's size on the host each round (ROADMAP.md, "
-                "queue 1, item 21); use engine='eager' or 'stream'")
         if engine.engine == "stream" and self.stream.is_auto:
             # the largest chunk the card's budget holds, recorded for the caller
             self.stream = StreamSpec(chunk_clients=auto_chunk_clients(
                 self.dim, self._client_bytes(), device=self.device))
+        self._layout = None
+        if shard.mesh is not None:
+            gathered = self.cohort is not None and self.cohort.is_sampled and self.cohort.gather
+            # the stream engine's dense slices are whole chunks (JAX's
+            # chunk_cohort(..., n_shards=)); otherwise pad_cohort's
+            multiple = (self._stream_chunk() if engine.engine == "stream" and not gathered
+                        else 1)
+            self._layout = _srv.shard_layout(self.num_clients, shard.n_shards, shard.rank,
+                                             shard.group, multiple)
+        self._local_batches = None    # the rank's slice, made at its first run
 
     def _check_local(self) -> None:
         """Refuse a control-variate algorithm without the control-variate
@@ -302,6 +333,35 @@ class FederatedSession:
                 f"{self.algorithm.name!r} carries a {alg_m}-client variate table for a "
                 f"{m}-client cohort; num_clients indexes the per-client state by global "
                 "client index and must match")
+
+    def _stream_chunk(self) -> int:
+        """The streamed round's chunk: a chunk past M is the one-chunk grid either way."""
+        return min(self.stream.chunk_clients, max(1, self.num_clients))
+
+    def _local_of(self, client_batches):
+        """A sharded rank's slice of the cohort ``client_batches`` on the device."""
+        return tree_map(lambda x: _to_device(x, self.device),
+                        _srv.local_cohort(client_batches, self._layout, self.device))
+
+    def _check_shard(self) -> None:
+        """Refuse a client mesh where the JAX package refuses it."""
+        if self.shard.mesh is not None and self.engine.engine == "eager":
+            raise ValueError("client sharding requires engine='scan'")
+
+    def _barrier(self) -> None:
+        """Wait for every rank of the client mesh (a no-op unsharded)."""
+        if self.shard.mesh is not None:
+            torch.distributed.barrier(group=self.shard.group)
+
+    def _from_rank0(self, flag: bool) -> bool:
+        """Rank 0's ``flag`` on every rank of the client mesh (``flag`` unsharded)."""
+        if self.shard.mesh is None:
+            return flag
+        group = self.shard.group
+        t = torch.tensor([int(flag)], device=self.device)
+        torch.distributed.broadcast(t, src=torch.distributed.get_global_rank(group, 0),
+                                    group=group)
+        return bool(t.item())
 
     @property
     def dim(self) -> int:
@@ -344,6 +404,7 @@ class FederatedSession:
             raise ValueError(
                 f"params of shape {tuple(self._w0.shape)} is a stack of initial models; run it "
                 "with run_batched(seeds, batched_w0=True), or pass a flat (d,) vector or a tree")
+        self._check_shard()
         if checkpoint_every is not None and checkpoint_dir is None:
             raise ValueError("checkpoint_every requires checkpoint_dir (nothing would be saved)")
         if on_divergence is not None:
@@ -365,6 +426,7 @@ class FederatedSession:
         uninterrupted run returns.  A ``tracker`` is told the resumed round
         (``start_phase("resume", step)``) and gets the resumed rounds' events
         only; its ledger counts from round 0."""
+        self._check_shard()
         step, seed, carry, hist = self._load(checkpoint_dir)
         if step > self.train.rounds:
             raise ValueError(f"checkpoint is at round {step}, past this session's "
@@ -409,7 +471,7 @@ class FederatedSession:
         return _tap_mod.TapSession(
             tracker, start_round=start_round, ledger_fn=self._ledger_fn(),
             faults_active=self.fault is not None and self.fault.injects,
-            bytes_per_round=self._bytes_per_round())
+            bytes_per_round=self._bytes_per_round(), shard=self.shard.rank)
 
     def _tracked(self, tracker, phase: str, step: int, fn):
         """``fn(tap_session)`` with the tracker's tap installed (``fn(None)``
@@ -427,9 +489,8 @@ class FederatedSession:
 
     def spec_identity(self) -> str:
         """One line naming this session's specs, the JAX package's string for
-        the same specs: deterministic across processes.  Sharding is not
-        ported (ROADMAP.md, queue 1, item 16): the shard part is always the
-        unsharded client axis."""
+        the same specs: deterministic across processes (the mesh contributes
+        its axis and size)."""
         parts = [
             f"algorithm={self.algorithm.name}",
             f"train={self.train!r}",
@@ -440,19 +501,18 @@ class FederatedSession:
             f"fault={(self.fault if self.fault is not None else FaultSpec())!r}",
             f"data={self.data!r}",
             f"telemetry={self.telemetry!r}",
-            "shard=mesh[none] axis=clients",
+            self.shard.describe(),
         ]
         return " | ".join(parts)
 
     def _step(self):
         t = self.train
         if self.engine.engine == "stream":
-            # a chunk past M is the one-chunk grid either way
-            chunk = min(self.stream.chunk_clients, max(1, self.num_clients))
             return _srv.stream_round_step(self.algorithm, self._local_fn, self.eval_fn,
                                           t.eval_every, self.cohort, self.fault, t.tau,
-                                          chunk_clients=chunk, num_clients=self.num_clients,
-                                          prefetch=self.data.prefetch)
+                                          chunk_clients=self._stream_chunk(),
+                                          num_clients=self.num_clients,
+                                          prefetch=self.data.prefetch, shard=self._layout)
         return _srv.round_step(self.algorithm, self._local_fn, self.eval_fn, t.eval_every,
                                self.cohort, self.fault, t.tau)
 
@@ -463,13 +523,17 @@ class FederatedSession:
 
     # -- checkpoints and rollback ---------------------------------------------
 
-    def _save(self, directory: str, step: int, seed: int, carry, hist) -> str:
-        """Checkpoint the carry ``(w, state, tail)`` and the histories at ``step``."""
-        w, state, tail = carry
-        tail = torch.stack(tail) if tail else w.new_zeros((0,) + tuple(w.shape))
-        return ckpt.save_checkpoint(directory, step, {"carry": (w, state, tail), "hist": hist},
-                                    extra={"seed": int(seed), "algorithm": self.algorithm.name,
-                                           "rounds_total": self.train.rounds})
+    def _save(self, directory: str, step: int, seed: int, carry, hist) -> None:
+        """Checkpoint the carry ``(w, state, tail)`` and the histories at
+        ``step``.  Under sharding every rank holds the same carry: rank 0
+        writes, and every rank waits for the write."""
+        if self.shard.rank == 0:
+            w, state, tail = carry
+            tail = torch.stack(tail) if tail else w.new_zeros((0,) + tuple(w.shape))
+            ckpt.save_checkpoint(directory, step, {"carry": (w, state, tail), "hist": hist},
+                                 extra={"seed": int(seed), "algorithm": self.algorithm.name,
+                                        "rounds_total": self.train.rounds})
+        self._barrier()
 
     def _carry_template(self, step: int):
         """A carry of this session's structure at ``step``: the tail holds
@@ -502,7 +566,7 @@ class FederatedSession:
         rounds = self.train.rounds
         stops = {rounds}
         if self.engine.engine == "scan":
-            chunk = self.engine.chunk_rounds or (rounds - start)
+            chunk = self.engine.chunk_rounds or max(1, rounds - start)
             stops.update(range(start + chunk, rounds, chunk))
         if every:
             stops.update(b for b in range(every, rounds, every) if b > start)
@@ -521,7 +585,8 @@ class FederatedSession:
                 self.algorithm, self._local_fn, self.eval_fn, eval_every=t.eval_every,
                 cohort=self.cohort, fault=self.fault, tau=t.tau, avg_last=t.avg_last,
                 eta_l=t.eta_l, unroll=self.engine.scan_unroll, num_clients=self.num_clients,
-                device=self.device, chunk_cap=min(t.rounds, self.engine.chunk_rounds or t.rounds))
+                device=self.device, chunk_cap=min(t.rounds, self.engine.chunk_rounds or t.rounds),
+                shard=self._layout)
         return self._scan
 
     def _profile_start(self, tap, s: int):
@@ -562,13 +627,23 @@ class FederatedSession:
         scan = self.engine.engine == "scan"
         step = None if scan else self._step()
         w0 = self._w0 if w0 is None else w0
-        client_batches = self.client_batches if client_batches is None else client_batches
+        if self._layout is not None and client_batches is not None:
+            client_batches = self._local_of(client_batches)
+        elif self._layout is not None:
+            if self._local_batches is None:
+                self._local_batches = self._local_of(self.client_batches)
+            client_batches = self._local_batches
+        elif client_batches is None:
+            client_batches = self.client_batches
         if carry is None:
             carry = (w0, self.algorithm.init_state(w0), [])
             hist = _srv.stack_outs([], self.device)
-        if policy is not None and ckpt.latest_step(checkpoint_dir) is None:
-            # a rollback target must exist before any round runs
-            self._save(checkpoint_dir, start, seed, carry, hist)
+        if policy is not None:
+            # a rollback target must exist before any round runs; rank 0
+            # decides, so every rank calls ``_save`` (and its barrier) or none
+            missing = self.shard.rank == 0 and ckpt.latest_step(checkpoint_dir) is None
+            if self._from_rank0(missing):
+                self._save(checkpoint_dir, start, seed, carry, hist)
         emit = None if tap is None else (lambda r, payload: tap.emit(r, payload.cpu().numpy()))
         profile = self.telemetry.profile_rounds
         prof = None
@@ -636,6 +711,7 @@ class FederatedSession:
         sub-tracker (the JAX package's replay: its schema without wall time
         or fault fields).
         """
+        self._check_shard()
         if self.fault is not None:
             raise ValueError(
                 "run_batched has no fault-injection/watchdog support; run seeds through run() "

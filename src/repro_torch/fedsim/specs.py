@@ -7,8 +7,9 @@ streamed (``EngineSpec``; ``StreamSpec`` sets the stream's client chunk),
 observed by ``TelemetrySpec`` and ``run(tracker=)``, with full
 participation or a sampled cohort (``CohortSpec``), under an optional fault
 model and divergence watchdog (``FaultSpec``), on client data on the device
-or behind a host, disk or generated source (``DataSpec``); ``ShardSpec``
-comes with a later slice (ROADMAP.md, queue 1, item 16).
+or behind a host, disk or generated source (``DataSpec``), and with the
+cohort split over the ranks of a ``torch.distributed`` client mesh
+(``ShardSpec``).
 """
 from __future__ import annotations
 
@@ -19,8 +20,8 @@ import torch
 
 from repro_torch.core.compression import COMPRESS_TAG
 
-__all__ = ["TrainSpec", "LocalSpec", "EngineSpec", "StreamSpec", "CohortSpec", "FaultSpec",
-           "TelemetrySpec", "DataSpec", "FAULT_TAG", "LOCAL_TRAIN_TAG", "COMPRESS_TAG"]
+__all__ = ["TrainSpec", "LocalSpec", "EngineSpec", "ShardSpec", "StreamSpec", "CohortSpec",
+           "FaultSpec", "TelemetrySpec", "DataSpec", "FAULT_TAG", "LOCAL_TRAIN_TAG", "COMPRESS_TAG"]
 
 # the tag of a round's fault draws (dropouts, straggler cutoffs, corrupted
 # updates): each fault class draws from a generator of its own keyed by the
@@ -116,26 +117,29 @@ class LocalSpec:
 class EngineSpec:
     """How the round loop runs.
 
-    * ``"eager"`` (the port's default): a plain Python loop of rounds that
-      trains the whole cohort (or its gathered block) at once.
-    * ``"scan"`` (the JAX package's default and its compiled scan's
-      counterpart): each round is staged on the host, then replayed from a
-      CUDA graph captured once per round kind and reused by every run and
-      seed of the session (``fedsim/scan.py``); on the CPU the same stage
+    * ``"scan"`` (the default, as in the JAX package, and its compiled
+      scan's counterpart): each round is staged on the host, then replayed
+      from a CUDA graph captured once per round kind and reused by every run
+      and seed of the session (``fedsim/scan.py``); on the CPU the same stage
       and body run uncaptured.  ``chunk_rounds`` splits a run into chunks
       whose histories (and telemetry payloads) the host reads once a chunk
       (None = one chunk); ``scan_unroll`` is the number of rounds one graph
       holds.  Results are the same bits for every value of either, and the
       eager engine's bits.  The engine always works in buffers of its own
       and never writes the caller's tensors, so ``donate`` (the JAX
-      package's carry donation) is accepted and changes nothing.
+      package's carry donation) is accepted and changes nothing.  A round
+      kind's first round pays a warm-up and a capture, and a host hook of
+      the run loop acts only at chunk edges.
+    * ``"eager"``: a plain Python loop of rounds that trains the whole
+      cohort (or its gathered block) at once, each round's stage and body
+      run uncaptured.  It takes no ``ShardSpec``.
     * ``"stream"``: the eager loop with each round walking the cohort in
       chunks of ``StreamSpec.chunk_clients`` clients, so that one (chunk, d)
       block of updates is live at a time and the client data may stay on the
       host (``fedsim/server.py::stream_round_step``).
     """
 
-    engine: str = "eager"           # "eager" | "scan" | "stream"
+    engine: str = "scan"            # "scan" | "eager" | "stream"
     chunk_rounds: int | None = None  # rounds per chunk (None = all)
     scan_unroll: int = 2            # rounds captured in one graph
     donate: bool | None = None      # the JAX package's carry donation; no effect here
@@ -148,6 +152,56 @@ class EngineSpec:
             raise ValueError(f"chunk_rounds must be >= 1, got {self.chunk_rounds}")
         if self.scan_unroll < 1:
             raise ValueError(f"scan_unroll must be >= 1, got {self.scan_unroll}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """Where the cohort lives: optional client sharding over the ranks of a
+    ``torch.distributed`` group.
+
+    ``mesh`` is a 1-D ``torch.distributed.device_mesh.DeviceMesh`` whose one
+    dimension is named ``client_axis`` (``launch.mesh.make_client_mesh``).
+    Every rank builds the same session on the whole cohort; rank r trains
+    and releases only its slice of it, the padded cohort's rows ``[r m_local,
+    (r + 1) m_local)``, and one ``all_reduce`` of the round's moments a round
+    puts the same server update on every rank.  None is the unsharded run.
+    """
+
+    mesh: object | None = None      # DeviceMesh | None
+    client_axis: str = "clients"
+
+    @property
+    def n_shards(self) -> int:
+        """The number of ranks the cohort is split over (1 without a mesh)."""
+        if self.mesh is None:
+            return 1
+        return self.mesh.size(self._dim())
+
+    @property
+    def rank(self) -> int:
+        """This process's index along the client axis (0 without a mesh)."""
+        if self.mesh is None:
+            return 0
+        return self.mesh.get_local_rank(self.client_axis)
+
+    @property
+    def group(self):
+        """The process group of the client axis (None without a mesh)."""
+        return None if self.mesh is None else self.mesh.get_group(self.client_axis)
+
+    def _dim(self) -> int:
+        names = tuple(getattr(self.mesh, "mesh_dim_names", None) or ())
+        if self.mesh.ndim != 1 or names != (self.client_axis,):
+            raise ValueError(
+                f"ShardSpec needs a 1-D mesh whose dimension is named {self.client_axis!r}, got "
+                f"dimensions {names or None} (make_client_mesh(axis={self.client_axis!r}))")
+        return 0
+
+    def describe(self) -> str:
+        """The shard part of ``spec_identity``, the JAX package's string."""
+        if self.mesh is None:
+            return f"shard=mesh[none] axis={self.client_axis}"
+        return f"shard=mesh[{self.client_axis}={self.n_shards}] axis={self.client_axis}"
 
 
 @dataclasses.dataclass(frozen=True)

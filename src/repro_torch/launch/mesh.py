@@ -1,19 +1,90 @@
-"""Device memory sizing of the streaming engine (counterpart of the sizing
-half of repro/launch/mesh.py).
+"""The client mesh and the streaming engine's device memory sizing
+(counterpart of repro/launch/mesh.py).
 
-``auto_chunk_clients`` resolves ``StreamSpec(chunk_clients="auto")``: the
-largest client chunk whose update block, noise block and staged data fit the
-memory budget of ``device_memory_budget``.  The client mesh functions come
-with sharded streaming (ROADMAP.md, queue 1, item 16).
+The client mesh splits a federated cohort over the ranks of a
+``torch.distributed`` group, one card a rank (``make_client_mesh``,
+``client_shard_spec`` for ``FederatedSession(..., shard=)``);
+``auto_shard_count`` caps the ranks so that every slice keeps
+``MIN_CLIENTS_PER_SHARD`` clients.  ``auto_chunk_clients`` resolves
+``StreamSpec(chunk_clients="auto")``: the largest client chunk whose update
+block, noise block and staged data fit the memory budget of
+``device_memory_budget``.  The TPU production and test meshes have no
+counterpart yet (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["device_memory_budget", "auto_chunk_clients"]
+__all__ = ["MIN_CLIENTS_PER_SHARD", "make_client_mesh", "auto_shard_count",
+           "client_shard_spec", "device_memory_budget", "auto_chunk_clients"]
 
 BUDGET_FRACTION = 0.25         # of the device's memory, for one chunk
 CPU_FALLBACK_BYTES = 4 << 30   # the JAX package's documented host budget
+# the fewest clients a shard keeps under the "auto" shard count: the JAX
+# package's value (a rank's per-round collective outweighs a thinner slice)
+MIN_CLIENTS_PER_SHARD = 24
+
+
+def _world() -> int:
+    """The ranks of the default process group (1 when there is none): one
+    card a rank, so this is the devices a client mesh can span."""
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def make_client_mesh(n_shards: int | None = None, *, axis: str = "clients"):
+    """A 1-D client mesh (``DeviceMesh``) named ``axis`` over the ranks of
+    the default process group, for ``ShardSpec(mesh=...)``.
+
+    ``n_shards`` defaults to every rank and must equal the group's size.
+    With no process group yet, a one-process group is set up: NCCL when a
+    card is present, else gloo, through an in-memory store, which needs no
+    network.  A mesh over several ranks needs the
+    caller's ``torch.distributed.init_process_group`` first, one process a
+    card.  The network interface is the caller's to choose
+    (``NCCL_SOCKET_IFNAME`` / ``GLOO_SOCKET_IFNAME``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        if n_shards not in (None, 1):
+            raise ValueError(
+                f"make_client_mesh({n_shards}) spans {n_shards} ranks, but there is no process "
+                "group: start one process a card and call torch.distributed."
+                "init_process_group first (a one-rank mesh needs none)")
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    world = dist.get_world_size()
+    n = world if n_shards is None else int(n_shards)
+    if n != world:
+        raise ValueError(f"make_client_mesh({n}) over a process group of {world} ranks: a "
+                         "client mesh spans every rank (one card a rank)")
+    device_type = "cuda" if "nccl" in str(dist.get_backend()) else "cpu"
+    return DeviceMesh(device_type, list(range(n)), mesh_dim_names=(axis,))
+
+
+def auto_shard_count(num_clients: int, *, n_devices: int | None = None,
+                     min_clients_per_shard: int = MIN_CLIENTS_PER_SHARD) -> int:
+    """The shard count capped so that every shard holds at least
+    ``min_clients_per_shard`` clients: ``num_clients // min_clients_per_shard``
+    shards at most, floored at 1, and at most ``n_devices`` (the default
+    process group's ranks, 1 without one)."""
+    n_dev = n_devices if n_devices is not None else _world()
+    return max(1, min(n_dev, num_clients // min_clients_per_shard))
+
+
+def client_shard_spec(n_shards: int | str | None = None, *, axis: str = "clients",
+                      num_clients: int | None = None):
+    """A ready ``ShardSpec`` over a fresh client mesh:
+    ``FederatedSession(..., shard=client_shard_spec())`` shards the cohort
+    over every rank, and ``client_shard_spec("auto", num_clients=M)`` applies
+    ``auto_shard_count``."""
+    if n_shards == "auto":
+        if num_clients is None:
+            raise ValueError("client_shard_spec('auto') requires num_clients=")
+        n_shards = auto_shard_count(num_clients)
+    from repro_torch.fedsim.specs import ShardSpec
+    return ShardSpec(mesh=make_client_mesh(n_shards, axis=axis), client_axis=axis)
 
 
 def device_memory_budget(device="cuda") -> int:

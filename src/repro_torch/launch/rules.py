@@ -4,7 +4,7 @@ counting half of repro/launch/rules.py).
 ``count_params`` reads the parameter shapes from the model's defs, so a
 configuration of any size counts without allocating a tensor.  The sharding
 rules of the same module (``make_rules``, ``safe_pspec``, ``tree_shardings``)
-come with client sharding (ROADMAP queue 1, item 16).
+are still to port (ROADMAP queue 1).
 """
 from __future__ import annotations
 

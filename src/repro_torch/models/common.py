@@ -60,7 +60,8 @@ def sinusoidal_positions(length: int, dim: int, dtype=torch.float32, device=None
 
 class Param:
     """(shape, logical axes, fan_in) of one parameter, as in the JAX package.
-    The logical axes wait for sharding (ROADMAP queue 1, item 16)."""
+    The logical axes place nothing yet: the port's mesh splits only a
+    federated cohort's client axis (``models/sharding.py``)."""
 
     def __init__(self, shape, logical, fan_in=None):
         self.shape = tuple(shape)

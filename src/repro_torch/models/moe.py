@@ -11,8 +11,9 @@ drops rare.
 
 The JAX package groups the tokens into G dispatch groups, G the mesh shards
 behind the logical "batch" axis (``repro/models/sharding.py::group_count``),
-and without a mesh G is 1.  The port has no mesh (sharding waits for ROADMAP
-queue 1, item 16), hence no ``moe_group_dispatch`` rule: it always
+and without a mesh G is 1.  The port's mesh splits only the client axis of a
+federated cohort (``models/sharding.py``), and its grouped dispatch is still
+to port (ROADMAP queue 1), hence no ``moe_group_dispatch`` rule: it always
 dispatches one group of all B*S tokens, the JAX package's G = 1 path.
 
 Routing order.  ``jax.lax.top_k`` keeps the lower expert index first among

@@ -26,6 +26,10 @@ finds the tap there; the port has no device callback).  It owns:
 * frozen rounds: after a watchdog trip the scan engine's later rounds carry
   NaN payloads and a ``fault_t`` below their round; they are logged as
   frozen and charge no ledger.
+
+Under client sharding every rank runs the same rounds and holds the same
+payloads; only shard 0 reports (``shard``), as the JAX package keeps shard
+0's emissions: the other ranks' taps log nothing.
 """
 from __future__ import annotations
 
@@ -48,8 +52,10 @@ class TapSession:
     """One tracked run's host tap: payloads in, tracker events out."""
 
     def __init__(self, tracker, *, start_round: int = 0, ledger_fn=None,
-                 faults_active: bool = False, bytes_per_round: float | None = None):
+                 faults_active: bool = False, bytes_per_round: float | None = None,
+                 shard: int = 0):
         self.tracker = tracker
+        self.shard = int(shard)     # the rank on the client mesh; only shard 0 reports
         self.expected_t = int(start_round)
         self.ledger_fn = ledger_fn
         self.faults_active = faults_active
@@ -65,6 +71,8 @@ class TapSession:
     # -- engine-facing ----------------------------------------------------------
     def emit(self, t: int, vec, round_time_s: float | None = None) -> None:
         """Round ``t``'s payload (any order; delivered in round order)."""
+        if self.shard != 0:
+            return
         self.buffer[int(t)] = (np.asarray(vec, dtype=np.float32), round_time_s)
         while self.expected_t in self.buffer:
             v, dt = self.buffer.pop(self.expected_t)
@@ -77,11 +85,15 @@ class TapSession:
         self.buffer.clear()
         self.expected_t = int(to_round)
         self._t0 = time.perf_counter()
+        if self.shard != 0:
+            return
         self.tracker.log(int(fault_round), {"event": "rollback", "to_round": int(to_round),
                                             "attempt": int(attempt)})
 
     def profile_event(self, action: str, round_: int, trace_dir: str) -> None:
         """A profile window's start or stop."""
+        if self.shard != 0:
+            return
         self.tracker.log(int(round_), {"event": f"profile_{action}", "trace_dir": trace_dir})
 
     # -- internals ------------------------------------------------------------

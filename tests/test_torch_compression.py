@@ -19,9 +19,11 @@ dense ones for the 7 names, lossless rand-k = the dense run, stream = eager
 and gathered = dense for the 7 names, ``run_batched``, resume and rollback
 in bits, a faulted compressed round against JAX's.
 
-The JAX package's sharded and scan engines have no counterpart in the port
-yet (ROADMAP.md, queue 1, items 16 and 20), so its tests of those engines
-have none here.
+Under the scan engine (the default of both packages): every compressed
+composition of the 7 names equals the eager engine in bits, and the
+scan sessions of ``fedavg`` and ``cdp-fedexp`` under each layer match JAX's
+scan sessions at rtol 1e-5.  The sharded compressed rounds are in
+``test_torch_shard.py``.
 """
 import dataclasses
 
@@ -104,7 +106,7 @@ AGGS = {
                                                         error_feedback=True),
 }
 ENGINES = {
-    "eager": ({}, {}),
+    "eager": (dict(engine=EngineSpec(engine="eager")), {}),
     "bernoulli": (dict(cohort=CohortSpec(q=0.5)), dict(cohort=JaxCohort(q=0.5))),
     "gathered": (dict(cohort=CohortSpec(q=0.5, gather=True)),
                  dict(cohort=JaxCohort(q=0.5, gather=True))),
@@ -208,7 +210,7 @@ def test_sketch_compress_and_decompress_equal_jax(depth):
     got = tcz.sketch_compress(torch.tensor(u), (th, ts), width)
     assert got.shape == (6, depth * width)
     close_vec(got.numpy(), want)
-    plan = tcz.SketchPlan(th, ts, tcz.bucket_slots(th, width))
+    plan = tcz.SketchPlan(th, ts, *tcz.bucket_order(th, width))
     assert torch.equal(tcz.sketch_compress(torch.tensor(u), plan, width), got)
     assert torch.equal(tcz.sketch_compress(torch.tensor(u[1]), plan, width), got[1])
     comp = want.sum(axis=0)
@@ -268,11 +270,14 @@ def test_sketch_plan_tables():
     assert all(torch.equal(x, y) for x, y in zip(plan, again))
     assert plan.h.shape == plan.s.shape == (depth, d)
     assert set(plan.s.unique().tolist()) == {-1.0, 1.0}
+    assert plan.order.shape == (depth, d) and plan.counts.shape == (depth, width)
     for t in range(depth):     # every column once, in its bucket, in ascending order
+        first = 0
         for b in range(width):
-            cols = plan.slots[t, b][plan.slots[t, b] < d]
+            cols = plan.order[t, first:first + int(plan.counts[t, b])]
             assert torch.equal(cols, torch.nonzero(plan.h[t] == b).flatten())
-        assert int((plan.slots[t] < d).sum()) == d
+            first += int(plan.counts[t, b])
+        assert first == d and torch.equal(plan.order[t].sort().values, torch.arange(d))
 
 
 # ---------------------------------------------------------------------------
@@ -640,6 +645,33 @@ def test_sessions_match_jax(name, agg, engine, data):
     runs_close(got, want)
 
 
+@pytest.mark.parametrize("agg", list(AGGS))
+@pytest.mark.parametrize("name", FAST_PARITY)
+def test_scan_sessions_match_jax_scan(name, agg, data):
+    """The scan engine of both packages (their default) on JAX's draws."""
+    jalg, talg = jcompressed(name, agg), tcompressed(name, agg)
+    key = jax.random.PRNGKey(SEED)
+    want = JaxSession(jalg, jax_loss, jnp.zeros(D), jbatches(data),
+                      train=JaxTrain(rounds=ROUNDS, tau=TAU, eta_l=ETA_L),
+                      engine=JaxEngine(engine="scan")).run(key)
+    noises = {t: round_noise_of(jalg, jax.random.fold_in(key, t), M, D, t)
+              for t in range(ROUNDS)}
+    got = tsession(data, Replay(talg, noises), engine=EngineSpec(engine="scan")).run(SEED)
+    runs_close(got, want)
+
+
+@pytest.mark.parametrize("agg", list(AGGS))
+@pytest.mark.parametrize("name", sorted(COMPRESS_OK))
+def test_scan_equals_eager_in_bits(name, agg, data):
+    """Every compressed composition: the scan engine's staged plan and
+    fixed-order sums replay the eager engine's bits, dense and gathered."""
+    alg = tcompressed(name, agg)
+    for kw in ({}, dict(cohort=CohortSpec(q=0.5, gather=True))):
+        scan = tsession(data, alg, engine=EngineSpec("scan", chunk_rounds=3), **kw).run(SEED)
+        eager = tsession(data, alg, engine=EngineSpec(engine="eager"), **kw).run(SEED)
+        assert same_run(scan, eager)
+
+
 # ---------------------------------------------------------------------------
 # Inside the port
 # ---------------------------------------------------------------------------
@@ -731,7 +763,8 @@ def test_run_batched_resume_and_rollback_keep_the_ef_residual_in_bits(data, tmp_
     spec = FaultSpec(watchdog=True)
     clean = tsession(data, alg, rounds=6, fault=spec).run(3)
     assert same_run(clean, want)
-    s = tsession(data, alg, rounds=6, fault=spec)
+    # the wrapped step and the hook act on the eager loop's rounds
+    s = tsession(data, alg, rounds=6, fault=spec, engine=EngineSpec(engine="eager"))
     calls = []
 
     def poison_round_3(carry, attempt):

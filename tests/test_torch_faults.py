@@ -43,6 +43,7 @@ from repro_torch.core.fedexp import list_algorithms, make_algorithm  # noqa: E40
 from repro_torch.data.synthetic import distance_to_opt, linreg_loss  # noqa: E402
 from repro_torch.fedsim import (  # noqa: E402
     CohortSpec,
+    EngineSpec,
     FaultSpec,
     FederatedSession,
     LocalSpec,
@@ -540,6 +541,11 @@ def test_eta_max_trip_matches_jax_eager(data):
     assert [t for t, _ in got.eval_rounds()] == [0]    # the tripped round ran
 
 
+# the host hooks below (``_inject_divergence``, a wrapped ``_step``) act on
+# the eager loop's rounds; the default scan engine runs a chunk at a time
+EAGER = EngineSpec(engine="eager")
+
+
 def _poison(carry, attempt):
     """Attempt 0 runs from a model with an Inf coordinate, later ones clean."""
     if attempt > 0:
@@ -552,7 +558,7 @@ def _poison(carry, attempt):
 def test_a_trip_mid_run_keeps_the_rounds_before_it(data):
     clean = session(data, "cdp-fedexp", fault=FaultSpec(watchdog=True)).run(11)
     assert clean.fault_round is None and torch.isfinite(clean.eta_history).all()
-    s = session(data, "cdp-fedexp", fault=FaultSpec(watchdog=True))
+    s = session(data, "cdp-fedexp", fault=FaultSpec(watchdog=True), engine=EAGER)
 
     def late(carry, attempt):
         return carry
@@ -580,7 +586,7 @@ def test_the_watchdog_alone_keeps_the_trajectory_bit_for_bit(data):
 def test_rollback_equals_the_unkilled_run_bit_for_bit(name, faulty, data, tmp_path):
     spec = FaultSpec(**(FAULT_KW if faulty else {}), watchdog=True)
     want = session(data, name, fault=spec).run(11)
-    s = session(data, name, fault=spec)
+    s = session(data, name, fault=spec, engine=EAGER)
     s._inject_divergence = _poison
     got = s.run(11, checkpoint_dir=str(tmp_path), checkpoint_every=2,
                 on_divergence=RecoveryPolicy(max_retries=2))
@@ -593,7 +599,7 @@ def test_recovery_from_a_mid_run_checkpoint(data, tmp_path):
     the checkpoint at round 2, the third attempt finishes the run."""
     spec = FaultSpec(watchdog=True)
     want = session(data, "cdp-fedexp", fault=spec).run(11)
-    s = session(data, "cdp-fedexp", fault=spec)
+    s = session(data, "cdp-fedexp", fault=spec, engine=EAGER)
     calls = []
 
     def poison_round_3(carry, attempt):
@@ -622,7 +628,7 @@ def test_recovery_from_a_mid_run_checkpoint(data, tmp_path):
 
 
 def test_retry_exhaustion_surfaces_the_fault(data, tmp_path):
-    s = session(data, "cdp-fedexp", fault=FaultSpec(watchdog=True))
+    s = session(data, "cdp-fedexp", fault=FaultSpec(watchdog=True), engine=EAGER)
     s._inject_divergence = lambda carry, attempt: _poison(carry, 0)
     r = s.run(0, checkpoint_dir=str(tmp_path), checkpoint_every=2,
               on_divergence=RecoveryPolicy(max_retries=2))
@@ -658,7 +664,7 @@ def _reports_equal(got, want):
 
 @pytest.mark.parametrize("name", ["cdp-fedexp", "dp-fedavg-cdp", "dp-scaffold"])
 def test_the_retried_rounds_join_the_privacy_report_as_in_jax(name, data, tmp_path):
-    s = session(data, name, fault=FaultSpec(watchdog=True))
+    s = session(data, name, fault=FaultSpec(watchdog=True), engine=EAGER)
     base = s.privacy_report(1e-5)
     s._inject_divergence = _poison
     s.run(11, checkpoint_dir=str(tmp_path), checkpoint_every=2,

@@ -13,11 +13,12 @@ Tolerance: float32 at rtol 1e-5 and atol 1e-5.  What lies downstream of the
 first layer (the second layer's K/V caches and the logits) is held at rtol
 1e-5 and atol 3e-5: the float32 rounding of the first layer's output reaches
 the second layer's keys at up to 1.1e-5 absolute.
+
+The drift tests behind chip_smoke.py's serve bounds are in
+``test_torch_models_bf16_drift.py``, ``test_torch_models_gemma_drift.py``
+and ``test_torch_models_f32_drift.py``.
 """
 import dataclasses
-import functools
-import importlib.util
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,8 +34,7 @@ from repro.models import mlp as jax_mlp  # noqa: E402
 from repro.models.transformer import DecoderLM as JaxDecoderLM  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.convert import decoder_from_jax, params_from_jax  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref, attention_tc_ref  # noqa: E402
-from repro_torch.models import DecoderLM, attention, common, mlp  # noqa: E402
+from repro_torch.models import attention, common, mlp  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 DEEP_TOL = dict(rtol=1e-5, atol=3e-5)   # downstream of the first layer
@@ -267,186 +267,3 @@ class TestAttentionApply:
                                            positions=jnp.asarray(pos.numpy()), impl="dense")
         got, _ = attention.attention_apply(tp, x, capped, positions=pos, impl="dense")
         _close(got, want)
-
-
-def _simt_order(q, k, v, *, causal=True, window=None):
-    """The SIMT kernel's order of float32 sums on the CPU: 64-key tiles,
-    online softmax, p in float32."""
-    return attention_tc_ref(q.float(), k.float(), v.float(), causal=causal, window=window,
-                            block_k=64).to(q.dtype)
-
-
-@pytest.fixture(scope="module")
-def bf16_serve():
-    """chip_smoke.py, and a 24-layer bf16 h2o-danube-3-4b at d_model 512
-    (window 64) with its prefill logits through the dense path."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    cfg = dataclasses.replace(configs.get_config("h2o-danube-3-4b"), d_model=512, num_heads=8,
-                              num_kv_heads=2, head_dim=120, d_ff=2048, vocab_size=4000,
-                              sliding_window=64)
-    model = DecoderLM(cfg, dtype=torch.bfloat16, device="cpu",
-                      generator=torch.Generator().manual_seed(0))
-    tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=torch.Generator().manual_seed(1))
-    model.attn_impl = "dense"
-    plain, _ = model.prefill(tokens, model.init_cache(2, 256))
-    model.attn_impl = "kernel"
-    return chip_smoke, model, tokens, plain
-
-
-def _drift(model, tokens, plain, capsys, label):
-    """chip_smoke.py's two ratios for the prefill logits of ``model`` against
-    ``plain``, the dense path's; printed (run with -s to see them)."""
-    tiled, _ = model.prefill(tokens, model.init_cache(*tokens.shape))
-    d = (tiled.float() - plain.float()).abs()
-    max_rel = float(d.max() / plain.float().abs().max())
-    mean_rel = float(d.mean() / plain.float().std())
-    with capsys.disabled():
-        print(f"\n{label} over {model.cfg.num_layers} layers: max {max_rel:.4g} of "
-              f"max|logit|, mean {mean_rel:.4g} of the std")
-    return max_rel, mean_rel
-
-
-def _serve_drift(bf16_serve, monkeypatch, attend, capsys, label):
-    """The two ratios for the logits of ``attend`` in place of the kernel."""
-    _, model, tokens, plain = bf16_serve
-    monkeypatch.setattr(attention, "flash_attention", attend)
-    return _drift(model, tokens, plain, capsys, label)
-
-
-@pytest.mark.parametrize("order", ["simt", "tensor-core"])
-def test_bf16_drift_between_attention_orders_is_within_the_serve_bounds(bf16_serve, monkeypatch,
-                                                                        capsys, order):
-    """The bound of chip_smoke.py's full-width serve check, from the CPU: at
-    full depth in bf16, the dense path against each kernel's order (the SIMT
-    kernel's float32 tiles; the tensor-core kernel's 128-key tiles with p
-    rounded to bf16) moves the prefill logits only by bf16 rounding carried
-    through 24 layers."""
-    chip_smoke = bf16_serve[0]
-    attend = _simt_order if order == "simt" else attention_tc_ref
-    max_rel, mean_rel = _serve_drift(bf16_serve, monkeypatch, attend, capsys,
-                                     f"bf16 drift, {order} order")
-    assert 0 < max_rel < chip_smoke.SERVE_MAX_ERR and mean_rel < chip_smoke.SERVE_MEAN_ERR
-
-
-@pytest.mark.parametrize("fault", ["window dropped", "window one too wide", "causal off"])
-def test_a_planted_mask_fault_fails_the_serve_bounds(bf16_serve, monkeypatch, capsys, fault):
-    """The same check with a wrong mask planted in the kernel's tile order:
-    at this width (a 64-key window) each fault moves the logits beyond both
-    bounds.  At full width chip_smoke.py reads the dropped window too."""
-    def attend(q, k, v, *, causal, window):
-        if fault == "window dropped":
-            window = None
-        elif fault == "window one too wide":
-            window += 1
-        else:
-            causal = False
-        return _simt_order(q, k, v, causal=causal, window=window)
-
-    chip_smoke = bf16_serve[0]
-    max_rel, mean_rel = _serve_drift(bf16_serve, monkeypatch, attend, capsys, fault)
-    assert max_rel > chip_smoke.SERVE_MAX_ERR and mean_rel > chip_smoke.SERVE_MEAN_ERR
-
-
-@pytest.fixture(scope="module")
-def bf16_gemma():
-    """chip_smoke.py, and an 18-layer bf16 gemma-2b at d_model 512 with its
-    head_dim of 256 (2 query heads, MQA, GeGLU, tied embeddings) and its
-    prefill logits through the dense path."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    cfg = dataclasses.replace(configs.get_config("gemma-2b"), d_model=512, num_heads=2,
-                              num_kv_heads=1, head_dim=256, d_ff=2048, vocab_size=4000)
-    model = DecoderLM(cfg, dtype=torch.bfloat16, device="cpu",
-                      generator=torch.Generator().manual_seed(0))
-    tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=torch.Generator().manual_seed(1))
-    model.attn_impl = "dense"
-    plain, _ = model.prefill(tokens, model.init_cache(2, 256))
-    model.attn_impl = "kernel"
-    return chip_smoke, model, tokens, plain
-
-
-def test_bf16_drift_of_the_wide_tensor_core_order_is_within_the_gemma_serve_bounds(
-        bf16_gemma, monkeypatch, capsys):
-    """The bound of chip_smoke.py's serve-gemma check (phase 8), from the CPU:
-    at gemma-2b's depth and head_dim in bf16, the dense path against the
-    tensor-core kernel's order at Dh 256 (64-key tiles, p rounded to bf16)."""
-    from repro_torch.kernels.flash_attention import ops
-    chip_smoke, model, tokens, plain = bf16_gemma
-    block_k = ops.tc_block_k(model.cfg.head_dim)
-    assert block_k == 64
-    monkeypatch.setattr(attention, "flash_attention",
-                        functools.partial(attention_tc_ref, block_k=block_k))
-    max_rel, mean_rel = _drift(model, tokens, plain, capsys, "bf16 drift, Dh-256 tc order")
-    assert 0 < max_rel < chip_smoke.SERVE_MAX_ERR and mean_rel < chip_smoke.SERVE_MEAN_ERR
-
-
-@pytest.mark.parametrize("fault", ["window of half the prompt", "causal off"])
-def test_a_planted_mask_fault_fails_the_gemma_serve_bounds(bf16_gemma, monkeypatch, capsys,
-                                                            fault):
-    """The plain path with a wrong mask against the right one: chip_smoke.py
-    plants the first at full width (a window of 4096 over an 8176-token
-    prompt, ``GEMMA_FAULT_WINDOW``) and fails if the bounds do not see it."""
-    chip_smoke, model, tokens, plain = bf16_gemma
-    monkeypatch.setattr(model, "attn_impl", "dense")
-    if fault == "causal off":
-        def attend(q, k, v, *, causal, window, softcap_val=None):
-            return attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                 causal=False, window=window).transpose(1, 2)
-        monkeypatch.setattr(attention, "dense_attention", attend)
-    else:
-        monkeypatch.setattr(model, "cfg", dataclasses.replace(
-            model.cfg, sliding_window=tokens.shape[1] * chip_smoke.GEMMA_FAULT_WINDOW
-            // chip_smoke.GEMMA_PROMPT))
-    max_rel, mean_rel = _drift(model, tokens, plain, capsys, fault)
-    assert max_rel > chip_smoke.SERVE_MAX_ERR and mean_rel > chip_smoke.SERVE_MEAN_ERR
-
-
-@pytest.fixture(scope="module")
-def f32_serve():
-    """chip_smoke.py, and the bf16 fixture's h2o-danube-3-4b at d_model 512
-    and its depth of 24 layers, in float32 (the models' default dtype), with
-    its prefill logits through the dense path."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    cfg = dataclasses.replace(configs.get_config("h2o-danube-3-4b"), d_model=512, num_heads=8,
-                              num_kv_heads=2, head_dim=120, d_ff=2048, vocab_size=4000,
-                              sliding_window=64)
-    model = DecoderLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
-    tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=torch.Generator().manual_seed(1))
-    model.attn_impl = "dense"
-    plain, _ = model.prefill(tokens, model.init_cache(2, 256))
-    model.attn_impl = "kernel"
-    return chip_smoke, model, tokens, plain
-
-
-def test_f32_drift_of_the_3xtf32_order_is_within_the_f32_serve_bounds(f32_serve, monkeypatch,
-                                                                      capsys):
-    """The bound of chip_smoke.py's serve-f32 check (phase 9), from the CPU: in
-    float32 over 24 layers, the dense path against the float32 tensor-core
-    kernel's order (3xTF32 products at its 64-key tile) moves the prefill
-    logits only by float32 rounding."""
-    from repro_torch.kernels.flash_attention import ops
-    chip_smoke, model, tokens, plain = f32_serve
-    monkeypatch.setattr(attention, "flash_attention", functools.partial(
-        attention_tc_ref, block_k=ops.f32_block_k(model.cfg.head_dim), products="3xtf32"))
-    max_rel, mean_rel = _drift(model, tokens, plain, capsys, "f32 drift, 3xTF32 order")
-    assert 0 < max_rel < chip_smoke.SERVE_F32_MAX_ERR
-    assert mean_rel < chip_smoke.SERVE_F32_MEAN_ERR
-
-
-def test_a_dropped_window_fails_the_f32_serve_bounds(f32_serve, monkeypatch, capsys):
-    """The plain path with the window dropped against the right one, in
-    float32: chip_smoke.py plants it at full width in phase 9 and fails if
-    the bounds do not see it."""
-    chip_smoke, model, tokens, plain = f32_serve
-    monkeypatch.setattr(model, "attn_impl", "dense")
-    monkeypatch.setattr(model, "cfg", dataclasses.replace(model.cfg, sliding_window=None))
-    max_rel, mean_rel = _drift(model, tokens, plain, capsys, "f32, window dropped")
-    assert max_rel > chip_smoke.SERVE_F32_MAX_ERR and mean_rel > chip_smoke.SERVE_F32_MEAN_ERR

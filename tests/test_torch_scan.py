@@ -100,13 +100,27 @@ def test_engine_spec_accepts_and_refuses_what_jax_does(kw):
         assert str(err.value) == str(e)
         return
     got = EngineSpec(**kw)
-    # the port's default engine stays "eager"; named, the specs print alike
-    if "engine" in kw:
-        assert repr(got) == repr(want)
-    else:
-        assert got.engine == "eager" and want.engine == "scan"
-        assert (got.chunk_rounds, got.scan_unroll, got.donate) == (
-            want.chunk_rounds, want.scan_unroll, want.donate)
+    # both packages default to the scan engine: the specs print alike
+    assert repr(got) == repr(want)
+    assert got.engine == want.engine
+
+
+def test_scan_is_the_default_engine(data):
+    """As in the JAX package: a session built without engine= runs the scan
+    engine, in the eager engine's bits."""
+    assert EngineSpec().engine == "scan" == JaxEngine().engine
+
+    def built(**engine):
+        return FederatedSession(make_algorithm("cdp-fedexp", **kwargs_of("cdp-fedexp")),
+                                linreg_loss, torch.zeros(D), {"x": data["x"], "y": data["y"]},
+                                train=TrainSpec(rounds=3, tau=TAU, eta_l=ETA_L), device="cpu",
+                                **engine)
+
+    s = built()
+    assert s.engine == EngineSpec("scan") and s._scan is None
+    got = s.run(3)
+    assert s._scan is not None      # the rounds ran on the scan engine
+    same_bits(got, built(engine=EngineSpec(engine="eager")).run(3))
 
 
 # ---------------------------------------------------------------------------
@@ -192,16 +206,6 @@ def test_run_batched_reuses_the_graphs_and_equals_run(data):
         for f in FIELDS:
             assert torch.equal(getattr(sweep, f)[i].nan_to_num(7.0),
                                getattr(one, f).nan_to_num(7.0)), f
-
-
-def test_compression_under_scan_is_refused(data):
-    from repro_torch.core.compose import RandKAggregation, with_compression
-    alg = with_compression(make_algorithm("cdp-fedexp", **kwargs_of("cdp-fedexp")),
-                           RandKAggregation(k=8))
-    with pytest.raises(ValueError, match="compressed aggregation"):
-        FederatedSession(alg, linreg_loss, torch.zeros(D), {"x": data["x"], "y": data["y"]},
-                         train=TrainSpec(rounds=2, tau=TAU, eta_l=ETA_L), engine=SCAN,
-                         device="cpu")
 
 
 # ---------------------------------------------------------------------------
