@@ -304,6 +304,22 @@ Phases, each of which exits non-zero on failure:
                phase 9's float32 bounds, 6 greedy tokens equal, and a
                planted fault on the CPU (the shared block after every Mamba2
                layer; a capacity factor of 0.25; qk-norm dropped) outside.
+  11b. serve-moe-grouped  the MoE with the JAX package's group-local
+               dispatch: the rules of make_rules(..., mode="serve") for a
+               (data 2, model 1) mesh, so a prefill's tokens form G = 2
+               dispatch groups (a decode step's two tokens, one group).
+               granite-moe-1b-a400m (2 x 8192, 24 tensor-core flash launches
+               a generate) and llama4's MoE block (1 of 48 layers, 2 x 4096,
+               1 launch), phase 11's seeded bf16 weights: prefill and decode
+               ms at G = 2 beside G = 1 (host clock, card synchronised), the
+               dropped share at G = 2.  Two float32 layers of each at G = 2
+               (llama4's cut to 8 of its 128 experts: two float32 layers of
+               all hold 129 GB), card vs CPU within phase 9's float32 bounds,
+               6 greedy tokens equal; on the card G = 2 vs G = 1 at a
+               capacity factor of E (no token drops, checked) within the same
+               bounds.  Meanwhile ``python -m repro_torch.launch.dryrun`` as
+               subprocesses on the CPU (granite-moe decode_32k on 16 x 16,
+               llama4 train_4k on 2 x 16 x 16), each JSON holding every key.
   12. train-zoo phase 10's recipe (cdp-fedexp) at full width and depth:
                zamba2-2.7b K = 2, tau = 1, 1 round (18 of its 54 Mamba2
                layers, three super-blocks, since phase 13 came,
@@ -349,7 +365,8 @@ dense serve path's (the tensor-core flash kernel), its f32 generate and phase
 generate the Mamba2 serve path's, phase 8's bf16 generate the Dh-256 serve
 path's (the tensor-core kernel's 64-key route), phase 11's four generates
 the MoE, hybrid and VLM serve paths' (the tensor-core kernel at Dh 64, 80
-and 128, ssd_scan at N 64), phase 13's request the enc-dec serve path's (the
+and 128, ssd_scan at N 64), phase 11b's two the grouped MoE serve path's
+(the tensor-core kernel at Dh 64 and 128), phase 13's request the enc-dec serve path's (the
 tensor-core kernel non-causal and causal at Dh 64): every launch counter is
 set to 0 before a path and read after.  The SIMT flash kernel runs only in the
 route-before prefills of phases 8 and 9, whose launches its entry counts.
@@ -4576,6 +4593,241 @@ def phase_serve_zoo(dev, smi: str) -> dict:
     return out
 
 
+# Phase 11b: the MoE served with the JAX package's group-local dispatch.  The
+# rules are make_rules(..., mode="serve") for a (data 2, model 1) mesh, so the
+# prefill's tokens split into G = 2 dispatch groups (a decode step's 2 tokens
+# are fewer a group than experts: one group, as in the JAX package).  The
+# bf16 requests of phase 11 (ZOO_SERVE's granite-moe and llama4 block) at G =
+# 2 and G = 1; two float32 layers at G = 2, card against CPU, within phase 9's
+# float32 bounds (llama4's cut to GROUPED_F32_EXPERTS of its 128 experts: two
+# float32 layers of all of them hold 129 GB); on the card, G = 2 against
+# G = 1 at a capacity factor of E (no token drops) within the same bounds;
+# then the dry-run as a subprocess for GROUPED_DRYRUNS.
+GROUPED_MESH = (("data", "model"), (2, 1))
+GROUPED_F32_EXPERTS = {LLAMA4: 8}
+GROUPED_DRYRUNS = (("granite-moe-1b-a400m", "decode_32k", False),
+                   ("llama4-maverick-400b-a17b", "train_4k", True))
+DRYRUN_KEYS = ("arch", "shape", "mesh", "chips", "kind", "fed", "num_params",
+               "tokens_per_step", "trace_s", "memory", "cost", "collective_bytes",
+               "collective_total", "roofline", "model_flops", "useful_ratio", "ops")
+
+
+class MeshShape(NamedTuple):
+    """What the launch rules read of a mesh: its axis names and sizes."""
+    mesh_dim_names: tuple
+    shape: tuple
+
+
+def grouped_rules(cfg) -> dict:
+    """The serve rules of ``cfg``'s full configuration on GROUPED_MESH."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import count_params
+    from repro_torch.launch.rules import make_rules
+    full = get_config(cfg.name)
+    return make_rules(full, MeshShape(*GROUPED_MESH), mode="serve",
+                      num_params=count_params(full))
+
+
+def timed_request(model, prompt, cache_len: int, new: int):
+    """(prefill ms, decode ms a step, the greedy tokens) of one request through
+    ServeEngine's steps, host clock with the card synchronised."""
+    import torch
+    from repro_torch.launch import ServeEngine
+    engine = ServeEngine(model)
+    with torch.inference_mode():
+        caches = model.init_cache(prompt.shape[0], cache_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, caches = engine.make_prefill_step()(prompt, caches)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decode, out = engine.make_decode_step(), [tok]
+        for pos in range(prompt.shape[1], prompt.shape[1] + new - 1):
+            tok, logits, caches = decode(tok, pos, caches)
+            out.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    if not torch.isfinite(logits).all():
+        fail("serve-moe-grouped: non-finite decode logits")
+    return 1e3 * (t1 - t0), 1e3 * (t2 - t1) / (new - 1), torch.stack(out, 1)
+
+
+def grouped_serve(dev, smi: str, spec: ZooServe) -> dict:
+    """``spec`` (bf16, phase 11's request) under the grouped rules: the
+    generate's flash launches (one tensor-core launch an attention layer),
+    its G, then prefill and decode ms at G = 2 and at G = 1 (no rules)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import ServeEngine
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import axis_rules
+    cfg, model = zoo_model(spec, dev)
+    rules = grouped_rules(cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (spec.batch, spec.prompt), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    cache_len = spec.prompt + ZOO_NEW
+    with axis_rules(rules):
+        g = moe.dispatch_groups(spec.batch, spec.batch * spec.prompt, cfg.num_experts)
+        g_decode = moe.dispatch_groups(spec.batch, spec.batch, cfg.num_experts)
+        if g != 2 or g_decode != 1:
+            fail(f"serve-moe-grouped {spec.name}: {g} prefill groups and {g_decode} decode "
+                 "groups under the (data 2, model 1) serve rules, want 2 and 1")
+        ServeEngine(model).generate(prompt[:, :256], 2, 258)     # warm-up
+        fa = ops.flash_attention
+        fa.launches = fa.launches_tc = fa.launches_tc_wide = fa.launches_f32 = 0
+        fa.launches_simt = 0
+        tokens = ServeEngine(model).generate(prompt, ZOO_NEW, cache_len)
+        torch.cuda.synchronize()
+        counts = (fa.launches, fa.launches_tc, fa.launches_tc_wide, fa.launches_f32,
+                  fa.launches_simt)
+        if counts != (cfg.num_layers, cfg.num_layers, 0, 0, 0):
+            fail(f"serve-moe-grouped {spec.name}: flash launches (all, tensor-core, Dh > 128, "
+                 f"float32, SIMT) {counts} in one generate, want {cfg.num_layers} tensor-core")
+        pre2, dec2, toks2 = timed_request(model, prompt, cache_len, ZOO_NEW)
+        drops = moe_drops(model, prompt)
+    if not torch.equal(toks2, tokens):
+        fail(f"serve-moe-grouped {spec.name}: the timed steps gave other tokens than generate")
+    drops1 = moe_drops(model, prompt)     # G = 1's capacities; also a warm-up prefill
+    pre1, dec1, _ = timed_request(model, prompt, cache_len, ZOO_NEW)
+    print(f"[11b serve-moe-grouped] {spec.name} {spec.batch}x{spec.prompt} bf16, G = 2 "
+          f"(prefill; decode steps G = 1): {counts[1]} tensor-core flash launches in a "
+          f"generate; prefill {pre2:.3f} ms at G = 2 against {pre1:.3f} at G = 1; decode "
+          f"{dec2:.3f} against {dec1:.3f} ms a step; dropped share of the prefill's (token, "
+          f"slot) assignments, mean over layers, {sum(drops) / len(drops):.4f} at G = 2 against "
+          f"{sum(drops1) / len(drops1):.4f} at G = 1  [{smi}]")
+    del model, prompt, tokens
+    torch.cuda.empty_cache()
+    return dict(tc=counts[1], groups=g, prefill_ms={"G=2": pre2, "G=1": pre1},
+                decode_ms={"G=2": dec2, "G=1": dec1},
+                dropped_share={"G=2": drops, "G=1": drops1})
+
+
+def grouped_reference(dev, name: str) -> dict:
+    """Two float32 layers of ``name`` at full width (llama4's experts cut,
+    GROUPED_F32_EXPERTS) at G = 2: card (the float32 flash kernel) against
+    CPU (its plain version), prefill logits within phase 9's float32 bounds
+    and 6 greedy tokens equal; then on the card G = 2 against G = 1 at a
+    capacity factor of E, where no token drops (checked), within the same
+    bounds."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import DecoderLM, moe
+    from repro_torch.models.sharding import axis_rules
+    t0 = time.perf_counter()
+    changes = dict(num_layers=2)
+    if name in GROUPED_F32_EXPERTS:
+        changes["num_experts"] = GROUPED_F32_EXPERTS[name]
+    small, card = zoo_model(ZooServe(name, 2, 300), dev, "float32", **changes)
+    rules = grouped_rules(small)
+    cpu = DecoderLM(small, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    p = torch.randint(0, small.vocab_size, (2, 300), generator=torch.Generator().manual_seed(3))
+    fa = ops.flash_attention
+    with axis_rules(rules):
+        if moe.dispatch_groups(2, 600, small.num_experts) != 2:
+            fail(f"serve-moe-grouped {name} reference: not two dispatch groups")
+        before = fa.launches_f32
+        got, got_tokens = greedy(card, p.to(dev), 6)
+        launched = fa.launches_f32 - before
+        want, want_tokens = greedy(cpu, p, 6)
+    if launched != 2:
+        fail(f"serve-moe-grouped {name} reference: {launched} float32 flash launches in the "
+             "card's prefill, want 2")
+    del cpu
+
+    def drift(x, ref):
+        d = (x.float().cpu() - ref.float().cpu()).abs()
+        return d.max().item() / ref.abs().max().item(), d.mean().item() / ref.float().std().item()
+
+    card_cpu = drift(got, want)
+    tokens_equal = torch.equal(got_tokens.cpu(), want_tokens)
+    card.cfg = dataclasses.replace(small, capacity_factor=float(small.num_experts))
+    with axis_rules(rules):
+        two, _ = card.prefill(p.to(dev), card.init_cache(2, 300))
+        dropped = max(moe_drops(card, p.to(dev)))
+    one, _ = card.prefill(p.to(dev), card.init_cache(2, 300))
+    groups = drift(two, one)
+    print(f"[11b serve-moe-grouped] reference: {name}, 2 float32 layers at full width"
+          f"{f' ({small.num_experts} of 128 experts)' if name in GROUPED_F32_EXPERTS else ''}"
+          f", prompt 2x300, G = 2: card vs CPU prefill logits {card_cpu[0]:.3e} of max|logit|, "
+          f"{card_cpu[1]:.3e} of the std (bounds {SERVE_F32_MAX_ERR}, {SERVE_F32_MEAN_ERR}); 6 "
+          f"greedy tokens {'equal' if tokens_equal else 'DIFFERENT'}; at capacity factor "
+          f"{small.num_experts} (no layer drops: {dropped:.4f} at most) G = 2 vs G = 1 "
+          f"{groups[0]:.3e}, "
+          f"{groups[1]:.3e}; {time.perf_counter() - t0:.1f} s")
+    if card_cpu[0] > SERVE_F32_MAX_ERR or card_cpu[1] > SERVE_F32_MEAN_ERR:
+        fail(f"serve-moe-grouped {name} reference: card and CPU differ beyond the float32 bounds")
+    if not tokens_equal:
+        fail(f"serve-moe-grouped {name} reference: greedy tokens differ, card vs CPU")
+    if dropped != 0.0:
+        fail(f"serve-moe-grouped {name}: a capacity factor of E drops {dropped} of a layer")
+    if groups[0] > SERVE_F32_MAX_ERR or groups[1] > SERVE_F32_MEAN_ERR:
+        fail(f"serve-moe-grouped {name}: G = 2 and G = 1 differ beyond the float32 bounds "
+             "where no token drops")
+    del card
+    torch.cuda.empty_cache()
+    return dict(card_cpu=card_cpu, g2_vs_g1=groups, experts=small.num_experts,
+                f32_launches=launched)
+
+
+def start_dryruns(out_dir: Path) -> list:
+    """GROUPED_DRYRUNS, each ``python -m repro_torch.launch.dryrun`` in a
+    process of its own (started together, one CPU thread each)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, multi_pod in GROUPED_DRYRUNS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--out", str(out_dir)] + (["--multi-pod"] if multi_pod else [])
+        procs.append((arch, shape, multi_pod, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+            cwd=ROOT)))
+    return procs
+
+
+def finish_dryruns(procs, out_dir: Path) -> dict:
+    """Wait for the dry-runs; each must exit 0 and write its JSON with every key."""
+    out = {}
+    for arch, shape, multi_pod, proc in procs:
+        log, _ = proc.communicate(timeout=300)
+        mesh = "2x16x16" if multi_pod else "16x16"
+        if proc.returncode != 0:
+            fail(f"dry-run {arch} x {shape} [{mesh}] exited {proc.returncode}: {log[-2000:]}")
+        path = out_dir / f"{arch}__{shape}__{mesh}.json"
+        r = json.loads(path.read_text())
+        missing = [k for k in DRYRUN_KEYS if k not in r] + [
+            k for k in ("argument_bytes", "output_bytes", "temp_bytes", "peak_bytes")
+            if k not in r["memory"]]
+        if missing:
+            fail(f"dry-run {arch} x {shape} [{mesh}]: keys missing {missing}")
+        print(f"[11b serve-moe-grouped] dry-run {arch} x {shape} [{mesh}]: trace "
+              f"{r['trace_s']} s, {r['memory']['argument_bytes'] / 1e9:.3f} GB of arguments "
+              f"and {r['memory']['peak_bytes'] / 1e9:.3f} GB peak a device, "
+              f"{r['cost']['flops']:.4g} FLOPs, {r['collective_total']:.4g} collective bytes, "
+              f"bottleneck {r['roofline']['bottleneck']} (CPU, no card)")
+        out[f"{arch} {shape} {mesh}"] = dict(trace_s=r["trace_s"], roofline=r["roofline"],
+                                             memory=r["memory"])
+    return out
+
+
+def phase_serve_moe_grouped(dev, smi: str) -> dict:
+    """Phase 11b: grouped_serve for ZOO_SERVE's granite-moe and llama4 block,
+    grouped_reference for both, and the dry-runs of GROUPED_DRYRUNS."""
+    specs = [s for s in ZOO_SERVE if s.name in (GRANITE_MOE, LLAMA4)]
+    out = {s.name: grouped_serve(dev, smi, s) for s in specs}
+    out_dir = ROOT / "build" / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    procs = start_dryruns(out_dir)
+    try:
+        out["reference"] = {s.name: grouped_reference(dev, s.name) for s in specs}
+        out["dryrun"] = finish_dryruns(procs, out_dir)
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
 # Phase 12: phase 10's recipe on the zoo, full width and depth (zamba2 cut to
 # three super-blocks, TRAIN_DEPTH), cdp-fedexp.
 ZOO_TRAIN_RUNS = ((ZAMBA2, "cdp-fedexp", 2, 1, 1), (GRANITE_MOE, "cdp-fedexp", 4, 2, 2))
@@ -4614,8 +4866,9 @@ def phase_train_zoo(dev, smi: str) -> dict:
 # frames, 256 decoder tokens), launch/specs.py's WHISPER_DECODER_LEN.
 WHISPER = "whisper-large-v3"
 WHISPER_PARAMS = 1_535_587_840          # the JAX package's count_params(EncDecLM(cfg))
-WHISPER_FRAMES = 1500                   # launch/specs.py: WHISPER_ENC_FRAMES
-WHISPER_DECODER_LEN = 256               # launch/specs.py: WHISPER_DECODER_LEN
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.launch.specs import WHISPER_DECODER_LEN  # noqa: E402
+from repro_torch.launch.specs import WHISPER_ENC_FRAMES as WHISPER_FRAMES  # noqa: E402
 WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW, WHISPER_CACHE = 8, 4, 16, 448
 WHISPER_TRAIN_RUNS = ((WHISPER, "cdp-fedexp", 2, 1, 1),)
 # the card against the CPU: 2 + 2 layers at full width in float32, 2
@@ -4976,10 +5229,16 @@ def main() -> int:
     f32 = timed("9 serve-f32", phase_serve, dev, smi, SERVE_F32)
     timed("10 train", phase_train, dev, smi)
     zoo = timed("11 serve-zoo", phase_serve_zoo, dev, smi)
+    grouped = timed("11b serve-moe-grouped", phase_serve_moe_grouped, dev, smi)
     timed("12 train-zoo", phase_train_zoo, dev, smi)
     audio = timed("13 audio", phase_audio, dev, smi)
     zoo_tc = {spec.name: zoo[spec.name]["tc"] for spec in ZOO_SERVE}
-    flash_tc["launches"] = h2o["tc"] + sum(zoo_tc.values()) + audio["serve"]["tc"]
+    grouped_tc = {name: grouped[name]["tc"] for name in (GRANITE_MOE, LLAMA4)}
+    flash_tc["launches"] = (h2o["tc"] + sum(zoo_tc.values()) + sum(grouped_tc.values())
+                            + audio["serve"]["tc"])
+    flash_tc["moe_grouped"] = dict(launches=grouped_tc, serve={
+        name: {k: grouped[name][k] for k in ("prefill_ms", "decode_ms", "groups")}
+        for name in grouped_tc}, reference=grouped["reference"], dryrun=grouped["dryrun"])
     flash_tc["whisper"] = dict(launches=audio["serve"]["tc"],
                                flash_calls=audio["serve"]["flash_calls"],
                                shapes=audio["kernels"]["tc"],
@@ -4992,7 +5251,9 @@ def main() -> int:
     flash_wide["launches"] = gemma["tc_wide"]
     flash_wide["simt_prefill_ms"] = gemma["simt_prefill_ms"]
     flash_f32["launches"] = f32["f32"] + h2o["f32_check"] + gemma["f32_check"] + sum(
-        r["f32_launches"] for r in zoo["reference"].values()) + audio["reference"]["f32_launches"]
+        r["f32_launches"] for r in zoo["reference"].values()) + sum(
+        r["f32_launches"] for r in grouped["reference"].values()) + audio["reference"][
+        "f32_launches"]
     flash_f32["whisper"] = dict(shape=audio["kernels"]["f32"], reference=audio["reference"])
     flash_f32["zoo"] = dict(shapes=zoo["kernels"]["f32"], reference=zoo["reference"])
     ssd["launches"] += zoo[ZAMBA2]["ssd_scan"]

@@ -1,5 +1,14 @@
-"""The client mesh and the streaming engine's device memory sizing
-(counterpart of repro/launch/mesh.py).
+"""The production and test meshes, the client mesh and the streaming
+engine's device memory sizing (counterpart of repro/launch/mesh.py).
+
+``make_production_mesh`` is the datacenter layout of DESIGN.md §4: 16 x 16
+cards as ("data", "model"), or 2 x 16 x 16 as ("pod", "data", "model") on
+two pods; ``make_test_mesh(data, model)`` is a small one.  Each is a
+``DeviceMesh`` over the ranks of the current process group, one card a rank,
+and refuses a group of another size.  The dry-run (``launch/dryrun.py``)
+lays a model out on them from a process of its own with a fake group of
+256 or 512 ranks (``fake_process_group``), as the JAX dry-run forces 512
+host devices.
 
 The client mesh splits a federated cohort over the ranks of a
 ``torch.distributed`` group, one card a rank (``make_client_mesh``,
@@ -8,14 +17,16 @@ The client mesh splits a federated cohort over the ranks of a
 ``MIN_CLIENTS_PER_SHARD`` clients.  ``auto_chunk_clients`` resolves
 ``StreamSpec(chunk_clients="auto")``: the largest client chunk whose update
 block, noise block and staged data fit the memory budget of
-``device_memory_budget``.  The TPU production and test meshes have no
-counterpart yet (ROADMAP.md, queue 1).
+``device_memory_budget``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["MIN_CLIENTS_PER_SHARD", "make_client_mesh", "auto_shard_count",
+__all__ = ["MIN_CLIENTS_PER_SHARD", "make_production_mesh", "make_test_mesh",
+           "fake_process_group", "make_client_mesh", "auto_shard_count",
            "client_shard_spec", "device_memory_budget", "auto_chunk_clients"]
 
 BUDGET_FRACTION = 0.25         # of the device's memory, for one chunk
@@ -30,6 +41,60 @@ def _world() -> int:
     card a rank, so this is the devices a client mesh can span."""
     import torch.distributed as dist
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def _grid_mesh(shape: tuple[int, ...], names: tuple[str, ...], device_type: str | None):
+    """A ``DeviceMesh`` of ``shape`` named ``names`` over every rank of the
+    current process group, whose size must be the mesh's."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        if n != 1:
+            raise ValueError(
+                f"a {' x '.join(map(str, shape))} mesh spans {n} ranks, but there is no "
+                "process group: start one process a card and call torch.distributed."
+                "init_process_group first (or, to lay a model out without cards, a fake "
+                "group: launch.mesh.fake_process_group)")
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    world = dist.get_world_size()
+    if world != n:
+        raise ValueError(f"a {' x '.join(map(str, shape))} mesh needs {n} ranks, the process "
+                         f"group has {world}: the mesh is not shrunk to fit")
+    if device_type is None:
+        device_type = "cuda" if "nccl" in str(dist.get_backend()) else "cpu"
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(names))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = None):
+    """16 x 16 = 256 cards a pod as ("data", "model"); two pods, 512 cards,
+    with a leading "pod" axis.  ``device_type``: the mesh's device type
+    (default: "cuda" over an NCCL group, else "cpu")."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _grid_mesh(shape, axes, device_type)
+
+
+def make_test_mesh(data: int = 1, model: int = 1, *, device_type: str | None = None):
+    """A small ("data", "model") mesh over the current group's ranks (a
+    one-process group is set up for a 1 x 1 mesh when there is none)."""
+    return _grid_mesh((data, model), ("data", "model"), device_type)
+
+
+def fake_process_group(world_size: int) -> None:
+    """Make the default process group a fake one of ``world_size`` ranks
+    (this process rank 0): ``DeviceMesh``es of that size can then be built
+    and read, and no collective moves data.  For the dry-run, in a process
+    of its own; the group stays until ``destroy_process_group``."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group exists already; the dry-run makes its fake group "
+                           "in a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=int(world_size))
 
 
 def make_client_mesh(n_shards: int | None = None, *, axis: str = "clients"):

@@ -6,7 +6,7 @@ import math
 import torch
 
 __all__ = ["rms_norm", "layer_norm", "rope", "sinusoidal_positions", "softcap", "dense_init",
-           "Param", "init_params"]
+           "Param", "init_params", "logical_specs"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -60,8 +60,8 @@ def sinusoidal_positions(length: int, dim: int, dtype=torch.float32, device=None
 
 class Param:
     """(shape, logical axes, fan_in) of one parameter, as in the JAX package.
-    The logical axes place nothing yet: the port's mesh splits only a
-    federated cohort's client axis (``models/sharding.py``)."""
+    The logical axes are what the launch layer's rules map onto a mesh
+    (``launch/rules.py``); no parameter of the port is split by them."""
 
     def __init__(self, shape, logical, fan_in=None):
         self.shape = tuple(shape)
@@ -96,3 +96,8 @@ def init_params(generator: torch.Generator, defs: dict[str, Param], dtype) -> di
         else:
             out[name] = dense_init(generator, p.shape, p.fan_in, dtype)
     return out
+
+
+def logical_specs(defs: dict[str, Param]) -> dict:
+    """{name: logical axes} of ``defs`` (the JAX package's ``logical_specs``)."""
+    return {name: p.logical for name, p in defs.items()}

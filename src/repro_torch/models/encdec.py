@@ -37,7 +37,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.common import Param, init_params, layer_norm, sinusoidal_positions
+from repro_torch.models.common import (Param, init_params, layer_norm, logical_specs,
+                                       sinusoidal_positions)
 from repro_torch.models.transformer import _chunk_nll
 
 __all__ = ["EncDecLM", "enc_block_defs", "dec_block_defs"]
@@ -126,6 +127,18 @@ class EncDecLM(nn.Module):
         if self.remat and not cached and torch.is_grad_enabled():
             return functools.partial(checkpoint, fn, use_reentrant=False)
         return fn
+
+    def pspecs(self) -> dict:
+        """The logical axes of every parameter, in the JAX package's tree
+        (the blocks with a leading "layers" axis; see ``DecoderLM.pspecs``)."""
+        cfg = self.cfg
+
+        def stacked(defs):
+            return {k: ("layers",) + v for k, v in logical_specs(defs).items()}
+
+        return {"embed": ("vocab", "embed"), "enc_blocks": stacked(enc_block_defs(cfg)),
+                "dec_blocks": stacked(dec_block_defs(cfg)),
+                **{name: (None,) for name in NORMS}}
 
     # ---------------------------------------------------------------- encoder
 

@@ -6,14 +6,15 @@ the mesh axes it splits over.  A placement is plain Python: a tuple with one
 entry per tensor dimension, None (not split), a mesh-axis name, or a tuple
 of names.  With no rules installed every annotation is the identity.
 
-These are the JAX module's names, kept for parity: nothing in the port's
-engine or models reads them.  The port splits only the client axis, over
-the ranks of a ``torch.distributed`` client mesh (``fedsim.specs.ShardSpec``),
-and always along a client batch's leading dimension
-(``fedsim.server.local_cohort``).  ``shard`` returns a tensor unchanged: a
-plain tensor carries no placement, and no model code of the port runs over
-a mesh.  ``group_count`` is 1 without rules, the MoE block's one dispatch
-group.
+These are the JAX module's names.  The launch layer's rules
+(``launch/rules.py::make_rules``) give the datacenter layout of every
+parameter and input; under installed rules the MoE block reads
+``group_count("batch")``, its dispatch groups (1 without rules).  The port
+splits only the client axis over real ranks, over a ``torch.distributed``
+client mesh (``fedsim.specs.ShardSpec``), and always along a client batch's
+leading dimension (``fedsim.server.local_cohort``).  ``shard`` returns a
+tensor unchanged: a plain tensor carries no placement, and no model code of
+the port runs over a mesh.
 """
 from __future__ import annotations
 

@@ -38,7 +38,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import Param, init_params, rms_norm, sinusoidal_positions
+from repro_torch.models.common import (Param, init_params, logical_specs, rms_norm,
+                                       sinusoidal_positions)
 
 __all__ = ["DecoderLM"]
 
@@ -150,6 +151,24 @@ class DecoderLM(nn.Module):
         self.shared_attn = nn.ParameterDict({n: param(t) for n, t in shared.items()}) \
             if shared_defs else None
         self.head = None if head is None else param(head)
+
+    def pspecs(self) -> dict:
+        """The logical axes of every parameter, in the JAX package's tree:
+        {"embed", "final_norm", "blocks": {name: ("layers", ...)}, a hybrid's
+        "shared_attn", an untied "head"}.  The blocks carry a leading
+        "layers" axis, as JAX's stacked (L, ...) leaves do; the port's
+        per-layer tensors ``blocks.<i>.<name>`` are their rows."""
+        cfg = self.cfg
+        specs = {
+            "embed": ("vocab", "embed"),
+            "final_norm": (None,),
+            "blocks": {k: ("layers",) + v for k, v in logical_specs(block_defs(cfg)).items()},
+        }
+        if cfg.arch_type == "hybrid":
+            specs["shared_attn"] = logical_specs(shared_attn_defs(cfg))
+        if not cfg.tie_embeddings:
+            specs["head"] = ("embed", "vocab")
+        return specs
 
     # --------------------------------------------------------------- blocks
 
