@@ -208,6 +208,23 @@ Phases, each of which exits non-zero on failure:
                run; at e9's shape (M = 256, d = 2^20, 10 rounds) rand-k and
                the sketch with top-k and error feedback under scan equal in
                bits to the eager loop, ms per round of both.
+  3h. legacy   the pre-session API: each of the ten monolithic classes
+               (FedAvg ... DPFedAdamCDP) through run_federated at the full
+               cell (M = 1000, d = 131072, tau = 20, 5 rounds) under
+               EngineSpec() (scan), equal in bits to FederatedSession of its
+               registry name with the same seed, with the same kernel launches;
+               LDPFedEXPGaussian and CDPFedEXP at q = 0.1 gathered against
+               their names (gated launches); run_federated_batched over 3
+               seeds at the paper size against three run_federated calls;
+               each private class's privacy_report against its name's;
+               materialize_ldp_noise at (1000, 131072) and at a gathered
+               block of 176 row ids against the plain version and against
+               the noise fused mode adds (single-row fused launches), in
+               bits; hyperfree_adaptivity_torch.py and serve_batched_torch.py
+               (--arch mamba2-2.7b, --arch gemma-2b) as processes of their own
+               on the card.  The dp_aggregate, gated and noise-kernel counters
+               are set to 0 before the phase and read after it (the
+               comparison launches excluded); each must be above 0.
   5. reference the port on the card against the port on the CPU (plain
                versions, same seeds, same noise) on a small problem: fedexp,
                ldp-fedexp-gauss (also under CohortSpec(q=0.25), dense and
@@ -359,7 +376,8 @@ Phases, each of which exits non-zero on failure:
                dec_blocks.*.xattn_* leaf moved, and train_reference's 2 + 2
                float32 layers card vs CPU.  Training launches no hand-written
                kernel.
-Phases 3, 3b, 3e, 3f, 3g, 4, 4b and 4c are the round loop's main path, phase 6's bf16 generate the
+Phases 3, 3b, 3e, 3f, 3g, 4, 4b and 4c are the round loop's main path, 3h its
+pre-session entry points (counted on their own), phase 6's bf16 generate the
 dense serve path's (the tensor-core flash kernel), its f32 generate and phase
 9's the float32 serve path's (the float32 tensor-core flash kernel), phase 7's
 generate the Mamba2 serve path's, phase 8's bf16 generate the Dh-256 serve
@@ -5181,6 +5199,246 @@ def phase_audio(dev, smi: str) -> dict:
     return out
 
 
+# phase 3h: the registry names of the ten monolithic classes (the JAX
+# package's pre-session API), and the runs it makes
+LEGACY = {"fedavg": "FedAvg", "fedexp": "FedEXP", "dp-fedavg-ldp-gauss": "DPFedAvgLDPGaussian",
+          "ldp-fedexp-gauss": "LDPFedEXPGaussian", "dp-fedavg-privunit": "DPFedAvgPrivUnit",
+          "ldp-fedexp-privunit": "LDPFedEXPPrivUnit", "dp-fedavg-cdp": "DPFedAvgCDP",
+          "cdp-fedexp": "CDPFedEXP", "dp-fedadam-cdp": "DPFedAdamCDP",
+          "cdp-fedexp-adaptive-clip": "CDPFedEXPAdaptiveClip"}
+LEGACY_SAMPLED = ("ldp-fedexp-gauss", "cdp-fedexp")      # at SAMPLED["q=0.1 gathered"]
+LEGACY_SEEDS = (0, 1, 2)                                 # run_federated_batched, paper size
+LEGACY_NOISE = (0x5EED, 0.7)                             # materialize_ldp_noise's seed, sigma
+LEGACY_FUSED_ROWS = 4                                    # single-row fused launches compared
+LEGACY_EXAMPLES = (("hyperfree_adaptivity_torch.py",),
+                   ("serve_batched_torch.py", "--arch", "mamba2-2.7b"),
+                   ("serve_batched_torch.py", "--arch", "gemma-2b"))
+
+
+def legacy_class(name: str, m: int, d: int, tau: int):
+    """(eta_l, the monolithic class of ``name`` built with the protocol's
+    kwargs, those kwargs)."""
+    from repro_torch.core import fedexp
+    eta_l, kw = algo_kwargs(name, m, d, tau)
+    extra = {"dim": d} if name == "cdp-fedexp-adaptive-clip" else {}
+    return eta_l, getattr(fedexp, LEGACY[name])(**kw, **extra), kw
+
+
+def counted(fn):
+    """``fn()`` and the (dp_aggregate, ldp_noise, gated) launches it made."""
+    from repro_torch.kernels.dp_aggregate import ops
+    agg, noise = ops.dp_aggregate_sums, ops.generate_ldp_noise
+    before = (agg.launches, noise.launches, agg.gated_launches)
+    out = fn()
+    return out, (agg.launches - before[0], noise.launches - before[1],
+                 agg.gated_launches - before[2])
+
+
+def legacy_examples() -> list:
+    """The examples started on the card, each a process of its own."""
+    return [(args, subprocess.Popen([sys.executable, str(ROOT / "examples" / args[0]),
+                                     *args[1:]], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+            for args in LEGACY_EXAMPLES]
+
+
+def finish_examples(procs, timeout: float = 600.0) -> dict:
+    """Wait for the examples, ``timeout`` s at most from the first wait (the
+    caller kills what still runs after a failure); each must exit 0."""
+    out, t0 = {}, time.perf_counter()
+    for args, proc in procs:
+        label = " ".join(args)
+        try:
+            stdout, stderr = proc.communicate(
+                timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"[3h legacy] {label} did not finish in {timeout:.0f} s")
+        if proc.returncode != 0:
+            fail(f"[3h legacy] {label} exited {proc.returncode}: {stderr[-2000:]}")
+        print("\n".join(f"    {line}" for line in stdout.strip().splitlines()))
+        out[label] = proc.returncode
+    return out
+
+
+def legacy_noise(dev, m: int, d: int) -> dict:
+    """materialize_ldp_noise at (m, d) and at the gathered block of
+    CohortSpec(q=0.1): ``(dense, block, slots)``, made on the card."""
+    import torch
+    from repro_torch.core.aggregation import materialize_ldp_noise
+    from repro_torch.core.algorithm import round_generator
+    from repro_torch.fedsim import CohortSpec, gather_slots
+    seed, sigma = LEGACY_NOISE
+    cohort = CohortSpec(**SAMPLED["q=0.1 gathered"])
+    slots, _, _ = gather_slots(cohort.round_mask(round_generator(0, 0), m), cohort.resolved_cap(m))
+    dense = materialize_ldp_noise(seed, m, d, sigma, device=dev)
+    block = materialize_ldp_noise(seed, slots.numel(), d, sigma, start=slots, device=dev)
+    torch.cuda.synchronize()
+    return dict(dense=dense, block=block, slots=slots)
+
+
+def legacy_noise_checks(noise: dict, dev, m: int, d: int) -> dict:
+    """The materialized noise against its plain version (``ref.ldp_noise_ref``
+    on the card) and against the noise fused mode adds: a (1, d) zero update
+    released in fused mode at row id r sums to client r's noise row."""
+    import torch
+    from repro_torch.kernels.dp_aggregate import ops, ref
+    seed, sigma = LEGACY_NOISE
+    dense, block, slots = noise["dense"], noise["block"], noise["slots"]
+    plain = ref.ldp_noise_ref(m, d, seed, sigma, device=dev)
+    err = (dense - plain).abs().max().item()
+    rows = slots.to(dev)
+    if not bits_of(dense, plain):
+        fail(f"[3h legacy] materialize_ldp_noise ({m},{d}) differs from the plain version "
+             f"(max abs err {err:.3e})")
+    if not (bits_of(block, plain[rows]) and bits_of(block, dense[rows])):
+        fail(f"[3h legacy] materialize_ldp_noise at {slots.numel()} row ids is not the dense "
+             "noise's rows")
+    zero = torch.zeros(1, d, device=dev)
+    for r in slots[:LEGACY_FUSED_ROWS].tolist():
+        fused = ops.dp_aggregate_sums(zero, 1.0, noise_seed=seed, noise_sigma=sigma,
+                                      row_ids=torch.tensor([r], dtype=torch.int32, device=dev))
+        if not bits_of(fused[0], dense[r]):
+            fail(f"[3h legacy] fused mode's noise of client {r} differs from "
+                 f"materialize_ldp_noise's row (max abs err "
+                 f"{(fused[0] - dense[r]).abs().max().item():.3e})")
+    return dict(shape=[m, d], block_shape=[slots.numel(), d], max_abs_err=err,
+                fused_rows=LEGACY_FUSED_ROWS)
+
+
+def bits_of(a, b) -> bool:
+    """Two float32 tensors equal in their bit patterns."""
+    import torch
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def same_report(label: str, mono, comp) -> None:
+    """The privacy_report of the monolithic class's session equals the
+    registry name's."""
+    a, b = mono.privacy_report(delta=1e-5), comp.privacy_report(delta=1e-5)
+    if (a.setting, a.eps_numerical, a.eps_rdp, a.mu) != (b.setting, b.eps_numerical, b.eps_rdp,
+                                                         b.mu):
+        fail(f"[3h legacy] {label}: privacy_report {a} differs from the registry name's {b}")
+
+
+def phase_legacy(dev, smi) -> dict:
+    """Phase 3h: the pre-session API (the module docstring's 3h).  Returns the
+    phase's launches beside what it checked."""
+    import torch
+    from repro_torch.data.synthetic import distance_to_opt, linreg_loss, make_synthetic_linreg
+    from repro_torch.fedsim import (
+        CohortSpec,
+        FederatedSession,
+        TrainSpec,
+        run_federated,
+        run_federated_batched,
+    )
+    from repro_torch.kernels.dp_aggregate import ops
+    t_phase = time.perf_counter()
+    procs = legacy_examples()
+    try:
+        m, d, tau, rounds = FULL_SIZE
+        ops.dp_aggregate_sums.launches = 0
+        ops.dp_aggregate_sums.gated_launches = 0
+        ops.generate_ldp_noise.launches = 0
+        data = make_synthetic_linreg(torch.Generator(device=dev).manual_seed(0), m, d)
+        w0, batches, eval_fn = torch.zeros(d, device=dev), data.client_batches(), distance_to_opt(
+            data.w_star)
+        out, reports = {"runs": {}}, 0
+        for name in LEGACY:
+            eta_l, alg, _ = legacy_class(name, m, d, tau)
+            t0 = time.perf_counter()
+            mono, n_mono = counted(lambda: run_federated(
+                alg, linreg_loss, w0, batches, rounds=rounds, tau=tau, eta_l=eta_l, seed=0,
+                eval_fn=eval_fn, device=dev))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            (comp_session, comp, _), n_comp = counted(lambda: run_session(
+                name, m, d, rounds, tau, dev, data=data))
+            check_run(name, mono, rounds)
+            if not same_run(mono, comp):
+                fail(f"[3h legacy] run_federated({LEGACY[name]}) differs from the registry's "
+                     f"{name!r} at M={m} d={d}")
+            if n_mono != n_comp:
+                fail(f"[3h legacy] {LEGACY[name]} launched {n_mono} (dp_aggregate, ldp_noise, "
+                     f"gated), its registry name {n_comp}")
+            if alg.is_private:
+                same_report(name, FederatedSession(alg, linreg_loss, w0, batches, train=TrainSpec(
+                    rounds=rounds, tau=tau, eta_l=eta_l), device=dev), comp_session)
+                reports += 1
+            del comp_session, mono, comp
+            out["runs"][name] = dict(seconds=secs, launches=n_mono)
+            print(f"[3h legacy] run_federated({LEGACY[name]}) M={m} d={d} tau={tau}, {rounds} "
+                  f"rounds, scan: {secs:.2f} s (session, captures and rounds), = {name!r} in bits; "
+                  f"launches (dp_aggregate, ldp_noise, gated) {n_mono}")
+        cohort = SAMPLED["q=0.1 gathered"]
+        for name in LEGACY_SAMPLED:
+            eta_l, alg, _ = legacy_class(name, m, d, tau)
+            session = FederatedSession(alg, linreg_loss, w0, batches,
+                                       train=TrainSpec(rounds=rounds, tau=tau, eta_l=eta_l),
+                                       cohort=CohortSpec(**cohort), eval_fn=eval_fn, device=dev)
+            mono, n_mono = counted(lambda: session.run(0))
+            comp_session, _ = make_session(name, m, d, rounds, tau, dev, data=data, cohort=cohort)
+            comp, n_comp = counted(lambda: comp_session.run(0))
+            check_run(name, mono, rounds)
+            if not same_run(mono, comp) or n_mono != n_comp or n_mono[2] < 1:
+                fail(f"[3h legacy] {LEGACY[name]} at q=0.1 gathered: same bits "
+                     f"{same_run(mono, comp)}, launches {n_mono} against {n_comp}")
+            same_report(f"{name} q=0.1 gathered", session, comp_session)
+            reports += 1
+            del session, comp_session, mono, comp
+            out["runs"][f"{name} q=0.1 gathered"] = dict(launches=n_mono)
+            print(f"[3h legacy] {LEGACY[name]} at q=0.1 gathered = {name!r} in bits; launches "
+                  f"(dp_aggregate, ldp_noise, gated) {n_mono}")
+        del data, batches
+        pm, ptau, prounds = PAPER
+        pd = 500
+        eta_l, alg, _ = legacy_class("cdp-fedexp", pm, pd, ptau)
+        pdata = make_synthetic_linreg(torch.Generator(device=dev).manual_seed(0), pm, pd)
+        pkw = dict(rounds=prounds, tau=ptau, eta_l=eta_l, eval_fn=distance_to_opt(pdata.w_star),
+                   device=dev)
+        t0 = time.perf_counter()
+        swept = run_federated_batched(alg, linreg_loss, torch.zeros(pd, device=dev),
+                                      pdata.client_batches(), seeds=list(LEGACY_SEEDS), **pkw)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        for i, seed in enumerate(LEGACY_SEEDS):
+            one = run_federated(alg, linreg_loss, torch.zeros(pd, device=dev),
+                                pdata.client_batches(), seed=seed, **pkw)
+            if not all(same_bits(getattr(swept, f)[i], getattr(one, f)) for f in RESULT_FIELDS):
+                fail(f"[3h legacy] run_federated_batched's seed {seed} differs from run_federated")
+        print(f"[3h legacy] run_federated_batched(CDPFedEXP) over seeds {LEGACY_SEEDS} at M={pm} "
+              f"d={pd} tau={ptau}, {prounds} rounds: {sweep_s:.2f} s; each seed = run_federated "
+              "in bits")
+        noise = legacy_noise(dev, m, d)
+        launches = {"dp_aggregate": ops.dp_aggregate_sums.launches,
+                    "ldp_noise": ops.generate_ldp_noise.launches,
+                    "dp_aggregate gated": ops.dp_aggregate_sums.gated_launches}
+        for k, n in launches.items():
+            if n < 1:
+                fail(f"[3h legacy] kernel {k} was never launched in the phase")
+        out["noise"] = legacy_noise_checks(noise, dev, m, d)
+        del noise
+        out["reports"] = reports
+        print(f"[3h legacy] materialize_ldp_noise ({m},{d}) and {out['noise']['block_shape']} at "
+              f"row ids = the plain version and fused mode's noise in bits; "
+              f"{out['reports']} privacy reports = the registry names'")
+        out["examples"] = finish_examples(procs)
+        torch.cuda.empty_cache()
+        out["launches"] = launches
+        out["seconds"] = time.perf_counter() - t_phase
+        print(f"[3h legacy] launches {launches}; {len(LEGACY_EXAMPLES)} examples exited 0; phase "
+              f"{out['seconds']:.1f} s  [{smi}]")
+        return out
+    finally:
+        for _, proc in procs:          # a failed check leaves no example running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def main() -> int:
     """Run every phase; 0 only when all of them passed on a CUDA card."""
     import torch
@@ -5221,6 +5479,9 @@ def main() -> int:
     for k, n in launches.items():
         if n < 1:
             fail(f"kernel {k} was never launched on the main path")
+    legacy = timed("3h legacy", phase_legacy, dev, smi)
+    for k, n in legacy["launches"].items():
+        launches[k] += n
 
     timed("5 reference", phase_reference, dev)
     h2o = timed("6 serve", phase_serve, dev, smi, SERVE_H2O)
@@ -5276,6 +5537,7 @@ def main() -> int:
              cases=cases, gated=gathered["modes"], gated_rows_on=gathered["rows_on"],
              gathered_shape=gathered["gathered_shape"], full_rounds=full, stream=stream,
              e9=e9, scan={k: v for k, v in scan.items() if k != "pointer"}, shard=shard,
+             legacy={k: legacy[k] for k in ("runs", "launches", "seconds")},
              replays_traced={n: scan[n]["scan"]["traced_launches"]["aggregate_kernel"]
                              for n in SCAN_TIMED},
              device_pointer={k: v for k, v in scan["pointer"].items() if "fused" in k}),
@@ -5286,6 +5548,7 @@ def main() -> int:
              ms=nhead["ms"], plain_ms=nhead["plain_ms"], bound_ms=nhead["bound_ms"],
              bound_by=nhead["bound_by"], library_ms=None, headline="(1000, 131072)",
              cases=noise_cases, row_ids_ms=gathered["noise_rows_ms"],
+             legacy_noise=legacy["noise"],
              row_ids_bound_ms=gathered["noise_rows_bound_ms"],
              row_ids_shape=gathered["gathered_shape"],
              replays_traced={n: scan[n]["scan"]["traced_launches"]["noise_kernel"]

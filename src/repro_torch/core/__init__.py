@@ -41,7 +41,20 @@ from repro_torch.core.compose import (
     with_compression,
 )
 from repro_torch.core.compression import COMPRESS_TAG
-from repro_torch.core.fedexp import list_algorithms, make_algorithm
+from repro_torch.core.fedexp import (
+    CDPFedEXP,
+    CDPFedEXPAdaptiveClip,
+    DPFedAdamCDP,
+    DPFedAvgCDP,
+    DPFedAvgLDPGaussian,
+    DPFedAvgPrivUnit,
+    FedAvg,
+    FedEXP,
+    LDPFedEXPGaussian,
+    LDPFedEXPPrivUnit,
+    list_algorithms,
+    make_algorithm,
+)
 
 __all__ = [
     "accounting", "adaptive_clip", "aggregation", "clipping", "compose", "compression",
@@ -50,6 +63,9 @@ __all__ = [
     "partial_clip_moments", "raw_moments",
     "clip_batch", "clip_by_l2", "clip_tree", "global_l2_norm_tree",
     "ServerAlgorithm", "RoundAux", "RoundNoise", "make_algorithm", "list_algorithms",
+    "FedAvg", "FedEXP", "DPFedAvgLDPGaussian", "LDPFedEXPGaussian",
+    "DPFedAvgPrivUnit", "LDPFedEXPPrivUnit", "DPFedAvgCDP", "CDPFedEXP",
+    "CDPFedEXPAdaptiveClip", "DPFedAdamCDP",
     "ComposedAlgorithm", "compose_algorithm",
     "NoPrivacy", "GaussianLDP", "PerClientGaussian", "PrivUnitLDP", "CentralGaussian",
     "NoiseSchedule", "MeanAggregation", "WeightedAggregation", "FixedEta", "FedEXPStep",

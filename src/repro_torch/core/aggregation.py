@@ -59,6 +59,7 @@ __all__ = [
     "aggregate_stats",
     "fused_clip_aggregate",
     "global_client_indices",
+    "materialize_ldp_noise",
     "partial_clip_moments",
     "raw_moments",
     "resolve_backend",
@@ -136,6 +137,28 @@ def row_keys(start, device) -> dict:
         return {"row_start": int(start), "row_ids": None}
     from repro_torch.core.algorithm import host_to_device
     return {"row_start": 0, "row_ids": host_to_device(start.to(torch.int32), device)}
+
+
+def materialize_ldp_noise(noise_seed, m: int, d: int, sigma, dtype=torch.float32, *,
+                          start=0, device) -> torch.Tensor:
+    """(m, d) per-client LDP Gaussian noise of std ``sigma``: row i is client
+    ``start + i``'s, or client ``start[i]``'s when ``start`` is a (m,) index
+    tensor (a gathered block).
+
+    It is the matrix that the fused release (``fused_clip_aggregate(...,
+    noise_seed=, noise_sigma=)``) draws for ``noise_seed``: entry (client r,
+    column j) is keyed by (seed, r, j), so a block of clients materializes
+    exactly its rows of the cohort's noise.  On the card it is one launch of
+    the noise-only kernel (``ops.generate_ldp_noise``, which scales by sigma
+    in float32 as fused mode does); on the CPU its plain version.  The JAX
+    package keys row i by ``fold_in(noise_key, start + i)``; the port keys
+    it by the round's 32-bit seed and the client index
+    (``algorithm.client_keys``)."""
+    from repro_torch.kernels.dp_aggregate import ops
+
+    noise = ops.generate_ldp_noise(m, d, noise_seed, sigma, device=device,
+                                   **row_keys(start, device))
+    return noise if dtype == torch.float32 else noise.to(dtype)
 
 
 def aggregate_stats(updates: torch.Tensor) -> RoundStats:

@@ -45,6 +45,7 @@ __all__ = [
     "RoundNoise",
     "ServerAlgorithm",
     "round_generator",
+    "client_keys",
     "device_generator",
     "device_normal",
     "draw_seed32",
@@ -63,6 +64,24 @@ def round_generator(seed: int, t: int) -> torch.Generator:
     """The CPU generator of round ``t`` of the run seeded ``seed`` (both >= 0)."""
     state = np.random.SeedSequence([int(seed), int(t)]).generate_state(1, np.uint64)[0]
     return torch.Generator(device="cpu").manual_seed(int(state))
+
+
+def client_keys(seed: int, m: int, start=0) -> torch.Tensor:
+    """(m, 2) int64: what the port keys each of a block's m clients' draws
+    by, the round's 32-bit ``seed`` beside the client's global index
+    (``global_client_indices(start, m)``: ``start + i``, or ``start[i]`` for a
+    (m,) index tensor).
+
+    The JAX package derives a key per client, ``fold_in(key, start + i)``,
+    and draws from it.  The port has no key to fold: the noise of client r,
+    column pair k is Threefry-2x32-20 of the key ``(seed, 0x9E3779B9)`` at the
+    counter ``(r, k)`` (``ref.ldp_noise_ref``, the noise-only and fused
+    kernels), so row i of this table, ``(seed, r)``, names client r's stream
+    as its folded key names it in JAX.  A shard or a gathered block that
+    passes its own ``start`` gets its rows of the cohort's table.  The
+    table is a host tensor, as the round's draws are host values."""
+    idx = global_client_indices(start, m, "cpu")
+    return torch.stack([torch.full_like(idx, int(seed) & 0xFFFFFFFF), idx], dim=1)
 
 
 def draw_seed32(gen: torch.Generator) -> int:

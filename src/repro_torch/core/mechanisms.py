@@ -1,6 +1,10 @@
-"""PrivUnit, ScalarDP and per-client sigmas (counterpart of the PrivUnit
-section and ``per_client_sigmas`` of repro/core/mechanisms.py).
+"""The client randomizers (counterpart of repro/core/mechanisms.py).
 
+- the Gaussian mechanisms' configs (``GaussianLDPConfig``,
+  ``GaussianCDPConfig``, ``PerClientGaussianConfig``) and their two
+  randomizers, ``gaussian_ldp_randomize`` and ``gaussian_cdp_noise``, which
+  draw from an explicit ``torch.Generator`` where the JAX package takes a
+  key;
 - PrivUnit (Bhowmick et al., 2018), Algorithm 5: privatizes the *direction*
   of an update on the unit sphere with pure epsilon-DP;
 - ScalarDP, Algorithm 6: privatizes the update *norm* with randomized
@@ -32,6 +36,11 @@ import numpy as np
 import torch
 
 __all__ = [
+    "GaussianLDPConfig",
+    "GaussianCDPConfig",
+    "PerClientGaussianConfig",
+    "gaussian_ldp_randomize",
+    "gaussian_cdp_noise",
     "PrivUnitParams",
     "ScalarDPParams",
     "make_privunit_params",
@@ -100,6 +109,84 @@ def _betainc_f64(a: float, b: float, x: float) -> float:
 
 def _log_beta(a: float, b: float) -> float:
     return math.lgamma(a) + math.lgamma(b) - math.lgamma(a + b)
+
+
+# ---------------------------------------------------------------------------
+# Gaussian mechanisms
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GaussianLDPConfig:
+    """Per-client Gaussian randomizer: ``c_i = Delta_i + N(0, sigma^2 I_d)``.
+
+    Paper setting for the LDP experiments: ``sigma = 0.7 * C``.
+    """
+
+    sigma: float
+    clip_norm: float
+
+
+@dataclasses.dataclass(frozen=True)
+class GaussianCDPConfig:
+    """Server-side Gaussian noise on the *mean* update.
+
+    The paper draws ``eps^(t) ~ N(0, sigma^2 / M)`` (coordinate variance), with
+    ``sigma = 5 * C / sqrt(M)`` in the experiments, and privatizes the FedEXP
+    numerator with a scalar ``xi ~ N(0, sigma_xi^2)``, ``sigma_xi = d *
+    sigma^2 / M`` (the hyperparameter-free choice, Section 3.2).
+    """
+
+    sigma: float
+    clip_norm: float
+    num_clients: int
+
+    @property
+    def mean_noise_std(self) -> float:
+        """Server-side noise std on the released mean: ``sigma / sqrt(M)``."""
+        return self.sigma / math.sqrt(self.num_clients)
+
+    def sigma_xi(self, dim: int) -> float:
+        """Hyperparameter-free numerator noise scale ``d sigma^2 / M`` (Eq. 8)."""
+        return dim * self.sigma**2 / self.num_clients
+
+
+@dataclasses.dataclass(frozen=True)
+class PerClientGaussianConfig:
+    """Heterogeneous-privacy Gaussian LDP: client i carries its own
+    ``epsilons[i]`` at the shared ``delta``.
+
+    ``sigmas`` (float64, derived when the config is built) inverts the
+    single-release GDP curve per client at sensitivity 2C
+    (``per_client_sigmas``), so equal epsilons give the common sigma.
+    ``repro_torch.core.compose.PerClientGaussian`` is the mechanism that
+    releases under it.
+    """
+
+    clip_norm: float
+    epsilons: tuple[float, ...]
+    delta: float
+
+    def __post_init__(self):
+        object.__setattr__(self, "epsilons", tuple(float(e) for e in self.epsilons))
+        object.__setattr__(self, "sigmas",
+                           per_client_sigmas(self.epsilons, self.delta, self.clip_norm))
+
+
+def gaussian_ldp_randomize(gen: torch.Generator, delta: torch.Tensor, sigma: float) -> torch.Tensor:
+    """The Gaussian LDP randomizer of one client: ``delta + sigma * N(0, I)``,
+    the normal drawn from ``gen`` (a generator on ``delta``'s device) in
+    ``delta``'s shape and dtype."""
+    return delta + sigma * torch.randn(delta.shape, generator=gen, dtype=delta.dtype,
+                                       device=delta.device)
+
+
+def gaussian_cdp_noise(gen: torch.Generator, shape, std: float, dtype=torch.float32,
+                       device=None) -> torch.Tensor:
+    """The CDP server noise, added once to the aggregated mean: ``std *
+    N(0, I)`` of ``shape`` drawn from ``gen``, on ``device`` (None: the
+    generator's own device)."""
+    device = gen.device if device is None else torch.device(device)
+    return std * torch.randn(tuple(shape), generator=gen, dtype=dtype, device=device)
 
 
 # ---------------------------------------------------------------------------

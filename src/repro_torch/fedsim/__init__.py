@@ -3,7 +3,8 @@ graphs, the default), the eager and the streamed round loops, the cohort
 optionally split over the ranks of a client mesh (``ShardSpec``), with the ``LocalSpec``
 trainers, sampled cohorts, fault injection, the divergence watchdog,
 checkpoints, telemetry, and client data on the device or behind a host, disk
-or generated source."""
+or generated source.  ``run_federated`` and ``run_federated_batched`` are the
+JAX package's deprecated one-shot entry points over a session."""
 
 from repro_torch.fedsim.data import (
     ArraySource,
@@ -29,7 +30,7 @@ from repro_torch.fedsim.local import (
     masked_cohort_updates,
     pad_cohort,
 )
-from repro_torch.fedsim.server import RunResult
+from repro_torch.fedsim.server import RunResult, run_federated, run_federated_batched
 from repro_torch.fedsim.session import FederatedSession, RecoveryPolicy
 from repro_torch.fedsim.specs import (
     CohortSpec,
@@ -49,4 +50,4 @@ __all__ = ["flatten_model", "local_update", "cohort_updates", "local_update_spec
            "FederatedSession", "RecoveryPolicy", "TrainSpec", "LocalSpec", "EngineSpec", "ShardSpec",
            "CohortSpec", "FaultSpec", "StreamSpec", "DataSpec", "TelemetrySpec", "pad_cohort", "chunk_cohort",
            "ClientDataSource", "ArraySource", "HostArraySource", "NpzSource", "SyntheticSource",
-           "as_data_source"]
+           "as_data_source", "run_federated", "run_federated_batched"]

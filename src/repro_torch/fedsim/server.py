@@ -81,12 +81,17 @@ uncaptured.  ``tap_payload`` is the round's telemetry: twelve float32 slots
 in the JAX package's order (``telemetry/tap.py``), built on the device after
 the round from what the round already holds, so a tracked round computes
 what an untracked one computes.
+
+``run_federated`` and ``run_federated_batched`` are the JAX package's
+deprecated keyword entry points: each builds a one-shot
+``FederatedSession`` and returns what it returns, in bits.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import math
+import warnings
 from typing import Any, Callable
 
 import numpy as np
@@ -121,7 +126,7 @@ __all__ = ["RunResult", "RoundInputs", "ShardLayout", "shard_layout", "local_coh
            "run_rounds", "assemble_result", "round_step", "round_stage", "round_body",
            "stage_inputs", "masked_round", "local_caller", "block_moments",
            "stream_round_step", "chunk_plan", "host_chunks", "tap_counts", "tap_sigma",
-           "tap_payload"]
+           "tap_payload", "run_federated", "run_federated_batched"]
 
 
 @dataclasses.dataclass
@@ -577,11 +582,16 @@ def tap_sigma(algorithm: ServerAlgorithm, t: int) -> float:
 
 def _tap_clip(algorithm: ServerAlgorithm, state, device) -> torch.Tensor:
     """The round's clip threshold for the telemetry (the JAX package's
-    ``_tap_clip_fn``): the step's override from the carry, else the static
-    ``clip_norm`` of the algorithm or its mechanism, else NaN."""
+    ``_tap_clip_fn``): the step's override from the carry, else a bare
+    ``state.clip`` (the monolithic ``CDPFedEXPAdaptiveClip``'s carry), else
+    the static ``clip_norm`` of the algorithm or its mechanism, else NaN."""
     state = getattr(state, "inner", state)
     step = getattr(algorithm, "step", None)
     c = step.clip_override(state) if step is not None else None
+    if c is None:
+        c = getattr(state, "clip", None)
+        if not isinstance(c, torch.Tensor):   # a tensor carry's ``clip`` is its method
+            c = None
     if c is None:
         for holder in (algorithm, getattr(algorithm, "mechanism", None)):
             c = getattr(holder, "clip_norm", None)
@@ -811,3 +821,76 @@ def assemble_result(carry, hist, rounds: int, fault_round: int | None = None) ->
     return RunResult(final_w=torch.stack(tail).mean(dim=0), last_w=w, eta_history=hist[0],
                      metric_history=hist[1], eta_naive_history=hist[2],
                      eta_target_history=hist[3], fault_round=fault_round)
+
+
+# ---------------------------------------------------------------------------
+# Deprecated keyword entry points (shims over FederatedSession)
+# ---------------------------------------------------------------------------
+
+_deprecation_warned = False
+
+
+def _warn_deprecated(name: str) -> None:
+    """One DeprecationWarning a process; the shims stay quiet afterwards."""
+    global _deprecation_warned
+    if not _deprecation_warned:
+        _deprecation_warned = True
+        warnings.warn(
+            f"{name} is deprecated; build a repro_torch.fedsim.FederatedSession with "
+            "TrainSpec/EngineSpec/ShardSpec/CohortSpec instead. The shim delegates to a "
+            "session and returns its result bit for bit.",
+            DeprecationWarning, stacklevel=3)
+
+
+def _one_shot(algorithm: ServerAlgorithm, loss_fn: Callable, w0, client_batches, *, rounds: int,
+              tau: int, eta_l: float, eval_fn, avg_last: int, shard, device, **specs):
+    from repro_torch.fedsim.session import FederatedSession
+    from repro_torch.fedsim.specs import ShardSpec, TrainSpec
+    return FederatedSession(
+        algorithm, loss_fn, w0, client_batches,
+        train=TrainSpec(rounds=rounds, tau=tau, eta_l=eta_l, avg_last=max(1, int(avg_last))),
+        shard=ShardSpec() if shard is None else shard, eval_fn=eval_fn, device=device, **specs)
+
+
+def run_federated(algorithm: ServerAlgorithm, loss_fn: Callable, w0, client_batches, *,
+                  rounds: int, tau: int, eta_l: float, seed: int, eval_fn: Callable | None = None,
+                  avg_last: int = 2, engine: str = "scan", chunk_rounds: int | None = None,
+                  scan_unroll: int = 2, shard=None, device="cuda") -> RunResult:
+    """DEPRECATED: ``rounds`` federated rounds through a one-shot session.
+
+    The same as ``FederatedSession(algorithm, loss_fn, w0, client_batches,
+    train=TrainSpec(rounds, tau, eta_l, avg_last), engine=EngineSpec(engine,
+    chunk_rounds, scan_unroll), shard=shard or ShardSpec(), eval_fn=eval_fn,
+    device=device).run(seed)``, bit for bit.  The JAX package's ``key`` is the
+    integer ``seed`` the port's ``run`` takes, and its ``mesh`` /
+    ``client_axis`` a ``ShardSpec``.  New code builds the session, which
+    also samples cohorts, injects faults, checkpoints and resumes."""
+    _warn_deprecated("run_federated")
+    from repro_torch.fedsim.specs import EngineSpec
+    engine_spec = EngineSpec(engine=engine,
+                             chunk_rounds=int(chunk_rounds) if chunk_rounds else None,
+                             scan_unroll=max(1, int(scan_unroll)))
+    session = _one_shot(algorithm, loss_fn, w0, client_batches, rounds=rounds, tau=tau,
+                        eta_l=eta_l, eval_fn=eval_fn, avg_last=avg_last, shard=shard,
+                        device=device, engine=engine_spec)
+    return session.run(int(seed))
+
+
+def run_federated_batched(algorithm: ServerAlgorithm, loss_fn: Callable, w0, client_batches, *,
+                          rounds: int, tau: int, eta_l: float, seeds,
+                          eval_fn: Callable | None = None, avg_last: int = 2,
+                          batched_w0: bool = False, batched_data: bool = False, shard=None,
+                          device="cuda") -> RunResult:
+    """DEPRECATED: an S-seed sweep through ``FederatedSession.run_batched``.
+
+    ``seeds`` are S integer seeds (the JAX package's (S,) stacked keys);
+    ``batched_w0`` / ``batched_data`` say that ``w0`` / every leaf of
+    ``client_batches`` carries a leading seed axis.  Every ``RunResult``
+    field gains a leading (S,) axis, and slice s is ``run_federated(...,
+    seed=seeds[s])`` in bits."""
+    _warn_deprecated("run_federated_batched")
+    num_clients = tree_leaves(client_batches)[0].shape[1] if batched_data else None
+    session = _one_shot(algorithm, loss_fn, w0, client_batches, rounds=rounds, tau=tau,
+                        eta_l=eta_l, eval_fn=eval_fn, avg_last=avg_last, shard=shard,
+                        device=device, num_clients=num_clients)
+    return session.run_batched(seeds, batched_w0=batched_w0, batched_data=batched_data)

@@ -145,6 +145,31 @@ def _to_device(x, device) -> torch.Tensor:
     return x.to(device, torch.float32 if x.is_floating_point() else x.dtype)
 
 
+def _budget_by_name(alg, delta: float, rounds: int, dim: int,
+                    q: float) -> accounting.PrivacyReport:
+    """The privacy budget of an algorithm without a ``budget`` method, by its
+    registry name and attributes, as the JAX package's session dispatches
+    for its monolithic classes; a name it does not know is not private."""
+    name = alg.name
+    if name in ("dp-fedavg-ldp-gauss", "ldp-fedexp-gauss"):
+        return accounting.ldp_gaussian_budget(alg.clip_norm, alg.sigma, delta)
+    if name in ("dp-fedavg-privunit", "ldp-fedexp-privunit"):
+        return accounting.privunit_budget(alg.eps0, alg.eps1, alg.eps2)
+    if name == "cdp-fedexp":
+        sigma_xi = (alg.sigma_xi if alg.sigma_xi is not None
+                    else dim * alg.sigma**2 / alg.num_clients)
+        return accounting.cdp_budget(alg.clip_norm, alg.sigma, alg.num_clients, rounds, delta,
+                                     sigma_xi=sigma_xi, sampling_q=q)
+    if name in ("dp-fedavg-cdp", "dp-fedadam-cdp"):
+        return accounting.cdp_budget(alg.clip_norm, alg.sigma, alg.num_clients, rounds, delta,
+                                     sampling_q=q)
+    if name == "cdp-fedexp-adaptive-clip":
+        from repro_torch.core.compose import CentralGaussian
+        return CentralGaussian(z_mult=alg.z_mult, num_clients=alg.num_clients).budget(
+            delta, rounds=rounds, dim=dim, sampling_q=q, with_numerator=True)
+    raise ValueError(f"{name!r} is not a private algorithm")
+
+
 class FederatedSession:
     """A reusable federated run bound to declarative specs."""
 
@@ -792,8 +817,15 @@ class FederatedSession:
     def _budget_at(self, delta: float, rounds: int) -> accounting.PrivacyReport:
         """``privacy_report`` at an explicit count of executed rounds: the
         telemetry ledger calls it every round with the rounds run so far
-        (retries included), so its last entry equals ``privacy_report``."""
+        (retries included), so its last entry equals ``privacy_report``.
+
+        The algorithm's own ``budget`` when it has one (the compositions,
+        the monolithic classes, DP-SCAFFOLD); else the JAX package's
+        dispatch on the registry name (``_budget_by_name``)."""
+        alg = self.algorithm
         q = 1.0 if self.cohort is None else self.cohort.sampling_rate(self.num_clients)
         dropout = self.fault.dropout if self.fault is not None and self.fault.injects else 0.0
         q = accounting.realized_participation(q, dropout)
-        return self.algorithm.budget(delta, rounds=rounds, dim=self.dim, sampling_q=q)
+        if hasattr(alg, "budget"):
+            return alg.budget(delta, rounds=rounds, dim=self.dim, sampling_q=q)
+        return _budget_by_name(alg, delta, rounds, self.dim, q)

@@ -9,7 +9,9 @@ participation or a sampled cohort (``CohortSpec``), under an optional fault
 model and divergence watchdog (``FaultSpec``), on client data on the device
 or behind a host, disk or generated source (``DataSpec``), and with the
 cohort split over the ranks of a ``torch.distributed`` client mesh
-(``ShardSpec``).
+(``ShardSpec``).  The JAX package's ``SAMPLING_TAG`` (the tag a round key is
+folded with for its cohort mask) has no counterpart: the port draws the mask
+from the round's CPU generator (``CohortSpec.round_mask``).
 """
 from __future__ import annotations
 

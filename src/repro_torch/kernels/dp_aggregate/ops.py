@@ -16,7 +16,8 @@ gives a slice of the cohort the rows of the whole cohort's noise, and
 of the noise, whatever they hold: the masked-moment round of a sampled
 cohort.  The aggregation is one launch whose shape (cluster size, column
 window, threads, ring stages, clusters) ``_launch_plan`` computes here,
-where the CPU tests reach it.
+where the CPU tests reach it; ``launch_plan`` gives a card's plan, in place of
+the JAX wrapper's ``pick_block_m``.
 """
 from __future__ import annotations
 

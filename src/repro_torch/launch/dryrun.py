@@ -37,6 +37,10 @@ What the numbers are (per device, as the JAX package's):
   - ``trace_s`` in place of the JAX ``lower_s`` and ``compile_s``, ``ops``
     (operations dispatched by the extended step) in place of ``hlo_lines``.
 
+``trace_one`` counts one combo, in place of the JAX dry-run's ``lower_one``
+(which lowers and compiles it), and ``op_cost`` is the JAX ``hlo_cost``
+module's counterpart.
+
 A training step is counted with its noise materialized (``train_step(...,
 noise=)`` with meta tensors), so it reads no host scalar; the device's
 normal draws are added as the bytes they write.  A decode step's position is

@@ -30,6 +30,10 @@ finds the tap there; the port has no device callback).  It owns:
 Under client sharding every rank runs the same rounds and holds the same
 payloads; only shard 0 reports (``shard``), as the JAX package keeps shard
 0's emissions: the other ranks' taps log nothing.
+
+The JAX package's ``device_emit`` (an ``io_callback`` out of the compiled
+round) has no counterpart: the engines hand each round's payload to
+``TapSession.emit`` on the host.
 """
 from __future__ import annotations
 

@@ -138,13 +138,14 @@ QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
 def test_the_tap_and_scan_modules_stand_alone(rel):
     """The tap's and the scan engine's modules are among the files checked
     above and import torch, numpy and the standard library only (traceback
-    names the operation a failed capture stopped at), besides the port."""
+    names the operation a failed capture stopped at, warnings the deprecated
+    shims' one warning), besides the port."""
     path = ROOT / "src" / "repro_torch" / rel
     assert path in PORT_FILES
     roots = set(_imported_roots(path))
     assert not roots & (BANNED | {"."})
     assert roots <= {"__future__", "collections", "dataclasses", "math", "time", "traceback",
-                     "typing", "numpy", "torch", "repro_torch"}, roots
+                     "typing", "warnings", "numpy", "torch", "repro_torch"}, roots
 
 
 def test_the_quickstart_example_stands_alone(tmp_path):
